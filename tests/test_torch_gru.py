@@ -1,0 +1,88 @@
+"""Kernel K2's module in the port (hop_tpu_torch.ops.gru_fused) and the
+port's GRU stack against the JAX package.
+
+The JAX kernel `gru_fused_layer` runs with interpret=True and the JAX GRU
+module in HOP_TPU_PALLAS_GRU=interpret-fused mode, as
+tests/test_pallas_gru_fused.py runs them. The port takes its plain
+version on the CPU. Both are f32: the tolerance covers f32 round-off
+carried through T recurrent steps, 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hop_tpu.ops.gru import GRU as JaxGRU
+from hop_tpu.ops.pallas_gru_fused import gru_fused_layer as jax_gru_fused_layer
+
+from hop_tpu_torch.ops import gru_fused as K2
+from hop_tpu_torch.ops.gru import GRU
+
+TOL = 1e-5
+
+
+def _layer_inputs(T, B, I, H, D, seed):
+    r = np.random.default_rng(seed)
+
+    def arr(*shape):
+        return (r.standard_normal(shape) * 0.3).astype(np.float32)
+    return (arr(T, B, I), arr(D, 3, I, H), arr(D, 3, 1, H), arr(D, 3, H, H),
+            arr(D, 3, 1, H), arr(B, H))
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,B,I,H", [(7, 4, 12, 16), (34, 3, 20, 24)])
+def test_plain_layer_matches_pallas_kernel(D, T, B, I, H):
+    args = _layer_inputs(T, B, I, H, D, seed=D * 10 + T)
+    want = jax_gru_fused_layer(*map(jnp.asarray, args), True)
+    got = K2.gru_fused_layer(*map(torch.from_numpy, args))
+    assert got.shape == (D, T, B, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+
+
+def test_wrapper_takes_plain_version_only_on_cpu():
+    args = [torch.from_numpy(a).to("meta")
+            for a in _layer_inputs(3, 2, 4, 8, 2, seed=0)]
+    before = K2.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        K2.gru_fused_layer(*args)
+    assert K2.launches == before
+
+
+def test_two_layer_gru_matches_jax(monkeypatch):
+    monkeypatch.setenv("HOP_TPU_PALLAS_GRU", "interpret-fused")
+    B, T, F, H = 5, 9, 12, 16
+    x = np.random.default_rng(3).standard_normal((B, T, F)).astype(np.float32)
+    jgru = JaxGRU(hidden_size=H, num_layers=2, bidirectional=True)
+    params = jax.tree_util.tree_map(
+        np.asarray, jgru.init(jax.random.PRNGKey(0), x)["params"])
+    out_want, hid_want = jgru.apply({"params": params}, x)
+
+    gru = GRU(F, H, num_layers=2, bidirectional=True)
+    sd = {n.replace("w_", "weight_", 1).replace("b_", "bias_", 1):
+          torch.from_numpy(a) for n, a in params.items()}
+    gru.load_state_dict(sd, strict=True)
+    assert set(sd) == set(torch.nn.GRU(F, H, 2, bidirectional=True).state_dict())
+    with torch.inference_mode():
+        out, hid = gru(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_want), rtol=0, atol=TOL)
+    np.testing.assert_allclose(hid.numpy(), np.asarray(hid_want), rtol=0, atol=TOL)
+
+
+def test_gru_matches_torch_nn_gru():
+    """Same parameter names and layout as torch.nn.GRU: load its weights and
+    get its outputs and last hidden states."""
+    torch.manual_seed(0)
+    ref = torch.nn.GRU(10, 12, num_layers=3, batch_first=True,
+                       bidirectional=True)
+    gru = GRU(10, 12, num_layers=3, bidirectional=True)
+    gru.load_state_dict(ref.state_dict(), strict=True)
+    x = torch.randn(4, 11, 10)
+    with torch.inference_mode():
+        out_want, hid_want = ref(x)
+        out, hid = gru(x)
+    torch.testing.assert_close(out, out_want, rtol=0, atol=TOL)
+    torch.testing.assert_close(hid, hid_want, rtol=0, atol=TOL)
