@@ -1,10 +1,11 @@
-"""Typed configuration for the port: the serving slice's presets.
+"""Typed configuration for the port: the presets of the serving forward
+and the fused train step.
 
-A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig, HOPConfig
-and presets (`hop_tpu.config` imports `hop_tpu.geometry`, which imports
-jax), holding the fields the port reads. Each has the JAX field's name
-and value; tests/test_torch_config.py holds them field by field against
-the JAX presets. The port builds the default HOP architecture only (BERT
+A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
+HOPConfig, LossConfig, TrainConfig and presets (`hop_tpu.config` imports
+`hop_tpu.geometry`, which imports jax), holding the fields the port
+reads. Each has the JAX field's name and value; tests/test_torch_config.py
+holds them field by field against the JAX presets. The port builds the default HOP architecture only (BERT
 backbone + reprogramming + gwnet): `hop_tpu`'s switches for the other
 variants have no counterpart yet. The skeleton tables stay in
 `hop_tpu.geometry`: the forward needs only the dir-vec width and the
@@ -86,10 +87,33 @@ class HOPConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Loss weights of the HOP train step (reference run_ted.py:89-92 /
+    run_expressive.py:86-89)."""
+    regression_weight: float = 600.0
+    gan_weight: float = 5.0
+    kld_weight: float = 0.6
+    reg_weight: float = 0.4              # diversity regulariser
+    huber_beta: float = 0.1
+    div_beta: float = 0.05
+    div_clamp: float = -1000.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 256
+    learning_rate: float = 0.01          # generator Adam lr (run_ted.py:338)
+    dis_lr_scale: float = 0.1            # D lr = G lr * 0.1 (run_ted.py:344-346)
+    betas: tuple = (0.5, 0.999)
+
+
+@dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
     hop: HOPConfig = field(default_factory=HOPConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -101,8 +125,11 @@ def ted_config() -> Config:
 
 
 def expressive_config() -> Config:
-    """TED Expressive preset."""
-    return Config(data=DataConfig(dataset="TED_expressive"))
+    """TED Expressive preset (reference run_expressive.py:81-100)."""
+    return Config(data=DataConfig(dataset="TED_expressive"),
+                  loss=LossConfig(regression_weight=2100.0, gan_weight=5.0,
+                                  kld_weight=0.8, reg_weight=0.5),
+                  train=TrainConfig(learning_rate=0.005))
 
 
 def tiny_test_config(dataset: str = "TED") -> Config:
@@ -116,4 +143,5 @@ def tiny_test_config(dataset: str = "TED") -> Config:
             num_prototype_tokens=32, hidden_size=64, gru_layers=2,
             gwnet_residual=16, gwnet_dilation=16, gwnet_skip=32,
             gwnet_end=32),
+        train=dataclasses.replace(base.train, batch_size=4),
     )

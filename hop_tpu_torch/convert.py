@@ -1,16 +1,20 @@
-"""flax HOPModel variables -> this port's state_dict.
+"""flax HOPModel and ConvDiscriminator variables -> this port's state_dicts.
 
-The inverse of `hop_tpu.eval.torch_import_hop.convert_hop_model`, frozen
-BERT backbone included (the inverse of
-`hop_tpu.models.bert.convert_hf_bert_params`); it covers what
-`hop_tpu.eval.torch_export_hop.export_hop_state_dict` exports plus the
-`llm_model.*` weights. No jax here: the caller hands over the variable tree
-`{"params": ..., "batch_stats": ...}` with numpy leaves (unboxed).
+`state_dict_from_jax` is the inverse of
+`hop_tpu.eval.torch_import_hop.convert_hop_model`, frozen BERT backbone
+included (the inverse of `hop_tpu.models.bert.convert_hf_bert_params`); it
+covers what `hop_tpu.eval.torch_export_hop.export_hop_state_dict` exports
+plus the `llm_model.*` weights. `discriminator_state_dict_from_jax` is
+the inverse of `hop_tpu.eval.torch_import_generator.
+convert_conv_discriminator`. No jax here: the caller hands over the
+variable tree `{"params": ..., "batch_stats": ...}` with numpy leaves
+(unboxed).
 
 Layout rules: Dense (in, out) -> Linear weight (out, in); Dense as 1x1
 conv -> Conv2d (out, in, 1, 1); gwnet temporal conv (k, 1, in, out) ->
-Conv2d (out, in, 1, k); LayerNorm/BatchNorm scale -> weight; the GRU and
-the mapping layer already keep torch's layout.
+Conv2d (out, in, 1, k); Conv (k, in, out) -> Conv1d (out, in, k);
+LayerNorm/BatchNorm scale -> weight; the GRU and the mapping layer
+already keep torch's layout.
 """
 
 from __future__ import annotations
@@ -45,6 +49,20 @@ def _temporal_conv(sd, name, p):
 def _norm(sd, name, p):
     sd[name + ".weight"] = _t(p["scale"])
     sd[name + ".bias"] = _t(p["bias"])
+
+
+def _bn(sd, name, p, s):
+    _norm(sd, name, p)
+    sd[name + ".running_mean"] = _t(s["mean"])
+    sd[name + ".running_var"] = _t(s["var"])
+    sd[name + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _gru(sd, prefix, p):
+    for name, arr in p.items():
+        # w_ih_l0[_reverse] -> weight_ih_l0[_reverse]: same layout
+        torch_name = name.replace("w_", "weight_", 1).replace("b_", "bias_", 1)
+        sd[prefix + torch_name] = _t(arr)
 
 
 def _bert(sd, prefix, p, n_layers):
@@ -98,19 +116,31 @@ def state_dict_from_jax(variables, cfg: Config) -> "OrderedDict[str, torch.Tenso
         _temporal_conv(sd, f"gwnet.gate_convs.{i}", gw_p[f"gate_{i}"])
         _conv1x1(sd, f"gwnet.skip_convs.{i}", gw_p[f"skip_{i}"])
         _conv1x1(sd, f"gwnet.gconv.{i}.mlp.mlp", gw_p[f"gcn_{i}"]["Dense_0"])
-        bn = f"gwnet.bn.{i}"
-        _norm(sd, bn, gw_p[f"bn_{i}"])
-        sd[bn + ".running_mean"] = _t(gw_s[f"bn_{i}"]["mean"])
-        sd[bn + ".running_var"] = _t(gw_s[f"bn_{i}"]["var"])
-        sd[bn + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+        _bn(sd, f"gwnet.bn.{i}", gw_p[f"bn_{i}"], gw_s[f"bn_{i}"])
     _conv1x1(sd, "gwnet.end_conv_1", gw_p["end_conv_1"])
     _conv1x1(sd, "gwnet.end_conv_2", gw_p["end_conv_2"])
 
-    for name, arr in params["gru"].items():
-        # w_ih_l0[_reverse] -> weight_ih_l0[_reverse]: same layout
-        torch_name = name.replace("w_", "weight_", 1).replace("b_", "bias_", 1)
-        sd[f"gru.{torch_name}"] = _t(arr)
-
+    _gru(sd, "gru.", params["gru"])
     _lin(sd, "out.0", params["out_fc1"])
     _lin(sd, "out.3", params["out_fc2"])
+    return sd
+
+
+def discriminator_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """ConvDiscriminator variables (numpy leaves) -> the port's
+    ConvDiscriminator state_dict (pre_conv.{0,3,6} convs, pre_conv.{1,4}
+    BatchNorm, gru.*, out, out2)."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for j, ci in enumerate((0, 3, 6)):
+        p = params[f"Conv_{j}"]
+        sd[f"pre_conv.{ci}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+        sd[f"pre_conv.{ci}.bias"] = _t(p["bias"])
+    for j, bi in enumerate((1, 4)):
+        _bn(sd, f"pre_conv.{bi}", params[f"BatchNorm_{j}"]["BatchNorm_0"],
+            stats[f"BatchNorm_{j}"]["BatchNorm_0"])
+    _gru(sd, "gru.", params["GRU_0"])
+    _lin(sd, "out", params["Dense_0"])
+    _lin(sd, "out2", params["Dense_1"])
     return sd

@@ -1,25 +1,34 @@
 """BERT-style encoder, the frozen LLM backbone (port of hop_tpu/models/bert.py).
 
-Semantics of HF BertModel(inputs_embeds=...) in eval mode: position and
-token-type embeddings are added, then LayerNorm, then post-LN blocks with
-an exact-GELU FFN; no attention mask. Module names are HF's, so
+Semantics of HF BertModel(inputs_embeds=...): position and token-type
+embeddings are added, then LayerNorm, then post-LN blocks with an
+exact-GELU FFN; no attention mask. Module names are HF's, so
 `state_dict()` keys are those `hop_tpu.models.bert.convert_hf_bert_params`
 reads (`embeddings.*`, `encoder.layer.{i}.*`).
 
 Under `LLMConfig.compute_bf16` every matmul runs with bf16 operands and a
 bf16 result, as the JAX Dense(dtype=bfloat16) layers do; LayerNorm and the
 residual sums stay f32. Attention is a plain matmul + softmax, the JAX
-default path (its opt-in Pallas kernels K4/K5 are not on the serving
-path). Dropout is absent: this module serves inference only.
+default path (its opt-in Pallas kernels K4/K5 are not on the main path).
+
+Dropout at `dropout_rate` (0.1, as HF's and the JAX module's) sits where
+the JAX module has it (hop_tpu/models/bert.py:136,166,183,193,218-233):
+after the embeddings' LayerNorm, on the attention probabilities, on the
+attention output and on the FFN output. It is on only when the caller
+passes `deterministic=False`, with the masks drawn from `generator`; the
+HOP model gates that by `llm_train`, apart from its own train mode.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from hop_tpu_torch.config import LLMConfig
+from hop_tpu_torch.ops.dropout import dropout
 
 
 def _compute_dtype(cfg: LLMConfig) -> torch.dtype:
@@ -84,7 +93,8 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg.intermediate_dim, cfg)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         dt = _compute_dtype(cfg)
         B, T, _ = x.shape
@@ -94,13 +104,13 @@ class BertLayer(nn.Module):
         q, k, v = (_linear(x, lin, dt).reshape(B, T, H, D).transpose(1, 2)
                    for lin in (sa.query, sa.key, sa.value))
         scores = (q @ k.transpose(-1, -2)) / (D ** 0.5)      # (B, H, T, T)
-        probs = torch.softmax(scores, dim=-1).to(dt)
+        probs = dropout(torch.softmax(scores, dim=-1), rate, generator).to(dt)
         ctx = (probs @ v).transpose(1, 2).reshape(B, T, cfg.dim)
         attn = _linear(ctx, self.attention.output.dense, dt).float()
-        x = self.attention.output.LayerNorm(x + attn)
+        x = self.attention.output.LayerNorm(x + dropout(attn, rate, generator))
         h = F.gelu(_linear(x, self.intermediate.dense, dt), approximate="none")
         h = _linear(h, self.output.dense, dt).float()
-        return self.output.LayerNorm(x + h)
+        return self.output.LayerNorm(x + dropout(h, rate, generator))
 
 
 class BertEncoderStack(nn.Module):
@@ -114,6 +124,7 @@ class BertEncoder(nn.Module):
 
     def __init__(self, cfg: LLMConfig):
         super().__init__()
+        self.dropout_rate = 0.1
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoderStack(cfg)
 
@@ -125,10 +136,12 @@ class BertEncoder(nn.Module):
         """get_input_embeddings()(ids): the word table only (HOP.py:198)."""
         return self.embeddings.word_embeddings(token_ids)
 
-    def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
-        x = self.embeddings(inputs_embeds)
+    def forward(self, inputs_embeds: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = 0.0 if deterministic else self.dropout_rate
+        x = dropout(self.embeddings(inputs_embeds), rate, generator)
         for layer in self.encoder.layer:
-            x = layer(x)
+            x = layer(x, rate, generator)
         return x
 
 

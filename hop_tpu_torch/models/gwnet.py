@@ -4,8 +4,9 @@ reference model/gwnet.py:8-249, adaptive-adjacency path).
 Adaptive adjacency softmax(relu(E1 @ E2)), `blocks` x `layers` dilated
 gated temporal convs (kernel (1, 2), dilations 1, 2, ...), each followed by
 an order-2 diffusion GCN over the adaptive support, skip and residual
-paths, eval-mode BatchNorm on the running statistics, and two 1x1 end
-convs. The layout is the reference's (B, C, N, T) with torch Conv2d
+paths, BatchNorm (flax's rule in training: the running variance is
+updated with the biased batch variance, `common.batch_norm`), and two 1x1
+end convs. The layout is the reference's (B, C, N, T) with torch Conv2d
 modules under the reference's names; the JAX package runs these convs in
 XLA outside any Pallas kernel, so they stay plain PyTorch here.
 """
@@ -15,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hop_tpu_torch.models.common import BatchNorm2d
 
 
 def receptive_field(blocks: int, layers: int) -> int:
@@ -75,7 +78,7 @@ class GraphWaveNet(nn.Module):
         self.gconv = nn.ModuleList(
             GCN(dilation_channels, residual_channels, gcn_order)
             for _ in self.dilations)
-        self.bn = nn.ModuleList(nn.BatchNorm2d(residual_channels)
+        self.bn = nn.ModuleList(BatchNorm2d(residual_channels)
                                 for _ in self.dilations)
         self.end_conv_1 = nn.Conv2d(skip_channels, end_channels, (1, 1))
         self.end_conv_2 = nn.Conv2d(end_channels, out_dim, (1, 1))

@@ -9,10 +9,17 @@ Inputs for the TED config:
   vid      (B,) speaker indices
 Output: (B, 34, pose_dim) dir-vecs plus the speaker latent (z, mu, logvar).
 
-Inference only: the module is built in eval mode (gwnet's BatchNorm reads
-its running statistics) and has no dropout. The speaker latent still
-draws noise (as in the JAX model), from `generator` or a given `eps`.
-Kernels on this path: K1 in the reprogramming layer, K2 once per GRU layer.
+The module is built in eval mode, for serving (gwnet's BatchNorm reads its
+running statistics, no dropout); `.train()` switches on what the JAX
+model's `train=True` does: gwnet's BatchNorm on batch statistics
+(flax's rule, `common.batch_norm`) and the reprogramming attention's
+dropout. Dropout in the frozen BERT is gated separately, by `llm_train`
+(default: follows the train mode), as in the JAX trunk
+(hop_tpu/models/hop.py:137-152). The backbone's weights do not require
+grad; gradients still flow through it into `align_layer` and what feeds
+it. The speaker latent draws noise (as in the JAX model) from `generator`
+or a given `eps`. Kernels on this path: K1 in the reprogramming layer,
+K2 once per GRU layer.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ class HOPModel(common.SpeakerLatent):
         super().__init__(n_speakers, hop.z_size)
         self.cfg = cfg
         self.llm_model = make_llm_encoder(cfg.llm)
+        self.llm_model.requires_grad_(False)     # frozen (HOP.py:90-91)
         self.mapping_layer = PrototypeMapper(cfg.llm.vocab_size,
                                              hop.num_prototype_tokens)
         self.reprogramming_layer = ReprogrammingLayer(
@@ -76,7 +84,7 @@ class HOPModel(common.SpeakerLatent):
             nn.Dropout(0.0),
             nn.LeakyReLU(common.IDENTITY_SLOPE),
             nn.Linear(hop.hidden_size // 2, cfg.data.pose_dim))
-        self.eval()
+        self.eval()    # built for serving; the train step calls .train()
 
     def _beat_features(self, in_audio: torch.Tensor) -> torch.Tensor:
         """(B, samples) -> (B, 16, N, beat_feat). The reference repeats the
@@ -98,11 +106,39 @@ class HOPModel(common.SpeakerLatent):
                 generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None):
         z, mu, logvar = self.speaker(vid_indices, generator, eps)
-        out = self.head(self.trunk(in_audio, x_enc, text, pre_seq), z)
+        out = self.head(self.trunk(in_audio, x_enc, text, pre_seq,
+                                   generator=generator), z)
         return out, z, mu, logvar
 
+    def two_speaker_forward(self, in_audio, x_enc, text, pre_seq,
+                            vid_indices, rand_vid_indices, *,
+                            eps: torch.Tensor, eps_rand: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            reprog_seed: int = 0,
+                            llm_train: Optional[bool] = None):
+        """The fused train step's forward (JAX hop.py:107-131): the
+        speaker-independent trunk runs once; the head runs for the batch's
+        speakers and, on the detached trunk and without a graph, for the
+        shuffled ones (their output feeds only detached terms of the
+        diversity regulariser), through K2's lean forward. Returns
+        (out, out_rand, (z, mu, logvar), z_rand)."""
+        z_a, mu_a, logvar_a = self.speaker(vid_indices, eps=eps)
+        z_b, _, _ = self.speaker(rand_vid_indices, eps=eps_rand)
+        trunk = self.trunk(in_audio, x_enc, text, pre_seq, generator=generator,
+                           reprog_seed=reprog_seed, llm_train=llm_train)
+        out_a = self.head(trunk, z_a)
+        with torch.no_grad():
+            out_b = self.head(trunk.detach(), z_b.detach())
+        return out_a, out_b, (z_a, mu_a, logvar_a), z_b
+
     def trunk(self, in_audio: torch.Tensor, x_enc: torch.Tensor,
-              text: torch.Tensor, pre_seq: torch.Tensor) -> torch.Tensor:
+              text: torch.Tensor, pre_seq: torch.Tensor, *,
+              generator: Optional[torch.Generator] = None,
+              reprog_seed: int = 0,
+              llm_train: Optional[bool] = None) -> torch.Tensor:
+        """`generator` draws the backbone's dropout masks, `reprog_seed`
+        seeds K1's; `llm_train` gates the backbone's dropout (default: the
+        train mode)."""
         cfg = self.cfg
         n_poses = cfg.data.n_poses
         N = cfg.data.n_joints_graph
@@ -110,9 +146,12 @@ class HOPModel(common.SpeakerLatent):
 
         text_embeddings = self.llm_model.embed_tokens(text.long())
         source = self.mapping_layer(self.llm_model.word_embeddings)
-        enc_out = self.reprogramming_layer(x_enc, source, source)
-        dec_out = self.llm_model(self.align_layer(
-            torch.cat([enc_out, text_embeddings], dim=-1)))
+        enc_out = self.reprogramming_layer(x_enc, source, source,
+                                           seed=reprog_seed)
+        llm_det = not (self.training if llm_train is None else llm_train)
+        dec_out = self.llm_model(
+            self.align_layer(torch.cat([enc_out, text_embeddings], dim=-1)),
+            deterministic=llm_det, generator=generator)
 
         beat_in = self._beat_features(in_audio)
         seed = pre_seq.reshape(B, pre_seq.shape[1], N, 3)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every `hop_tpu_torch/csrc/*.cu` is compiled by nvcc for
-sm_90a into one shared library with a plain C interface, loaded with
-ctypes. The library's file name carries a hash of the sources and flags,
+sm_90a, one nvcc process per source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+loaded with ctypes. The library's file name carries a hash of the sources and flags,
 so an edited kernel is rebuilt and an unchanged one is loaded as built.
 The build directory is `build/kernels/` at the repository root (listed in
 .gitignore), or `$HOP_TPU_TORCH_BUILD_DIR`.
@@ -25,17 +26,31 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
 # C signatures of the entry points in csrc/, name -> argtypes
 SIGNATURES = {
-    # q, k, v, out, B, L, H, S, scale, stream
-    "hop_reprog_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
-    # x, wih, bih, whh, bhh, h0, out, T, B, I, H, D, stream
-    "hop_gru_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse (or NULL), B, L, H, S, scale, seed, thresh,
+    # inv_keep, stream
+    "hop_reprog_attn_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _F, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, L, H, S, scale, seed,
+    # thresh, inv_keep, stream
+    "hop_reprog_attn_bwd": [_P] * 10 + [_I] * 4 + [_F, _U, _U, _F, _P],
+    # x, wih, bih, whh, bhh, h0, out, r, z, n, hnb (residuals or NULL),
+    # T, B, I, H, D, stream
+    "hop_gru_fused_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    # g, x, r, z, n, hnb, hprev, wih_t, whh_t, d_in, d_hid, work, dx, dwih,
+    # dbih, dwhh, dbhh, dh0, T, B, I, H, D, stream
+    "hop_gru_fused_bwd": [_P] * 18 + [_I] * 5 + [_P],
+    # T, B, I, H, D -> floats of workspace hop_gru_fused_bwd needs
+    "hop_gru_fused_bwd_workspace": [_I] * 5,
 }
+# return types other than int (a CUDA error code)
+RESTYPES = {"hop_gru_fused_bwd_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -82,20 +97,37 @@ def load() -> ctypes.CDLL:
         out = library_path()
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
+            tag = f"{out.stem}.{os.getpid()}"
+            nvcc = _nvcc()
+            jobs = []
+            for src in _sources():
+                obj = out.parent / f"{tag}.{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            logs = []
+            for cmd, _, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{err}")
+                logs.append(err)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, _sources())]
+            cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{proc.stderr}")
-            ptxas_log = proc.stderr
+            ptxas_log = "".join(logs)
             os.replace(tmp, out)
+            for _, obj, _ in jobs:
+                obj.unlink()
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         build_seconds = time.perf_counter() - t0
         _lib = lib
         return lib

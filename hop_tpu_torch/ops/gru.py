@@ -6,17 +6,23 @@ Parameters carry torch.nn.GRU's names and layout (`weight_ih_l{k}`,
 backward direction; gates ordered r, z, n; two bias vectors), so weights
 round-trip with the reference and with the JAX GRU 1:1. The stack runs
 layer by layer through `gru_fused_layer` (kernel K2 on CUDA), time-major
-in between. The initial state is zero, as on the JAX fused path; the
-reference's inter-layer dropout is 0 in HOP and a no-op at inference.
+in between. The initial state is zero, as on the JAX fused path. In
+training mode the layers' inputs after the first pass through dropout at
+`dropout` (torch.nn.GRU(dropout=); JAX ops/gru.py:336-338), the mask drawn
+from the generator the caller hands to `forward`: 0.3 in the
+discriminator, 0 in the HOP head. The layers are differentiable through
+K2's backward kernel.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
+from hop_tpu_torch.ops.dropout import dropout as drop
 from hop_tpu_torch.ops.gru_fused import gru_fused_layer
 
 
@@ -25,9 +31,10 @@ class GRU(nn.Module):
     D*H), last_hidden (num_layers * D, B, H)) in torch's ordering."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
-                 bidirectional: bool = False):
+                 bidirectional: bool = False, dropout: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
+        self.dropout = dropout
         self.num_layers = num_layers
         self.suffixes = ["", "_reverse"] if bidirectional else [""]
         bound = 1.0 / math.sqrt(hidden_size)
@@ -55,13 +62,16 @@ class GRU(nn.Module):
             bhh.append(getattr(self, f"bias_hh_l{layer}{sfx}").reshape(3, 1, H))
         return [torch.stack(w).float().contiguous() for w in (wih, bih, whh, bhh)]
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         B = x.shape[0]
         h0 = torch.zeros((B, self.hidden_size), dtype=torch.float32,
                          device=x.device)
         x_tm = x.float().transpose(0, 1).contiguous()      # (T, B, F)
         last = []
         for layer in range(self.num_layers):
+            if layer > 0 and self.training:
+                x_tm = drop(x_tm, self.dropout, generator)
             wih, bih, whh, bhh = self._layer_weights(layer)
             y = gru_fused_layer(x_tm, wih, bih, whh, bhh, h0)   # (D, T, B, H)
             x_tm = torch.cat(list(y), dim=-1).contiguous()

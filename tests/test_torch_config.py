@@ -1,6 +1,7 @@
 """The port's presets (hop_tpu_torch.config) equal hop_tpu.config's, field
-by field: every field the port carries exists in the JAX sub-config under
-the same name, in the same order, with the same value."""
+by field, the train step's loss weights and optimizer settings too: every
+field the port carries exists in the JAX sub-config under the same name,
+in the same order, with the same value."""
 
 import dataclasses
 
@@ -18,7 +19,7 @@ PRESETS = [
 
 
 @pytest.mark.parametrize("name,make", PRESETS, ids=[p[0] for p in PRESETS])
-@pytest.mark.parametrize("section", ["data", "llm", "hop"])
+@pytest.mark.parametrize("section", ["data", "llm", "hop", "loss", "train"])
 def test_preset_fields_match(name, make, section):
     port = getattr(make(tcfg), section)
     ref = getattr(make(jcfg), section)

@@ -70,7 +70,7 @@ def test_layer_matches_jax():
     params = jl.init(jax.random.PRNGKey(0), x, src, src, True)["params"]
     want = jl.apply({"params": params}, x, src, src, True)
 
-    layer = ReprogrammingLayer(d_model, H, E, d_llm)
+    layer = ReprogrammingLayer(d_model, H, E, d_llm).eval()
     sd = {}
     for name in ("query_projection", "key_projection", "value_projection",
                  "out_projection"):
