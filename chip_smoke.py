@@ -27,14 +27,39 @@ imports nothing of JAX. Phases, each ending in one line of output:
              TED width, bs 256: finite losses, every trainable parameter of
              both nets moved, BERT bit-unchanged, the kernels' launches in
              one step; ms per step, the device's busy share (torch.profiler)
-             and peak memory
+             and peak memory. Then the same step on the GRU's stack route
  10. warmup  the epoch-0 warmup step at bs 8 on the card against the same
              step on the CPU (plain versions): losses and gradients
- 11. the kernels' JSON line, then the device JSON as the last line
+ 11. K3 fwd  the time-grid GRU recurrence kernel vs its plain version, with
+             residuals and lean, f32 and bf16 streams, a non-zero h0, at the
+             head's (D=2, T=34, B=256, H=350) and the discriminator's
+             (T=28, H=64) shapes, B=250 (a ragged tile) and D=1
+ 12. K3 bwd  its backward from the forward's residuals at both shapes, f32
+             and bf16 streams: every output, dh0 too; bitwise repeat
+ 13. K6      the sequence kernel vs its plain version, both directions,
+             B=256 and B=1; `gru_forward_seq` on the head's parameters
+             against the same GRU through K2
+ 14. serve, stack route   phase 5's forward with gru_kernel="stack": K3 lean
+             four times and K2 not at all, output against the fused route's
+             on the same weights; then phase 6's clips on that route
+ 15. train, 3-forward step on the stack route   host batches (numpy) over
+             the int16 wire through cli.common.device_batch; two warmup and
+             three GAN steps at full TED width, bs 256: phase 9's checks
+             and measurements, launches as derived from the step's structure
+ 16. warmup, 3-forward, stack route   phase 10 for that step and route
+ 17. library yardsticks (timed here, never called by the port): one
+             bidirectional torch.nn.GRU layer on cuDNN beside both routes'
+             layer, forward and forward + backward, at the head's and the
+             discriminator's shapes; F.scaled_dot_product_attention on K1's
+             shape at rate 0
+ 18. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
-that ends on the host (clips).
+that ends on the host (clips). A kernel's `bound_ms` is the least time an
+H100 SXM could take for the call: the larger of its operand and result
+bytes over 3.35 TB/s and its operations over the peak for their type
+(67 TFLOP/s f32 outside the tensor cores, 989 TFLOP/s bf16).
 """
 
 from __future__ import annotations
@@ -78,8 +103,28 @@ BWD_REL_TOL = 1e-4
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
 
+# K3 and K6 are f32 recurrences like K2's: sums in another order than the
+# plain version's cuBLAS products, carried through up to 34 steps.
+K3_TOL = 1e-4
+# K3's stream gradients in bf16: kernel and plain version round f32 values
+# that differ in round-off, so an element may land on the next bf16 value
+# (2^-8 relative): relative to each tensor's largest element.
+K3_BF16_DX_TOL = 1e-2
+# The fused and the stack route on the same weights: four f32 GRU layers,
+# each within K2_TOL-scale round-off of the other route's (the projection
+# summed by cuBLAS or inside K2), compounding through the stack.
+ROUTE_TOL = 5e-4
+# the yardstick computes K1's function: its bf16 output (2^-8 relative
+# rounding of values of O(1)) against the kernel's f32 output
+SDPA_TOL = 2e-2
+
 # seeds the kernels' inputs, the models' weights and the batches
 SEED = 2021
+
+# peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds' rooflines
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12          # outside the tensor cores
+BF16_FLOPS = 989e12        # tensor cores, bf16 operands
 
 K1_SOURCE = "hop_tpu_torch/csrc/reprogramming_attention.cu"
 K1_REPLACES = "hop_tpu/ops/pallas_reprogramming.py:110"
@@ -87,6 +132,12 @@ K1_BWD_REPLACES = "hop_tpu/ops/pallas_reprogramming.py:130"
 K2_SOURCE = "hop_tpu_torch/csrc/gru_fused.cu"
 K2_REPLACES = "hop_tpu/ops/pallas_gru_fused.py:113"
 K2_BWD_REPLACES = "hop_tpu/ops/pallas_gru_fused.py:202"
+K3_SOURCE = "hop_tpu_torch/csrc/gru_stack.cu"
+K3_REPLACES = "hop_tpu/ops/pallas_gru_stack.py:46"
+K3_LEAN_REPLACES = "hop_tpu/ops/pallas_gru_stack.py:73"
+K3_BWD_REPLACES = "hop_tpu/ops/pallas_gru_stack.py:168"
+K6_SOURCE = "hop_tpu_torch/csrc/gru_seq.cu"
+K6_REPLACES = "hop_tpu/ops/pallas_gru.py:36"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -94,21 +145,42 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, setup=None) -> float:
+    """Median of `reps` CUDA-event timings of fn(), after `warmup` calls.
+    With `setup`, each call is fn(setup()) and only fn is timed."""
     import torch
+    call = fn if setup is None else (lambda: fn(setup()))
     for _ in range(warmup):
-        fn()
+        call()
     times = []
     for _ in range(reps):
+        arg = () if setup is None else (setup(),)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(*arg)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _flat(tensors):
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            yield from _flat(t)
+        elif hasattr(t, "element_size"):
+            yield t
+
+
+def bound(operands, results, flops: float, peak: float) -> dict:
+    """The least time the card could take for a call: its operands read once
+    and its results written once at the memory rate, or `flops` at `peak`."""
+    nbytes = sum(t.numel() * t.element_size() for t in _flat([operands, results]))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / peak * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def phase_device():
@@ -150,7 +222,9 @@ def phase_k1(dev, seed):
           f"max_abs_err {err:.3e} (tol {K1_TOL:g}), kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms")
     check(err <= K1_TOL, f"K1 disagrees with its plain version: {err} > {K1_TOL}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # q k^T and p v, products of bf16 operands
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound((qb, kb, vb), got, 2 * 2.0 * B * L * H * S * E, BF16_FLOPS)}
 
 
 def phase_k2(dev, seed):
@@ -177,7 +251,9 @@ def phase_k2(dev, seed):
               f"plain {plain_ms:.3f} ms")
         check(err <= K2_TOL, f"K2 disagrees with its plain version at I={I}: "
                              f"{err} > {K2_TOL}")
-        res[I] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        # the projections of x and h onto 3 gates, both directions
+        res[I] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  **bound(args, got, 2.0 * T * B * D * 3 * H * (I + H), F32_FLOPS)}
     return res
 
 
@@ -213,17 +289,35 @@ def serving_batch(cfg, B, seed, dev):
     )
 
 
-def phase_serve(dev, seed):
+def ted_route_config(gru_kernel: str = "fused", fused_step: bool = True,
+                     audio_wire: str = "f32"):
+    """The TED config at its published widths on one GRU route."""
+    import dataclasses
+    from hop_tpu_torch.config import ted_config
+    cfg = ted_config()
+    return cfg.replace(
+        hop=dataclasses.replace(cfg.hop, gru_kernel=gru_kernel, fused_step=fused_step),
+        data=dataclasses.replace(cfg.data, audio_wire=audio_wire))
+
+
+def forward_launches(cfg, n: int = 1) -> dict:
+    """Kernel launches of n no-grad generator forwards: K1 once, and per GRU
+    layer K2 on the fused route or K3's lean forward on the stack route."""
+    layers = cfg.hop.gru_layers * n
+    stack = cfg.hop.gru_kernel == "stack"
+    return {**ZERO_COUNTS, "K1": n, "K2": 0 if stack else layers,
+            "K3_lean": layers if stack else 0}
+
+
+def phase_serve(dev, seed, gru_kernel="fused", reference=None):
+    """`reference`: the other route's output for the same weights and batch."""
     import torch
     from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
-    from hop_tpu_torch.config import ted_config
     from hop_tpu_torch.models.hop import build_hop_model
-    from hop_tpu_torch.ops import gru_fused as K2
-    from hop_tpu_torch.ops import reprogramming_attention as K1
-    cfg = ted_config()
+    cfg = ted_route_config(gru_kernel)
     B = 256
     t0 = time.perf_counter()
-    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed)
+    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed, device="cpu")
     model = copy.deepcopy(model_cpu).to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     batch = serving_batch(cfg, B, seed, dev)
@@ -237,13 +331,19 @@ def phase_serve(dev, seed):
     _reset_counts()
     out = forward(batch)
     torch.cuda.synchronize()
-    launches = {"K1": K1.launches, "K2": K2.launches}
+    launches = _launch_counts()
     check(tuple(out.shape) == (B, cfg.data.n_poses, cfg.data.pose_dim),
           f"forward shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "forward has non-finite values")
-    check(launches == {"K1": 1, "K2": cfg.hop.gru_layers},
-          f"kernel launches in one forward: {launches}, want K1 1, "
-          f"K2 {cfg.hop.gru_layers}")
+    check(launches == forward_launches(cfg),
+          f"kernel launches in one {gru_kernel}-route forward: {launches}, "
+          f"want {forward_launches(cfg)}")
+    route = ""
+    if reference is not None:
+        gap = (out - reference).abs().max().item()
+        check(gap <= ROUTE_TOL, f"{gru_kernel} route vs the other route's forward: "
+                                f"{gap} > {ROUTE_TOL}")
+        route = f"; vs the other route max_abs_diff {gap:.3e} (tol {ROUTE_TOL:g})"
 
     n = 8
     small = {k: v[:n].cpu() for k, v in batch.items()}
@@ -253,21 +353,18 @@ def phase_serve(dev, seed):
     diff = (out[:n].cpu() - ref).abs().max().item()
     check(diff <= SERVE_TOL, f"card vs CPU forward differ by {diff} > {SERVE_TOL}")
     ms = cuda_ms(lambda: forward(batch), reps=10, warmup=2)
-    print(f"serve: TED HOPModel ({n_params / 1e6:.1f} M params, set up in "
-          f"{setup_s:.1f} s) forward bs {B} -> {tuple(out.shape)} finite; "
-          f"launches K1 {launches['K1']} K2 {launches['K2']}; card vs CPU "
-          f"(first {n}) max_abs_diff {diff:.3e} (tol {SERVE_TOL:g}); "
+    print(f"serve [{gru_kernel} route]: TED HOPModel ({n_params / 1e6:.1f} M "
+          f"params, set up in {setup_s:.1f} s) forward bs {B} -> "
+          f"{tuple(out.shape)} finite; launches {_nonzero(launches)}; card vs CPU "
+          f"(first {n}) max_abs_diff {diff:.3e} (tol {SERVE_TOL:g}){route}; "
           f"{ms:.2f} ms per forward")
-    return model, launches
+    return model, launches, out
 
 
-def phase_clips(model, dev):
+def phase_clips(model, dev, gru_kernel="fused"):
     import math
     from hop_tpu_torch.cli import test_checkpoint
-    from hop_tpu_torch.config import ted_config
-    from hop_tpu_torch.ops import gru_fused as K2
-    from hop_tpu_torch.ops import reprogramming_attention as K1
-    cfg = ted_config()
+    cfg = ted_route_config(gru_kernel)
     d = cfg.data
     seconds = 20.0
     unit, stride = d.n_poses / d.pose_resampling_fps, (
@@ -279,14 +376,14 @@ def phase_clips(model, dev):
         _reset_counts()
         t0 = time.perf_counter()
         out = test_checkpoint.main(["--device", str(dev), "--seed", str(clip_seed),
-                                    "--clip-seconds", str(seconds)], model=model)
+                                    "--clip-seconds", str(seconds),
+                                    "--gru-kernel", gru_kernel], model=model)
         times.append(time.perf_counter() - t0)
         check(out.shape == (frames, d.pose_dim), f"clip {clip_seed}: {out.shape}")
-        check(K1.launches == windows
-              and K2.launches == cfg.hop.gru_layers * windows,
-              f"clip {clip_seed}: launches K1 {K1.launches} K2 {K2.launches}")
-    print(f"clips: 3 x {seconds:.0f} s synthetic clips at bs 1 -> {frames} frames "
-          f"each ({windows} windows); seconds per clip "
+        check(_launch_counts() == forward_launches(cfg, windows),
+              f"clip {clip_seed}: launches {_launch_counts()}")
+    print(f"clips [{gru_kernel} route]: 3 x {seconds:.0f} s synthetic clips at bs 1 "
+          f"-> {frames} frames each ({windows} windows); seconds per clip "
           f"{', '.join(f'{t:.3f}' for t in times)}")
 
 
@@ -340,8 +437,12 @@ def phase_k1_bwd(dev, seed):
           + f" (tol {BWD_REL_TOL:g} rel); bitwise repeat; forward kernel "
           f"{fwd_ms:.3f} ms vs plain {fwd_plain_ms:.3f} ms; backward kernel "
           f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    # the function needs five products (s, dp, dq, dk, dv); the two kernels
+    # recompute s and dp and run seven
     return {"max_abs_err": max(e[0] for e in errs.values()), "ms": ms,
-            "plain_ms": plain_ms, "out_err": out_err}
+            "plain_ms": plain_ms, "out_err": out_err,
+            **bound((q, k, v, out, lse, do), got, 5 * 2.0 * B * L * H * S * E,
+                    BF16_FLOPS)}
 
 
 def phase_k2_bwd(dev, seed):
@@ -392,22 +493,40 @@ def phase_k2_bwd(dev, seed):
               f"{errs[worst][1]:.2e} (tol {BWD_REL_TOL:g}), max_abs_err "
               f"{max(e[0] for e in errs.values()):.3e}; bitwise repeat; "
               f"backward kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        # the dh carry (3H x H), dx and dW_ih (3H x I each), dW_hh (3H x H)
         res[(I, H)] = {"max_abs_err": max(e[0] for e in errs.values()), "ms": ms,
-                       "plain_ms": plain_ms, "fwd_err": fwd_err}
+                       "plain_ms": plain_ms, "fwd_err": fwd_err,
+                       **bound(bwd_args, got,
+                               2.0 * T * B * D * 3 * H * (2 * H + 2 * I), F32_FLOPS)}
     return res
+
+
+ZERO_COUNTS = {"K1": 0, "K1_bwd": 0, "K2": 0, "K2_bwd": 0, "K3": 0,
+               "K3_lean": 0, "K3_bwd": 0, "K6": 0}
 
 
 def _launch_counts():
     from hop_tpu_torch.ops import gru_fused as K2
+    from hop_tpu_torch.ops import gru_seq as K6
+    from hop_tpu_torch.ops import gru_stack as K3
     from hop_tpu_torch.ops import reprogramming_attention as K1
     return {"K1": K1.launches, "K1_bwd": K1.bwd_launches, "K2": K2.launches,
-            "K2_bwd": K2.bwd_launches}
+            "K2_bwd": K2.bwd_launches, "K3": K3.launches,
+            "K3_lean": K3.lean_launches, "K3_bwd": K3.bwd_launches,
+            "K6": K6.launches}
 
 
 def _reset_counts():
     from hop_tpu_torch.ops import gru_fused as K2
+    from hop_tpu_torch.ops import gru_seq as K6
+    from hop_tpu_torch.ops import gru_stack as K3
     from hop_tpu_torch.ops import reprogramming_attention as K1
     K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
+    K3.launches = K3.lean_launches = K3.bwd_launches = K6.launches = 0
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def _trainable(module):
@@ -416,7 +535,7 @@ def _trainable(module):
 
 def _busy_share(step, n: int, ms_per_step: float):
     """Kernel time on the card over n profiled steps, per step, over the
-    unprofiled ms per step; and the five kernels that took the most."""
+    unprofiled ms per step; and the eight kernels that took the most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -427,46 +546,108 @@ def _busy_share(step, n: int, ms_per_step: float):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return device_ms / ms_per_step, device_ms, [
         (e.key[:60], e.self_device_time_total / 1e3 / n) for e in top]
 
 
-def phase_train(dev, seed):
+def step_launches(cfg, disc_layers: int, use_gan: bool) -> dict:
+    """Kernel launches of one train step, from its structure.
+
+    Generator forwards: the fused step runs the trunk once (K1 forward 1)
+    and the head twice, for the batch's speakers with residuals and for the
+    shuffled ones lean; the 3-forward step runs whole forwards, one with a
+    graph and one (shuffled speakers) without, and in its GAN variant a
+    third (the D phase's sample) without: K1 forward 2 or 3. Only the
+    forward with a graph is differentiated: K1 backward 1. Per GRU layer
+    that gives `head` forwards with residuals and `head` backwards, and
+    `head` lean forwards for each forward without a graph. The GAN variant
+    adds the discriminator's three forwards (real, fake, G term), all with a
+    graph: 3 * disc_layers forwards with residuals and as many backwards
+    (the G term's backward carries the gradient to the generator). On the
+    fused route both kinds of forward are K2 launches; on the stack route
+    they are K3 and K3 lean."""
+    head = cfg.hop.gru_layers
+    no_graph = 1 if cfg.hop.fused_step else (2 if use_gan else 1)
+    with_res = head + (3 * disc_layers if use_gan else 0)
+    lean = head * no_graph
+    want = {**ZERO_COUNTS, "K1": 1 if cfg.hop.fused_step else 1 + no_graph,
+            "K1_bwd": 1}
+    if cfg.hop.gru_kernel == "stack":
+        want.update(K3=with_res, K3_lean=lean, K3_bwd=with_res)
+    else:
+        want.update(K2=with_res + lean, K2_bwd=with_res)
+    return want
+
+
+def phase_train(dev, seed, gru_kernel="fused", fused_step=True):
+    """The GAN step at full TED width, bs 256, on one GRU route: the fused
+    step on a batch made on the card, or the 3-forward step on host batches
+    (numpy) brought over the int16 wire by `device_batch`, two warmup steps
+    first."""
     import torch
+    from hop_tpu_torch.cli.common import MODEL_BATCH_KEYS, device_batch
     from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
-    from hop_tpu_torch.config import ted_config
-    from hop_tpu_torch.data.synthetic import make_train_batch
+    from hop_tpu_torch.data.synthetic import make_host_batch, make_train_batch
     from hop_tpu_torch.models.hop import build_hop_model
     from hop_tpu_torch.models.multimodal_context import build_discriminator
     from hop_tpu_torch.train.llm import make_hop_train_steps
-    cfg = ted_config()
+    cfg = ted_route_config(gru_kernel, fused_step,
+                           "f32" if fused_step else "int16")
+    name = f"{'fused' if fused_step else '3-forward'} GAN step, {gru_kernel} route"
     B = cfg.train.batch_size
     t0 = time.perf_counter()
-    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed)
-    disc_cpu = build_discriminator(cfg, seed + 1)
+    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed, device="cpu")
+    disc_cpu = build_discriminator(cfg, seed + 1, device="cpu")
     model = copy.deepcopy(model_cpu).to(dev)
     disc = copy.deepcopy(disc_cpu).to(dev)
     warmup, gan, init_state = make_hop_train_steps(cfg, model, disc)
     state = init_state()
-    batch = make_train_batch(cfg, B, seed, N_SPEAKERS, dev)
+    put_ms = None
+    if fused_step:
+        batch = make_train_batch(cfg, B, seed, N_SPEAKERS, dev)
+    else:
+        def host_to_card(batch_seed):
+            nonlocal put_ms
+            host = make_host_batch(cfg, B, batch_seed, N_SPEAKERS)
+            t1 = time.perf_counter()
+            out = device_batch(host, cfg, keys=MODEL_BATCH_KEYS["AD_LLM"], device=dev)
+            torch.cuda.synchronize()
+            put_ms = (time.perf_counter() - t1) * 1e3
+            return out
+        batch = host_to_card(seed)
+        check(batch["in_audio"].dtype == torch.float32
+              and batch["in_audio"].device.type == "cuda"
+              and tuple(batch["log_mel"].shape) == (B, cfg.data.n_poses,
+                                                    cfg.data.mel_bins),
+              "device_batch: wrong fields")
     setup_s = time.perf_counter() - t0
     before = {k: v.detach().clone() for k, v in
               list(model.state_dict().items()) + [("D." + k, v) for k, v in
                                                   disc.state_dict().items()]}
     noise_gen = torch.Generator().manual_seed(seed)
+    d_layers = disc.gru.num_layers
 
+    warm_launches = None
+    if not fused_step:
+        for i in range(2):
+            _reset_counts()
+            state, metrics = warmup(state, batch, noise_gen)
+            torch.cuda.synchronize()
+            warm_launches = _launch_counts()
+            want = step_launches(cfg, d_layers, use_gan=False)
+            check(warm_launches == want, f"kernel launches in one warmup step "
+                                         f"({name}): {warm_launches}, want {want}")
+            for k, v in metrics.items():
+                check(bool(torch.isfinite(v)), f"warmup metric {k} = {v.item()}")
+            batch = host_to_card(seed + 1 + i)
     _reset_counts()
     state, metrics = gan(state, batch, noise_gen)
     torch.cuda.synchronize()
     launches = _launch_counts()
-    head, d_layers = cfg.hop.gru_layers, disc.gru.num_layers
-    want = {"K1": 1, "K1_bwd": 1,
-            # head with residuals + the shuffled-speaker head (lean) + the
-            # discriminator's three forwards (G term, real, fake)
-            "K2": 2 * head + 3 * d_layers, "K2_bwd": head + 3 * d_layers}
-    check(launches == want, f"kernel launches in one GAN step: {launches}, "
-                            f"want {want}")
+    want = step_launches(cfg, d_layers, use_gan=True)
+    check(launches == want, f"kernel launches in one GAN step ({name}): "
+                            f"{launches}, want {want}")
     for k, v in metrics.items():
         check(bool(torch.isfinite(v)), f"train metric {k} = {v.item()}")
     # gwnet's last layer feeds only the residual path that its output does
@@ -475,19 +656,25 @@ def phase_train(dev, seed):
     unused = {f"gwnet.{m}.{last}{w}" for m in ("gconv", "bn") for w in
               ("weight", "bias", "mlp.mlp.weight", "mlp.mlp.bias")}
     no_grad = []
-    for name, module, prefix in (("generator", model, ""), ("discriminator", disc, "D.")):
+    for net, module, prefix in (("generator", model, ""), ("discriminator", disc, "D.")):
         for k, p in _trainable(module).items():
             if p.grad is None:
                 no_grad.append(prefix + k)
                 continue
             check(not torch.equal(p.detach(), before[prefix + k]),
-                  f"{name} parameter {k} did not move")
+                  f"{net} parameter {k} did not move")
     check(set(no_grad) <= unused, f"parameters without a gradient: {no_grad}")
     frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
     check(frozen and all(k.startswith("llm_model.") for k in frozen),
           f"frozen parameters: {frozen[:3]}...")
     for k in frozen:
         check(torch.equal(model.state_dict()[k], before[k]), f"frozen {k} changed")
+    if not fused_step:
+        for i in range(2):                      # GAN steps two and three
+            batch = host_to_card(seed + 3 + i)
+            state, metrics = gan(state, batch, noise_gen)
+            for k, v in metrics.items():
+                check(bool(torch.isfinite(v)), f"train metric {k} = {v.item()}")
 
     def step():
         nonlocal state
@@ -497,36 +684,42 @@ def phase_train(dev, seed):
     busy, device_ms, top = _busy_share(step, 3, ms)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_train = sum(p.numel() for p in _trainable(model).values())
-    print(f"train: fused GAN step, TED full width, bs {B} (set up in "
+    wire = "" if fused_step else (
+        f"; host batches over the int16 wire, device_batch {put_ms:.2f} ms (host "
+        f"clock); 2 warmup steps (launches {_nonzero(warm_launches)}) and 3 GAN steps")
+    print(f"train [{name}]: TED full width, bs {B} (set up in "
           f"{setup_s:.1f} s; {n_train / 1e6:.1f} M trainable generator "
-          f"params): losses finite ("
+          f"params){wire}: losses finite ("
           + ", ".join(f"{k} {metrics[k].item():.4g}" for k in
                       ("loss", "KLD", "DIV_REG", "gen", "dis"))
           + f"); every trainable param of both nets with a gradient moved "
           f"({len(no_grad)} without one: gwnet's last GCN and BatchNorm), BERT "
           f"unchanged; "
-          f"launches {launches}; {ms:.2f} ms per step (CUDA-event median of "
+          f"launches {_nonzero(launches)}; {ms:.2f} ms per step (CUDA-event median of "
           f"10); kernels {device_ms:.2f} ms per step, busy share {busy:.3f} "
           f"(torch.profiler, 3 steps); peak memory {peak_gb:.2f} GiB")
-    print("train: top kernels per step: " + "; ".join(
-        f"{name} {t:.2f} ms" for name, t in top))
+    print(f"train [{name}]: top kernels per step: " + "; ".join(
+        f"{kname} {t:.2f} ms" for kname, t in top))
     return model_cpu, disc_cpu, launches
 
 
-def phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, seed):
+def phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, seed, gru_kernel="fused",
+                        fused_step=True):
     import torch
     from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
-    from hop_tpu_torch.config import ted_config
     from hop_tpu_torch.data.synthetic import make_train_batch
     from hop_tpu_torch.train.llm import StepNoise, make_hop_train_steps
-    cfg = ted_config()
+    cfg = ted_route_config(gru_kernel, fused_step)
+    name = f"{'fused' if fused_step else '3-forward'} step, {gru_kernel} route"
     B = 8
-    batch = make_train_batch(cfg, B, seed + 2, N_SPEAKERS)
+    batch = make_train_batch(cfg, B, seed + 2, N_SPEAKERS, device="cpu")
     noise = StepNoise.draw(torch.Generator().manual_seed(seed + 2), cfg, B)
     runs = []
     for device in (dev, torch.device("cpu")):
         model = copy.deepcopy(model_cpu).to(device)
         disc = copy.deepcopy(disc_cpu).to(device)
+        check(model.gru.kernel == gru_kernel and disc.gru.kernel == gru_kernel,
+              "the nets were built for another GRU route")
         warmup, _, init_state = make_hop_train_steps(cfg, model, disc)
         _, metrics = warmup.for_epoch(0)(
             init_state(), {k: v.to(device) for k, v in batch.items()}, noise)
@@ -545,11 +738,273 @@ def phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, seed):
     check(errs[worst[0]] <= TRAIN_GRAD_TOL,
           f"warmup step card vs CPU gradients: {worst[0]} {errs[worst[0]]} > "
           f"{TRAIN_GRAD_TOL}")
-    print(f"warmup: epoch-0 warmup step bs {B}, card vs CPU: losses rel err "
-          f"{loss_err:.2e} (tol {TRAIN_LOSS_TOL:g}); gradients of "
+    print(f"warmup [{name}]: epoch-0 warmup step bs {B}, card vs CPU: losses rel "
+          f"err {loss_err:.2e} (tol {TRAIN_LOSS_TOL:g}); gradients of "
           f"{len(errs)}/{len(g_cpu)} tensors (the rest are round-off of exact "
           f"zeros), worst rel err " + ", ".join(
               f"{k} {errs[k]:.2e}" for k in worst) + f" (tol {TRAIN_GRAD_TOL:g})")
+
+
+def _k3_inputs(dev, seed, D, T, B, H, dtype):
+    """Gate streams as the stack route hands them over, strided views of one
+    (T, B, D, 3, H) product; weights at torch's GRU scale; a non-zero h0."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + 31 * T + H + B + D)
+    s = H ** -0.5
+
+    def arr(*shape, scale=s):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+    proj = arr(T, B, D, 3, H, scale=1.0).to(dtype)
+    streams = tuple(x.permute(2, 0, 1, 3) for x in proj.unbind(dim=3))
+    return (*streams, arr(D, 3, H, H), arr(D, 3, 1, H), arr(B, H, scale=0.5)), \
+        arr(D, T, B, H, scale=1.0)
+
+
+# (D, T, B, H): the head, the discriminator, a ragged last tile, one direction
+K3_HEAD = (2, 34, 256, 350)
+K3_DISC = (2, 28, 256, 64)
+K3_SHAPES = (K3_HEAD, K3_DISC, (2, 34, 250, 350), (1, 34, 256, 350))
+
+
+def phase_k3_fwd(dev, seed):
+    import torch
+    from hop_tpu_torch.ops import gru_stack as K3
+    res = {}
+    for shape in K3_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, _ = _k3_inputs(dev, seed, *shape, dtype)
+            full = K3.gru_stack_fwd(*args, with_residuals=True)
+            lean = K3.gru_stack_fwd(*args)
+            want = K3.plain_gru_stack(*args, with_residuals=True)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(full, want))
+            lean_err = (lean - want[0]).abs().max().item()
+            tag = f"{shape} {str(dtype).split('.')[-1]}"
+            check(err <= K3_TOL, f"K3 forward with residuals at {tag}: {err} > {K3_TOL}")
+            check(lean_err <= K3_TOL, f"K3 lean forward at {tag}: {lean_err} > {K3_TOL}")
+            res[(shape, dtype)] = {"err": err, "lean_err": lean_err}
+    D, T, B, H = K3_HEAD
+    flops = 2.0 * T * B * D * 3 * H * H                  # h W[g], three gates
+    for dtype in (torch.float32, torch.bfloat16):
+        args, _ = _k3_inputs(dev, seed, *K3_HEAD, dtype)
+        r = res[(K3_HEAD, dtype)]
+        r["ms"] = cuda_ms(lambda: K3.gru_stack_fwd(*args, with_residuals=True))
+        r["lean_ms"] = cuda_ms(lambda: K3.gru_stack_fwd(*args))
+        r["plain_ms"] = cuda_ms(lambda: K3.plain_gru_stack(*args, with_residuals=True),
+                                reps=10)
+        r["lean_plain_ms"] = cuda_ms(lambda: K3.plain_gru_stack(*args), reps=10)
+        full = K3.gru_stack_fwd(*args, with_residuals=True)
+        r["bound"] = bound(args, full, flops, F32_FLOPS)
+        r["lean_bound"] = bound(args, full[0], flops, F32_FLOPS)
+    f32, b16 = res[(K3_HEAD, torch.float32)], res[(K3_HEAD, torch.bfloat16)]
+    worst = max(max(r["err"], r["lean_err"]) for r in res.values())
+    print(f"K3 fwd gru_stack: {len(res)} cases (D, T, B, H) x (f32, bf16 streams) "
+          f"{[s for s in K3_SHAPES]}, non-zero h0, strided streams: max_abs_err "
+          f"{worst:.3e} (tol {K3_TOL:g}), residuals and lean. At {K3_HEAD}: with "
+          f"residuals {f32['ms']:.3f} ms f32 / {b16['ms']:.3f} ms bf16 streams vs "
+          f"plain {f32['plain_ms']:.3f} ms (bound {f32['bound']['bound_ms']:.3f} ms "
+          f"by {f32['bound']['bound_by']}); lean {f32['lean_ms']:.3f} ms f32 / "
+          f"{b16['lean_ms']:.3f} ms bf16 vs plain {f32['lean_plain_ms']:.3f} ms "
+          f"(bound {f32['lean_bound']['bound_ms']:.3f} ms)")
+    return {"max_abs_err": max(r["err"] for r in res.values()),
+            "lean_max_abs_err": max(r["lean_err"] for r in res.values()),
+            "head": f32, "head_bf16": b16}
+
+
+def phase_k3_bwd(dev, seed):
+    import torch
+    from hop_tpu_torch.ops import gru_stack as K3
+    from hop_tpu_torch.ops.gru_fused import hprev_of
+    names = ("dxr", "dxz", "dxn", "dw", "db", "dh0")
+    res = {}
+    for shape in (K3_HEAD, K3_DISC):
+        D, T, B, H = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            args, g = _k3_inputs(dev, seed + 1, *shape, dtype)
+            h_seq, r, z, n, hnb = K3.gru_stack_fwd(*args, with_residuals=True)
+            bwd_args = (g, r, z, n, hnb, hprev_of(h_seq, args[5]), args[3], dtype)
+            got = K3.gru_stack_bwd(*bwd_args)
+            again = K3.gru_stack_bwd(*bwd_args)
+            want = K3.plain_gru_stack_bwd(*bwd_args)
+            torch.cuda.synchronize()
+            tag = f"{shape} {str(dtype).split('.')[-1]}"
+            errs = {}
+            for name, a, b, c in zip(names, got, again, want):
+                check(torch.equal(a, b), f"K3 bwd at {tag}: {name} differs between "
+                                         f"two calls")
+                check(a.dtype == c.dtype and a.shape == c.shape,
+                      f"K3 bwd at {tag}: {name} is {a.dtype} {tuple(a.shape)}")
+                errs[name] = rel_err(a.float(), c.float())
+                tol = (K3_BF16_DX_TOL if dtype == torch.bfloat16
+                       and name.startswith("dx") else BWD_REL_TOL)
+                check(errs[name][1] <= tol,
+                      f"K3 bwd at {tag} {name}: {errs[name][1]} > {tol} relative")
+            check(got[0].dtype == dtype and got[5].shape == (D, B, H),
+                  f"K3 bwd at {tag}: dx dtype or dh0 shape")
+            ms = cuda_ms(lambda: K3.gru_stack_bwd(*bwd_args), reps=10)
+            plain_ms = cuda_ms(lambda: K3.plain_gru_stack_bwd(*bwd_args), reps=5)
+            # the dh carry through W^T and dW = hprev^T d_hid, 3H x H each
+            res[(shape, dtype)] = {
+                "errs": errs, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": max(e[0] for e in errs.values()),
+                **bound(bwd_args[:7], got, 2 * 2.0 * T * B * D * 3 * H * H, F32_FLOPS)}
+            worst = max(errs, key=lambda k: errs[k][1])
+            print(f"K3 bwd gru_stack_bwd {tag}: worst {worst} rel "
+                  f"{errs[worst][1]:.2e}, max_abs_err "
+                  f"{res[(shape, dtype)]['max_abs_err']:.3e} (tol {BWD_REL_TOL:g} rel; "
+                  f"bf16 dx {K3_BF16_DX_TOL:g}); bitwise repeat; kernel {ms:.3f} ms "
+                  f"vs plain {plain_ms:.3f} ms (bound "
+                  f"{res[(shape, dtype)]['bound_ms']:.3f} ms by "
+                  f"{res[(shape, dtype)]['bound_by']})")
+    head = res[(K3_HEAD, torch.float32)]
+    return {"max_abs_err": max(r["max_abs_err"] for r in res.values()), "head": head}
+
+
+def phase_k6(gru, dev, seed):
+    """`gru`: the full-width head's GRU on the card (fused route)."""
+    import torch
+    from hop_tpu_torch.ops import gru_seq as K6
+    T, H = 34, gru.hidden_size
+    res = {}
+    for B in (256, 1):
+        g = torch.Generator(device=dev).manual_seed(seed + B)
+        s = H ** -0.5
+        args = (torch.randn(B, T, 3 * H, device=dev, generator=g),
+                torch.randn(3 * H, H, device=dev, generator=g) * s,
+                torch.randn(3 * H, device=dev, generator=g) * s,
+                torch.randn(B, H, device=dev, generator=g) * 0.5)
+        err = 0.0
+        for reverse in (False, True):
+            got = K6.gru_seq_layer(*args, reverse=reverse)
+            want = K6.plain_gru_seq_layer(*args, reverse=reverse)
+            torch.cuda.synchronize()
+            err = max(err, (got - want).abs().max().item())
+        check(err <= K3_TOL, f"K6 disagrees with its plain version at B={B}: "
+                             f"{err} > {K3_TOL}")
+        res[B] = {"max_abs_err": err,
+                  "ms": cuda_ms(lambda: K6.gru_seq_layer(*args, reverse=True)),
+                  "plain_ms": cuda_ms(lambda: K6.plain_gru_seq_layer(*args), reps=10),
+                  **bound(args, got, 2.0 * T * B * 3 * H * H, F32_FLOPS)}
+    # the whole head through K6 against the same parameters through K2
+    check(gru.kernel == "fused", "phase_k6 wants the fused-route head")
+    params = dict(gru.named_parameters())
+    D = len(gru.suffixes)
+    stack_ms = {}
+    for B in (256, 1):
+        g = torch.Generator(device=dev).manual_seed(seed + 7 + B)
+        x = torch.randn(B, T, gru.weight_ih_l0.shape[1], device=dev, generator=g)
+
+        def via_k6():
+            return K6.gru_forward_seq(x, params, H, gru.num_layers, D == 2)
+
+        def via_gru():
+            with torch.no_grad():
+                return gru(x)[0]
+        _reset_counts()
+        got = via_k6()
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        check(launches == {**ZERO_COUNTS, "K6": D * gru.num_layers},
+              f"gru_forward_seq launches {launches}")
+        gap = (got - via_gru()).abs().max().item()
+        check(gap <= ROUTE_TOL, f"gru_forward_seq vs the GRU through K2 at B={B}: "
+                                f"{gap} > {ROUTE_TOL}")
+        gru.kernel = "stack"
+        k3_ms = cuda_ms(via_gru, reps=10)
+        gru.kernel = "fused"
+        stack_ms[B] = (gap, cuda_ms(via_k6, reps=10), cuda_ms(via_gru, reps=10), k3_ms)
+    print(f"K6 gru_seq_layer (T={T}, H={H}, both directions): B=256 max_abs_err "
+          f"{res[256]['max_abs_err']:.3e}, kernel {res[256]['ms']:.3f} ms vs plain "
+          f"{res[256]['plain_ms']:.3f} ms (bound {res[256]['bound_ms']:.3f} ms by "
+          f"{res[256]['bound_by']}); B=1 max_abs_err {res[1]['max_abs_err']:.3e}, "
+          f"kernel {res[1]['ms']:.3f} ms vs plain {res[1]['plain_ms']:.3f} ms (tol "
+          f"{K3_TOL:g}). gru_forward_seq on the head's {gru.num_layers} x BiGRU({H}) parameters "
+          f"({D * gru.num_layers} launches) vs the GRU through K2: "
+          + "; ".join(f"B={B} max_abs_diff {v[0]:.3e} (tol {ROUTE_TOL:g}), "
+                      f"{v[1]:.3f} ms vs K2 route {v[2]:.3f} ms, K3 route {v[3]:.3f} ms"
+                      for B, v in stack_ms.items()))
+    return res[256], launches
+
+
+def phase_library(dev, seed):
+    """Yardsticks: PyTorch calls that compute a kernel's function. They are
+    timed here and used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+    from hop_tpu_torch.ops import reprogramming_attention as K1
+    from hop_tpu_torch.ops.gru import GRU
+    lib = {}
+    # K1 at rate 0: every query row of every sample attends to the same S
+    # prototypes, so the batch folds into the query axis
+    B, L, H, E, S = 256, 34, 8, 128, 1500
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+               for shape in ((B, L, H, E), (H, S, E), (H, S, E)))
+    scale = E ** -0.5
+
+    def sdpa():
+        qf = q.permute(2, 0, 1, 3).reshape(1, H, B * L, E)
+        out = F.scaled_dot_product_attention(qf, k[None], v[None], scale=scale)
+        return out.reshape(H, B, L, E).permute(1, 2, 0, 3)
+    gap = (sdpa().float() - K1.reprogramming_attention(q, k, v, scale)).abs().max().item()
+    check(gap <= SDPA_TOL, f"SDPA does not compute K1's function: {gap} > {SDPA_TOL}")
+    lib["K1"] = cuda_ms(sdpa)
+    print(f"library: F.scaled_dot_product_attention (bf16, rate 0) at K1's shape "
+          f"{lib['K1']:.3f} ms, max_abs_diff to K1 {gap:.3e} (tol {SDPA_TOL:g})")
+
+    # one bidirectional GRU layer: cuDNN's, and the port's on both routes
+    for T, Bt, I, Hh in ((34, 256, 992, 350), (34, 256, 700, 350),
+                         (28, 256, 8, 64), (28, 256, 128, 64)):
+        torch.manual_seed(seed + I)
+        ref = torch.nn.GRU(I, Hh, num_layers=1, bidirectional=True).to(dev)
+        ours = GRU(I, Hh, num_layers=1, bidirectional=True).to(dev)
+        ours.load_state_dict(ref.state_dict(), strict=True)
+        x_tm = torch.randn(T, Bt, I, device=dev)
+        x_bm = x_tm.transpose(0, 1).contiguous()
+        gout = torch.randn(T, Bt, 2 * Hh, device=dev)
+        with torch.no_grad():
+            want = ref(x_tm)[0]
+        row = {}
+        for kernel in ("fused", "stack"):
+            ours.kernel = kernel
+            with torch.no_grad():
+                gap = (ours(x_bm)[0].transpose(0, 1) - want).abs().max().item()
+            check(gap <= K2_TOL, f"GRU layer on the {kernel} route vs cuDNN at I={I}, "
+                                 f"H={Hh}: {gap} > {K2_TOL}")
+
+            def fwd():
+                with torch.no_grad():
+                    return ours(x_bm)
+
+            def fwd_bwd():
+                xg = x_bm.clone().requires_grad_()
+                out = ours(xg)[0]
+                torch.autograd.grad(out, [xg, *ours.parameters()],
+                                    gout.transpose(0, 1))
+            row[kernel] = (cuda_ms(fwd, reps=10), cuda_ms(fwd_bwd, reps=10))
+
+        def cudnn_fwd():
+            with torch.no_grad():
+                return ref(x_tm)
+
+        def cudnn_graph():
+            xg = x_tm.clone().requires_grad_()
+            return xg, ref(xg)[0]
+
+        def cudnn_bwd(made):
+            xg, out = made
+            torch.autograd.grad(out, [xg, *ref.parameters()], gout)
+        row["cudnn"] = (cuda_ms(cudnn_fwd, reps=10),
+                        cuda_ms(lambda: cudnn_bwd(cudnn_graph()), reps=10))
+        lib[("gru_fwd", I, Hh)] = row["cudnn"][0]
+        lib[("gru_bwd", I, Hh)] = cuda_ms(cudnn_bwd, reps=10, setup=cudnn_graph)
+        print(f"library: one BiGRU layer (T={T}, B={Bt}, I={I}, H={Hh}), forward / "
+              f"forward + backward ms: cuDNN torch.nn.GRU {row['cudnn'][0]:.3f} / "
+              f"{row['cudnn'][1]:.3f} (backward alone "
+              f"{lib[('gru_bwd', I, Hh)]:.3f}); fused route (K2) "
+              f"{row['fused'][0]:.3f} / {row['fused'][1]:.3f}; stack route "
+              f"(matmul + K3) {row['stack'][0]:.3f} / {row['stack'][1]:.3f}")
+    return lib
 
 
 def main():
@@ -560,41 +1015,73 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import hop_tpu_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     phase_device()
     phase_build()
     k1 = phase_k1(dev, SEED)
     k2 = phase_k2(dev, SEED)
-    model, _ = phase_serve(dev, SEED)
+    paths = {}      # kernel launches of each driven path, counted from zero
+    model, paths["serve_fused"], out_fused = phase_serve(dev, SEED)
     phase_clips(model, dev)
-    del model
     k1_bwd = phase_k1_bwd(dev, SEED)
     k2_bwd = phase_k2_bwd(dev, SEED)
-    model_cpu, disc_cpu, launches = phase_train(dev, SEED)
+    model_cpu, disc_cpu, paths["fused_step"] = phase_train(dev, SEED)
+    _, _, paths["fused_step_stack"] = phase_train(dev, SEED, gru_kernel="stack")
     phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED)
+    del model_cpu, disc_cpu
+    k3 = phase_k3_fwd(dev, SEED)
+    k3_bwd = phase_k3_bwd(dev, SEED)
+    k6, paths["seq_forward"] = phase_k6(model.gru, dev, SEED)
+    del model
+    model, paths["serve_stack"], _ = phase_serve(dev, SEED, "stack", out_fused)
+    phase_clips(model, dev, "stack")
+    del model, out_fused
+    model_cpu, disc_cpu, paths["parity_step_stack"] = phase_train(
+        dev, SEED, gru_kernel="stack", fused_step=False)
+    phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED, "stack", fused_step=False)
+    del model_cpu, disc_cpu
+    lib = phase_library(dev, SEED)
 
-    # launches: one fused GAN step (phase 9); errors: every comparison of
-    # that kernel with its plain version in this run
+    # launches: over one run of each path (a bs-256 forward on either route,
+    # the head through the sequence kernel, one GAN step of each kind);
+    # errors: every comparison of that kernel with its plain version in this
+    # run; times and bounds at the head's first layer or K1's shape
+    def entry(name, source, replaces, count, err, timed, library_ms):
+        by_path = {path: c[count] for path, c in paths.items()}
+        check(sum(by_path.values()) > 0, f"{name} was launched on no path")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": err, "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                "library_ms": library_ms}
+    k3_head = k3["head"]
     kernels = [
-        {"name": "reprogramming_attention_fwd", "route": "cuda",
-         "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["K1"],
-         "max_abs_err": max(k1["max_abs_err"], k1_bwd["out_err"]),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "reprogramming_attention_bwd", "route": "cuda",
-         "source": K1_SOURCE, "replaces": K1_BWD_REPLACES,
-         "launches": launches["K1_bwd"], "max_abs_err": k1_bwd["max_abs_err"],
-         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"]},
-        {"name": "gru_fused_fwd", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["K2"],
-         "max_abs_err": max([r["max_abs_err"] for r in k2.values()]
-                            + [r["fwd_err"] for r in k2_bwd.values()]),
-         "ms": k2[992]["ms"], "plain_ms": k2[992]["plain_ms"]},
-        {"name": "gru_fused_bwd", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_BWD_REPLACES, "launches": launches["K2_bwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2_bwd.values()),
-         "ms": k2_bwd[(992, 350)]["ms"], "plain_ms": k2_bwd[(992, 350)]["plain_ms"]},
+        entry("reprogramming_attention_fwd", K1_SOURCE, K1_REPLACES, "K1",
+              max(k1["max_abs_err"], k1_bwd["out_err"]), k1, lib["K1"]),
+        # no one call computes the backward under the hashed dropout mask
+        entry("reprogramming_attention_bwd", K1_SOURCE, K1_BWD_REPLACES, "K1_bwd",
+              k1_bwd["max_abs_err"], k1_bwd, None),
+        entry("gru_fused_fwd", K2_SOURCE, K2_REPLACES, "K2",
+              max([r["max_abs_err"] for r in k2.values()]
+                  + [r["fwd_err"] for r in k2_bwd.values()]),
+              k2[992], lib[("gru_fwd", 992, 350)]),
+        entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
+              max(r["max_abs_err"] for r in k2_bwd.values()), k2_bwd[(992, 350)],
+              lib[("gru_bwd", 992, 350)]),
+        # K3 is the recurrence without its projection: no one call computes it
+        entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3", k3["max_abs_err"],
+              {**k3_head, **k3_head["bound"]}, None),
+        entry("gru_stack_fwd_lean", K3_SOURCE, K3_LEAN_REPLACES, "K3_lean",
+              k3["lean_max_abs_err"],
+              {"ms": k3_head["lean_ms"], "plain_ms": k3_head["lean_plain_ms"],
+               **k3_head["lean_bound"]}, None),
+        entry("gru_stack_bwd", K3_SOURCE, K3_BWD_REPLACES, "K3_bwd",
+              k3_bwd["max_abs_err"], k3_bwd["head"], None),
+        entry("gru_seq_fwd", K6_SOURCE, K6_REPLACES, "K6", k6["max_abs_err"], k6,
+              None),
     ]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

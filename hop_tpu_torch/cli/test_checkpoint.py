@@ -7,12 +7,14 @@ initialisation; restoring a trained checkpoint comes with the training
 slice (ROADMAP M10).
 
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda
+  python -m hop_tpu_torch.cli.test_checkpoint --device cuda --gru-kernel stack
   python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --clip-seconds 3
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import random
 import time
 
@@ -31,8 +33,10 @@ N_SPEAKERS = 10
 
 def config_from_args(args):
     if args.tiny:
-        return tiny_test_config(args.dataset)
-    return ted_config() if args.dataset == "TED" else expressive_config()
+        cfg = tiny_test_config(args.dataset)
+    else:
+        cfg = ted_config() if args.dataset == "TED" else expressive_config()
+    return cfg.replace(hop=dataclasses.replace(cfg.hop, gru_kernel=args.gru_kernel))
 
 
 def parse_args(argv=None):
@@ -43,6 +47,9 @@ def parse_args(argv=None):
                    choices=("TED", "TED_expressive"))
     p.add_argument("--tiny", action="store_true",
                    help="thin layers (tiny_test_config) for a quick CPU run")
+    p.add_argument("--gru-kernel", default="fused", choices=("fused", "stack"),
+                   help="GRU route of the head: the fused kernel (K2), or one "
+                        "projection product per layer + the time-grid kernel (K3)")
     p.add_argument("--clip-seconds", type=float, default=20.0)
     p.add_argument("--vid", type=int, default=None,
                    help="speaker id; default drawn from --seed")

@@ -1,11 +1,13 @@
 """Typed configuration for the port: the presets of the serving forward
-and the fused train step.
+and the train steps.
 
 A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
 HOPConfig, LossConfig, TrainConfig and presets (`hop_tpu.config` imports
 `hop_tpu.geometry`, which imports jax), holding the fields the port
 reads. Each has the JAX field's name and value; tests/test_torch_config.py
-holds them field by field against the JAX presets. The port builds the default HOP architecture only (BERT
+holds them field by field against the JAX presets. `HOPConfig.gru_kernel`
+and `gru_bf16_streams` are the port's own: the JAX package reads those
+choices from environment variables. The port builds the default HOP architecture only (BERT
 backbone + reprogramming + gwnet): `hop_tpu`'s switches for the other
 variants have no counterpart yet. The skeleton tables stay in
 `hop_tpu.geometry`: the forward needs only the dir-vec width and the
@@ -37,6 +39,9 @@ class DataConfig:
     mel_hop: int = 1096                  # => exactly 34 frames
     max_text_tokens: int = 2048
     use_hf_token_stream: bool = False
+    # wire dtype of the raw-audio transfer to the device (cli.common):
+    # "int16" quantizes on the host to the PCM grid and dequantizes there
+    audio_wire: str = "f32"              # "f32" | "int16"
 
     @property
     def pose_dim(self) -> int:
@@ -70,6 +75,9 @@ class HOPConfig:
     n_heads: int = 8
     d_ff: int = 128                      # per-head key dim of reprogramming
     num_prototype_tokens: int = 1500
+    # True: the fused GAN step (one generator forward, one backward); False:
+    # the reference's 3-forward step (train.llm)
+    fused_step: bool = True
     hidden_size: int = 350               # BiGRU hidden
     gru_layers: int = 4
     z_size: int = 16
@@ -84,6 +92,11 @@ class HOPConfig:
     gwnet_layers: int = 2
     gwnet_node_emb: int = 10
     gwnet_order: int = 2
+    # GRU route of the head and the discriminator (ops.gru.GRU): "fused"
+    # (kernel K2) or "stack" (one projection product + kernel K3); the
+    # port's counterpart of HOP_TPU_PALLAS_GRU / HOP_TPU_GRU_BF16_STREAMS
+    gru_kernel: str = "fused"
+    gru_bf16_streams: bool = False
 
 
 @dataclass(frozen=True)

@@ -14,7 +14,9 @@ Layout rules: Dense (in, out) -> Linear weight (out, in); Dense as 1x1
 conv -> Conv2d (out, in, 1, 1); gwnet temporal conv (k, 1, in, out) ->
 Conv2d (out, in, 1, k); Conv (k, in, out) -> Conv1d (out, in, k);
 LayerNorm/BatchNorm scale -> weight; the GRU and the mapping layer
-already keep torch's layout.
+already keep torch's layout. The GRU's parameters have the same names and
+shapes on both of its routes (`ops.gru.GRU(kernel="fused" | "stack")`), so
+one state_dict serves either (tests/test_torch_gru.py pins it).
 """
 
 from __future__ import annotations

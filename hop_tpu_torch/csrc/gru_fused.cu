@@ -34,6 +34,8 @@
 // Backward. The TPU did everything in one reversed traversal and summed the
 // weight gradients over its sequential batch tiles in VMEM; GPU tiles run in
 // parallel, so the work is split into what is serial and what is not:
+// (the kernels of (a), (b) and (c) are in gru_common.cuh: K3's backward
+// runs (a), the dW_hh product of (b) and (c) too)
 //   (a) gru_bwd_recurrence_kernel: one block per (batch tile, direction),
 //       walking t in the reverse of the forward's order with the dh carry in
 //       registers. Per step it forms the gate gradients, carries dh through
@@ -57,16 +59,9 @@
 // ~98 GFLOP at I=992), and in (a), as in the forward, the re-read of a
 // direction's W_hh (1.47 MB) from L2 at every step by 64 blocks.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include <algorithm>
+#include "gru_common.cuh"
 
 namespace {
-
-constexpr int BT = 8;  // batch rows per block
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
 __global__ void gru_fused_fwd_kernel(const float* __restrict__ x,
                                      const float* __restrict__ wih,
@@ -80,7 +75,7 @@ __global__ void gru_fused_fwd_kernel(const float* __restrict__ x,
                                      float* __restrict__ n_out,
                                      float* __restrict__ hnb_out,
                                      int T, int B, int I, int H) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* xs = smem;          // (BT, I): x at the current step
   float* hs = xs + BT * I;   // (BT, H): h_{t-1}
 
@@ -187,239 +182,6 @@ __global__ void gru_fused_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-// (a) the serial part of the backward; whh_t (D, 3, H, H) holds W_hh^T so
-// that thread j reads row k of it coalesced: whh_t[d, g, k, j] = whh[d, g, j, k]
-__global__ void gru_bwd_recurrence_kernel(const float* __restrict__ g,
-                                          const float* __restrict__ r_in,
-                                          const float* __restrict__ z_in,
-                                          const float* __restrict__ n_in,
-                                          const float* __restrict__ hnb_in,
-                                          const float* __restrict__ hprev,
-                                          const float* __restrict__ whh_t,
-                                          float* __restrict__ d_in,
-                                          float* __restrict__ d_hid,
-                                          float* __restrict__ dh0,
-                                          int T, int B, int H, int D) {
-  extern __shared__ float smem[];
-  float* gh = smem;          // (3, BT, H): this step's d_hid of the tile
-
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int j = threadIdx.x;
-  const bool active = j < H;
-  const float* Wt = whh_t + size_t(d) * 3 * H * H;
-
-  float dh[BT];
-#pragma unroll
-  for (int r = 0; r < BT; ++r) dh[r] = 0.f;
-
-  for (int s = 0; s < T; ++s) {
-    // the forward walked d=0 up and d=1 down in t; the backward reverses it
-    const int tt = d == 0 ? T - 1 - s : s;
-    float dhz[BT];
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const int b = b0 + r;
-      float dr = 0.f, dz = 0.f, dnh = 0.f, keep = 0.f;
-      if (active && b < B) {
-        const size_t idx = ((size_t(d) * T + tt) * B + b) * H + j;
-        const float gt = g[idx] + dh[r];
-        const float rv = r_in[idx], zv = z_in[idx], nv = n_in[idx];
-        const float dn = gt * (1.f - zv) * (1.f - nv * nv);
-        dz = gt * (hprev[idx] - nv) * zv * (1.f - zv);
-        dr = dn * hnb_in[idx] * rv * (1.f - rv);
-        dnh = dn * rv;
-        keep = gt * zv;
-        const size_t o = ((size_t(tt) * B + b) * D + d) * 3 * H + j;
-        d_in[o] = dr;
-        d_in[o + H] = dz;
-        d_in[o + 2 * H] = dn;
-        d_hid[o] = dr;
-        d_hid[o + H] = dz;
-        d_hid[o + 2 * H] = dnh;
-      }
-      dhz[r] = keep;
-      if (active) {
-        gh[(0 * BT + r) * H + j] = dr;
-        gh[(1 * BT + r) * H + j] = dz;
-        gh[(2 * BT + r) * H + j] = dnh;
-      }
-    }
-    __syncthreads();  // the tile's d_hid is in shared memory
-    if (active) {
-#pragma unroll
-      for (int gate = 0; gate < 3; ++gate) {
-        const float* w = Wt + size_t(gate) * H * H + j;
-        const float* ghg = gh + gate * BT * H;
-#pragma unroll 4
-        for (int k = 0; k < H; ++k) {
-          const float wv = __ldg(w + size_t(k) * H);
-#pragma unroll
-          for (int r = 0; r < BT; ++r) dhz[r] += ghg[r * H + k] * wv;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) dh[r] = dhz[r];
-    }
-    __syncthreads();  // every thread has read this step's d_hid
-  }
-  if (active) {
-#pragma unroll
-    for (int r = 0; r < BT; ++r)
-      if (b0 + r < B) dh0[(size_t(d) * B + b0 + r) * H + j] = dh[r];
-  }
-}
-
-// (b) C[m, n] = sum_k A[m, k] B[k, n] over one 64 x 64 output tile and one
-// slice of K per block, k in order. A[m, k] = A[m * sam + k * sak],
-// B[k, n] = B[k * sbk + n * sbn], C[m, n] = C[m * scm + n]. Matrix z of a
-// batch has its operands offset by (z / zdiv) * hi + (z % zdiv) * lo; block
-// z of the grid is slice z % ksplit of matrix z / ksplit. With ksplit > 1
-// a block writes its partial tile, packed (M, N), to part[z] instead of C.
-constexpr int GM = 64, GN = 64, GK = 16, GEMM_THREADS = 256;
-// blocks a GEMM should have to fill the card: two waves of two blocks on
-// each of an H100's 132 SMs
-constexpr int TARGET_BLOCKS = 4 * 132;
-constexpr int MIN_SLICE = 256;   // K per block at the least
-
-struct ZOff {
-  long long hi, lo;
-  __host__ __device__ __forceinline__ long long at(int z, int zdiv) const {
-    return (z / zdiv) * hi + (z % zdiv) * lo;
-  }
-};
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-gru_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                float* __restrict__ C, float* __restrict__ part, int M, int N,
-                int K, int ksplit, long long sam, long long sak, long long sbk,
-                long long sbn, long long scm, int zdiv, ZOff za, ZOff zb,
-                ZOff zc) {
-  __shared__ float As[GK][GM + 4];
-  __shared__ float Bs[GK][GN + 4];
-  const int zm = blockIdx.z / ksplit, slice = blockIdx.z % ksplit;
-  A += za.at(zm, zdiv);
-  Bm += zb.at(zm, zdiv);
-  const int chunk = ((K + ksplit - 1) / ksplit + GK - 1) / GK * GK;
-  const int kbeg = slice * chunk, kend = min(K, kbeg + chunk);
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += GK) {
-    // load along whichever axis is contiguous in memory
-#pragma unroll
-    for (int e = 0; e < GM * GK / GEMM_THREADS; ++e) {
-      const int idx = tid + e * GEMM_THREADS;
-      const int m = sam == 1 ? idx % GM : idx / GK;
-      const int k = sam == 1 ? idx / GM : idx % GK;
-      const bool ok = m0 + m < M && k0 + k < kend;
-      As[k][m] = ok ? A[(m0 + m) * sam + (k0 + k) * sak] : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < GN * GK / GEMM_THREADS; ++e) {
-      const int idx = tid + e * GEMM_THREADS;
-      const int n = sbn == 1 ? idx % GN : idx / GK;
-      const int k = sbn == 1 ? idx / GN : idx % GK;
-      const bool ok = n0 + n < N && k0 + k < kend;
-      Bs[k][n] = ok ? Bm[(k0 + k) * sbk + (n0 + n) * sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Bs[k][tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] += a[i] * b[c];
-    }
-    __syncthreads();
-  }
-  float* out = ksplit == 1 ? C + zc.at(zm, zdiv) : part + size_t(blockIdx.z) * M * N;
-  const long long stride = ksplit == 1 ? scm : N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx + 16 * c;
-      if (m < M && n < N) out[m * stride + n] = acc[i][c];
-    }
-  }
-}
-
-// C[m, n] of matrix z = sum over its slices, in slice order
-__global__ void gru_splitk_reduce_kernel(const float* __restrict__ part,
-                                         float* __restrict__ C, int M, int N,
-                                         int ksplit, long long scm, int zdiv,
-                                         ZOff zc, int total) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int zm = idx / (M * N), mn = idx % (M * N);
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += part[(size_t(zm) * ksplit + k) * M * N + mn];
-  C[zc.at(zm, zdiv) + (mn / N) * scm + mn % N] = s;
-}
-
-// (c) out[c] = sum_r src[r * cols + c], rows in a fixed order: 32 columns
-// per block, 8 row slices per column summed in slice order
-__global__ void gru_colsum_kernel(const float* __restrict__ src,
-                                  float* __restrict__ out, int rows, int cols) {
-  __shared__ float part[8][32];
-  const int c = blockIdx.x * 32 + threadIdx.x % 32;
-  const int slice = threadIdx.x / 32;
-  float s = 0.f;
-  if (c < cols)
-    for (int r = slice; r < rows; r += 8) s += src[size_t(r) * cols + c];
-  part[slice][threadIdx.x % 32] = s;
-  __syncthreads();
-  if (slice == 0 && c < cols) {
-    float total = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) total += part[i][threadIdx.x];
-    out[c] = total;
-  }
-}
-
-// slices of K for a GEMM of nz matrices (M, N, K): enough blocks to fill
-// the card, each with at least MIN_SLICE of K
-int gemm_splits(int M, int N, int K, int nz) {
-  const long long blocks = (long long)((N + GN - 1) / GN) * ((M + GM - 1) / GM) * nz;
-  const long long want = (TARGET_BLOCKS + blocks - 1) / blocks;
-  return int(std::max(1LL, std::min(want, (long long)(K + MIN_SLICE - 1) / MIN_SLICE)));
-}
-
-size_t gemm_workspace(int M, int N, int K, int nz) {
-  const int ks = gemm_splits(M, N, K, nz);
-  return ks == 1 ? 0 : size_t(nz) * ks * M * N;
-}
-
-cudaError_t gemm(const float* A, const float* Bm, float* C, float* part, int M,
-                 int N, int K, long long sam, long long sak, long long sbk,
-                 long long sbn, long long scm, int nz, int zdiv, ZOff za, ZOff zb,
-                 ZOff zc, cudaStream_t st) {
-  const int ks = gemm_splits(M, N, K, nz);
-  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, nz * ks);
-  gru_gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, Bm, C, part, M, N, K, ks, sam,
-                                                 sak, sbk, sbn, scm, zdiv, za, zb, zc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ks == 1) return err;
-  const int total = nz * M * N;
-  gru_splitk_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(part, C, M, N, ks, scm,
-                                                                zdiv, zc, total);
-  return cudaGetLastError();
-}
-
 // the three GEMMs of the backward: (M, N, K, nz) of dx, dW_ih and dW_hh
 struct BwdGemms {
   int m[3], n[3], k[3], nz[3];
@@ -485,22 +247,15 @@ extern "C" int hop_gru_fused_bwd(const void* g, const void* x, const void* r,
   if (BwdGemms(T, B, I, H, D).workspace() > 0 && work == nullptr)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = size_t(3) * BT * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  const int threads = (H + 31) / 32 * 32;
-  const auto* gf = static_cast<const float*>(g);
   auto* din = static_cast<float*>(d_in);
   auto* dhid = static_cast<float*>(d_hid);
   auto* part = static_cast<float*>(work);
-  gru_bwd_recurrence_kernel<<<dim3((B + BT - 1) / BT, D), threads, smem, st>>>(
-      gf, static_cast<const float*>(r), static_cast<const float*>(z),
-      static_cast<const float*>(n), static_cast<const float*>(hnb),
-      static_cast<const float*>(hprev), static_cast<const float*>(whh_t), din,
-      dhid, static_cast<float*>(dh0), T, B, H, D);
-  err = cudaGetLastError();
+  cudaError_t err = launch_bwd_recurrence<float>(
+      static_cast<const float*>(g), static_cast<const float*>(r),
+      static_cast<const float*>(z), static_cast<const float*>(n),
+      static_cast<const float*>(hnb), static_cast<const float*>(hprev),
+      static_cast<const float*>(whh_t), din, dhid, static_cast<float*>(dh0), T, B, H,
+      D, st);
   if (err != cudaSuccess) return int(err);
 
   const long long TB = (long long)T * B, G = 3LL * D * H;  // G: stream row width
@@ -514,18 +269,11 @@ extern "C" int hop_gru_fused_bwd(const void* g, const void* x, const void* r,
              H, int(TB), 1, I, G, 1, H, 3 * D, 3, none, ZOff{3LL * H, H},
              ZOff{3LL * I * H, (long long)I * H}, st);
   if (err != cudaSuccess) return int(err);
-  // dwhh[d, gate] (H, H) = hprev[d]^T (H, TB) . d_hid[:, d, gate] (TB, H)
-  err = gemm(static_cast<const float*>(hprev), dhid, static_cast<float*>(dwhh), part,
-             H, H, int(TB), 1, H, G, 1, H, 3 * D, 3, ZOff{TB * H, 0},
-             ZOff{3LL * H, H}, ZOff{3LL * H * H, (long long)H * H}, st);
+  err = dwhh_gemm(static_cast<const float*>(hprev), dhid, static_cast<float*>(dwhh),
+                  part, T, B, H, D, st);
   if (err != cudaSuccess) return int(err);
   // bias gradients: column sums of the streams, (D*3*H) columns each
-  const int cblocks = int((G + 31) / 32);
-  gru_colsum_kernel<<<cblocks, 256, 0, st>>>(din, static_cast<float*>(dbih), int(TB),
-                                             int(G));
-  err = cudaGetLastError();
+  err = colsum(din, static_cast<float*>(dbih), int(TB), int(G), st);
   if (err != cudaSuccess) return int(err);
-  gru_colsum_kernel<<<cblocks, 256, 0, st>>>(dhid, static_cast<float*>(dbhh), int(TB),
-                                             int(G));
-  return int(cudaGetLastError());
+  return int(colsum(dhid, static_cast<float*>(dbhh), int(TB), int(G), st));
 }

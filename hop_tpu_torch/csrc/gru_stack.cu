@@ -1,0 +1,163 @@
+// Time-grid GRU recurrence (kernel K3) for Hopper, sm_90a: the forward with
+// the residuals of the backward, the lean forward (h only), and the backward.
+//
+// Replaces the TPU kernels `_fwd_kernel` (:46-71), `_fwd_kernel_lean`
+// (:73-97; both called by `_fwd_call` :129-161) and `_bwd_kernel` (:168-223,
+// `_bwd_call` :225-263) of hop_tpu/ops/pallas_gru_stack.py. The big input
+// projection x . W_ih (+ b_ih) is a plain matrix product outside; the kernels
+// take its three per-gate streams and run what is serial in T:
+//   hr, hz, hnb = h W[g] + b[g]
+//   r = sigmoid(xr + hr), z = sigmoid(xz + hz), n = tanh(xn + r * hnb)
+//   h' = (1 - z) n + z h
+// xr, xz, xn (D, T, B, H) f32 or bf16, given by the strides of D, T and B
+// with unit stride on H (so they may be views of one (T, B, D, 3, H) product);
+// w (D, 3, H, H) with gate g mapping h -> h @ w[d, g]; b (D, 3, 1, H);
+// h0 (B, H) shared by the directions; outputs (D, T, B, H) f32 in natural
+// time order (direction 1 walks t from T-1 down: an index, not a copy). hnb
+// is saved WITH b[n], as the reference multiplies r into (W_hn h + b_hn).
+// All arithmetic and the h path are f32.
+//
+// Forward. The TPU put T on a sequential grid with the whole batch per step
+// and carried h in VMEM scratch. Here batch rows are independent, so a block
+// owns (8 rows, direction) and loops over T with h in shared memory
+// (gru_recurrence_tile in gru_common.cuh); any B, the ragged last tile is
+// masked. A direction's W (1.47 MB at H=350) does not fit an SM: every block
+// re-reads it from L2 at each step, coalesced along the hidden unit.
+// What bounds it: operations. 12.8 GFLOP of f32 FMAs at the head's shape
+// (D=2, T=34, B=256, H=350) against 100 MB (lean) or 198 MB (residuals) of
+// traffic; on the card the L2 re-read (1.47 MB x 64 blocks x 34 steps) and
+// 64 blocks on 132 SMs keep it well above that bound.
+//
+// Backward. The TPU ran one reversed pass that also added dW and db into a
+// resident block over its sequential grid. Here: gru_bwd_recurrence_kernel
+// (serial, per (8 rows, direction)) writes dxr, dxz, dxn into one
+// (T, B, D, 3, H) buffer in the streams' dtype and the f32 hidden-side
+// stream (dr, dz, dn * r); then the tiled f32 GEMM with ordered split-K gives
+// dW[g] = hprev^T . d_hid[g] over T * B rows, and ordered column sums give
+// db. No atomics: the gradients repeat bit for bit. dh0 comes out per
+// direction and is summed outside, as on the TPU.
+// What bounds it: operations, 25.6 GFLOP of scalar f32 FMAs (half serial in
+// the recurrence, half in the dW product).
+
+#include "gru_common.cuh"
+
+namespace {
+
+template <bool RES, typename TX>
+__global__ void gru_stack_fwd_kernel(const TX* __restrict__ xr,
+                                     const TX* __restrict__ xz,
+                                     const TX* __restrict__ xn, long long sxd,
+                                     long long sxt, long long sxb,
+                                     const float* __restrict__ w,
+                                     const float* __restrict__ b,
+                                     const float* __restrict__ h0,
+                                     float* __restrict__ out,
+                                     float* __restrict__ r_out,
+                                     float* __restrict__ z_out,
+                                     float* __restrict__ n_out,
+                                     float* __restrict__ hnb_out, int T, int B,
+                                     int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = blockIdx.y;
+  const long long xo = d * sxd;
+  const long long oo = (long long)d * T * B * H;
+  gru_recurrence_tile<RES, TX>(
+      xr + xo, xz + xo, xn + xo, sxt, sxb, w + size_t(d) * 3 * H * H,
+      b + size_t(d) * 3 * H, h0, out + oo, RES ? r_out + oo : nullptr,
+      RES ? z_out + oo : nullptr, RES ? n_out + oo : nullptr,
+      RES ? hnb_out + oo : nullptr, (long long)B * H, H, T, B, H, blockIdx.x * BT,
+      d == 1, smem);
+}
+
+template <bool RES, typename TX>
+cudaError_t launch_fwd(const void* xr, const void* xz, const void* xn, long long sxd,
+                       long long sxt, long long sxb, const void* w, const void* b,
+                       const void* h0, void* out, void* r, void* z, void* n,
+                       void* hnb, int T, int B, int H, int D, cudaStream_t st) {
+  const size_t smem = size_t(BT) * H * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_stack_fwd_kernel<RES, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const int threads = (H + 31) / 32 * 32;
+  gru_stack_fwd_kernel<RES, TX><<<dim3((B + BT - 1) / BT, D), threads, smem, st>>>(
+      static_cast<const TX*>(xr), static_cast<const TX*>(xz),
+      static_cast<const TX*>(xn), sxd, sxt, sxb, static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(h0),
+      static_cast<float*>(out), static_cast<float*>(r), static_cast<float*>(z),
+      static_cast<float*>(n), static_cast<float*>(hnb), T, B, H);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int T, int B, int H, int D) {
+  return T < 1 || B < 1 || H < 1 || H > 1024 || D < 1 || D > 2;
+}
+
+}  // namespace
+
+// xr, xz, xn: element (d, t, b, j) at d * sxd + t * sxt + b * sxb + j, bf16
+// when `bf16` is non-zero, else f32. r, z, n, hnb NULL: the lean forward.
+extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
+                                 long long sxd, long long sxt, long long sxb,
+                                 int bf16, const void* w, const void* b,
+                                 const void* h0, void* out, void* r, void* z,
+                                 void* n, void* hnb, int T, int B, int H, int D,
+                                 void* stream) {
+  if (bad_shape(T, B, H, D)) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool res = r != nullptr;
+  if (res && (z == nullptr || n == nullptr || hnb == nullptr))
+    return int(cudaErrorInvalidValue);
+#define HOP_FWD(RES, TX) \
+  launch_fwd<RES, TX>(xr, xz, xn, sxd, sxt, sxb, w, b, h0, out, r, z, n, hnb, T, B, H, D, st)
+  cudaError_t err;
+  if (bf16)
+    err = res ? HOP_FWD(true, __nv_bfloat16) : HOP_FWD(false, __nv_bfloat16);
+  else
+    err = res ? HOP_FWD(true, float) : HOP_FWD(false, float);
+#undef HOP_FWD
+  return int(err);
+}
+
+// floats of workspace hop_gru_stack_bwd needs for these shapes (0: none)
+extern "C" long long hop_gru_stack_bwd_workspace(int T, int B, int H, int D) {
+  return (long long)gemm_workspace(H, H, T * B, 3 * D);
+}
+
+// g, r, z, n, hnb, hprev (D, T, B, H) f32 contiguous; w_t (D, 3, H, H) is w
+// with its last two axes swapped. Writes dx (T, B, D, 3, H), bf16 when `bf16`
+// is non-zero, else f32: dx[:, :, d, 0] is dxr, 1 dxz, 2 dxn; dw (D, 3, H, H),
+// db (D, 3, 1, H) and dh0 (D, B, H), one slice per direction. d_hid
+// (T, B, D, 3, H) f32 and `work` (hop_gru_stack_bwd_workspace floats, may be
+// NULL when that is 0) are scratch.
+extern "C" int hop_gru_stack_bwd(const void* g, const void* r, const void* z,
+                                 const void* n, const void* hnb, const void* hprev,
+                                 const void* w_t, void* dx, int bf16, void* d_hid,
+                                 void* work, void* dw, void* db, void* dh0, int T,
+                                 int B, int H, int D, void* stream) {
+  if (bad_shape(T, B, H, D)) return int(cudaErrorInvalidValue);
+  if (gemm_workspace(H, H, T * B, 3 * D) > 0 && work == nullptr)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* gf = static_cast<const float*>(g);
+  const auto* rf = static_cast<const float*>(r);
+  const auto* zf = static_cast<const float*>(z);
+  const auto* nf = static_cast<const float*>(n);
+  const auto* hf = static_cast<const float*>(hnb);
+  const auto* pf = static_cast<const float*>(hprev);
+  const auto* wf = static_cast<const float*>(w_t);
+  auto* dhid = static_cast<float*>(d_hid);
+  auto* dh0f = static_cast<float*>(dh0);
+  cudaError_t err =
+      bf16 ? launch_bwd_recurrence<__nv_bfloat16>(gf, rf, zf, nf, hf, pf, wf,
+                                                  static_cast<__nv_bfloat16*>(dx),
+                                                  dhid, dh0f, T, B, H, D, st)
+           : launch_bwd_recurrence<float>(gf, rf, zf, nf, hf, pf, wf,
+                                          static_cast<float*>(dx), dhid, dh0f, T, B,
+                                          H, D, st);
+  if (err != cudaSuccess) return int(err);
+  err = dwhh_gemm(pf, dhid, static_cast<float*>(dw), static_cast<float*>(work), T, B,
+                  H, D, st);
+  if (err != cudaSuccess) return int(err);
+  return int(colsum(dhid, static_cast<float*>(db), T * B, 3 * D * H, st));
+}

@@ -8,9 +8,9 @@ The clip is numpy: tones over noise for the audio, timed words, and seed
 dir-vecs (unit bone directions from a smooth random walk, as the
 preprocessed dataset holds them). No real data ships with the repo.
 
-`make_train_batch` has the fields of hop_tpu.data.synthetic.make_batch
-(:32-90) that the HOP train step reads, with log-mel computed on the
-device; its ids stay below the backbone's vocabulary, and its dir-vecs are
+`make_host_batch` has the fields of hop_tpu.data.synthetic.make_batch
+(:32-90) that the HOP train step reads; `make_train_batch` is the same
+batch on the device with log-mel computed there; its ids stay below the backbone's vocabulary, and its dir-vecs are
 unit bone directions, not centred on the dataset's mean pose.
 """
 
@@ -61,13 +61,13 @@ def make_clip(cfg: Config, seconds: float = 20.0, seed: int = 0) -> SyntheticCli
                          walk.reshape(d.n_seed_frames, -1).astype(np.float32))
 
 
-def make_train_batch(cfg: Config, batch_size: int, seed: int = 0,
-                     n_speakers: int = 10,
-                     device: torch.device | str = "cpu") -> dict:
-    """One training batch on `device`: in_audio (B, samples) tones and
-    clicks over noise, log_mel (B, 34, 128) computed there, text_padded
-    (B, 34) sparse frame-aligned word ids, target_vec (B, 34, pose_dim)
-    smooth unit dir-vec walks, vid_indices (B,) speakers."""
+def make_host_batch(cfg: Config, batch_size: int, seed: int = 0,
+                    n_speakers: int = 10) -> dict:
+    """One training batch as the data loader would hand it over, numpy
+    arrays on the host: in_audio (B, samples) f32 tones and clicks over
+    noise, text_padded (B, 34) int64 sparse frame-aligned word ids,
+    target_vec (B, 34, pose_dim) f32 smooth unit dir-vec walks, vid_indices
+    (B,) int64 speakers. `cli.common.device_batch` brings it to the device."""
     rng = np.random.default_rng(seed)
     d = cfg.data
     T, n_bones = d.n_poses, d.pose_dim // 3
@@ -88,18 +88,26 @@ def make_train_batch(cfg: Config, batch_size: int, seed: int = 0,
         n_words = int(rng.integers(3, 9))
         space = T // (n_words + 1)
         text[b, (np.arange(n_words) + 1) * space] = rng.integers(4, vocab, size=n_words)
-    in_audio = torch.tensor(audio, dtype=torch.float32, device=device)
     return {
-        "in_audio": in_audio,
-        "log_mel": mel_ops.log_mel_spectrogram(
-            in_audio, sr=d.sample_rate, n_fft=d.mel_n_fft, hop=d.mel_hop,
-            n_mels=d.mel_bins),
-        "text_padded": torch.tensor(text, device=device),
-        "target_vec": torch.tensor(walk.reshape(batch_size, T, -1),
-                                   dtype=torch.float32, device=device),
-        "vid_indices": torch.tensor(rng.integers(0, n_speakers, size=batch_size),
-                                    device=device),
+        "in_audio": audio.astype(np.float32),
+        "text_padded": text,
+        "target_vec": walk.reshape(batch_size, T, -1).astype(np.float32),
+        "vid_indices": rng.integers(0, n_speakers, size=batch_size),
     }
+
+
+def make_train_batch(cfg: Config, batch_size: int, seed: int = 0,
+                     n_speakers: int = 10,
+                     device: torch.device | str = "cuda") -> dict:
+    """`make_host_batch` as tensors on `device`, with log_mel (B, 34, 128)
+    computed there."""
+    d = cfg.data
+    batch = {k: torch.tensor(v, device=device)
+             for k, v in make_host_batch(cfg, batch_size, seed, n_speakers).items()}
+    batch["log_mel"] = mel_ops.log_mel_spectrogram(
+        batch["in_audio"], sr=d.sample_rate, n_fft=d.mel_n_fft, hop=d.mel_hop,
+        n_mels=d.mel_bins)
+    return batch
 
 
 class WordIndex:

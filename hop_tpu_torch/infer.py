@@ -39,9 +39,10 @@ def generate_long_form(cfg: Config,
                        vid_index: int,
                        tokenizer=None,
                        generator: Optional[torch.Generator] = None,
-                       device: torch.device | str = "cpu") -> np.ndarray:
+                       device: torch.device | str = "cuda") -> np.ndarray:
     """forward_fn(in_audio, log_mel, text_ids, pre_seq, vid, generator) ->
-    (1, 34, pose_dim). Returns the stitched (total_frames, pose_dim)."""
+    (1, 34, pose_dim), called with tensors on `device`. Returns the stitched
+    (total_frames, pose_dim)."""
     d = cfg.data
     sr = d.sample_rate
     n_frames = d.n_poses

@@ -19,7 +19,7 @@ dropout. Dropout in the frozen BERT is gated separately, by `llm_train`
 grad; gradients still flow through it into `align_layer` and what feeds
 it. The speaker latent draws noise (as in the JAX model) from `generator`
 or a given `eps`. Kernels on this path: K1 in the reprogramming layer,
-K2 once per GRU layer.
+and once per GRU layer K2 or, with `cfg.hop.gru_kernel="stack"`, K3.
 """
 
 from __future__ import annotations
@@ -78,7 +78,8 @@ class HOPModel(common.SpeakerLatent):
             blocks=hop.gwnet_blocks, layers=hop.gwnet_layers,
             node_emb_dim=hop.gwnet_node_emb, gcn_order=hop.gwnet_order)
         self.gru = GRU(gru_input_size(cfg), hop.hidden_size, hop.gru_layers,
-                       bidirectional=True)
+                       bidirectional=True, kernel=hop.gru_kernel,
+                       bf16_streams=hop.gru_bf16_streams)
         self.out = nn.Sequential(
             nn.Linear(hop.hidden_size, hop.hidden_size // 2),
             nn.Dropout(0.0),
@@ -104,10 +105,15 @@ class HOPModel(common.SpeakerLatent):
                 text: torch.Tensor, pre_seq: torch.Tensor,
                 vid_indices: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None):
+                eps: Optional[torch.Tensor] = None,
+                reprog_seed: int = 0,
+                llm_train: Optional[bool] = None):
+        """`reprog_seed` and `llm_train` as in `trunk` (they matter in
+        training mode only)."""
         z, mu, logvar = self.speaker(vid_indices, generator, eps)
         out = self.head(self.trunk(in_audio, x_enc, text, pre_seq,
-                                   generator=generator), z)
+                                   generator=generator, reprog_seed=reprog_seed,
+                                   llm_train=llm_train), z)
         return out, z, mu, logvar
 
     def two_speaker_forward(self, in_audio, x_enc, text, pre_seq,
@@ -180,9 +186,10 @@ class HOPModel(common.SpeakerLatent):
 
 
 def build_hop_model(cfg: Config, n_speakers: int, seed: int,
-                    device: torch.device | str = "cpu") -> HOPModel:
-    """HOPModel with torch's default initialisation drawn from `seed`, on
-    `device`. The global RNG state of the caller is left as it was."""
+                    device: torch.device | str = "cuda") -> HOPModel:
+    """HOPModel with torch's default initialisation drawn from `seed` (on the
+    host, so the weights do not depend on the device), moved to `device`.
+    The global RNG state of the caller is left as it was."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = HOPModel(cfg, n_speakers)

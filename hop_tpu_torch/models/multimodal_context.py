@@ -4,7 +4,7 @@ model/multimodal_context_net.py:219-268).
 
 Conv1d pose_dim -> 16 -> 8 -> 8 (kernel 3, valid: T 34 -> 28) with
 BatchNorm and the reference's identity LeakyReLU between, a 4-layer
-BiGRU(64) with inter-layer dropout 0.3 (kernel K2 on CUDA), a per-step
+BiGRU(64) with inter-layer dropout 0.3 (kernel K2 or K3 on CUDA), a per-step
 Linear(64, 1) and a Linear(28, 1) over time, then a sigmoid. Children
 carry the reference's names (`pre_conv.{0,1,3,4,6}`, `gru.*`, `out`,
 `out2`), which `hop_tpu.eval.torch_import_generator.
@@ -28,7 +28,8 @@ HIDDEN = 64
 class ConvDiscriminator(nn.Module):
     """(B, n_poses, pose_dim) poses -> (B, 1) probability of being real."""
 
-    def __init__(self, pose_dim: int, n_poses: int = 34):
+    def __init__(self, pose_dim: int, n_poses: int = 34,
+                 gru_kernel: str = "fused", gru_bf16_streams: bool = False):
         super().__init__()
         self.pre_conv = nn.Sequential(
             nn.Conv1d(pose_dim, 16, 3),
@@ -38,7 +39,8 @@ class ConvDiscriminator(nn.Module):
             common.BatchNorm1d(8),
             nn.LeakyReLU(common.IDENTITY_SLOPE),
             nn.Conv1d(8, 8, 3))
-        self.gru = GRU(8, HIDDEN, num_layers=4, bidirectional=True, dropout=0.3)
+        self.gru = GRU(8, HIDDEN, num_layers=4, bidirectional=True, dropout=0.3,
+                       kernel=gru_kernel, bf16_streams=gru_bf16_streams)
         self.out = nn.Linear(HIDDEN, 1)
         self.out2 = nn.Linear(n_poses - 6, 1)
 
@@ -53,11 +55,12 @@ class ConvDiscriminator(nn.Module):
 
 
 def build_discriminator(cfg, seed: int,
-                        device: torch.device | str = "cpu") -> ConvDiscriminator:
-    """ConvDiscriminator for `cfg`'s poses with torch's default
-    initialisation drawn from `seed`, on `device`. The global RNG state of
-    the caller is left as it was."""
+                        device: torch.device | str = "cuda") -> ConvDiscriminator:
+    """ConvDiscriminator for `cfg`'s poses and GRU route with torch's default
+    initialisation drawn from `seed` (on the host), moved to `device`. The
+    global RNG state of the caller is left as it was."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        disc = ConvDiscriminator(cfg.data.pose_dim, cfg.data.n_poses)
+        disc = ConvDiscriminator(cfg.data.pose_dim, cfg.data.n_poses,
+                                 cfg.hop.gru_kernel, cfg.hop.gru_bf16_streams)
     return disc.to(device)

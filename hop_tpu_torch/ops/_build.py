@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
 # C signatures of the entry points in csrc/, name -> argtypes
 SIGNATURES = {
     # q, k, v, out, lse (or NULL), B, L, H, S, scale, seed, thresh,
@@ -48,9 +49,20 @@ SIGNATURES = {
     "hop_gru_fused_bwd": [_P] * 18 + [_I] * 5 + [_P],
     # T, B, I, H, D -> floats of workspace hop_gru_fused_bwd needs
     "hop_gru_fused_bwd_workspace": [_I] * 5,
+    # xr, xz, xn, their strides of D, T and B (elements), bf16 flag, w, b,
+    # h0, out, r, z, n, hnb (residuals or NULL), T, B, H, D, stream
+    "hop_gru_stack_fwd": [_P] * 3 + [_L] * 3 + [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    # g, r, z, n, hnb, hprev, w_t, dx, bf16 flag, d_hid, work, dw, db, dh0,
+    # T, B, H, D, stream
+    "hop_gru_stack_bwd": [_P] * 8 + [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # T, B, H, D -> floats of workspace hop_gru_stack_bwd needs
+    "hop_gru_stack_bwd_workspace": [_I] * 4,
+    # x_proj, w_t, b_hh, h0, out, T, B, H, reverse, stream
+    "hop_gru_seq_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
 # return types other than int (a CUDA error code)
-RESTYPES = {"hop_gru_fused_bwd_workspace": ctypes.c_longlong}
+RESTYPES = {"hop_gru_fused_bwd_workspace": ctypes.c_longlong,
+            "hop_gru_stack_bwd_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None

@@ -62,7 +62,7 @@ def threshold(rate: float) -> int:
 
 
 def attention_bits(seed: int, B: int, L: int, H: int, S: int,
-                   device: torch.device | str = "cpu") -> torch.Tensor:
+                   device: torch.device | str = "cuda") -> torch.Tensor:
     """(B, H, L, S) int64 words in [0, 2^32): the bits the kernel draws for
     query row (b, l) of head h against key s."""
     i64 = dict(dtype=torch.int64, device=device)
@@ -75,7 +75,7 @@ def attention_bits(seed: int, B: int, L: int, H: int, S: int,
 
 
 def attention_keep(seed: int, rate: float, B: int, L: int, H: int, S: int,
-                   device: torch.device | str = "cpu") -> torch.Tensor:
+                   device: torch.device | str = "cuda") -> torch.Tensor:
     """(B, H, L, S) f32 mask in {0, 1 / (1 - rate)}: the kernel's dropout."""
     bits = attention_bits(seed, B, L, H, S, device)
     return (bits >= threshold(rate)).float() / (1.0 - rate)

@@ -5,13 +5,26 @@ Parameters carry torch.nn.GRU's names and layout (`weight_ih_l{k}`,
 `weight_hh_l{k}`, `bias_ih_l{k}`, `bias_hh_l{k}`, `_reverse` for the
 backward direction; gates ordered r, z, n; two bias vectors), so weights
 round-trip with the reference and with the JAX GRU 1:1. The stack runs
-layer by layer through `gru_fused_layer` (kernel K2 on CUDA), time-major
-in between. The initial state is zero, as on the JAX fused path. In
-training mode the layers' inputs after the first pass through dropout at
-`dropout` (torch.nn.GRU(dropout=); JAX ops/gru.py:336-338), the mask drawn
-from the generator the caller hands to `forward`: 0.3 in the
-discriminator, 0 in the HOP head. The layers are differentiable through
-K2's backward kernel.
+layer by layer, time-major in between, on one of two routes that share
+those parameters (as the two Pallas routes do, JAX ops/gru.py:320-368):
+
+  kernel="fused"  `gru_fused_layer` (kernel K2 on CUDA): the input
+                  projection inside the recurrence kernel; the gate streams
+                  never exist in device memory.
+  kernel="stack"  one matrix product x · W_ihᵀ + b_ih per layer for both
+                  directions and all gates, (T, B, D, 3, H), whose per-gate
+                  slices `gru_stack` (kernel K3 on CUDA) takes as strided
+                  views; `bf16_streams` stores that product in bf16 (the
+                  recurrence and the h path stay f32).
+
+`kernel` and `bf16_streams` take the place of the JAX package's
+HOP_TPU_PALLAS_GRU (`fused` / `1`) and HOP_TPU_GRU_BF16_STREAMS; no
+environment variable is read. The initial state is zero, as on the JAX
+kernel paths. In training mode the layers' inputs after the first pass
+through dropout at `dropout` (torch.nn.GRU(dropout=); JAX
+ops/gru.py:336-338), the mask drawn from the generator the caller hands to
+`forward`: 0.3 in the discriminator, 0 in the HOP head. The layers are
+differentiable through K2's or K3's backward kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ from torch import nn
 
 from hop_tpu_torch.ops.dropout import dropout as drop
 from hop_tpu_torch.ops.gru_fused import gru_fused_layer
+from hop_tpu_torch.ops.gru_stack import gru_stack
+
+KERNELS = ("fused", "stack")
 
 
 class GRU(nn.Module):
@@ -31,8 +47,13 @@ class GRU(nn.Module):
     D*H), last_hidden (num_layers * D, B, H)) in torch's ordering."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
-                 bidirectional: bool = False, dropout: float = 0.0):
+                 bidirectional: bool = False, dropout: float = 0.0,
+                 kernel: str = "fused", bf16_streams: bool = False):
         super().__init__()
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+        self.kernel = kernel
+        self.bf16_streams = bf16_streams
         self.hidden_size = hidden_size
         self.dropout = dropout
         self.num_layers = num_layers
@@ -49,18 +70,41 @@ class GRU(nn.Module):
                     p = nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
                     self.register_parameter(f"{name}_l{layer}{sfx}", p)
 
-    def _layer_weights(self, layer: int):
-        """torch layout -> the kernel's stacked (D, 3, ·, H) layout."""
+    def _params(self, name: str, layer: int):
+        return [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.suffixes]
+
+    def _hidden_weights(self, layer: int):
+        """torch layout -> the kernels' stacked W_hh (D, 3, H, H), gate g
+        mapping h -> h @ w[d, g], and b_hh (D, 3, 1, H)."""
         H = self.hidden_size
-        wih, bih, whh, bhh = [], [], [], []
-        for sfx in self.suffixes:
-            w_ih = getattr(self, f"weight_ih_l{layer}{sfx}")
-            w_hh = getattr(self, f"weight_hh_l{layer}{sfx}")
-            wih.append(w_ih.reshape(3, H, -1).transpose(1, 2))
-            whh.append(w_hh.reshape(3, H, H).transpose(1, 2))
-            bih.append(getattr(self, f"bias_ih_l{layer}{sfx}").reshape(3, 1, H))
-            bhh.append(getattr(self, f"bias_hh_l{layer}{sfx}").reshape(3, 1, H))
-        return [torch.stack(w).float().contiguous() for w in (wih, bih, whh, bhh)]
+        whh = [w.reshape(3, H, H).transpose(1, 2)
+               for w in self._params("weight_hh", layer)]
+        bhh = [b.reshape(3, 1, H) for b in self._params("bias_hh", layer)]
+        return [torch.stack(w).float().contiguous() for w in (whh, bhh)]
+
+    def _fused_layer(self, x_tm, layer: int, h0):
+        H = self.hidden_size
+        wih = [w.reshape(3, H, -1).transpose(1, 2)
+               for w in self._params("weight_ih", layer)]
+        bih = [b.reshape(3, 1, H) for b in self._params("bias_ih", layer)]
+        wih, bih = (torch.stack(w).float().contiguous() for w in (wih, bih))
+        whh, bhh = self._hidden_weights(layer)
+        return gru_fused_layer(x_tm, wih, bih, whh, bhh, h0)
+
+    def _stack_layer(self, x_tm, layer: int, h0):
+        """One product for every direction and gate, then the recurrence on
+        its strided per-gate views (JAX `_pallas_layer_tm`, gru.py:96-130)."""
+        T, B, F = x_tm.shape
+        D, H = len(self.suffixes), self.hidden_size
+        w_ih = torch.cat(self._params("weight_ih", layer)).float()   # (D*3*H, F)
+        b_ih = torch.cat(self._params("bias_ih", layer)).float()
+        proj = torch.addmm(b_ih, x_tm.reshape(T * B, F), w_ih.t())
+        if self.bf16_streams:
+            proj = proj.to(torch.bfloat16)
+        xr, xz, xn = (g.permute(2, 0, 1, 3)
+                      for g in proj.view(T, B, D, 3, H).unbind(dim=3))
+        whh, bhh = self._hidden_weights(layer)
+        return gru_stack(xr, xz, xn, whh, bhh, h0)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -72,8 +116,8 @@ class GRU(nn.Module):
         for layer in range(self.num_layers):
             if layer > 0 and self.training:
                 x_tm = drop(x_tm, self.dropout, generator)
-            wih, bih, whh, bhh = self._layer_weights(layer)
-            y = gru_fused_layer(x_tm, wih, bih, whh, bhh, h0)   # (D, T, B, H)
+            run = self._fused_layer if self.kernel == "fused" else self._stack_layer
+            y = run(x_tm, layer, h0)                            # (D, T, B, H)
             x_tm = torch.cat(list(y), dim=-1).contiguous()
             last.append(y[0, -1])
             if len(self.suffixes) == 2:

@@ -1,7 +1,8 @@
-"""The fused HOP GAN train step (port of hop_tpu/train/llm.py:195-287, the
-default since `HOPConfig.fused_step=True`).
+"""The HOP train steps (port of hop_tpu/train/llm.py): the fused GAN step
+(:195-287, the default since `HOPConfig.fused_step=True`) and the
+reference's 3-forward step (:116-192, :289-328, `fused_step=False`).
 
-One step, as in the JAX fused path:
+The fused step:
   * `HOPModel.two_speaker_forward`: the trunk once, the head for the
     batch's speakers and (detached, no graph) for shuffled ones;
   * the generator loss: Huber, the diversity regulariser with its clamp,
@@ -14,13 +15,27 @@ One step, as in the JAX fused path:
   * one backward over the sum, then Adam on the generator (frozen backbone
     excluded) and, in the GAN variant, on the discriminator.
 
-Randomness. The small draws of a step (both heads' speaker noise, the
+The 3-forward step (the reference's train_llm loop, train_llm.py:15-86):
+  * warmup: a whole generator forward for the batch's speakers, a second
+    whole forward for shuffled speakers (it feeds only detached terms, so
+    it runs without a graph), the same generator loss, Adam on the
+    generator;
+  * GAN: first the D phase, a generator forward of its own (detached, no
+    graph), the D term on it with noisy targets, and Adam on the
+    discriminator; then the warmup step's generator update with the G term
+    against the FRESHLY UPDATED discriminator. gwnet's BatchNorm statistics
+    chain through the three generator forwards (D phase, batch's speakers,
+    shuffled speakers) and the discriminator's through its three (real,
+    fake, G term), in that order (llm.py:13, :301-321).
+
+Randomness. The small draws of a step (the heads' speaker noise, the
 speaker permutation, the discriminator's target and fake noise, K1's
 dropout seed and the seed of the device generator) come from one CPU
-`torch.Generator` per step, in a `StepNoise` record that `fused_step`
-takes, so a test can hand in JAX's draws instead. The large dropout masks
-(BERT's, the discriminator GRU's) come from a device generator seeded
-from that record.
+`torch.Generator` per step, in a `StepNoise` record that a step takes, so a
+test can hand in JAX's draws instead. The large dropout masks (BERT's, the
+discriminator GRU's) come from a device generator seeded from that record;
+the 3-forward step's generator forwards seed K1's dropout with
+`reprog_seed`, `+ 1` and `+ 2`.
 
 `make_hop_train_steps(cfg, model, disc)` returns (warmup, gan,
 init_state), each step an `EpochStep` whose `for_epoch(0)` variant runs the
@@ -33,7 +48,7 @@ or a `StepNoise`, and returns (state, metrics).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 from torch.func import functional_call
@@ -53,6 +68,8 @@ class StepNoise:
     fake_noise: torch.Tensor     # (B, n_poses, pose_dim) N(0, 1), fake input
     reprog_seed: int             # K1's attention-dropout seed
     dropout_seed: int            # seeds the device generator of the masks
+    # (B, z) speaker noise of the 3-forward step's D-phase generator forward
+    eps_dis: Optional[torch.Tensor] = None
 
     @classmethod
     def draw(cls, generator: torch.Generator, cfg: Config,
@@ -67,12 +84,14 @@ class StepNoise:
             target_noise=torch.randn(batch_size, T, P, generator=g),
             fake_noise=torch.randn(batch_size, T, P, generator=g),
             reprog_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)),
-            dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
+            dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)),
+            eps_dis=torch.randn(batch_size, z, generator=g))
 
     def to(self, device) -> "StepNoise":
         return replace(self, **{k: getattr(self, k).to(device) for k in
                                 ("eps", "eps_rand", "perm", "target_noise",
-                                 "fake_noise")})
+                                 "fake_noise", "eps_dis")
+                                if getattr(self, k) is not None})
 
 
 def _div_diagnostics(div_raw, pose_l1, z_l1, out, mu, logvar, loss_cfg):
@@ -106,7 +125,8 @@ class EpochStep:
 
 def make_hop_train_steps(cfg: Config, model, disc):
     """Returns (warmup_step, gan_step, init_state) over `model` (HOPModel)
-    and `disc` (ConvDiscriminator), both updated in place."""
+    and `disc` (ConvDiscriminator), both updated in place: the fused step
+    when `cfg.hop.fused_step`, else the 3-forward step."""
     loss_cfg = cfg.loss
 
     def init_state() -> GANTrainState:
@@ -115,16 +135,9 @@ def make_hop_train_steps(cfg: Config, model, disc):
                              adam(model, t.learning_rate, t.betas),
                              adam(disc, t.learning_rate * t.dis_lr_scale, t.betas))
 
-    def fused_loss(batch, noise: StepNoise, use_gan: bool, llm_train: bool,
-                   dev_gen: torch.Generator):
-        target = batch["target_vec"]
-        vids = batch["vid_indices"]
-        out, out_rand, (z, mu, logvar), z_rand = model.two_speaker_forward(
-            batch["in_audio"], batch["log_mel"], batch["text_padded"],
-            target[:, :cfg.data.n_seed_frames], vids, vids[noise.perm],
-            eps=noise.eps, eps_rand=noise.eps_rand, generator=dev_gen,
-            reprog_seed=noise.reprog_seed, llm_train=llm_train)
-
+    def generator_terms(out, out_rand, z, z_rand, mu, logvar, target):
+        """Huber + diversity regulariser + KLD (llm.py:126-152); `out_rand`
+        and `z_rand` enter detached."""
         h = huber(out, target, loss_cfg.huber_beta)
         pose_l1 = huber(out, out_rand.detach(), loss_cfg.div_beta,
                         reduce=False).sum(dim=(1, 2))
@@ -140,37 +153,55 @@ def make_hop_train_steps(cfg: Config, model, disc):
                    "DIV_REG": div_reg * loss_cfg.reg_weight,
                    **_div_diagnostics(div_raw, pose_l1, z_l1, out, mu, logvar,
                                       loss_cfg)}
-        if use_gan:
-            # G term against the current discriminator, its parameters
-            # detached (its BatchNorm statistics still update)
-            frozen = {k: p.detach() for k, p in disc.named_parameters()}
-            dis_out = functional_call(disc, frozen, (out,),
-                                      {"generator": dev_gen})
-            gen_error = -torch.mean(torch.log(dis_out + 1e-8))
-            loss = loss + gen_error * loss_cfg.gan_weight
-            metrics["gen"] = gen_error * loss_cfg.gan_weight
-
-            # D term on the detached sample, noisy targets (train_llm.py:22)
-            dis_real = disc(target + 0.1 * noise.target_noise, dev_gen)
-            dis_fake = disc(out.detach() + 0.1 * noise.fake_noise, dev_gen)
-            dis_err = -torch.mean(torch.log(dis_real + 1e-8)
-                                  + torch.log(1.0 - dis_fake + 1e-8))
-            loss = loss + dis_err
-            metrics["dis"] = dis_err
         return loss, metrics
+
+    def gen_term(out, dev_gen):
+        """The G term against the current discriminator, its parameters
+        detached (its BatchNorm statistics still update)."""
+        frozen = {k: p.detach() for k, p in disc.named_parameters()}
+        dis_out = functional_call(disc, frozen, (out,), {"generator": dev_gen})
+        return -torch.mean(torch.log(dis_out + 1e-8)) * loss_cfg.gan_weight
+
+    def dis_loss(fake, target, noise: StepNoise, dev_gen):
+        """The D term on a detached sample, noisy targets (train_llm.py:22;
+        llm.py:165-176): real forward, then fake."""
+        dis_real = disc(target + 0.1 * noise.target_noise, dev_gen)
+        dis_fake = disc(fake.detach() + 0.1 * noise.fake_noise, dev_gen)
+        return -torch.mean(torch.log(dis_real + 1e-8)
+                           + torch.log(1.0 - dis_fake + 1e-8))
+
+    def fused_loss(batch, noise: StepNoise, use_gan: bool, llm_train: bool,
+                   dev_gen: torch.Generator):
+        target = batch["target_vec"]
+        vids = batch["vid_indices"]
+        out, out_rand, (z, mu, logvar), z_rand = model.two_speaker_forward(
+            batch["in_audio"], batch["log_mel"], batch["text_padded"],
+            target[:, :cfg.data.n_seed_frames], vids, vids[noise.perm],
+            eps=noise.eps, eps_rand=noise.eps_rand, generator=dev_gen,
+            reprog_seed=noise.reprog_seed, llm_train=llm_train)
+        loss, metrics = generator_terms(out, out_rand, z, z_rand, mu, logvar,
+                                        target)
+        if use_gan:
+            metrics["gen"] = gen_term(out, dev_gen)
+            metrics["dis"] = dis_loss(out, target, noise, dev_gen)
+            loss = loss + metrics["gen"] + metrics["dis"]
+        return loss, metrics
+
+    def begin_step(state: GANTrainState, batch, noise: StepNoise):
+        device = batch["in_audio"].device
+        model.train()
+        disc.train()
+        state.gen_opt.zero_grad(set_to_none=True)
+        state.dis_opt.zero_grad(set_to_none=True)
+        return (noise.to(device),
+                torch.Generator(device=device).manual_seed(noise.dropout_seed))
 
     def fused_step(state: GANTrainState, batch, noise: StepNoise,
                    use_gan: bool, llm_train: bool = True):
         """One step with the given draws; returns (state, metrics), the
         metrics detached 0-d tensors on the batch's device."""
-        device = batch["in_audio"].device
-        model.train()
-        disc.train()
-        dev_gen = torch.Generator(device=device).manual_seed(noise.dropout_seed)
-        state.gen_opt.zero_grad(set_to_none=True)
-        state.dis_opt.zero_grad(set_to_none=True)
-        loss, metrics = fused_loss(batch, noise.to(device), use_gan, llm_train,
-                                   dev_gen)
+        noise, dev_gen = begin_step(state, batch, noise)
+        loss, metrics = fused_loss(batch, noise, use_gan, llm_train, dev_gen)
         loss.backward()
         state.gen_opt.step()
         if use_gan:
@@ -178,13 +209,68 @@ def make_hop_train_steps(cfg: Config, model, disc):
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    # ---- the reference's 3-forward step (cfg.hop.fused_step False) --------
+    def gen_forward(batch, vids, eps, reprog_seed: int, llm_train: bool,
+                    dev_gen):
+        """One whole generator forward in training mode (`_gen_apply`,
+        llm.py:38-50): (out, z, mu, logvar)."""
+        return model(batch["in_audio"], batch["log_mel"], batch["text_padded"],
+                     batch["target_vec"][:, :cfg.data.n_seed_frames], vids,
+                     generator=dev_gen, eps=eps, reprog_seed=reprog_seed,
+                     llm_train=llm_train)
+
+    def gen_loss(batch, noise: StepNoise, use_gan: bool, llm_train: bool,
+                 dev_gen: torch.Generator):
+        vids = batch["vid_indices"]
+        out, z, mu, logvar = gen_forward(batch, vids, noise.eps,
+                                         noise.reprog_seed, llm_train, dev_gen)
+        # divergent outputs for shuffled speakers (train_llm.py:50-69): this
+        # forward feeds only detached terms, so it keeps no graph
+        with torch.no_grad():
+            out_rand, z_rand, _, _ = gen_forward(
+                batch, vids[noise.perm], noise.eps_rand, noise.reprog_seed + 1,
+                llm_train, dev_gen)
+        loss, metrics = generator_terms(out, out_rand, z, z_rand, mu, logvar,
+                                        batch["target_vec"])
+        if use_gan:
+            metrics["gen"] = gen_term(out, dev_gen)
+            loss = loss + metrics["gen"]
+        return loss, metrics
+
+    def parity_step(state: GANTrainState, batch, noise: StepNoise,
+                    use_gan: bool, llm_train: bool = True):
+        """One 3-forward step with the given draws; returns (state, metrics)
+        as `fused_step` does."""
+        if noise.eps_dis is None and use_gan:
+            raise ValueError("the 3-forward GAN step needs StepNoise.eps_dis")
+        noise, dev_gen = begin_step(state, batch, noise)
+        dis_err = None
+        if use_gan:
+            # D phase: a generator forward of its own, detached, and the
+            # discriminator's update BEFORE the G phase (llm.py:301-317)
+            with torch.no_grad():
+                fake = gen_forward(batch, batch["vid_indices"], noise.eps_dis,
+                                   noise.reprog_seed + 2, llm_train, dev_gen)[0]
+            dis_err = dis_loss(fake, batch["target_vec"], noise, dev_gen)
+            dis_err.backward()
+            state.dis_opt.step()
+        loss, metrics = gen_loss(batch, noise, use_gan, llm_train, dev_gen)
+        loss.backward()
+        state.gen_opt.step()
+        if use_gan:
+            metrics["dis"] = dis_err
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    run_step = fused_step if cfg.hop.fused_step else parity_step
+
     def variant(use_gan: bool, llm_train: bool):
         def step(state: GANTrainState, batch,
                  rng: Union[torch.Generator, StepNoise]):
             noise = rng
             if isinstance(rng, torch.Generator):
                 noise = StepNoise.draw(rng, cfg, batch["in_audio"].shape[0])
-            return fused_step(state, batch, noise, use_gan, llm_train)
+            return run_step(state, batch, noise, use_gan, llm_train)
         return step
 
     return (EpochStep(variant(False, True), variant(False, False)),

@@ -12,13 +12,19 @@ softmax's rescaling: 1e-4 on outputs of O(1). K2 is f32 throughout; its
 sums run in another order than cuBLAS's, carried through T steps: 1e-4.
 The backwards sum over many more terms (K1's dk/dv over all B*L query
 rows, K2's weight gradients over T*B): their tolerance is 1e-4 relative to
-the largest gradient. Backward results must repeat bit for bit.
+the largest gradient. Backward results must repeat bit for bit. K3 and K6
+are f32 recurrences like K2 (1e-4); with bf16 streams both sides read the
+same bf16-rounded values, and K3's bf16 stream gradients may differ from the
+plain version's by one bf16 rounding (2^-8 relative) where the f32 values
+differ in round-off: 1e-2 of the largest.
 """
 
 import pytest
 import torch
 
 from hop_tpu_torch.ops import gru_fused as K2
+from hop_tpu_torch.ops import gru_seq as K6
+from hop_tpu_torch.ops import gru_stack as K3
 from hop_tpu_torch.ops import reprogramming_attention as K1
 
 pytestmark = pytest.mark.cuda
@@ -143,6 +149,81 @@ def test_gru_fused_bwd_kernel(device, D, T, B, I, H):
         _rel_close(a, c, name=name)
 
 
+def _k3_args(device, D, T, B, H, dtype, seed):
+    """Streams as strided views of one (T, B, D, 3, H) product, as the GRU
+    module hands them over."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def arr(*shape, scale):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+    s = H ** -0.5
+    proj = arr(T, B, D, 3, H, scale=1.0).to(dtype)
+    streams = [g.permute(2, 0, 1, 3) for g in proj.unbind(dim=3)]
+    return (*streams, arr(D, 3, H, H, scale=s), arr(D, 3, 1, H, scale=s),
+            arr(B, H, scale=0.5)), arr(D, T, B, H, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,T,B,H", [
+    (2, 5, 11, 40),         # ragged batch tile
+    (1, 28, 250, 64),       # one direction, the discriminator's width
+    (2, 34, 256, 350),      # the HOP head
+])
+def test_gru_stack_kernels(device, D, T, B, H, dtype):
+    args, g = _k3_args(device, D, T, B, H, dtype, seed=D * 100 + H)
+    before = (K3.launches, K3.lean_launches, K3.bwd_launches)
+    lean = K3.gru_stack(*args)
+    fwd = K3.gru_stack_fwd(*args, with_residuals=True)
+    want_fwd = K3.plain_gru_stack(*args, with_residuals=True)
+    assert torch.equal(lean, fwd[0])
+    for a, b in zip(fwd, want_fwd):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    h_seq, r, z, n, hnb = fwd
+    bwd_args = (g, r, z, n, hnb, K2.hprev_of(h_seq, args[5]), args[3], dtype)
+    got = K3.gru_stack_bwd(*bwd_args)
+    again = K3.gru_stack_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert (K3.launches, K3.lean_launches, K3.bwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    want = K3.plain_gru_stack_bwd(*bwd_args)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, b, c in zip(("dxr", "dxz", "dxn", "dw", "db", "dh0"),
+                             got, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        _rel_close(a.float(), c.float(), rel if name.startswith("dx") else 1e-4,
+                   name=name)
+
+
+def test_gru_stack_trains_through_the_kernels(device):
+    """The autograd Function on the card against autograd of the plain
+    forward: every operand's gradient."""
+    args, g = _k3_args(device, 2, 9, 13, 48, torch.float32, seed=3)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    got = torch.autograd.grad(K3.gru_stack(*leaves), leaves, g)
+    want = torch.autograd.grad(K3.plain_gru_stack(*leaves), leaves, g)
+    for name, a, b in zip(("dxr", "dxz", "dxn", "dw", "db", "dh0"), got, want):
+        _rel_close(a, b, name=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,T,H", [(11, 5, 40), (1, 34, 350), (256, 34, 350)])
+def test_gru_seq_kernel(device, B, T, H, reverse):
+    gen = torch.Generator(device=device).manual_seed(B + H)
+
+    def arr(*shape, scale):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+    s = H ** -0.5
+    args = (arr(B, T, 3 * H, scale=1.0), arr(3 * H, H, scale=s),
+            arr(3 * H, scale=s), arr(B, H, scale=0.5))
+    before = K6.launches
+    got = K6.gru_seq_layer(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    assert K6.launches == before + 1
+    want = K6.plain_gru_seq_layer(*args, reverse=reverse)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 def test_wrappers_check_operands(device):
     x = torch.zeros(3, 2, 4, device=device, dtype=torch.float64)
     w = torch.zeros(1, 3, 4, 8, device=device)
@@ -151,6 +232,16 @@ def test_wrappers_check_operands(device):
                            torch.zeros(1, 3, 8, 8, device=device),
                            torch.zeros(1, 3, 1, 8, device=device),
                            torch.zeros(2, 8, device=device))
+    streams = [torch.zeros(1, 3, 2, 8, device=device, dtype=torch.float16)] * 3
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K3.gru_stack(*streams, torch.zeros(1, 3, 8, 8, device=device),
+                     torch.zeros(1, 3, 1, 8, device=device),
+                     torch.zeros(2, 8, device=device))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        K6.gru_seq_layer(torch.zeros(2, 3, 24, device=device),
+                         torch.zeros(24, 8, device=device).double(),
+                         torch.zeros(24, device=device),
+                         torch.zeros(2, 8, device=device))
     with pytest.raises(ValueError, match="E == 128"):
         K1.reprogramming_attention(torch.zeros(1, 34, 2, 64, device=device),
                                    torch.zeros(2, 5, 64, device=device),

@@ -1,11 +1,14 @@
 """Kernel K2's module in the port (hop_tpu_torch.ops.gru_fused) and the
-port's GRU stack against the JAX package.
+port's GRU stack, on both of its routes, against the JAX package.
 
 The JAX kernel `gru_fused_layer` runs with interpret=True and the JAX GRU
-module in HOP_TPU_PALLAS_GRU=interpret-fused mode, as
-tests/test_pallas_gru_fused.py runs them. The port takes its plain
-version on the CPU. Both are f32: the tolerance covers f32 round-off
-carried through T recurrent steps, 1e-5.
+module in HOP_TPU_PALLAS_GRU=interpret-fused mode (for the port's "fused"
+route) or =interpret (the time-grid kernel, for the port's "stack" route),
+as tests/test_pallas_gru_fused.py and tests/test_pallas_gru_stack.py run
+them. The port takes its plain versions on the CPU. Both are f32: the
+tolerance covers f32 round-off carried through T recurrent steps, 1e-5;
+gradients 1e-4 of each tensor's largest element; bf16 streams 2e-2 (bf16
+quantisation of pre-activations of O(1), as tests/test_pallas_gru_stack.py).
 """
 
 import numpy as np
@@ -52,8 +55,13 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     assert K2.launches == before
 
 
-def test_two_layer_gru_matches_jax(monkeypatch):
-    monkeypatch.setenv("HOP_TPU_PALLAS_GRU", "interpret-fused")
+# the port's route and the JAX mode that runs the same kernel
+ROUTES = [("fused", "interpret-fused"), ("stack", "interpret")]
+
+
+@pytest.mark.parametrize("kernel,jax_mode", ROUTES)
+def test_two_layer_gru_matches_jax(monkeypatch, kernel, jax_mode):
+    monkeypatch.setenv("HOP_TPU_PALLAS_GRU", jax_mode)
     B, T, F, H = 5, 9, 12, 16
     x = np.random.default_rng(3).standard_normal((B, T, F)).astype(np.float32)
     jgru = JaxGRU(hidden_size=H, num_layers=2, bidirectional=True)
@@ -61,7 +69,7 @@ def test_two_layer_gru_matches_jax(monkeypatch):
         np.asarray, jgru.init(jax.random.PRNGKey(0), x)["params"])
     out_want, hid_want = jgru.apply({"params": params}, x)
 
-    gru = GRU(F, H, num_layers=2, bidirectional=True)
+    gru = GRU(F, H, num_layers=2, bidirectional=True, kernel=kernel)
     sd = {n.replace("w_", "weight_", 1).replace("b_", "bias_", 1):
           torch.from_numpy(a) for n, a in params.items()}
     gru.load_state_dict(sd, strict=True)
@@ -72,13 +80,14 @@ def test_two_layer_gru_matches_jax(monkeypatch):
     np.testing.assert_allclose(hid.numpy(), np.asarray(hid_want), rtol=0, atol=TOL)
 
 
-def test_gru_matches_torch_nn_gru():
+@pytest.mark.parametrize("kernel", ["fused", "stack"])
+def test_gru_matches_torch_nn_gru(kernel):
     """Same parameter names and layout as torch.nn.GRU: load its weights and
     get its outputs and last hidden states."""
     torch.manual_seed(0)
     ref = torch.nn.GRU(10, 12, num_layers=3, batch_first=True,
                        bidirectional=True)
-    gru = GRU(10, 12, num_layers=3, bidirectional=True)
+    gru = GRU(10, 12, num_layers=3, bidirectional=True, kernel=kernel)
     gru.load_state_dict(ref.state_dict(), strict=True)
     x = torch.randn(4, 11, 10)
     with torch.inference_mode():
@@ -86,3 +95,53 @@ def test_gru_matches_torch_nn_gru():
         out, hid = gru(x)
     torch.testing.assert_close(out, out_want, rtol=0, atol=TOL)
     torch.testing.assert_close(hid, hid_want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_stack_route_equals_fused_route(bidirectional):
+    """One state_dict serves both routes (same names and shapes, so
+    `convert.py` maps the GRU once): outputs, last hidden states and every
+    parameter's and the input's gradient agree."""
+    torch.manual_seed(1)
+    fused = GRU(10, 12, num_layers=2, bidirectional=bidirectional)
+    stack = GRU(10, 12, num_layers=2, bidirectional=bidirectional, kernel="stack")
+    assert [(k, v.shape) for k, v in stack.state_dict().items()] == \
+        [(k, v.shape) for k, v in fused.state_dict().items()]
+    stack.load_state_dict(fused.state_dict(), strict=True)
+    x = torch.randn(4, 11, 10)
+    g = torch.randn(4, 11, 12 * (1 + bidirectional))
+    runs = []
+    for gru in (fused, stack):
+        xi = x.clone().requires_grad_()
+        out, hid = gru(xi)
+        grads = torch.autograd.grad(out, [xi, *gru.parameters()], g)
+        runs.append((out, hid, grads))
+    (out_f, hid_f, g_f), (out_s, hid_s, g_s) = runs
+    torch.testing.assert_close(out_s, out_f, rtol=0, atol=TOL)
+    torch.testing.assert_close(hid_s, hid_f, rtol=0, atol=TOL)
+    for name, a, b in zip(["x", *dict(fused.named_parameters())], g_s, g_f):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item(),
+                                   msg=name)
+
+
+def test_stack_route_bf16_streams_track_f32():
+    torch.manual_seed(2)
+    f32 = GRU(10, 12, num_layers=2, bidirectional=True, kernel="stack")
+    bf16 = GRU(10, 12, num_layers=2, bidirectional=True, kernel="stack",
+               bf16_streams=True)
+    bf16.load_state_dict(f32.state_dict(), strict=True)
+    x = torch.randn(4, 11, 10)
+    out32, _ = f32(x)
+    out16, _ = bf16(x)
+    assert out16.dtype == torch.float32
+    torch.testing.assert_close(out16, out32, rtol=0, atol=2e-2)
+    assert not torch.equal(out16, out32)
+    # trains through the bf16 streams: every parameter gets an f32 gradient
+    out16.sum().backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in bf16.parameters())
+
+
+def test_unknown_route_is_refused():
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        GRU(4, 4, kernel="scan")

@@ -70,8 +70,9 @@ def _jax_model(dataset, seed):
     return cfg, model, variables
 
 
-def _port_model(dataset, jax_variables):
+def _port_model(dataset, jax_variables, gru_kernel="fused"):
     cfg = _f32(tcfg.tiny_test_config(dataset))
+    cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, gru_kernel=gru_kernel))
     model = HOPModel(cfg, n_speakers=N_SPEAKERS)
     model.load_state_dict(state_dict_from_jax(jax_variables, cfg), strict=True)
     return model
@@ -79,8 +80,20 @@ def _port_model(dataset, jax_variables):
 
 @pytest.mark.parametrize("dataset", ["TED", "TED_expressive"])
 def test_forward_matches_jax(dataset):
+    _check_forward(dataset, "fused")
+
+
+def test_forward_on_the_stack_route_matches_jax(monkeypatch):
+    """The whole forward with `gru_kernel="stack"` (projection product + K3's
+    plain version) against the JAX model on its time-grid kernel."""
+    monkeypatch.setenv("HOP_TPU_PALLAS_GRU", "interpret")
+    _check_forward("TED", "stack")
+
+
+def _check_forward(dataset, gru_kernel):
     jcfg_, jmodel, variables = _jax_model(dataset, seed=0)
-    model = _port_model(dataset, variables)
+    model = _port_model(dataset, variables, gru_kernel)
+    assert model.gru.kernel == gru_kernel
     B = 3
     inputs = _inputs(jcfg_, B, seed=1)
     key = jax.random.PRNGKey(5)

@@ -65,7 +65,7 @@ def test_long_form_matches_jax(hf_tokens):
         build_vocab("words", [clip.words]), vid_index=2, tokenizer=tokenizer)
     got = generate_long_form(
         cfg, port_forward, clip.audio, clip.words, clip.seed_dir_vec,
-        WordIndex(clip.words), vid_index=2, tokenizer=tokenizer)
+        WordIndex(clip.words), vid_index=2, tokenizer=tokenizer, device="cpu")
     assert got.shape == want.shape == (3 * 34 - 2 * 4, cfg.data.pose_dim)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 

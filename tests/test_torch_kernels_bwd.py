@@ -121,15 +121,15 @@ def test_k2_plain_bwd_matches_autograd(D):
 
 def test_dropout_keep_rate_and_seeds():
     B, L, H, S = 16, 34, 8, 500        # 2.2e6 draws
-    keep = drop.attention_keep(7, 0.1, B, L, H, S) > 0
+    keep = drop.attention_keep(7, 0.1, B, L, H, S, "cpu") > 0
     assert abs(keep.float().mean().item() - 0.9) < 0.009
-    assert torch.equal(keep, drop.attention_keep(7, 0.1, B, L, H, S) > 0)
-    other = drop.attention_keep(8, 0.1, B, L, H, S) > 0
+    assert torch.equal(keep, drop.attention_keep(7, 0.1, B, L, H, S, "cpu") > 0)
+    other = drop.attention_keep(8, 0.1, B, L, H, S, "cpu") > 0
     assert (other != keep).float().mean().item() > 0.1
     # a mask bit depends on the global coordinates alone: a sub-batch draws
     # the same bits for the rows it shares
-    bits = drop.attention_bits(7, B, L, H, S)
-    assert torch.equal(drop.attention_bits(7, 2, L, H, S), bits[:2])
+    bits = drop.attention_bits(7, B, L, H, S, "cpu")
+    assert torch.equal(drop.attention_bits(7, 2, L, H, S, "cpu"), bits[:2])
     assert drop.threshold(0.1) == int(0.1 * 2 ** 32)
     with pytest.raises(ValueError):
         drop.threshold(1.0)

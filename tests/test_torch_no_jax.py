@@ -1,6 +1,8 @@
 """hop_tpu_torch imports neither jax nor flax nor hop_tpu: a fresh process
-imports every module of the port and runs its long-form entry point on
-the CPU for one window at the tiny size."""
+imports every module of the port and runs, on the CPU at the tiny size, its
+long-form entry point for one window on both GRU routes, `device_batch`, one
+3-forward GAN step on the stack route and the sequence-kernel stack
+forward."""
 
 import os
 import subprocess
@@ -18,8 +20,34 @@ for name in names:
 from hop_tpu_torch.cli import test_checkpoint
 out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2"])
 assert out.shape == (34, 27), out.shape
+out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
+                            "--gru-kernel", "stack"])
+assert out.shape == (34, 27), out.shape
+
+import dataclasses, torch
+from hop_tpu_torch.cli.common import device_batch
+from hop_tpu_torch.config import tiny_test_config
+from hop_tpu_torch.data.synthetic import make_host_batch
+from hop_tpu_torch.models.hop import build_hop_model
+from hop_tpu_torch.models.multimodal_context import build_discriminator
+from hop_tpu_torch.ops.gru_seq import gru_forward_seq
+from hop_tpu_torch.train.llm import make_hop_train_steps
+cfg = tiny_test_config()
+cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, fused_step=False, gru_kernel="stack"),
+                  data=dataclasses.replace(cfg.data, audio_wire="int16"))
+model = build_hop_model(cfg, 10, seed=0, device="cpu")
+disc = build_discriminator(cfg, seed=1, device="cpu")
+_, gan, init_state = make_hop_train_steps(cfg, model, disc)
+batch = device_batch(make_host_batch(cfg, 2, seed=0), cfg, device="cpu")
+_, metrics = gan(init_state(), batch, torch.Generator().manual_seed(0))
+assert all(torch.isfinite(v) for v in metrics.values()), metrics
+y = gru_forward_seq(torch.zeros(2, 5, 8), disc.gru.state_dict(), 64, 4, True)
+assert y.shape == (2, 5, 128), y.shape
+print("PARITY STEP OK", sorted(metrics))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu"))
+for new in ("cli.common", "ops.gru_stack", "ops.gru_seq"):
+    assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
 
@@ -32,5 +60,6 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "generated 34 frames" in proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout
+    assert "PARITY STEP OK" in proc.stdout and "'dis'" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 18

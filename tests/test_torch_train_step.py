@@ -1,7 +1,8 @@
-"""The port's fused HOP train step (hop_tpu_torch.train.llm) against
+"""The port's HOP train steps (hop_tpu_torch.train.llm) against
 hop_tpu.train.llm's, one step from identical converted state, at
-tiny_test_config("TED") with B=4: the warmup step and the GAN step, each
-in its epoch-0 and its steady variant.
+tiny_test_config("TED") with B=4: the fused warmup step and GAN step, each
+in its epoch-0 and its steady variant, and the reference's 3-forward step
+(`fused_step=False`), one warmup and one GAN step.
 
 Dropout is off on both sides: flax's `Dropout.__call__` is the identity
 for the JAX steps (monkeypatched here; no file of hop_tpu changes) and
@@ -10,8 +11,9 @@ plain paths (the einsum reprogramming attention and the scan GRU, its
 default on the CPU) in f32 (conftest.py), the port its plain kernel
 versions; BERT's bf16 matmuls are off on both. JAX's random draws of a
 fused step (train/llm.py:213, :197-200, models/hop.py:116-118,
-models/common.py:27-32, train/llm.py:166-169) are reproduced here from the
-step key and handed to the port as its `StepNoise`.
+models/common.py:27-32, train/llm.py:166-169) and of a 3-forward step
+(train/llm.py:118, :40, :299, :166) are reproduced here from the step key
+and handed to the port as its `StepNoise`.
 
 JAX does not return its gradients, but Adam's first step leaves
 mu = (1 - b1) g = g / 2 in its state, exactly (b1 = 0.5); the port's
@@ -22,7 +24,12 @@ torch Adam holds the same, and `p.grad` besides. Tolerances (f32 through
     gradient stays below 1e-5 of its net's largest is round-off of an
     exactly zero gradient (a bias that a following BatchNorm, or the
     softmax over the prototypes, cancels): both sides must stay below that;
-  * BatchNorm running statistics: 1e-5;
+  * BatchNorm running statistics: 1e-5. One exception, in the 3-forward
+    GAN step only: the discriminator's third forward (the G term) runs on
+    its UPDATED parameters, and the conv biases in front of its BatchNorms
+    have an exactly zero gradient, so Adam moves them by a round-off-signed
+    step of up to lr_D on either side; the running mean takes momentum 0.1
+    of that difference, at most 0.1 * 2 * lr_D = 2e-4, on top of the 1e-5;
   * updated parameters: Adam's first step moves a parameter by
     lr * g / (|g| + 1e-8), so where |g| is resolved (above ten gradient
     tolerances and 1e-5) the two agree to lr * 1e-3; where it is not, the
@@ -62,6 +69,9 @@ ZERO_GRAD_REL = 1e-5
 STATS_TOL = 1e-5
 BATCH_KEYS = ("in_audio", "log_mel", "text_padded", "target_vec", "vid_indices")
 VARIANTS = [("warmup", 0), ("warmup", 1), ("gan", 0), ("gan", 1)]
+# the 3-forward step: with dropout off its epoch-0 and steady variants
+# compute the same, so one of each kind covers both
+PARITY_VARIANTS = [("warmup", 1), ("gan", 0)]
 
 
 def _f32(cfg):
@@ -108,9 +118,11 @@ def jax_runs():
                 bn["mean"] = r.normal(0, 0.3, bn["mean"].shape).astype(np.float32)
                 bn["var"] = r.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
 
-        warmup, gan, init_state = jax_make_steps(cfg, model, disc)
         runs = {}
-        for kind, epoch in VARIANTS:
+        for kind, epoch, fused in ([(*v, True) for v in VARIANTS]
+                                   + [(*v, False) for v in PARITY_VARIANTS]):
+            step_cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, fused_step=fused))
+            warmup, gan, init_state = jax_make_steps(step_cfg, model, disc)
             step = (warmup if kind == "warmup" else gan).for_epoch(epoch)
             gen = jax.tree_util.tree_map(jnp.asarray, {**gen_vars, "batch_stats":
                                                        init["gen"]["batch_stats"]})
@@ -121,7 +133,7 @@ def jax_runs():
             gen_mu = _numpy(state.gen_opt_state.inner_states["train"]
                             .inner_state[0].mu)
             gen_mu.pop("llm")
-            runs[(kind, epoch)] = dict(
+            runs[(kind, epoch, fused)] = dict(
                 metrics={k: float(v) for k, v in metrics.items()},
                 gen_grads={k: jax.tree_util.tree_map(lambda m: 2.0 * m, v)
                            for k, v in gen_mu.items()},
@@ -134,30 +146,61 @@ def jax_runs():
     return cfg, batch, init, runs
 
 
+def _perm(rng_perm, batch):
+    perm = np.asarray(jax.random.permutation(rng_perm, B))
+    np.testing.assert_array_equal(
+        batch["vid_indices"][perm],
+        np.asarray(jax.random.permutation(rng_perm, jnp.asarray(batch["vid_indices"]))))
+    return perm
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
 def jax_noise(cfg, batch):
     """The draws of hop_tpu's fused step for key STEP_KEY, as a StepNoise."""
     rng_fwd, _, rng_d = jax.random.split(jax.random.PRNGKey(STEP_KEY), 3)
     rng_z, _ = jax.random.split(rng_fwd)                    # llm.py:197
     rng_perm, rng_z = jax.random.split(rng_z)               # llm.py:198
-    perm = np.asarray(jax.random.permutation(rng_perm, B))  # llm.py:200
-    np.testing.assert_array_equal(
-        batch["vid_indices"][perm],
-        np.asarray(jax.random.permutation(rng_perm, jnp.asarray(batch["vid_indices"]))))
+    perm = _perm(rng_perm, batch)                           # llm.py:200
     rng_a, rng_b = jax.random.split(rng_z)                  # hop.py:116
     z = cfg.hop.z_size
     rng_nt, rng_nf, _, _ = jax.random.split(rng_d, 4)       # llm.py:166
     shape = batch["target_vec"].shape
-    t = lambda a: torch.tensor(np.asarray(a))
-    return StepNoise(eps=t(jax.random.normal(rng_a, (B, z))),
-                     eps_rand=t(jax.random.normal(rng_b, (B, z))),
-                     perm=t(perm).long(),
-                     target_noise=t(jax.random.normal(rng_nt, shape)),
-                     fake_noise=t(jax.random.normal(rng_nf, shape)),
+    return StepNoise(eps=_t(jax.random.normal(rng_a, (B, z))),
+                     eps_rand=_t(jax.random.normal(rng_b, (B, z))),
+                     perm=_t(perm).long(),
+                     target_noise=_t(jax.random.normal(rng_nt, shape)),
+                     fake_noise=_t(jax.random.normal(rng_nf, shape)),
                      reprog_seed=0, dropout_seed=0)
 
 
-def _port(cfg_j, init, loss=None):
+def jax_parity_noise(cfg, batch, kind):
+    """The draws of hop_tpu's 3-forward step for key STEP_KEY. A generator
+    forward draws its speaker noise from the first half of its key
+    (llm.py:40, common.py:27-32)."""
+    z, shape = cfg.hop.z_size, batch["target_vec"].shape
+
+    def eps_of(rng):
+        return _t(jax.random.normal(jax.random.split(rng)[0], (B, z)))
+    rng_g = jax.random.PRNGKey(STEP_KEY)
+    eps_dis, rng_nt, rng_nf = None, rng_g, rng_g      # unused by the warmup step
+    if kind == "gan":
+        rng_d_fwd, rng_d, rng_g = jax.random.split(rng_g, 3)     # llm.py:299
+        eps_dis = eps_of(rng_d_fwd)
+        rng_nt, rng_nf, _, _ = jax.random.split(rng_d, 4)        # llm.py:166
+    rng_fwd, rng_perm, rng_rand, _ = jax.random.split(rng_g, 4)  # llm.py:118
+    return StepNoise(eps=eps_of(rng_fwd), eps_rand=eps_of(rng_rand),
+                     perm=_t(_perm(rng_perm, batch)).long(),
+                     target_noise=_t(jax.random.normal(rng_nt, shape)),
+                     fake_noise=_t(jax.random.normal(rng_nf, shape)),
+                     reprog_seed=0, dropout_seed=0, eps_dis=eps_dis)
+
+
+def _port(cfg_j, init, loss=None, fused=True):
     cfg = _f32(tcfg.tiny_test_config("TED"))
+    cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, fused_step=fused))
     if loss is not None:
         cfg = cfg.replace(loss=loss)
     model = HOPModel(cfg, n_speakers=N_SPEAKERS)
@@ -170,14 +213,16 @@ def _port(cfg_j, init, loss=None):
     return cfg, model, disc
 
 
-def _port_step(cfg_j, batch, init, kind, epoch, loss=None):
-    cfg, model, disc = _port(cfg_j, init, loss)
+def _port_step(cfg_j, batch, init, kind, epoch, loss=None, fused=True):
+    cfg, model, disc = _port(cfg_j, init, loss, fused)
     warmup, gan, init_state = make_hop_train_steps(cfg, model, disc)
     state = init_state()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     step = (warmup if kind == "warmup" else gan).for_epoch(epoch)
     tb = {k: torch.tensor(v) for k, v in batch.items()}
-    state, metrics = step(state, tb, jax_noise(cfg_j, batch))
+    noise = (jax_noise(cfg_j, batch) if fused
+             else jax_parity_noise(cfg_j, batch, kind))
+    state, metrics = step(state, tb, noise)
     return cfg, model, disc, before, metrics
 
 
@@ -209,13 +254,13 @@ def _assert_grads(got, want_sd, name):
     return tols
 
 
-def _assert_params(module, want_sd, grads_sd, tols, lr):
+def _assert_params(module, want_sd, grads_sd, tols, lr, stats_tol=STATS_TOL):
     for k, v in module.state_dict().items():
         w = want_sd[k]
         if k.endswith("num_batches_tracked"):
             continue
         if k.endswith(("running_mean", "running_var")):
-            torch.testing.assert_close(v, w, rtol=0, atol=STATS_TOL, msg=k)
+            torch.testing.assert_close(v, w, rtol=0, atol=stats_tol, msg=k)
             continue
         resolved = torch.zeros_like(v, dtype=torch.bool)
         if tols.get(k) is not None:
@@ -227,9 +272,23 @@ def _assert_params(module, want_sd, grads_sd, tols, lr):
 
 @pytest.mark.parametrize("kind,epoch", VARIANTS)
 def test_step_matches_jax(jax_runs, kind, epoch):
+    _check_step(jax_runs, kind, epoch, fused=True)
+
+
+@pytest.mark.parametrize("kind,epoch", PARITY_VARIANTS)
+def test_parity_step_matches_jax(jax_runs, kind, epoch):
+    """The 3-forward step. Matching hop_tpu pins its order: the D phase's
+    own generator forward and the discriminator's update come BEFORE the G
+    phase (the "gen" metric and the generator's gradients see the fresh D),
+    and both nets' BatchNorm statistics chain through three forwards."""
+    _check_step(jax_runs, kind, epoch, fused=False)
+
+
+def _check_step(jax_runs, kind, epoch, fused):
     cfg_j, batch, init, runs = jax_runs
-    want = runs[(kind, epoch)]
-    cfg, model, disc, before, metrics = _port_step(cfg_j, batch, init, kind, epoch)
+    want = runs[(kind, epoch, fused)]
+    cfg, model, disc, before, metrics = _port_step(cfg_j, batch, init, kind, epoch,
+                                                   fused=fused)
 
     assert set(metrics) == set(want["metrics"])
     for k, v in want["metrics"].items():
@@ -254,8 +313,12 @@ def test_step_matches_jax(jax_runs, kind, epoch):
     # updated parameters and BatchNorm statistics
     lr = cfg.train.learning_rate
     _assert_params(model, state_dict_from_jax(want["gen"], cfg), want_g, g_tols, lr)
+    lr_d = lr * cfg.train.dis_lr_scale
+    stats_tol = STATS_TOL
+    if kind == "gan" and not fused:      # see the docstring: 0.1 * 2 * lr_D
+        stats_tol += 0.1 * 2 * lr_d
     _assert_params(disc, discriminator_state_dict_from_jax(want["dis"]), want_d,
-                   d_tols, lr * cfg.train.dis_lr_scale)
+                   d_tols, lr_d, stats_tol)
 
     after = model.state_dict()
     for k, v in before.items():
@@ -281,7 +344,7 @@ def test_no_generator_term_gradient_in_discriminator(jax_runs):
 
 def test_make_train_batch_fields():
     cfg = tcfg.tiny_test_config("TED")
-    batch = make_train_batch(cfg, 3, seed=1, n_speakers=N_SPEAKERS)
+    batch = make_train_batch(cfg, 3, seed=1, n_speakers=N_SPEAKERS, device="cpu")
     d = cfg.data
     want = {"in_audio": (3, d.expected_audio_length),
             "log_mel": (3, d.n_poses, d.mel_bins),
@@ -292,3 +355,31 @@ def test_make_train_batch_fields():
     assert all(torch.isfinite(v.float()).all() for v in batch.values())
     assert int(batch["text_padded"].max()) < cfg.llm.vocab_size
     assert int(batch["vid_indices"].max()) < N_SPEAKERS
+
+
+def test_parity_step_detached_forwards_keep_no_graph(jax_runs):
+    """The D-phase forward and the shuffled-speaker forward feed only
+    detached terms: of the three generator forwards of a 3-forward GAN step
+    one runs with a graph, and the discriminator sees the D-phase sample
+    without one."""
+    cfg_j, batch, init, _ = jax_runs
+    cfg, model, disc = _port(cfg_j, init, fused=False)
+    grad_modes, fake_inputs = [], []
+    model.register_forward_pre_hook(
+        lambda m, args: grad_modes.append(torch.is_grad_enabled()))
+    disc.register_forward_pre_hook(
+        lambda m, args: fake_inputs.append(args[0].requires_grad))
+    _, gan, init_state = make_hop_train_steps(cfg, model, disc)
+    tb = {k: torch.tensor(v) for k, v in batch.items()}
+    gan(init_state(), tb, jax_parity_noise(cfg_j, batch, "gan"))
+    assert grad_modes == [False, True, False]       # D phase, G, shuffled
+    assert fake_inputs == [False, False, True]      # real, fake, G term
+
+
+def test_parity_gan_step_needs_its_draw(jax_runs):
+    cfg_j, batch, init, _ = jax_runs
+    cfg, model, disc = _port(cfg_j, init, fused=False)
+    _, gan, init_state = make_hop_train_steps(cfg, model, disc)
+    tb = {k: torch.tensor(v) for k, v in batch.items()}
+    with pytest.raises(ValueError, match="eps_dis"):
+        gan(init_state(), tb, jax_noise(cfg_j, batch))
