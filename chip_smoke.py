@@ -51,8 +51,19 @@ imports nothing of JAX. Phases, each ending in one line of output:
              bidirectional torch.nn.GRU layer on cuDNN beside both routes'
              layer, forward and forward + backward, at the head's and the
              discriminator's shapes; F.scaled_dot_product_attention on K1's
-             shape at rate 0
- 18. the kernels' JSON line, then the device JSON as the last line
+             shape at rate 0, and on K4's and K5's, forward and backward
+ 18. K4, K5  the backbone's self-attention kernels vs their plain versions,
+             forward (rate 0 and 0.1, the same mask) and backward (rate 0.1),
+             at (B=256, T=34, H=12, D=64), B=1 and B=250 (a ragged last
+             group); K5 against K4; K5 in groups of 1, 2 and 4; bitwise repeat
+ 19. serve, kernel attention   phase 14's model with the backbone's attention
+             switched to "fused" (K4) and "block" (K5): the bs-256 forward
+             against the plain route's, launches, ms per forward of all three
+             routes; one 20 s clip at bs 1 on each
+ 20. train, kernel attention   the fused GAN step on the stack route at full
+             TED width, bs 256, with "fused" and with "block": phase 9's checks
+             and measurements; then phase 10 on the block route
+ 21. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -118,6 +129,21 @@ ROUTE_TOL = 5e-4
 # rounding of values of O(1)) against the kernel's f32 output
 SDPA_TOL = 2e-2
 
+# K4's results leave the kernel in bf16: one rounding (2^-8 relative) of
+# outputs up to ~4, of values the plain version holds in f32; its gradients
+# likewise, relative to each gradient's largest element.
+K4_TOL = 2e-2
+K4_BWD_REL_TOL = 1e-2
+# K5's results are f32; both sides read the same bf16-rounded operands, and
+# the probabilities and dS enter K5's tensor-core products as hi + lo bf16
+# pairs (2^-17 relative): what is left is f32 summation order.
+K5_TOL = 1e-4
+# The backbone on a kernel route against its plain route, same weights: the
+# plain route softmaxes in bf16 and rounds the probabilities to bf16
+# (compute_bf16), the kernels softmax in f32: a difference of SERVE_TOL's
+# kind (bf16 round-off through six layers), not of ROUTE_TOL's.
+ATTN_ROUTE_TOL = 2e-2
+
 # seeds the kernels' inputs, the models' weights and the batches
 SEED = 2021
 
@@ -138,6 +164,12 @@ K3_LEAN_REPLACES = "hop_tpu/ops/pallas_gru_stack.py:73"
 K3_BWD_REPLACES = "hop_tpu/ops/pallas_gru_stack.py:168"
 K6_SOURCE = "hop_tpu_torch/csrc/gru_seq.cu"
 K6_REPLACES = "hop_tpu/ops/pallas_gru.py:36"
+K4_SOURCE = "hop_tpu_torch/csrc/attention.cu"
+K4_REPLACES = "hop_tpu/ops/pallas_attention.py:126"
+K4_BWD_REPLACES = "hop_tpu/ops/pallas_attention.py:137"
+K5_SOURCE = "hop_tpu_torch/csrc/block_attention.cu"
+K5_REPLACES = "hop_tpu/ops/pallas_block_attention.py:127"
+K5_BWD_REPLACES = "hop_tpu/ops/pallas_block_attention.py:150"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -290,23 +322,36 @@ def serving_batch(cfg, B, seed, dev):
 
 
 def ted_route_config(gru_kernel: str = "fused", fused_step: bool = True,
-                     audio_wire: str = "f32"):
-    """The TED config at its published widths on one GRU route."""
+                     audio_wire: str = "f32", attention: str = "plain"):
+    """The TED config at its published widths on one GRU route and one
+    attention route of the backbone."""
     import dataclasses
     from hop_tpu_torch.config import ted_config
     cfg = ted_config()
     return cfg.replace(
         hop=dataclasses.replace(cfg.hop, gru_kernel=gru_kernel, fused_step=fused_step),
-        data=dataclasses.replace(cfg.data, audio_wire=audio_wire))
+        data=dataclasses.replace(cfg.data, audio_wire=audio_wire),
+        llm=dataclasses.replace(cfg.llm, attention=attention))
+
+
+def attention_launches(cfg, forwards: int, backwards: int = 0) -> dict:
+    """Launches of the backbone's attention kernel: one per layer and trunk,
+    of K4 on the "fused" route, K5 on the "block" route, none on "plain"."""
+    kernel = {"plain": None, "fused": "K4", "block": "K5"}[cfg.llm.attention]
+    if kernel is None:
+        return {}
+    return {kernel: cfg.llm.n_layers * forwards,
+            kernel + "_bwd": cfg.llm.n_layers * backwards}
 
 
 def forward_launches(cfg, n: int = 1) -> dict:
-    """Kernel launches of n no-grad generator forwards: K1 once, and per GRU
-    layer K2 on the fused route or K3's lean forward on the stack route."""
+    """Kernel launches of n no-grad generator forwards: K1 once, per GRU
+    layer K2 on the fused route or K3's lean forward on the stack route, and
+    per backbone layer K4 or K5 on a kernel attention route."""
     layers = cfg.hop.gru_layers * n
     stack = cfg.hop.gru_kernel == "stack"
     return {**ZERO_COUNTS, "K1": n, "K2": 0 if stack else layers,
-            "K3_lean": layers if stack else 0}
+            "K3_lean": layers if stack else 0, **attention_launches(cfg, n)}
 
 
 def phase_serve(dev, seed, gru_kernel="fused", reference=None):
@@ -361,10 +406,10 @@ def phase_serve(dev, seed, gru_kernel="fused", reference=None):
     return model, launches, out
 
 
-def phase_clips(model, dev, gru_kernel="fused"):
+def phase_clips(model, dev, gru_kernel="fused", attention="plain", clip_seeds=(1, 2, 3)):
     import math
     from hop_tpu_torch.cli import test_checkpoint
-    cfg = ted_route_config(gru_kernel)
+    cfg = ted_route_config(gru_kernel, attention=attention)
     d = cfg.data
     seconds = 20.0
     unit, stride = d.n_poses / d.pose_resampling_fps, (
@@ -372,19 +417,22 @@ def phase_clips(model, dev, gru_kernel="fused"):
     windows = math.ceil((seconds - unit) / stride) + 1
     frames = windows * d.n_poses - (windows - 1) * d.n_pre_poses
     times = []
-    for clip_seed in (1, 2, 3):
+    for clip_seed in clip_seeds:
         _reset_counts()
         t0 = time.perf_counter()
         out = test_checkpoint.main(["--device", str(dev), "--seed", str(clip_seed),
                                     "--clip-seconds", str(seconds),
-                                    "--gru-kernel", gru_kernel], model=model)
+                                    "--gru-kernel", gru_kernel,
+                                    "--bert-attention", attention], model=model)
         times.append(time.perf_counter() - t0)
         check(out.shape == (frames, d.pose_dim), f"clip {clip_seed}: {out.shape}")
         check(_launch_counts() == forward_launches(cfg, windows),
               f"clip {clip_seed}: launches {_launch_counts()}")
-    print(f"clips [{gru_kernel} route]: 3 x {seconds:.0f} s synthetic clips at bs 1 "
-          f"-> {frames} frames each ({windows} windows); seconds per clip "
-          f"{', '.join(f'{t:.3f}' for t in times)}")
+    print(f"clips [{gru_kernel} route, {attention} attention]: {len(times)} x "
+          f"{seconds:.0f} s synthetic clips at bs 1 -> {frames} frames each "
+          f"({windows} windows, launches {_nonzero(_launch_counts())}); seconds per "
+          f"clip {', '.join(f'{t:.3f}' for t in times)}")
+    return _launch_counts()
 
 
 def rel_err(got, want) -> tuple:
@@ -502,10 +550,13 @@ def phase_k2_bwd(dev, seed):
 
 
 ZERO_COUNTS = {"K1": 0, "K1_bwd": 0, "K2": 0, "K2_bwd": 0, "K3": 0,
-               "K3_lean": 0, "K3_bwd": 0, "K6": 0}
+               "K3_lean": 0, "K3_bwd": 0, "K6": 0, "K4": 0, "K4_bwd": 0,
+               "K5": 0, "K5_bwd": 0}
 
 
 def _launch_counts():
+    from hop_tpu_torch.ops import attention as K4
+    from hop_tpu_torch.ops import block_attention as K5
     from hop_tpu_torch.ops import gru_fused as K2
     from hop_tpu_torch.ops import gru_seq as K6
     from hop_tpu_torch.ops import gru_stack as K3
@@ -513,16 +564,20 @@ def _launch_counts():
     return {"K1": K1.launches, "K1_bwd": K1.bwd_launches, "K2": K2.launches,
             "K2_bwd": K2.bwd_launches, "K3": K3.launches,
             "K3_lean": K3.lean_launches, "K3_bwd": K3.bwd_launches,
-            "K6": K6.launches}
+            "K6": K6.launches, "K4": K4.launches, "K4_bwd": K4.bwd_launches,
+            "K5": K5.launches, "K5_bwd": K5.bwd_launches}
 
 
 def _reset_counts():
+    from hop_tpu_torch.ops import attention as K4
+    from hop_tpu_torch.ops import block_attention as K5
     from hop_tpu_torch.ops import gru_fused as K2
     from hop_tpu_torch.ops import gru_seq as K6
     from hop_tpu_torch.ops import gru_stack as K3
     from hop_tpu_torch.ops import reprogramming_attention as K1
     K1.launches = K1.bwd_launches = K2.launches = K2.bwd_launches = 0
     K3.launches = K3.lean_launches = K3.bwd_launches = K6.launches = 0
+    K4.launches = K4.bwd_launches = K5.launches = K5.bwd_launches = 0
 
 
 def _nonzero(counts: dict) -> dict:
@@ -566,13 +621,16 @@ def step_launches(cfg, disc_layers: int, use_gan: bool) -> dict:
     graph: 3 * disc_layers forwards with residuals and as many backwards
     (the G term's backward carries the gradient to the generator). On the
     fused route both kinds of forward are K2 launches; on the stack route
-    they are K3 and K3 lean."""
+    they are K3 and K3 lean. On a kernel attention route every trunk (as
+    many as K1 forwards) runs K4 or K5 once per backbone layer, and the one
+    trunk with a graph its backward once per layer."""
     head = cfg.hop.gru_layers
     no_graph = 1 if cfg.hop.fused_step else (2 if use_gan else 1)
     with_res = head + (3 * disc_layers if use_gan else 0)
     lean = head * no_graph
-    want = {**ZERO_COUNTS, "K1": 1 if cfg.hop.fused_step else 1 + no_graph,
-            "K1_bwd": 1}
+    trunks = 1 if cfg.hop.fused_step else 1 + no_graph
+    want = {**ZERO_COUNTS, "K1": trunks, "K1_bwd": 1,
+            **attention_launches(cfg, trunks, 1)}
     if cfg.hop.gru_kernel == "stack":
         want.update(K3=with_res, K3_lean=lean, K3_bwd=with_res)
     else:
@@ -580,11 +638,11 @@ def step_launches(cfg, disc_layers: int, use_gan: bool) -> dict:
     return want
 
 
-def phase_train(dev, seed, gru_kernel="fused", fused_step=True):
-    """The GAN step at full TED width, bs 256, on one GRU route: the fused
-    step on a batch made on the card, or the 3-forward step on host batches
-    (numpy) brought over the int16 wire by `device_batch`, two warmup steps
-    first."""
+def phase_train(dev, seed, gru_kernel="fused", fused_step=True, attention="plain"):
+    """The GAN step at full TED width, bs 256, on one GRU route and one
+    attention route: the fused step on a batch made on the card, or the
+    3-forward step on host batches (numpy) brought over the int16 wire by
+    `device_batch`, two warmup steps first."""
     import torch
     from hop_tpu_torch.cli.common import MODEL_BATCH_KEYS, device_batch
     from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
@@ -593,8 +651,9 @@ def phase_train(dev, seed, gru_kernel="fused", fused_step=True):
     from hop_tpu_torch.models.multimodal_context import build_discriminator
     from hop_tpu_torch.train.llm import make_hop_train_steps
     cfg = ted_route_config(gru_kernel, fused_step,
-                           "f32" if fused_step else "int16")
-    name = f"{'fused' if fused_step else '3-forward'} GAN step, {gru_kernel} route"
+                           "f32" if fused_step else "int16", attention)
+    name = (f"{'fused' if fused_step else '3-forward'} GAN step, {gru_kernel} route, "
+            f"{attention} attention")
     B = cfg.train.batch_size
     t0 = time.perf_counter()
     model_cpu = build_hop_model(cfg, N_SPEAKERS, seed, device="cpu")
@@ -704,13 +763,14 @@ def phase_train(dev, seed, gru_kernel="fused", fused_step=True):
 
 
 def phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, seed, gru_kernel="fused",
-                        fused_step=True):
+                        fused_step=True, attention="plain"):
     import torch
     from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
     from hop_tpu_torch.data.synthetic import make_train_batch
     from hop_tpu_torch.train.llm import StepNoise, make_hop_train_steps
-    cfg = ted_route_config(gru_kernel, fused_step)
-    name = f"{'fused' if fused_step else '3-forward'} step, {gru_kernel} route"
+    cfg = ted_route_config(gru_kernel, fused_step, attention=attention)
+    name = (f"{'fused' if fused_step else '3-forward'} step, {gru_kernel} route, "
+            f"{attention} attention")
     B = 8
     batch = make_train_batch(cfg, B, seed + 2, N_SPEAKERS, device="cpu")
     noise = StepNoise.draw(torch.Generator().manual_seed(seed + 2), cfg, B)
@@ -718,8 +778,9 @@ def phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, seed, gru_kernel="fused",
     for device in (dev, torch.device("cpu")):
         model = copy.deepcopy(model_cpu).to(device)
         disc = copy.deepcopy(disc_cpu).to(device)
-        check(model.gru.kernel == gru_kernel and disc.gru.kernel == gru_kernel,
-              "the nets were built for another GRU route")
+        check(model.gru.kernel == gru_kernel and disc.gru.kernel == gru_kernel
+              and all(l.route == attention for l in model.llm_model.encoder.layer),
+              "the nets were built for another route")
         warmup, _, init_state = make_hop_train_steps(cfg, model, disc)
         _, metrics = warmup.for_epoch(0)(
             init_state(), {k: v.to(device) for k, v in batch.items()}, noise)
@@ -926,6 +987,154 @@ def phase_k6(gru, dev, seed):
     return res[256], launches
 
 
+ATTN_SHAPE = (256, 34, 12, 64)      # (B, T, H, D) of the backbone at bs 256
+
+
+def _attention_inputs(dev, seed, B):
+    """q, k, v, dout (B, T, H, D) bf16, as the backbone's bf16 projections
+    hand them over."""
+    import torch
+    _, T, H, D = ATTN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed + B)
+    return [torch.randn(B, T, H, D, device=dev, generator=g).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def phase_bert_attention(dev, seed):
+    """K4 and K5, forward and backward, against their plain versions."""
+    import torch
+    from hop_tpu_torch.ops import attention as K4
+    from hop_tpu_torch.ops import block_attention as K5
+    _, T, H, D = ATTN_SHAPE
+    scale, drop_seed = D ** -0.5, 4321
+    mods = {"K4": (K4, K4.fused_attention_fwd, K4.fused_attention_bwd,
+                   K4.plain_fused_attention, K4.plain_fused_attention_bwd,
+                   K4_TOL, K4_BWD_REL_TOL),
+            "K5": (K5, K5.block_attention_fwd, K5.block_attention_bwd,
+                   K5.plain_block_attention, K5.plain_block_attention_bwd,
+                   K5_TOL, BWD_REL_TOL)}
+    res = {name: {"fwd_err": 0.0, "bwd_err": 0.0, "bwd_rel": 0.0} for name in mods}
+    cross = 0.0
+    for B in (ATTN_SHAPE[0], 1, 250):
+        q, k, v, do = _attention_inputs(dev, seed, B)
+        # the plain versions get the same bf16-rounded values, in f32
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        outs = {}
+        for name, (_, fwd, bwd, plain, plain_bwd, tol, bwd_tol) in mods.items():
+            r = res[name]
+            for rate in (0.0, 0.1):
+                args = (scale, rate, drop_seed)
+                got, again = fwd(q, k, v, *args), fwd(q, k, v, *args)
+                want = plain(qf, kf, vf, *args)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), f"{name} B={B}: not finite")
+                check(torch.equal(got, again), f"{name} B={B} rate {rate}: forward "
+                                               f"differs between two calls")
+                err = (got.float() - want).abs().max().item()
+                check(err <= tol, f"{name} forward at B={B}, rate {rate}: {err} > {tol}")
+                r["fwd_err"] = max(r["fwd_err"], err)
+                outs[(name, rate)] = got.float()
+            args = (scale, 0.1, drop_seed)
+            grads, again = bwd(q, k, v, do, *args), bwd(q, k, v, do, *args)
+            want = plain_bwd(qf, kf, vf, dof, *args)
+            torch.cuda.synchronize()
+            for gname, a, b, c in zip(("dq", "dk", "dv"), grads, again, want):
+                check(torch.equal(a, b), f"{name} bwd at B={B}: {gname} differs "
+                                         f"between two calls")
+                e_abs, e_rel = rel_err(a.float(), c)
+                check(e_rel <= bwd_tol, f"{name} bwd at B={B} {gname}: {e_rel} > "
+                                        f"{bwd_tol} relative")
+                r["bwd_err"], r["bwd_rel"] = max(r["bwd_err"], e_abs), max(r["bwd_rel"], e_rel)
+        for rate in (0.0, 0.1):     # one function, one mask
+            gap = (outs[("K5", rate)] - outs[("K4", rate)]).abs().max().item()
+            check(gap <= K4_TOL, f"K5 vs K4 at B={B}, rate {rate}: {gap} > {K4_TOL}")
+            cross = max(cross, gap)
+    # K5 in other groupings: the same result and the same mask
+    q, k, v, do = _attention_inputs(dev, seed, ATTN_SHAPE[0])
+    args = (scale, 0.1, drop_seed)
+    want = K5.block_attention_fwd(q, k, v, *args)
+    want_g = K5.block_attention_bwd(q, k, v, do, *args)
+    grouping = 0.0
+    for nb in (1, 2, 4):
+        grouping = max(grouping, (K5.block_attention_fwd(q, k, v, *args, nb=nb)
+                                  - want).abs().max().item())
+        for a, c in zip(K5.block_attention_bwd(q, k, v, do, *args, nb=nb), want_g):
+            check(rel_err(a, c)[1] <= BWD_REL_TOL, f"K5 bwd in groups of {nb}")
+    check(grouping <= K5_TOL, f"K5 in groups of 1, 2, 4 vs 8: {grouping} > {K5_TOL}")
+
+    B = ATTN_SHAPE[0]
+    flops = 2 * 2.0 * B * H * T * T * D                   # q k^T and p v
+    for name, (_, fwd, bwd, plain, plain_bwd, _, _) in mods.items():
+        r = res[name]
+        r["ms"] = cuda_ms(lambda: fwd(q, k, v, scale))
+        r["drop_ms"] = cuda_ms(lambda: fwd(q, k, v, *args))
+        r["plain_ms"] = cuda_ms(lambda: plain(q, k, v, scale), reps=10)
+        r["bwd_ms"] = cuda_ms(lambda: bwd(q, k, v, do, *args))
+        r["bwd_plain_ms"] = cuda_ms(lambda: plain_bwd(q, k, v, do, *args), reps=10)
+        r["bound"] = bound((q, k, v), fwd(q, k, v, scale), flops, BF16_FLOPS)
+        # five products: s, dp, dq, dk, dv
+        r["bwd_bound"] = bound((q, k, v, do), bwd(q, k, v, do, *args), 2.5 * flops,
+                               BF16_FLOPS)
+        print(f"{name} {fwd.__name__} / {bwd.__name__} (B={B}, T={T}, H={H}, D={D}; also "
+              f"B=1 and B=250): forward max_abs_err {r['fwd_err']:.3e} (tol "
+              f"{mods[name][5]:g}; rate 0 and 0.1, the plain version's mask), "
+              f"backward worst rel {r['bwd_rel']:.2e} (tol {mods[name][6]:g}), "
+              f"max_abs_err {r['bwd_err']:.3e}; bitwise repeat; forward kernel "
+              f"{r['ms']:.3f} ms (rate 0.1: {r['drop_ms']:.3f}) vs plain "
+              f"{r['plain_ms']:.3f} ms (bound {r['bound']['bound_ms']:.3f} ms by "
+              f"{r['bound']['bound_by']}); backward kernel {r['bwd_ms']:.3f} ms vs plain "
+              f"{r['bwd_plain_ms']:.3f} ms (bound {r['bwd_bound']['bound_ms']:.3f} ms by "
+              f"{r['bwd_bound']['bound_by']})")
+    print(f"K5 vs K4 on the same inputs and seed: max_abs_diff {cross:.3e} (tol "
+          f"{K4_TOL:g}: K4's bf16 output); K5 in groups of 1, 2, 4 vs 8 samples: "
+          f"max_abs_diff {grouping:.3e} (tol {K5_TOL:g})")
+    return res
+
+
+def phase_serve_attention(model, dev, seed):
+    """`model`: the full-width stack-route model on the card. Its backbone's
+    attention is switched to each kernel route and back on the same weights."""
+    import torch
+    B = 256
+    batch = serving_batch(ted_route_config("stack"), B, seed, dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(batch["in_audio"], batch["x_enc"], batch["text"],
+                         batch["pre_seq"], batch["vid_indices"], eps=batch["eps"])[0]
+    plain = forward()
+    paths, ms, gaps = {}, {}, {}
+    for route in ("fused", "block"):
+        cfg = ted_route_config("stack", attention=route)
+        model.llm_model.set_attention(route)
+        _reset_counts()
+        out = forward()
+        torch.cuda.synchronize()
+        paths[route] = _launch_counts()
+        check(paths[route] == forward_launches(cfg),
+              f"kernel launches in one forward, {route} attention: {paths[route]}, "
+              f"want {forward_launches(cfg)}")
+        check(bool(torch.isfinite(out).all()), f"{route} attention: non-finite forward")
+        gaps[route] = (out - plain).abs().max().item()
+        check(gaps[route] <= ATTN_ROUTE_TOL, f"{route} attention vs the plain route: "
+                                             f"{gaps[route]} > {ATTN_ROUTE_TOL}")
+    # plain, fused, block, block, fused, plain: each route's two medians
+    for route in ("plain", "fused", "block", "block", "fused", "plain"):
+        model.llm_model.set_attention(route)
+        ms.setdefault(route, []).append(cuda_ms(forward, reps=10, warmup=2))
+    print(f"serve [stack route, kernel attention]: forward bs {B} vs the plain "
+          f"attention route on the same weights: "
+          + "; ".join(f"{r} max_abs_diff {gaps[r]:.3e}, launches {_nonzero(paths[r])}"
+                      for r in gaps)
+          + f" (tol {ATTN_ROUTE_TOL:g}); ms per forward, two medians of 10 each: "
+          + "; ".join(f"{r} {a:.2f}, {b:.2f}" for r, (a, b) in ms.items()))
+    for route in ("fused", "block"):
+        model.llm_model.set_attention(route)
+        paths["clip_" + route] = phase_clips(model, dev, "stack", route, clip_seeds=(1,))
+    model.llm_model.set_attention("plain")
+    return paths
+
+
 def phase_library(dev, seed):
     """Yardsticks: PyTorch calls that compute a kernel's function. They are
     timed here and used nowhere in the port."""
@@ -951,6 +1160,34 @@ def phase_library(dev, seed):
     lib["K1"] = cuda_ms(sdpa)
     print(f"library: F.scaled_dot_product_attention (bf16, rate 0) at K1's shape "
           f"{lib['K1']:.3f} ms, max_abs_diff to K1 {gap:.3e} (tol {SDPA_TOL:g})")
+
+    # K4 / K5: per-(sample, head) attention is SDPA on (B, H, T, D) views
+    from hop_tpu_torch.ops import block_attention as K5
+    aq, ak, av, ado = _attention_inputs(dev, seed, ATTN_SHAPE[0])
+    scale = ATTN_SHAPE[3] ** -0.5
+
+    def bert_sdpa(q=aq, k=ak, v=av):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale).transpose(1, 2)
+    gap = (bert_sdpa().float() - K5.block_attention_fwd(aq, ak, av, scale)).abs().max().item()
+    check(gap <= SDPA_TOL, f"SDPA does not compute K4's and K5's function: {gap} > "
+                           f"{SDPA_TOL}")
+
+    def sdpa_graph():
+        leaves = [t.clone().requires_grad_() for t in (aq, ak, av)]
+        return leaves, bert_sdpa(*leaves)
+
+    def sdpa_bwd(made):
+        leaves, out = made
+        torch.autograd.grad(out, leaves, ado)
+    lib["attn_fwd"] = cuda_ms(bert_sdpa)
+    lib["attn_bwd"] = cuda_ms(sdpa_bwd, setup=sdpa_graph)
+    both = cuda_ms(lambda: sdpa_bwd(sdpa_graph()))
+    print(f"library: F.scaled_dot_product_attention (bf16, rate 0) at K4's and K5's "
+          f"shape {ATTN_SHAPE}: forward {lib['attn_fwd']:.3f} ms, backward alone "
+          f"{lib['attn_bwd']:.3f} ms, forward + backward with its leaves' copies "
+          f"{both:.3f} ms; max_abs_diff to K5 {gap:.3e} (tol {SDPA_TOL:g})")
 
     # one bidirectional GRU layer: cuDNN's, and the port's on both routes
     for T, Bt, I, Hh in ((34, 256, 992, 350), (34, 256, 700, 350),
@@ -1036,15 +1273,29 @@ def main():
     del model
     model, paths["serve_stack"], _ = phase_serve(dev, SEED, "stack", out_fused)
     phase_clips(model, dev, "stack")
-    del model, out_fused
+    del out_fused
+    attn_paths = phase_serve_attention(model, dev, SEED)
+    paths["serve_stack_fused_attn"] = attn_paths["fused"]
+    paths["serve_stack_block_attn"] = attn_paths["block"]
+    paths["clip_stack_fused_attn"] = attn_paths["clip_fused"]
+    paths["clip_stack_block_attn"] = attn_paths["clip_block"]
+    del model
     model_cpu, disc_cpu, paths["parity_step_stack"] = phase_train(
         dev, SEED, gru_kernel="stack", fused_step=False)
     phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED, "stack", fused_step=False)
     del model_cpu, disc_cpu
+    attn = phase_bert_attention(dev, SEED)
+    _, _, paths["fused_step_stack_fused_attn"] = phase_train(
+        dev, SEED, gru_kernel="stack", attention="fused")
+    model_cpu, disc_cpu, paths["fused_step_stack_block_attn"] = phase_train(
+        dev, SEED, gru_kernel="stack", attention="block")
+    phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED, "stack", attention="block")
+    del model_cpu, disc_cpu
     lib = phase_library(dev, SEED)
 
-    # launches: over one run of each path (a bs-256 forward on either route,
-    # the head through the sequence kernel, one GAN step of each kind);
+    # launches: over one run of each path (a bs-256 forward on either GRU route
+    # and on each attention route, a clip at bs 1 on each kernel attention
+    # route, the head through the sequence kernel, one GAN step of each kind);
     # errors: every comparison of that kernel with its plain version in this
     # run; times and bounds at the head's first layer or K1's shape
     def entry(name, source, replaces, count, err, timed, library_ms):
@@ -1081,6 +1332,18 @@ def main():
         entry("gru_seq_fwd", K6_SOURCE, K6_REPLACES, "K6", k6["max_abs_err"], k6,
               None),
     ]
+    # the backbone's self-attention: SDPA computes the forward at rate 0; its
+    # backward alone stands beside the kernels' backward (at rate 0.1)
+    for name, count, source, replaces in (
+            ("bert_attention", "K4", K4_SOURCE, (K4_REPLACES, K4_BWD_REPLACES)),
+            ("bert_block_attention", "K5", K5_SOURCE, (K5_REPLACES, K5_BWD_REPLACES))):
+        r = attn[count]
+        kernels.append(entry(name + "_fwd", source, replaces[0], count, r["fwd_err"],
+                             {**r, **r["bound"]}, lib["attn_fwd"]))
+        kernels.append(entry(
+            name + "_bwd", source, replaces[1], count + "_bwd", r["bwd_err"],
+            {"ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"], **r["bwd_bound"]},
+            lib["attn_bwd"]))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

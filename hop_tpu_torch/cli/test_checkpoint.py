@@ -8,6 +8,7 @@ slice (ROADMAP M10).
 
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --gru-kernel stack
+  python -m hop_tpu_torch.cli.test_checkpoint --device cuda --bert-attention block
   python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --clip-seconds 3
 """
 
@@ -36,7 +37,9 @@ def config_from_args(args):
         cfg = tiny_test_config(args.dataset)
     else:
         cfg = ted_config() if args.dataset == "TED" else expressive_config()
-    return cfg.replace(hop=dataclasses.replace(cfg.hop, gru_kernel=args.gru_kernel))
+    return cfg.replace(
+        hop=dataclasses.replace(cfg.hop, gru_kernel=args.gru_kernel),
+        llm=dataclasses.replace(cfg.llm, attention=args.bert_attention))
 
 
 def parse_args(argv=None):
@@ -50,6 +53,11 @@ def parse_args(argv=None):
     p.add_argument("--gru-kernel", default="fused", choices=("fused", "stack"),
                    help="GRU route of the head: the fused kernel (K2), or one "
                         "projection product per layer + the time-grid kernel (K3)")
+    p.add_argument("--bert-attention", default="plain",
+                   choices=("plain", "fused", "block"),
+                   help="self-attention route of the backbone: matmul + softmax, "
+                        "the per-(sample, head) kernel (K4), or the stacked "
+                        "block-diagonal kernel (K5)")
     p.add_argument("--clip-seconds", type=float, default=20.0)
     p.add_argument("--vid", type=int, default=None,
                    help="speaker id; default drawn from --seed")

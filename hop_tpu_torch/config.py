@@ -5,9 +5,9 @@ A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
 HOPConfig, LossConfig, TrainConfig and presets (`hop_tpu.config` imports
 `hop_tpu.geometry`, which imports jax), holding the fields the port
 reads. Each has the JAX field's name and value; tests/test_torch_config.py
-holds them field by field against the JAX presets. `HOPConfig.gru_kernel`
-and `gru_bf16_streams` are the port's own: the JAX package reads those
-choices from environment variables. The port builds the default HOP architecture only (BERT
+holds them field by field against the JAX presets. `HOPConfig.gru_kernel`,
+`gru_bf16_streams` and `LLMConfig.attention` are the port's own: the JAX
+package reads those choices from environment variables. The port builds the default HOP architecture only (BERT
 backbone + reprogramming + gwnet): `hop_tpu`'s switches for the other
 variants have no counterpart yet. The skeleton tables stay in
 `hop_tpu.geometry`: the forward needs only the dir-vec width and the
@@ -66,6 +66,11 @@ class LLMConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     compute_bf16: bool = True   # bf16 matmuls in the frozen backbone
+    # self-attention route of the backbone (models.bert.BertLayer): "plain"
+    # (matmul + softmax outside any kernel), "fused" (kernel K4) or "block"
+    # (kernel K5); the port's counterpart of HOP_TPU_PALLAS_ATTN /
+    # HOP_TPU_PALLAS_BLOCK_ATTN
+    attention: str = "plain"
 
 
 @dataclass(frozen=True)

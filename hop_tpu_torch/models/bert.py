@@ -8,15 +8,26 @@ reads (`embeddings.*`, `encoder.layer.{i}.*`).
 
 Under `LLMConfig.compute_bf16` every matmul runs with bf16 operands and a
 bf16 result, as the JAX Dense(dtype=bfloat16) layers do; LayerNorm and the
-residual sums stay f32. Attention is a plain matmul + softmax, the JAX
-default path (its opt-in Pallas kernels K4/K5 are not on the main path).
+residual sums stay f32.
+
+Self-attention has three routes, chosen by `LLMConfig.attention` (the JAX
+module's branch at hop_tpu/models/bert.py:104-138, which it takes by the
+environment variables HOP_TPU_PALLAS_ATTN / HOP_TPU_PALLAS_BLOCK_ATTN):
+"plain", the default as in the JAX package, is a matmul + softmax outside
+any kernel; "fused" is kernel K4 (ops/attention.py), one (sample, head) a
+block; "block" is kernel K5 (ops/block_attention.py), samples stacked under
+a block-diagonal mask. On the kernel routes q, k, v stay (B, T, H, D) as the
+projections emit them, and the softmax is f32 whatever the compute dtype.
 
 Dropout at `dropout_rate` (0.1, as HF's and the JAX module's) sits where
 the JAX module has it (hop_tpu/models/bert.py:136,166,183,193,218-233):
 after the embeddings' LayerNorm, on the attention probabilities, on the
 attention output and on the FFN output. It is on only when the caller
 passes `deterministic=False`, with the masks drawn from `generator`; the
-HOP model gates that by `llm_train`, apart from its own train mode.
+HOP model gates that by `llm_train`, apart from its own train mode. On the
+kernel routes the probabilities' mask is drawn inside the kernel instead,
+from `attn_seed` folded with the layer's index, and `generator` serves the
+other three sites.
 """
 
 from __future__ import annotations
@@ -28,7 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from hop_tpu_torch.config import LLMConfig
-from hop_tpu_torch.ops.dropout import dropout
+from hop_tpu_torch.ops.attention import fused_attention
+from hop_tpu_torch.ops.block_attention import block_attention
+from hop_tpu_torch.ops.dropout import dropout, fold_seed
+
+ATTENTION_ROUTES = ("plain", "fused", "block")
 
 
 def _compute_dtype(cfg: LLMConfig) -> torch.dtype:
@@ -88,24 +103,36 @@ class BertIntermediate(nn.Module):
 class BertLayer(nn.Module):
     def __init__(self, cfg: LLMConfig):
         super().__init__()
+        if cfg.attention not in ATTENTION_ROUTES:
+            raise ValueError(f"LLMConfig.attention must be one of "
+                             f"{ATTENTION_ROUTES}, got {cfg.attention!r}")
         self.cfg = cfg
+        self.route = cfg.attention     # a plain attribute: a caller may switch it
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg.intermediate_dim, cfg)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attn_seed: int = 0) -> torch.Tensor:
+        """`attn_seed` seeds the probabilities' dropout on the kernel routes."""
         cfg = self.cfg
         dt = _compute_dtype(cfg)
         B, T, _ = x.shape
         H = cfg.n_heads
         D = cfg.dim // H
         sa = self.attention.self
-        q, k, v = (_linear(x, lin, dt).reshape(B, T, H, D).transpose(1, 2)
+        q, k, v = (_linear(x, lin, dt).reshape(B, T, H, D)
                    for lin in (sa.query, sa.key, sa.value))
-        scores = (q @ k.transpose(-1, -2)) / (D ** 0.5)      # (B, H, T, T)
-        probs = dropout(torch.softmax(scores, dim=-1), rate, generator).to(dt)
-        ctx = (probs @ v).transpose(1, 2).reshape(B, T, cfg.dim)
+        if self.route == "plain":
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            scores = (q @ k.transpose(-1, -2)) / (D ** 0.5)      # (B, H, T, T)
+            probs = dropout(torch.softmax(scores, dim=-1), rate, generator).to(dt)
+            ctx = (probs @ v).transpose(1, 2)
+        else:
+            kernel = fused_attention if self.route == "fused" else block_attention
+            ctx = kernel(q, k, v, 1.0 / D ** 0.5, rate, attn_seed)
+        ctx = ctx.reshape(B, T, cfg.dim)
         attn = _linear(ctx, self.attention.output.dense, dt).float()
         x = self.attention.output.LayerNorm(x + dropout(attn, rate, generator))
         h = F.gelu(_linear(x, self.intermediate.dense, dt), approximate="none")
@@ -137,12 +164,23 @@ class BertEncoder(nn.Module):
         return self.embeddings.word_embeddings(token_ids)
 
     def forward(self, inputs_embeds: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attn_seed: int = 0) -> torch.Tensor:
+        """`attn_seed`: the kernel routes' dropout seed; each layer gets it
+        folded with its index, so the layers draw different masks."""
         rate = 0.0 if deterministic else self.dropout_rate
         x = dropout(self.embeddings(inputs_embeds), rate, generator)
-        for layer in self.encoder.layer:
-            x = layer(x, rate, generator)
+        for i, layer in enumerate(self.encoder.layer):
+            x = layer(x, rate, generator, fold_seed(attn_seed, i))
         return x
+
+    def set_attention(self, route: str) -> None:
+        """Switch every layer's self-attention route (same weights)."""
+        if route not in ATTENTION_ROUTES:
+            raise ValueError(f"attention route must be one of {ATTENTION_ROUTES}, "
+                             f"got {route!r}")
+        for layer in self.encoder.layer:
+            layer.route = route
 
 
 def make_llm_encoder(cfg: LLMConfig) -> nn.Module:

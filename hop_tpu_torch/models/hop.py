@@ -19,7 +19,8 @@ dropout. Dropout in the frozen BERT is gated separately, by `llm_train`
 grad; gradients still flow through it into `align_layer` and what feeds
 it. The speaker latent draws noise (as in the JAX model) from `generator`
 or a given `eps`. Kernels on this path: K1 in the reprogramming layer,
-and once per GRU layer K2 or, with `cfg.hop.gru_kernel="stack"`, K3.
+once per GRU layer K2 or, with `cfg.hop.gru_kernel="stack"`, K3, and once
+per backbone layer K4 or K5 with `cfg.llm.attention="fused"` or `"block"`.
 """
 
 from __future__ import annotations
@@ -106,21 +107,21 @@ class HOPModel(common.SpeakerLatent):
                 vid_indices: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None,
-                reprog_seed: int = 0,
+                reprog_seed: int = 0, attn_seed: int = 0,
                 llm_train: Optional[bool] = None):
-        """`reprog_seed` and `llm_train` as in `trunk` (they matter in
-        training mode only)."""
+        """`reprog_seed`, `attn_seed` and `llm_train` as in `trunk` (they
+        matter in training mode only)."""
         z, mu, logvar = self.speaker(vid_indices, generator, eps)
         out = self.head(self.trunk(in_audio, x_enc, text, pre_seq,
                                    generator=generator, reprog_seed=reprog_seed,
-                                   llm_train=llm_train), z)
+                                   attn_seed=attn_seed, llm_train=llm_train), z)
         return out, z, mu, logvar
 
     def two_speaker_forward(self, in_audio, x_enc, text, pre_seq,
                             vid_indices, rand_vid_indices, *,
                             eps: torch.Tensor, eps_rand: torch.Tensor,
                             generator: Optional[torch.Generator] = None,
-                            reprog_seed: int = 0,
+                            reprog_seed: int = 0, attn_seed: int = 0,
                             llm_train: Optional[bool] = None):
         """The fused train step's forward (JAX hop.py:107-131): the
         speaker-independent trunk runs once; the head runs for the batch's
@@ -131,7 +132,8 @@ class HOPModel(common.SpeakerLatent):
         z_a, mu_a, logvar_a = self.speaker(vid_indices, eps=eps)
         z_b, _, _ = self.speaker(rand_vid_indices, eps=eps_rand)
         trunk = self.trunk(in_audio, x_enc, text, pre_seq, generator=generator,
-                           reprog_seed=reprog_seed, llm_train=llm_train)
+                           reprog_seed=reprog_seed, attn_seed=attn_seed,
+                           llm_train=llm_train)
         out_a = self.head(trunk, z_a)
         with torch.no_grad():
             out_b = self.head(trunk.detach(), z_b.detach())
@@ -140,11 +142,12 @@ class HOPModel(common.SpeakerLatent):
     def trunk(self, in_audio: torch.Tensor, x_enc: torch.Tensor,
               text: torch.Tensor, pre_seq: torch.Tensor, *,
               generator: Optional[torch.Generator] = None,
-              reprog_seed: int = 0,
+              reprog_seed: int = 0, attn_seed: int = 0,
               llm_train: Optional[bool] = None) -> torch.Tensor:
         """`generator` draws the backbone's dropout masks, `reprog_seed`
-        seeds K1's; `llm_train` gates the backbone's dropout (default: the
-        train mode)."""
+        seeds K1's and `attn_seed` K4's or K5's (the backbone's kernel
+        attention routes); `llm_train` gates the backbone's dropout
+        (default: the train mode)."""
         cfg = self.cfg
         n_poses = cfg.data.n_poses
         N = cfg.data.n_joints_graph
@@ -157,7 +160,7 @@ class HOPModel(common.SpeakerLatent):
         llm_det = not (self.training if llm_train is None else llm_train)
         dec_out = self.llm_model(
             self.align_layer(torch.cat([enc_out, text_embeddings], dim=-1)),
-            deterministic=llm_det, generator=generator)
+            deterministic=llm_det, generator=generator, attn_seed=attn_seed)
 
         beat_in = self._beat_features(in_audio)
         seed = pre_seq.reshape(B, pre_seq.shape[1], N, 3)

@@ -59,6 +59,15 @@ SIGNATURES = {
     "hop_gru_stack_bwd_workspace": [_I] * 4,
     # x_proj, w_t, b_hh, h0, out, T, B, H, reverse, stream
     "hop_gru_seq_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, v, out, B, T, H, scale, seed, thresh, inv_keep, stream
+    "hop_attn_fwd": [_P] * 4 + [_I] * 3 + [_F, _U, _U, _F, _P],
+    # q, k, v, dout, dq, dk, dv, B, T, H, scale, seed, thresh, inv_keep, stream
+    "hop_attn_bwd": [_P] * 7 + [_I] * 3 + [_F, _U, _U, _F, _P],
+    # q, k, v, out, B, T, H, nb, scale, seed, thresh, inv_keep, stream
+    "hop_block_attn_fwd": [_P] * 4 + [_I] * 4 + [_F, _U, _U, _F, _P],
+    # q, k, v, dout, dq, dk, dv, B, T, H, nb, scale, seed, thresh, inv_keep,
+    # stream
+    "hop_block_attn_bwd": [_P] * 7 + [_I] * 4 + [_F, _U, _U, _F, _P],
 }
 # return types other than int (a CUDA error code)
 RESTYPES = {"hop_gru_fused_bwd_workspace": ctypes.c_longlong,

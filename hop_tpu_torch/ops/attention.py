@@ -1,0 +1,203 @@
+"""Self-attention of the frozen backbone, one (sample, head) at a time:
+kernel K4, forward and backward.
+
+Replaces the TPU kernel `fused_attention` of hop_tpu/ops/pallas_attention.py
+(`_fwd_kernel` :126-135 called at :198-210, `_bwd_kernel` :137-161 called at
+:217-233, custom VJP :187-195, :236) with the CUDA kernels in
+csrc/attention.cu.
+
+Computes, in the layout the QKV projections emit (no transpose on either
+side),
+
+    out[b, :, h, :] = (softmax(q[b,:,h,:] k[b,:,h,:]^T * scale) o keep / (1 - rate)) v[b,:,h,:]
+
+for q, k, v (B, T, H, D). The dropout mask `keep` is the hash of
+ops/dropout.py, a function of (seed, head, global query row b * T + tq, key
+index inside the sample): the kernel, its backward, the plain version and
+kernel K5 (ops/block_attention.py) all draw the same mask for one seed. The
+TPU kernel seeded its generator per program, so its mask depended on the
+blocking.
+
+On the card (HOP's backbone: B=256 or 1, T=34, H=12, D=64) the work is 0.9
+GFLOP forward and 2.3 GFLOP backward against 53 and 94 MB of operands and
+results: the kernels are bound by bytes. A (sample, head) problem is three
+34 x 64 tiles and a 34 x 34 score tile, which fit in a block's shared memory,
+so one block owns one (sample, head): operands are read once, in 16-byte
+pieces of the 128-byte head rows, the probabilities never reach device
+memory, and the backward (one kernel, same grid) recomputes them from q, k,
+v and redraws the mask; each block owns its dq, dk, dv rows, so nothing is
+summed across blocks and the results repeat bit for bit. The products are
+scalar f32 FMAs for now.
+
+Types on the card: the wrapper casts q, k, v (and dout) to bf16, as the TPU
+path ran under `compute_bf16`. Scores, softmax, the probabilities that meet
+v, ds and every accumulation are f32 (the TPU kernel rounded the
+probabilities and ds to the operand type before their products; here they
+stay f32). out, dq, dk, dv leave the kernels in bf16, the operand type, as
+the TPU kernel's did; `fused_attention` returns them in q's dtype.
+
+`plain_fused_attention` is the einsum path of hop_tpu/models/bert.py:134-138
+in torch with the hashed dropout; `plain_fused_attention_bwd` is the
+backward in the kernel's algorithm (recompute, no log-sum-exp). On the CPU
+they compute in the dtype they are given (f32 at least). The wrappers take
+them only for a tensor on the CPU; for a CUDA tensor they launch the kernels
+or raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hop_tpu_torch.ops import _build
+from hop_tpu_torch.ops.dropout import attention_keep, kernel_args
+
+#: launches of the forward kernel since the last reset (a plain counter)
+launches = 0
+#: launches of the backward kernel
+bwd_launches = 0
+
+#: the kernels take D == HEAD_DIM and T <= MAX_T (must equal HEAD_DIM and
+#: MAX_T in csrc/attention.cu)
+HEAD_DIM = 64
+MAX_T = 64
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 for anything narrower, else the tensor's own dtype."""
+    return t.dtype if t.dtype in (torch.float32, torch.float64) else torch.float32
+
+
+def plain_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, rate: float = 0.0,
+                          seed: int = 0) -> torch.Tensor:
+    """q, k, v (B, T, H, D) -> out (B, T, H, D) in q's dtype."""
+    B, T, H, _ = q.shape
+    dt = compute_dtype(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt)) * scale
+    p = torch.softmax(s, dim=-1)
+    if rate > 0.0:
+        p = p * attention_keep(seed, rate, B, T, H, T, q.device).to(dt)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(dt)).to(q.dtype)
+
+
+def plain_fused_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
+                              seed: int = 0):
+    """(dq, dk, dv), each (B, T, H, D) in q's dtype, of `out` for the output
+    gradient `dout`: the probabilities recomputed, the mask redrawn."""
+    B, T, H, _ = q.shape
+    dt = compute_dtype(q)
+    qf, kf, vf, do = (t.to(dt) for t in (q, k, v, dout))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    pd = p
+    if rate > 0.0:
+        keep = attention_keep(seed, rate, B, T, H, T, q.device).to(dt)
+        pd = p * keep
+        dp = dp * keep
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, do)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def check_operands(name: str, q, k, v, max_t: int):
+    """(B, T, H, D) of three same-shape tensors on one device that the CUDA
+    kernels take; raises on anything else."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must share one (B, T, H, D) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, D = q.shape
+    if D != HEAD_DIM or not 1 <= T <= max_t or B < 1 or not 1 <= H <= 65535:
+        raise ValueError(f"{name}: kernel takes D == {HEAD_DIM} and T <= {max_t}, "
+                         f"got (B, T, H, D) = {(B, T, H, D)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: q, k and v must be on one device")
+    return B, T, H, D
+
+
+def bf16_operand(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous bf16 at a 32-byte aligned address (no copy when it is so)."""
+    t = t.to(torch.bfloat16).contiguous()
+    return t if t.data_ptr() % 32 == 0 else t.clone()
+
+
+def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """The forward alone. On CUDA it launches the forward kernel once and
+    returns bf16; on the CPU the plain version, in q's dtype."""
+    if q.device.type == "cpu":
+        return plain_fused_attention(q, k, v, scale, rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention: no kernel for device {q.device}")
+    global launches
+    B, T, H, _ = check_operands("fused_attention", q, k, v, MAX_T)
+    qb, kb, vb = bf16_operand(q), bf16_operand(k), bf16_operand(v)
+    out = torch.empty_like(qb)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.hop_attn_fwd(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                           out.data_ptr(), B, T, H, float(scale),
+                           *kernel_args(rate, seed), stream)
+    _build.check(err, "hop_attn_fwd")
+    launches += 1
+    return out
+
+
+def fused_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
+                        seed: int = 0):
+    """The backward alone: (dq, dk, dv) from q, k, v and dout. On CUDA it
+    launches the backward kernel once and returns bf16."""
+    if q.device.type == "cpu":
+        return plain_fused_attention_bwd(q, k, v, dout, scale, rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_bwd: no kernel for device {q.device}")
+    global bwd_launches
+    B, T, H, _ = check_operands("fused_attention_bwd", q, k, v, MAX_T)
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"fused_attention_bwd: dout must be {tuple(q.shape)} on "
+                         f"{q.device}, got {tuple(dout.shape)} on {dout.device}")
+    qb, kb, vb, gb = (bf16_operand(t) for t in (q, k, v, dout))
+    dq, dk, dv = (torch.empty_like(qb) for _ in range(3))
+    lib = _build.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.hop_attn_bwd(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                           gb.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(), B, T, H, float(scale),
+                           *kernel_args(rate, seed), stream)
+    _build.check(err, "hop_attn_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Custom VJP of the TPU op (pallas_attention.py:187-236): the forward
+    saves q, k, v and (scale, rate, seed) alone; the backward recomputes the
+    probabilities and redraws the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, rate, seed):
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        if q.device.type == "cuda":   # save the bf16 operands the kernels read
+            q, k, v = bf16_operand(q), bf16_operand(k), bf16_operand(v)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, rate, seed)
+        return fused_attention_fwd(q, k, v, scale, rate, seed).to(ctx.dtypes[0])
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = fused_attention_bwd(*ctx.saved_tensors, dout, *ctx.args)
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, rate: float = 0.0,
+                    seed: int = 0) -> torch.Tensor:
+    """softmax(q k^T * scale) [dropout(rate, seed)] v per (sample, head);
+    differentiable in q, k and v.
+
+    q, k, v: (B, T, H, D). Returns (B, T, H, D) in q's dtype."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FusedAttention.apply(q, k, v, scale, rate, seed)
+    return fused_attention_fwd(q, k, v, scale, rate, seed).to(q.dtype)

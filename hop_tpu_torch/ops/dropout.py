@@ -1,8 +1,8 @@
-"""Dropout bits for the port: a counter-based hash for the attention kernel,
+"""Dropout bits for the port: a counter-based hash for the attention kernels,
 and plain Bernoulli dropout from an explicit generator for everything else.
 
-Kernel K1 draws its attention-dropout mask inside the kernel, in the
-forward and again in the backward. The TPU kernel seeded its hardware PRNG
+Kernels K1, K4 and K5 draw their attention-dropout masks inside the kernel,
+in the forward and again in the backward. The TPU kernel seeded its hardware PRNG
 per (call, batch block, head) (hop_tpu/ops/pallas_attention.py:74-97,
 `_random_bits`/`_keep_mask`), so its mask depends on the block shape. Here
 the bits are a hash of GLOBAL coordinates, so the CUDA kernel (any tiling)
@@ -33,6 +33,7 @@ MASK32 = 0xFFFFFFFF
 HEAD_MULT = 0x9E3779B9
 ROW_MULT = 0x85EBCA77
 COL_MULT = 0xC2B2AE3D
+LAYER_MULT = 0x27D4EB2F
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -54,11 +55,27 @@ def _mix_in(key: torch.Tensor, mult: int, idx: torch.Tensor) -> torch.Tensor:
     return fmix32((key + _mul32(idx + 1, mult)) & MASK32)
 
 
+def fold_seed(seed: int, index: int) -> int:
+    """A uint32 seed for the `index`-th user of `seed` (a layer of a stack),
+    mixed so that neighbouring seeds and indices give unrelated streams."""
+    x = (seed + LAYER_MULT * (index + 1)) & MASK32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & MASK32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & MASK32
+    return x ^ (x >> 16)
+
+
 def threshold(rate: float) -> int:
     """Keep an element when its bits are >= this (uint32)."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     return int(rate * 2 ** 32)
+
+
+def kernel_args(rate: float, seed: int):
+    """(seed, threshold, 1 / (1 - rate)) as a kernel's entry point takes them."""
+    return (seed & MASK32, threshold(rate), 1.0 / (1.0 - rate))
 
 
 def attention_bits(seed: int, B: int, L: int, H: int, S: int,

@@ -39,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from hop_tpu_torch.ops import _build
-from hop_tpu_torch.ops.dropout import attention_keep, threshold
+from hop_tpu_torch.ops.dropout import attention_keep, kernel_args
 
 #: launches of the forward kernel since the last reset (a plain counter)
 launches = 0
@@ -111,10 +111,6 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).contiguous()
 
 
-def _dropout_args(rate: float, seed: int):
-    return (seed & 0xFFFFFFFF, threshold(rate), 1.0 / (1.0 - rate))
-
-
 def reprogramming_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, scale: float,
                                 rate: float = 0.0, seed: int = 0,
@@ -138,7 +134,7 @@ def reprogramming_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     err = lib.hop_reprog_attn_fwd(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, B, L, H, S, float(scale),
-        *_dropout_args(rate, seed), stream)
+        *kernel_args(rate, seed), stream)
     _build.check(err, "hop_reprog_attn_fwd")
     launches += 1
     return (out, lse) if with_lse else out
@@ -175,7 +171,7 @@ def reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), outf.data_ptr(),
         gb.data_ptr(), lsef.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, L, H, S, float(scale),
-        *_dropout_args(rate, seed), stream)
+        *kernel_args(rate, seed), stream)
     _build.check(err, "hop_reprog_attn_bwd")
     bwd_launches += 1
     return dq, dk, dv

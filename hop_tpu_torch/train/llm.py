@@ -30,12 +30,13 @@ The 3-forward step (the reference's train_llm loop, train_llm.py:15-86):
 
 Randomness. The small draws of a step (the heads' speaker noise, the
 speaker permutation, the discriminator's target and fake noise, K1's
-dropout seed and the seed of the device generator) come from one CPU
+dropout seed, the backbone's kernel-attention dropout seed and the seed of
+the device generator) come from one CPU
 `torch.Generator` per step, in a `StepNoise` record that a step takes, so a
 test can hand in JAX's draws instead. The large dropout masks (BERT's, the
 discriminator GRU's) come from a device generator seeded from that record;
 the 3-forward step's generator forwards seed K1's dropout with
-`reprog_seed`, `+ 1` and `+ 2`.
+`reprog_seed`, `+ 1` and `+ 2`, and K4's or K5's with `attn_seed` likewise.
 
 `make_hop_train_steps(cfg, model, disc)` returns (warmup, gan,
 init_state), each step an `EpochStep` whose `for_epoch(0)` variant runs the
@@ -70,6 +71,8 @@ class StepNoise:
     dropout_seed: int            # seeds the device generator of the masks
     # (B, z) speaker noise of the 3-forward step's D-phase generator forward
     eps_dis: Optional[torch.Tensor] = None
+    # dropout seed of the backbone's kernel attention routes (K4, K5)
+    attn_seed: int = 0
 
     @classmethod
     def draw(cls, generator: torch.Generator, cfg: Config,
@@ -85,7 +88,9 @@ class StepNoise:
             fake_noise=torch.randn(batch_size, T, P, generator=g),
             reprog_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)),
             dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)),
-            eps_dis=torch.randn(batch_size, z, generator=g))
+            eps_dis=torch.randn(batch_size, z, generator=g),
+            # drawn last: every earlier draw keeps its value
+            attn_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
 
     def to(self, device) -> "StepNoise":
         return replace(self, **{k: getattr(self, k).to(device) for k in
@@ -178,7 +183,8 @@ def make_hop_train_steps(cfg: Config, model, disc):
             batch["in_audio"], batch["log_mel"], batch["text_padded"],
             target[:, :cfg.data.n_seed_frames], vids, vids[noise.perm],
             eps=noise.eps, eps_rand=noise.eps_rand, generator=dev_gen,
-            reprog_seed=noise.reprog_seed, llm_train=llm_train)
+            reprog_seed=noise.reprog_seed, attn_seed=noise.attn_seed,
+            llm_train=llm_train)
         loss, metrics = generator_terms(out, out_rand, z, z_rand, mu, logvar,
                                         target)
         if use_gan:
@@ -210,26 +216,28 @@ def make_hop_train_steps(cfg: Config, model, disc):
         return state, {k: v.detach() for k, v in metrics.items()}
 
     # ---- the reference's 3-forward step (cfg.hop.fused_step False) --------
-    def gen_forward(batch, vids, eps, reprog_seed: int, llm_train: bool,
-                    dev_gen):
-        """One whole generator forward in training mode (`_gen_apply`,
-        llm.py:38-50): (out, z, mu, logvar)."""
+    def gen_forward(batch, vids, eps, noise: StepNoise, nth: int,
+                    llm_train: bool, dev_gen):
+        """The step's `nth` whole generator forward in training mode
+        (`_gen_apply`, llm.py:38-50): (out, z, mu, logvar). Its kernels'
+        dropout seeds are the step's plus `nth`."""
         return model(batch["in_audio"], batch["log_mel"], batch["text_padded"],
                      batch["target_vec"][:, :cfg.data.n_seed_frames], vids,
-                     generator=dev_gen, eps=eps, reprog_seed=reprog_seed,
-                     llm_train=llm_train)
+                     generator=dev_gen, eps=eps,
+                     reprog_seed=noise.reprog_seed + nth,
+                     attn_seed=noise.attn_seed + nth, llm_train=llm_train)
 
     def gen_loss(batch, noise: StepNoise, use_gan: bool, llm_train: bool,
                  dev_gen: torch.Generator):
         vids = batch["vid_indices"]
-        out, z, mu, logvar = gen_forward(batch, vids, noise.eps,
-                                         noise.reprog_seed, llm_train, dev_gen)
+        out, z, mu, logvar = gen_forward(batch, vids, noise.eps, noise, 0,
+                                         llm_train, dev_gen)
         # divergent outputs for shuffled speakers (train_llm.py:50-69): this
         # forward feeds only detached terms, so it keeps no graph
         with torch.no_grad():
             out_rand, z_rand, _, _ = gen_forward(
-                batch, vids[noise.perm], noise.eps_rand, noise.reprog_seed + 1,
-                llm_train, dev_gen)
+                batch, vids[noise.perm], noise.eps_rand, noise, 1, llm_train,
+                dev_gen)
         loss, metrics = generator_terms(out, out_rand, z, z_rand, mu, logvar,
                                         batch["target_vec"])
         if use_gan:
@@ -250,7 +258,7 @@ def make_hop_train_steps(cfg: Config, model, disc):
             # discriminator's update BEFORE the G phase (llm.py:301-317)
             with torch.no_grad():
                 fake = gen_forward(batch, batch["vid_indices"], noise.eps_dis,
-                                   noise.reprog_seed + 2, llm_train, dev_gen)[0]
+                                   noise, 2, llm_train, dev_gen)[0]
             dis_err = dis_loss(fake, batch["target_vec"], noise, dev_gen)
             dis_err.backward()
             state.dis_opt.step()

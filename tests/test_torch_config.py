@@ -1,10 +1,12 @@
 """The port's presets (hop_tpu_torch.config) equal hop_tpu.config's, field
 by field, the train step's loss weights and optimizer settings too: every
 field the port carries exists in the JAX sub-config under the same name,
-in the same order, with the same value. The two fields that are the
-port's own (the GRU route, which hop_tpu reads from the environment
-variables HOP_TPU_PALLAS_GRU and HOP_TPU_GRU_BF16_STREAMS) are held to their
-defaults instead: hop_tpu's default route on its kernels, f32 streams."""
+in the same order, with the same value. The fields that are the port's own
+(the GRU route, which hop_tpu reads from the environment variables
+HOP_TPU_PALLAS_GRU and HOP_TPU_GRU_BF16_STREAMS, and the backbone's
+attention route, which it reads from HOP_TPU_PALLAS_ATTN and
+HOP_TPU_PALLAS_BLOCK_ATTN) are held to their defaults instead: hop_tpu's
+default route on its kernels, f32 streams, attention outside any kernel."""
 
 import dataclasses
 
@@ -13,8 +15,9 @@ import pytest
 from hop_tpu import config as jcfg
 from hop_tpu_torch import config as tcfg
 
-# HOPConfig fields without a hop_tpu counterpart, and their defaults
-PORT_ONLY = {"gru_kernel": "fused", "gru_bf16_streams": False}
+# fields without a hop_tpu counterpart, by section, and their defaults
+PORT_ONLY = {"hop": {"gru_kernel": "fused", "gru_bf16_streams": False},
+             "llm": {"attention": "plain"}}
 
 PRESETS = [
     ("ted", lambda m: m.ted_config()),
@@ -31,10 +34,10 @@ def test_preset_fields_match(name, make, section):
     ref = getattr(make(jcfg), section)
     port_fields = [f.name for f in dataclasses.fields(port)]
     ref_fields = [f.name for f in dataclasses.fields(ref)]
-    if section == "hop":
-        for f, default in PORT_ONLY.items():
-            assert f not in ref_fields and getattr(port, f) == default
-        port_fields = [f for f in port_fields if f not in PORT_ONLY]
+    own = PORT_ONLY.get(section, {})
+    for f, default in own.items():
+        assert f not in ref_fields and getattr(port, f) == default
+    port_fields = [f for f in port_fields if f not in own]
     assert port_fields == [f for f in ref_fields if f in port_fields]
     assert set(port_fields) <= set(ref_fields)
     for f in port_fields:

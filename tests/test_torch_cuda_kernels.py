@@ -16,12 +16,18 @@ the largest gradient. Backward results must repeat bit for bit. K3 and K6
 are f32 recurrences like K2 (1e-4); with bf16 streams both sides read the
 same bf16-rounded values, and K3's bf16 stream gradients may differ from the
 plain version's by one bf16 rounding (2^-8 relative) where the f32 values
-differ in round-off: 1e-2 of the largest.
+differ in round-off: 1e-2 of the largest. K4 and K5 read bf16 operands and
+both sides get the same bf16-rounded values. K5's results are f32 and the
+probabilities and dS enter its tensor-core products as hi + lo bf16 pairs:
+1e-4 on outputs of O(1), 1e-4 relative on gradients. K4's results leave the
+kernel in bf16, so they carry one bf16 rounding: 1e-2 of the largest.
 """
 
 import pytest
 import torch
 
+from hop_tpu_torch.ops import attention as K4
+from hop_tpu_torch.ops import block_attention as K5
 from hop_tpu_torch.ops import gru_fused as K2
 from hop_tpu_torch.ops import gru_seq as K6
 from hop_tpu_torch.ops import gru_stack as K3
@@ -224,6 +230,94 @@ def test_gru_seq_kernel(device, B, T, H, reverse):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
+def _attention_args(device, B, T, H, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, T, H, 64, device=device, generator=g).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+# (B, T, H): the backbone's shape, long-form's, a ragged last group, small T
+ATTENTION_SHAPES = [(256, 34, 12), (1, 34, 12), (250, 34, 12), (5, 10, 3), (3, 40, 2)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,H", ATTENTION_SHAPES)
+def test_fused_attention_kernels(device, B, T, H, rate):
+    q, k, v, do = _attention_args(device, B, T, H, seed=B + T)
+    args = (0.125, rate, 77)
+    before = (K4.launches, K4.bwd_launches)
+    got = K4.fused_attention_fwd(q, k, v, *args)
+    grads = K4.fused_attention_bwd(q, k, v, do, *args)
+    again = K4.fused_attention_bwd(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    assert (K4.launches, K4.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    _rel_close(got.float(), K4.plain_fused_attention(qf, kf, vf, *args), 1e-2, "out")
+    want = K4.plain_fused_attention_bwd(qf, kf, vf, dof, *args)
+    for name, a, b, c in zip(("dq", "dk", "dv"), grads, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        assert a.dtype == torch.bfloat16
+        _rel_close(a.float(), c, 1e-2, name)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,H", ATTENTION_SHAPES)
+def test_block_attention_kernels(device, B, T, H, rate):
+    q, k, v, do = _attention_args(device, B, T, H, seed=B + T)
+    args = (0.125, rate, 77)
+    before = (K5.launches, K5.bwd_launches)
+    got = K5.block_attention_fwd(q, k, v, *args)
+    grads = K5.block_attention_bwd(q, k, v, do, *args)
+    again = K5.block_attention_bwd(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    assert (K5.launches, K5.bwd_launches) == (before[0] + 1, before[1] + 2)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    torch.testing.assert_close(got, K5.plain_block_attention(qf, kf, vf, *args),
+                               rtol=0, atol=1e-4)
+    # K4's plain version: the same function, the same mask
+    torch.testing.assert_close(got, K4.plain_fused_attention(qf, kf, vf, *args),
+                               rtol=0, atol=1e-4)
+    want = K5.plain_block_attention_bwd(qf, kf, vf, dof, *args)
+    for name, a, b, c in zip(("dq", "dk", "dv"), grads, again, want):
+        assert torch.equal(a, b), f"{name} differs between two calls"
+        _rel_close(a, c, name=name)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 8])
+def test_block_attention_any_grouping(device, nb):
+    """Groups of any size give the per-sample result and draw the same mask."""
+    q, k, v, do = _attention_args(device, 21, 34, 2, seed=nb)
+    args = (0.125, 0.2, 5)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    torch.testing.assert_close(K5.block_attention_fwd(q, k, v, *args, nb=nb),
+                               K4.plain_fused_attention(qf, kf, vf, *args),
+                               rtol=0, atol=1e-4)
+    want = K4.plain_fused_attention_bwd(qf, kf, vf, dof, *args)
+    for name, a, c in zip(("dq", "dk", "dv"),
+                          K5.block_attention_bwd(q, k, v, do, *args, nb=nb), want):
+        _rel_close(a, c, name=name)
+
+
+@pytest.mark.parametrize("op", ["fused", "block"])
+def test_attention_trains_through_the_kernels(device, op):
+    """The autograd Functions on the card, f32 leaves: gradients in the
+    leaves' dtype against autograd of the plain forward on the bf16-rounded
+    values."""
+    fn = K4.fused_attention if op == "fused" else K5.block_attention
+    plain = K4.plain_fused_attention
+    q, k, v, do = (t.float() for t in _attention_args(device, 9, 34, 4, seed=1))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, 0.125, 0.1, 3)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, leaves, do)
+    want = torch.autograd.grad(plain(*leaves, 0.125, 0.1, 3), leaves, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32
+        _rel_close(a, b, 1e-2 if op == "fused" else 1e-4, name)
+
+
 def test_wrappers_check_operands(device):
     x = torch.zeros(3, 2, 4, device=device, dtype=torch.float64)
     w = torch.zeros(1, 3, 4, 8, device=device)
@@ -242,6 +336,14 @@ def test_wrappers_check_operands(device):
                          torch.zeros(24, 8, device=device).double(),
                          torch.zeros(24, device=device),
                          torch.zeros(2, 8, device=device))
+    q = torch.zeros(2, 34, 4, 32, device=device)
+    with pytest.raises(ValueError, match="D == 64"):
+        K4.fused_attention(q, q, q, 0.1)
+    with pytest.raises(ValueError, match="D == 64"):
+        K5.block_attention(q, q, q, 0.1)
+    q = torch.zeros(4, 50, 2, 64, device=device)
+    with pytest.raises(ValueError, match="key tiles"):
+        K5.block_attention(q, q, q, 0.1)
     with pytest.raises(ValueError, match="E == 128"):
         K1.reprogramming_attention(torch.zeros(1, 34, 2, 64, device=device),
                                    torch.zeros(2, 5, 64, device=device),

@@ -70,9 +70,10 @@ def _jax_model(dataset, seed):
     return cfg, model, variables
 
 
-def _port_model(dataset, jax_variables, gru_kernel="fused"):
+def _port_model(dataset, jax_variables, gru_kernel="fused", attention="plain"):
     cfg = _f32(tcfg.tiny_test_config(dataset))
-    cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, gru_kernel=gru_kernel))
+    cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, gru_kernel=gru_kernel),
+                      llm=dataclasses.replace(cfg.llm, attention=attention))
     model = HOPModel(cfg, n_speakers=N_SPEAKERS)
     model.load_state_dict(state_dict_from_jax(jax_variables, cfg), strict=True)
     return model
@@ -90,10 +91,22 @@ def test_forward_on_the_stack_route_matches_jax(monkeypatch):
     _check_forward("TED", "stack")
 
 
-def _check_forward(dataset, gru_kernel):
+@pytest.mark.parametrize("attention,env_var", [
+    ("fused", "HOP_TPU_PALLAS_ATTN"), ("block", "HOP_TPU_PALLAS_BLOCK_ATTN")])
+def test_forward_on_the_kernel_attention_routes_matches_jax(monkeypatch, attention,
+                                                            env_var):
+    """The whole forward with the backbone's attention on K4's or K5's plain
+    version against the JAX model with the matching Pallas kernel in
+    interpret mode."""
+    monkeypatch.setenv(env_var, "interpret")
+    _check_forward("TED", "fused", attention)
+
+
+def _check_forward(dataset, gru_kernel, attention="plain"):
     jcfg_, jmodel, variables = _jax_model(dataset, seed=0)
-    model = _port_model(dataset, variables, gru_kernel)
+    model = _port_model(dataset, variables, gru_kernel, attention)
     assert model.gru.kernel == gru_kernel
+    assert all(l.route == attention for l in model.llm_model.encoder.layer)
     B = 3
     inputs = _inputs(jcfg_, B, seed=1)
     key = jax.random.PRNGKey(5)

@@ -1,8 +1,8 @@
 """hop_tpu_torch imports neither jax nor flax nor hop_tpu: a fresh process
 imports every module of the port and runs, on the CPU at the tiny size, its
-long-form entry point for one window on both GRU routes, `device_batch`, one
-3-forward GAN step on the stack route and the sequence-kernel stack
-forward."""
+long-form entry point for one window on both GRU routes and on the
+backbone's block-attention route, `device_batch`, one 3-forward GAN step on
+the stack route and the sequence-kernel stack forward."""
 
 import os
 import subprocess
@@ -22,6 +22,9 @@ out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2"])
 assert out.shape == (34, 27), out.shape
 out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
                             "--gru-kernel", "stack"])
+assert out.shape == (34, 27), out.shape
+out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
+                            "--bert-attention", "block"])
 assert out.shape == (34, 27), out.shape
 
 import dataclasses, torch
@@ -46,7 +49,8 @@ assert y.shape == (2, 5, 128), y.shape
 print("PARITY STEP OK", sorted(metrics))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu"))
-for new in ("cli.common", "ops.gru_stack", "ops.gru_seq"):
+for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
+            "ops.block_attention"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -62,4 +66,5 @@ def test_port_imports_no_jax():
     assert "FOREIGN []" in proc.stdout, proc.stdout
     assert "PARITY STEP OK" in proc.stdout and "'dis'" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
-    assert n_modules >= 18
+    assert proc.stdout.count("generated 34 frames") == 3
+    assert n_modules >= 20

@@ -2,7 +2,11 @@
 hop_tpu.train.llm's, one step from identical converted state, at
 tiny_test_config("TED") with B=4: the fused warmup step and GAN step, each
 in its epoch-0 and its steady variant, and the reference's 3-forward step
-(`fused_step=False`), one warmup and one GAN step.
+(`fused_step=False`), one warmup and one GAN step; then one epoch-0 GAN
+step of each kind with the backbone's attention on kernel K5's route
+(`LLMConfig.attention="block"`) against hop_tpu's with
+HOP_TPU_PALLAS_BLOCK_ATTN=interpret (the epoch-0 variant, because the Pallas
+kernel draws its own dropout mask in the steady one).
 
 Dropout is off on both sides: flax's `Dropout.__call__` is the identity
 for the JAX steps (monkeypatched here; no file of hop_tpu changes) and
@@ -72,6 +76,8 @@ VARIANTS = [("warmup", 0), ("warmup", 1), ("gan", 0), ("gan", 1)]
 # the 3-forward step: with dropout off its epoch-0 and steady variants
 # compute the same, so one of each kind covers both
 PARITY_VARIANTS = [("warmup", 1), ("gan", 0)]
+# (kind, epoch, fused) run with the backbone's attention on the block route
+BLOCK_VARIANTS = [("gan", 0, True), ("gan", 0, False)]
 
 
 def _f32(cfg):
@@ -119,8 +125,13 @@ def jax_runs():
                 bn["var"] = r.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
 
         runs = {}
-        for kind, epoch, fused in ([(*v, True) for v in VARIANTS]
-                                   + [(*v, False) for v in PARITY_VARIANTS]):
+        for kind, epoch, fused, attention in (
+                [(*v, True, "plain") for v in VARIANTS]
+                + [(*v, False, "plain") for v in PARITY_VARIANTS]
+                + [(*v, "block") for v in BLOCK_VARIANTS]):
+            # read when a step is traced; each variant traces its own
+            mp.setenv("HOP_TPU_PALLAS_BLOCK_ATTN",
+                      "interpret" if attention == "block" else "0")
             step_cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, fused_step=fused))
             warmup, gan, init_state = jax_make_steps(step_cfg, model, disc)
             step = (warmup if kind == "warmup" else gan).for_epoch(epoch)
@@ -133,7 +144,7 @@ def jax_runs():
             gen_mu = _numpy(state.gen_opt_state.inner_states["train"]
                             .inner_state[0].mu)
             gen_mu.pop("llm")
-            runs[(kind, epoch, fused)] = dict(
+            runs[(kind, epoch, fused, attention)] = dict(
                 metrics={k: float(v) for k, v in metrics.items()},
                 gen_grads={k: jax.tree_util.tree_map(lambda m: 2.0 * m, v)
                            for k, v in gen_mu.items()},
@@ -198,9 +209,10 @@ def jax_parity_noise(cfg, batch, kind):
                      reprog_seed=0, dropout_seed=0, eps_dis=eps_dis)
 
 
-def _port(cfg_j, init, loss=None, fused=True):
+def _port(cfg_j, init, loss=None, fused=True, attention="plain"):
     cfg = _f32(tcfg.tiny_test_config("TED"))
-    cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, fused_step=fused))
+    cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, fused_step=fused),
+                      llm=dataclasses.replace(cfg.llm, attention=attention))
     if loss is not None:
         cfg = cfg.replace(loss=loss)
     model = HOPModel(cfg, n_speakers=N_SPEAKERS)
@@ -213,8 +225,9 @@ def _port(cfg_j, init, loss=None, fused=True):
     return cfg, model, disc
 
 
-def _port_step(cfg_j, batch, init, kind, epoch, loss=None, fused=True):
-    cfg, model, disc = _port(cfg_j, init, loss, fused)
+def _port_step(cfg_j, batch, init, kind, epoch, loss=None, fused=True,
+               attention="plain"):
+    cfg, model, disc = _port(cfg_j, init, loss, fused, attention)
     warmup, gan, init_state = make_hop_train_steps(cfg, model, disc)
     state = init_state()
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -284,11 +297,42 @@ def test_parity_step_matches_jax(jax_runs, kind, epoch):
     _check_step(jax_runs, kind, epoch, fused=False)
 
 
-def _check_step(jax_runs, kind, epoch, fused):
+@pytest.mark.parametrize("kind,epoch,fused", BLOCK_VARIANTS,
+                         ids=["fused", "3-forward"])
+def test_step_on_the_block_attention_route_matches_jax(jax_runs, kind, epoch, fused):
+    """One GAN step of each kind with the backbone's attention through K5's
+    plain version, forward and backward, against hop_tpu's step through its
+    Pallas kernel in interpret mode."""
+    _check_step(jax_runs, kind, epoch, fused, attention="block")
+
+
+def test_step_noise_draw_keeps_its_order():
+    """`attn_seed` is drawn last: the eight earlier draws keep the values they
+    had before the field existed, for the same generator seed."""
+    cfg = tcfg.tiny_test_config("TED")
+    z, T, P = cfg.hop.z_size, cfg.data.n_poses, cfg.data.pose_dim
+    noise = StepNoise.draw(torch.Generator().manual_seed(5), cfg, B)
+    g = torch.Generator().manual_seed(5)
+    want = [torch.randn(B, z, generator=g), torch.randn(B, z, generator=g),
+            torch.randperm(B, generator=g), torch.randn(B, T, P, generator=g),
+            torch.randn(B, T, P, generator=g),
+            int(torch.randint(0, 2 ** 31, (1,), generator=g)),
+            int(torch.randint(0, 2 ** 31, (1,), generator=g)),
+            torch.randn(B, z, generator=g)]
+    got = [noise.eps, noise.eps_rand, noise.perm, noise.target_noise,
+           noise.fake_noise, noise.reprog_seed, noise.dropout_seed, noise.eps_dis]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+    assert noise.attn_seed == int(torch.randint(0, 2 ** 31, (1,), generator=g))
+    assert noise.to("cpu").attn_seed == noise.attn_seed
+
+
+def _check_step(jax_runs, kind, epoch, fused, attention="plain"):
     cfg_j, batch, init, runs = jax_runs
-    want = runs[(kind, epoch, fused)]
+    want = runs[(kind, epoch, fused, attention)]
     cfg, model, disc, before, metrics = _port_step(cfg_j, batch, init, kind, epoch,
-                                                   fused=fused)
+                                                   fused=fused, attention=attention)
+    assert all(l.route == attention for l in model.llm_model.encoder.layer)
 
     assert set(metrics) == set(want["metrics"])
     for k, v in want["metrics"].items():
