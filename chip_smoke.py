@@ -8,18 +8,26 @@ imports nothing of JAX. Phases, each ending in one line of output:
 
   1. device  the card's name and power limit (nvidia-smi); TF32 off
   2. build   nvcc builds csrc/*.cu for sm_90a
-  3. K1      reprogramming attention kernel vs its plain version at
-             (B=256, L=34, H=8, E=128, S=1500)
-  4. K2      fused GRU layer kernel vs its plain version, both directions,
-             at (T=34, B=256, H=350) with I=992 and I=700
+  3. K1      reprogramming attention forward kernel vs its plain version at
+             (B=256, L=34, H=8, E=128, S=1500), B=250 (a ragged row tile) and
+             B=1 (S split across blocks), rate 0 and 0.1 with the log-sum-exp
+             and the plain version's mask; bitwise repeat; only its own
+             kernels between the wrapper's entry and exit
+  4. K2      fused GRU layer forward vs its plain version, lean and with
+             residuals, a non-zero h0, at the head's (T=34, B=256, H=350; I=992
+             and 700) and the discriminator's (T=28, H=64; I=8 and 128) shapes,
+             B=250, B=1 and one direction; bitwise repeat; the projection
+             kernel's and the recurrence kernel's ms (torch.profiler) beside
+             the whole
   5. serve   a full-width TED HOPModel (seeded random weights) forward at
              batch 256 on the card: shape, finite, K1 launched once and K2
              four times; the first 8 samples against the same weights on
              the CPU through the plain versions; ms per forward
   6. clips   cli.test_checkpoint on 3 seeded 20 s synthetic clips at batch 1
   7. K1 bwd  the training forward (dropout 0.1, log-sum-exp) and the
-             backward kernels vs their plain versions with the same mask,
-             at the HOP shape; two backward calls bitwise equal
+             backward kernels, fed that forward's out and lse, vs their plain
+             versions with the same mask, at the HOP shape; two backward calls
+             bitwise equal
   8. K2 bwd  the forward with residuals and the backward kernels vs their
              plain versions at the head's (I=992, I=700; H=350) and the
              discriminator's (I=8, I=128; H=64) shapes; bitwise repeat
@@ -234,58 +242,159 @@ def phase_build():
           f"({_build.library_path().name})")
 
 
+def kernel_ms_by_name(fn, n: int = 10) -> dict:
+    """Device time of each kernel that n calls of fn() launch, in ms per call,
+    by the kernel's name (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+# (B, L, H, S) of K1's forward: the HOP batch, a ragged last row tile, and one
+# window of a long-form clip (too few row tiles for the card: the key splits)
+K1_SHAPES = ((256, 34, 8, 1500), (250, 34, 8, 1500), (1, 34, 8, 1500))
+
+
 def phase_k1(dev, seed):
     import torch
     from hop_tpu_torch.ops import reprogramming_attention as K1
-    B, L, H, E, S = 256, 34, 8, 128, 1500
-    g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(*shape, device=dev, generator=g)
-               for shape in ((B, L, H, E), (H, S, E), (H, S, E)))
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    scale = E ** -0.5
-    got = K1.reprogramming_attention(qb, kb, vb, scale)
-    want = K1.plain_reprogramming_attention(qb.float(), kb.float(), vb.float(), scale)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    ms = cuda_ms(lambda: K1.reprogramming_attention(qb, kb, vb, scale))
-    plain_ms = cuda_ms(lambda: K1.plain_reprogramming_attention(
-        qb.float(), kb.float(), vb.float(), scale))
-    print(f"K1 reprogramming_attention (B={B}, L={L}, H={H}, E={E}, S={S}): "
-          f"max_abs_err {err:.3e} (tol {K1_TOL:g}), kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    check(err <= K1_TOL, f"K1 disagrees with its plain version: {err} > {K1_TOL}")
-    # q k^T and p v, products of bf16 operands
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound((qb, kb, vb), got, 2 * 2.0 * B * L * H * S * E, BF16_FLOPS)}
+    E = K1.HEAD_DIM
+    scale, drop_seed = E ** -0.5, 1234
+    res = {}
+    for B, L, H, S in K1_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(seed + B)
+        qb, kb, vb = (torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+                      for shape in ((B, L, H, E), (H, S, E), (H, S, E)))
+        splits = K1.split_count(B, L, H, S)
+        check((splits > 1) == (B == 1), f"K1 at B={B}: {splits} key splits")
+        err = 0.0
+        for rate in (0.0, 0.1):
+            got, lse = K1.reprogramming_attention_fwd(qb, kb, vb, scale, rate,
+                                                      drop_seed, with_lse=True)
+            again = K1.reprogramming_attention_fwd(qb, kb, vb, scale, rate,
+                                                   drop_seed, with_lse=True)
+            lean = K1.reprogramming_attention_fwd(qb, kb, vb, scale, rate, drop_seed)
+            want, want_lse = K1.plain_reprogramming_attention(
+                qb.float(), kb.float(), vb.float(), scale, rate, drop_seed,
+                with_lse=True)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again[0]) and torch.equal(lse, again[1])
+                  and torch.equal(got, lean),
+                  f"K1 at B={B}, rate {rate}: two calls differ")
+            e = max((got - want).abs().max().item(),
+                    (lse - want_lse).abs().max().item())
+            check(e <= K1_TOL, f"K1 disagrees with its plain version at B={B}, rate "
+                               f"{rate}: {e} > {K1_TOL}")
+            err = max(err, e)
+            del want, want_lse
+        res[B] = {"max_abs_err": err, "splits": splits,
+                  "ms": cuda_ms(lambda: K1.reprogramming_attention(qb, kb, vb, scale)),
+                  "drop_ms": cuda_ms(lambda: K1.reprogramming_attention_fwd(
+                      qb, kb, vb, scale, 0.1, drop_seed, with_lse=True))}
+        if B != K1_SHAPES[0][0]:
+            continue
+        # between the wrapper's entry and exit the card runs this file's kernel
+        names = kernel_ms_by_name(
+            lambda: K1.reprogramming_attention_fwd(qb, kb, vb, scale))
+        check(names and all("reprog_attn" in n for n in names),
+              f"K1's forward launched {sorted(names)}")
+        res[B]["plain_ms"] = cuda_ms(lambda: K1.plain_reprogramming_attention(
+            qb.float(), kb.float(), vb.float(), scale))
+        # q k^T and p v, products of bf16 operands
+        res[B].update(bound((qb, kb, vb), got, 2 * 2.0 * B * L * H * S * E, BF16_FLOPS))
+    head, one = res[256], res[1]
+    print(f"K1 reprogramming_attention (B, L, H, S) {list(K1_SHAPES)}, E={E}, rate 0 "
+          f"and 0.1 with lse, the plain version's mask: max_abs_err "
+          f"{max(r['max_abs_err'] for r in res.values()):.3e} (tol {K1_TOL:g}), bitwise "
+          f"repeat. B=256: kernel {head['ms']:.3f} ms (rate 0.1 with lse "
+          f"{head['drop_ms']:.3f}) vs plain {head['plain_ms']:.3f} ms (bound "
+          f"{head['bound_ms']:.3f} ms by {head['bound_by']}); B=250 {res[250]['ms']:.3f} "
+          f"ms; B=1 ({one['splits']} key splits and the combine kernel) "
+          f"{one['ms']:.3f} ms (rate 0.1 with lse {one['drop_ms']:.3f})")
+    return {**head, "max_abs_err": max(r["max_abs_err"] for r in res.values())}
+
+
+# (T, B, I, H, D) of K2's forward: the head's two layers' shapes and the
+# discriminator's two (the main path's), then a ragged batch tile, one window
+# of a clip, one direction, and the discriminator's at a ragged tile and B=1
+K2_MAIN = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
+           (28, 256, 8, 64, 2), (28, 256, 128, 64, 2))
+K2_SHAPES = K2_MAIN + ((34, 250, 992, 350, 2), (34, 1, 992, 350, 2),
+                       (34, 256, 700, 350, 1), (28, 250, 8, 64, 1),
+                       (28, 1, 128, 64, 2))
+
+
+def _k2_inputs(dev, seed, T, B, I, H, D):
+    """x, W_ih, b_ih, W_hh, b_hh at torch's GRU scale, and a non-zero h0."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + 31 * T + B + I + H + D)
+    s = H ** -0.5
+
+    def arr(*shape, scale=s):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+    return (arr(T, B, I, scale=1.0), arr(D, 3, I, H), arr(D, 3, 1, H),
+            arr(D, 3, H, H), arr(D, 3, 1, H), arr(B, H, scale=0.5))
 
 
 def phase_k2(dev, seed):
     import torch
+    from hop_tpu_torch.ops import _build
     from hop_tpu_torch.ops import gru_fused as K2
-    T, B, H, D = 34, 256, 350, 2
+    lib = _build.load()
+    for H in (10, 64, 138, 139, 350):   # the wrapper's copy of the kernel's choice
+        check(K2.whh_in_shared(H) == bool(lib.hop_gru_fused_whh_in_shared(H)),
+              f"whh_in_shared({H}) is not the kernel's choice")
     res = {}
-    for I in (992, 700):
-        g = torch.Generator(device=dev).manual_seed(seed + I)
-        s = H ** -0.5
-
-        def arr(*shape, scale=s):
-            return torch.randn(*shape, device=dev, generator=g) * scale
-        args = (arr(T, B, I, scale=1.0), arr(D, 3, I, H), arr(D, 3, 1, H),
-                arr(D, 3, H, H), arr(D, 3, 1, H), torch.zeros(B, H, device=dev))
-        got = K2.gru_fused_layer(*args)
-        want = K2.plain_gru_fused_layer(*args)
+    for shape in K2_SHAPES:
+        T, B, I, H, D = shape
+        args = _k2_inputs(dev, seed, *shape)
+        got = K2.gru_fused_layer_fwd(*args, with_residuals=True)
+        again = K2.gru_fused_layer_fwd(*args, with_residuals=True)
+        lean = K2.gru_fused_layer(*args)
+        want = K2.plain_gru_fused_layer(*args, with_residuals=True)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ms = cuda_ms(lambda: K2.gru_fused_layer(*args))
-        plain_ms = cuda_ms(lambda: K2.plain_gru_fused_layer(*args), reps=10)
-        print(f"K2 gru_fused_layer (T={T}, B={B}, I={I}, H={H}, D={D}): "
-              f"max_abs_err {err:.3e} (tol {K2_TOL:g}), kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        check(err <= K2_TOL, f"K2 disagrees with its plain version at I={I}: "
+        check(all(torch.equal(a, b) for a, b in zip(got, again))
+              and torch.equal(lean, got[0]), f"K2 at {shape}: two calls differ")
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        check(err <= K2_TOL, f"K2 disagrees with its plain version at {shape}: "
                              f"{err} > {K2_TOL}")
-        # the projections of x and h onto 3 gates, both directions
-        res[I] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  **bound(args, got, 2.0 * T * B * D * 3 * H * (I + H), F32_FLOPS)}
+        res[shape] = {"max_abs_err": err}
+        if shape not in K2_MAIN and B != 1:
+            continue
+        r = res[shape]
+        r["ms"] = cuda_ms(lambda: K2.gru_fused_layer(*args))
+        r["res_ms"] = cuda_ms(lambda: K2.gru_fused_layer_fwd(*args, with_residuals=True))
+        # the entry's two phases, each kernel's own time on the card
+        names = kernel_ms_by_name(lambda: K2.gru_fused_layer_fwd(*args))
+        r["proj_ms"] = sum(t for n, t in names.items() if "gru_proj_kernel" in n)
+        r["rec_ms"] = sum(t for n, t in names.items() if "gru_streams_fwd_kernel" in n)
+        check(r["proj_ms"] > 0 and r["rec_ms"] > 0
+              and len(names) == 2, f"K2's forward at {shape} launched {sorted(names)}")
+        if shape in K2_MAIN:
+            r["plain_ms"] = cuda_ms(lambda: K2.plain_gru_fused_layer(*args), reps=5)
+            # the projections of x and h onto 3 gates, each direction: counted
+            # once in f32, though the projection runs three TF32 products
+            r.update(bound(args, lean, 2.0 * T * B * D * 3 * H * (I + H), F32_FLOPS))
+    print(f"K2 gru_fused_layer, {len(res)} shapes (T, B, I, H, D) {list(K2_SHAPES)}, "
+          f"non-zero h0, lean and with residuals: max_abs_err "
+          f"{max(r['max_abs_err'] for r in res.values()):.3e} (tol {K2_TOL:g}), "
+          f"bitwise repeat")
+    for shape, r in res.items():
+        if "ms" in r:
+            tail = (f" vs plain {r['plain_ms']:.3f} ms (bound {r['bound_ms']:.3f} ms by "
+                    f"{r['bound_by']})" if "plain_ms" in r else "")
+            print(f"K2 at {shape}: lean {r['ms']:.3f} ms, with residuals "
+                  f"{r['res_ms']:.3f} ms; projection kernel {r['proj_ms']:.3f} ms, "
+                  f"recurrence kernel {r['rec_ms']:.3f} ms (W_hh in shared memory: "
+                  f"{K2.whh_in_shared(shape[3])}){tail}")
     return res
 
 
@@ -1316,7 +1425,7 @@ def main():
         entry("gru_fused_fwd", K2_SOURCE, K2_REPLACES, "K2",
               max([r["max_abs_err"] for r in k2.values()]
                   + [r["fwd_err"] for r in k2_bwd.values()]),
-              k2[992], lib[("gru_fwd", 992, 350)]),
+              k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)]),
         entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
               max(r["max_abs_err"] for r in k2_bwd.values()), k2_bwd[(992, 350)],
               lib[("gru_bwd", 992, 350)]),

@@ -1,10 +1,12 @@
-// What the GRU kernels for Hopper share: K2 (gru_fused.cu, projection fused
-// into the recurrence), K3 (gru_stack.cu, the recurrence alone from gate
+// What the GRU kernels for Hopper share: K2 (gru_fused.cu, projection and
+// recurrence behind one entry), K3 (gru_stack.cu, the recurrence alone from gate
 // streams) and K6 (gru_seq.cu, one batch-major direction, forward only).
 //
 //   * gru_recurrence_tile: the forward recurrence of one (batch tile,
 //     direction) from precomputed gate streams, T looped inside the block
-//     with h in shared memory (K3 forward, K3 lean forward, K6);
+//     with h in shared memory (K2's second phase, K3 forward, K3 lean
+//     forward, K6), W_hh read from L2 at every step or, where it fits, from
+//     a copy in shared memory; gru_streams_fwd_kernel runs it over a grid;
 //   * gru_bwd_recurrence_kernel: the serial part of a GRU layer's backward,
 //     the dh carry walked in the reverse of the forward's order (K2 and K3
 //     backward);
@@ -20,6 +22,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
 
@@ -45,25 +48,32 @@ __device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// The forward recurrence of batch rows b0..b0+BT-1 of one direction:
+// The forward recurrence of batch rows b0..b0+RT-1 of one direction:
 //   hr, hz, hnb = h W[g] + bias[g];  r = sigmoid(xr + hr);  z = sigmoid(xz + hz)
 //   n = tanh(xn + r * hnb);  h' = (1 - z) n + z h
-// Thread j owns hidden unit j (blockDim.x >= H). Element (t, b, j) of a gate
-// stream lies at t * sxt + b * sxb + j, of an output at t * sot + b * sob + j;
-// the pointers are already offset to the direction. W is (3, H, H) laid out
-// [gate][k][j] (read coalesced along j from L2 at every step), bias (3, H),
-// h0 (B, H). `reverse` walks t from T-1 down to 0; outputs land at their
-// natural time index. With RES the gates r, z, n and hnb (with its bias) are
-// written too. hs is shared memory of H * BT floats, laid out [k][row] so
-// that one k's BT rows are two 16-byte loads.
-template <bool RES, typename TX>
+// Thread threadIdx.x = j owns hidden unit j (blockDim.x >= H) of RT rows; the
+// threads of one threadIdx.y share `hs`. Element (t, b, j) of a gate stream
+// lies at t * sxt + b * sxb + j, of an output at t * sot + b * sob + j; the
+// pointers are already offset to the direction. W is (3, H, H) laid out
+// [gate][k][j], bias (3, H), h0 (B, H). Without WS, W is read from L2 at
+// every step, coalesced along j (a direction's 1.47 MB at H=350 fit no SM);
+// with WS, `w_s` is the block's copy of W in shared memory, staged by the
+// caller before the call, and W is not read. `reverse` walks t from T-1 down
+// to 0; outputs land at their natural time index. With RES the gates r, z, n
+// and hnb (with its bias) are written too. hs is shared memory of H * RT
+// floats, laid out [k][row] so that one k's rows are one (RT = 2) or two
+// (RT = 8) vector loads. Every thread of the block must make the call: it
+// holds block barriers.
+template <bool RES, typename TX, bool WS, int RT>
 __device__ __forceinline__ void gru_recurrence_tile(
     const TX* __restrict__ xr, const TX* __restrict__ xz, const TX* __restrict__ xn,
     long long sxt, long long sxb, const float* __restrict__ W,
     const float* __restrict__ bias, const float* __restrict__ h0,
     float* __restrict__ out, float* __restrict__ r_out, float* __restrict__ z_out,
     float* __restrict__ n_out, float* __restrict__ hnb_out, long long sot,
-    long long sob, int T, int B, int H, int b0, bool reverse, float* hs) {
+    long long sob, int T, int B, int H, int b0, bool reverse, float* hs,
+    const float* w_s) {
+  static_assert(RT == 2 || RT % 4 == 0, "rows of a k are float2 or float4 loads");
   const int j = threadIdx.x;
   const bool active = j < H;
   float bh[3] = {0.f, 0.f, 0.f};
@@ -71,54 +81,63 @@ __device__ __forceinline__ void gru_recurrence_tile(
 #pragma unroll
     for (int g = 0; g < 3; ++g) bh[g] = bias[g * H + j];
 #pragma unroll
-    for (int r = 0; r < BT; ++r)
-      hs[j * BT + r] = b0 + r < B ? h0[size_t(b0 + r) * H + j] : 0.f;
+    for (int r = 0; r < RT; ++r)
+      hs[j * RT + r] = b0 + r < B ? h0[size_t(b0 + r) * H + j] : 0.f;
   }
   __syncthreads();
 
-  const float* u0 = W + j;
-  const float* u1 = W + size_t(H) * H + j;
-  const float* u2 = W + size_t(2) * H * H + j;
+  const float* u0 = (WS ? w_s : W) + j;
+  const float* u1 = u0 + size_t(H) * H;
+  const float* u2 = u0 + size_t(2) * H * H;
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    float hn[BT];
+    float hn[RT];
     if (active) {
       // the step's stream values do not depend on h: load them first
-      float vr[BT], vz[BT], vn[BT];
+      float vr[RT], vz[RT], vn[RT];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
+      for (int r = 0; r < RT; ++r) {
         const bool ok = b0 + r < B;
         const long long o = t * sxt + (long long)(b0 + r) * sxb + j;
         vr[r] = ok ? ld_stream(xr + o) : 0.f;
         vz[r] = ok ? ld_stream(xz + o) : 0.f;
         vn[r] = ok ? ld_stream(xn + o) : 0.f;
       }
-      float gr[BT], gz[BT], gn[BT];
+      float gr[RT], gz[RT], gn[RT];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
+      for (int r = 0; r < RT; ++r) {
         gr[r] = bh[0]; gz[r] = bh[1]; gn[r] = bh[2];
       }
 #pragma unroll KU
       for (int k = 0; k < H; ++k) {
-        const float c0 = __ldg(u0 + size_t(k) * H);
-        const float c1 = __ldg(u1 + size_t(k) * H);
-        const float c2 = __ldg(u2 + size_t(k) * H);
-        const float4 ha = *reinterpret_cast<const float4*>(hs + k * BT);
-        const float4 hb = *reinterpret_cast<const float4*>(hs + k * BT + 4);
-        const float hv[BT] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+        const float c0 = WS ? u0[size_t(k) * H] : __ldg(u0 + size_t(k) * H);
+        const float c1 = WS ? u1[size_t(k) * H] : __ldg(u1 + size_t(k) * H);
+        const float c2 = WS ? u2[size_t(k) * H] : __ldg(u2 + size_t(k) * H);
+        float hv[RT];
+        if constexpr (RT == 2) {
+          const float2 ha = *reinterpret_cast<const float2*>(hs + k * RT);
+          hv[0] = ha.x; hv[1] = ha.y;
+        } else {
 #pragma unroll
-        for (int r = 0; r < BT; ++r) {
+          for (int q = 0; q < RT / 4; ++q) {
+            const float4 ha = *reinterpret_cast<const float4*>(hs + k * RT + 4 * q);
+            hv[4 * q] = ha.x; hv[4 * q + 1] = ha.y; hv[4 * q + 2] = ha.z;
+            hv[4 * q + 3] = ha.w;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
           gr[r] += hv[r] * c0;
           gz[r] += hv[r] * c1;
           gn[r] += hv[r] * c2;
         }
       }
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
+      for (int r = 0; r < RT; ++r) {
         const float rg = sigmoidf(vr[r] + gr[r]);
         const float zg = sigmoidf(vz[r] + gz[r]);
         const float ng = tanhf(vn[r] + rg * gn[r]);
-        hn[r] = (1.f - zg) * ng + zg * hs[j * BT + r];
+        hn[r] = (1.f - zg) * ng + zg * hs[j * RT + r];
         if (b0 + r < B) {
           const long long o = t * sot + (long long)(b0 + r) * sob + j;
           out[o] = hn[r];
@@ -134,10 +153,104 @@ __device__ __forceinline__ void gru_recurrence_tile(
     __syncthreads();  // every thread has read h_{t-1}
     if (active) {
 #pragma unroll
-      for (int r = 0; r < BT; ++r) hs[j * BT + r] = hn[r];
+      for (int r = 0; r < RT; ++r) hs[j * RT + r] = hn[r];
     }
     __syncthreads();  // h_t in place
   }
+}
+
+// The shared-memory variant of the recurrence: W of a direction staged once
+// per block, RT = 2 rows a thread and blockDim.y row groups that share the
+// copy, so that a narrow layer (the discriminator's H = 64) is not left with
+// two warps a block and a long serial chain a step.
+constexpr int WS_RT = 2;
+constexpr int WS_THREADS = 256;
+constexpr size_t SMEM_BLOCK_MAX = 232448;   // 227 KB, a block's most on sm_90
+
+inline int ws_row_groups(int H) { return std::max(1, WS_THREADS / ((H + 31) / 32 * 32)); }
+inline size_t ws_h_floats(int H) {
+  return (size_t(ws_row_groups(H)) * WS_RT * H + 3) / 4 * 4;
+}
+inline size_t ws_smem_bytes(int H) {
+  return (ws_h_floats(H) + size_t(3) * H * H) * sizeof(float);
+}
+// does a direction's W_hh with the block's h tiles fit a block's shared memory
+inline bool whh_in_shared(int H) { return ws_smem_bytes(H) <= SMEM_BLOCK_MAX; }
+
+// The forward recurrence over a grid of (batch tile, direction) from gate
+// streams whose element (d, t, b, j) lies at d * sxd + t * sxt + b * sxb + j;
+// w (D, 3, H, H), b (D, 3, H), h0 (B, H); outputs (D, T, B, H). K3's forward
+// and lean forward (WS false) and K2's second phase (either).
+template <bool RES, typename TX, bool WS, int RT>
+__global__ void gru_streams_fwd_kernel(const TX* __restrict__ xr,
+                                       const TX* __restrict__ xz,
+                                       const TX* __restrict__ xn, long long sxd,
+                                       long long sxt, long long sxb,
+                                       const float* __restrict__ w,
+                                       const float* __restrict__ b,
+                                       const float* __restrict__ h0,
+                                       float* __restrict__ out,
+                                       float* __restrict__ r_out,
+                                       float* __restrict__ z_out,
+                                       float* __restrict__ n_out,
+                                       float* __restrict__ hnb_out, int T, int B,
+                                       int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = blockIdx.y;
+  const long long xo = d * sxd;
+  const long long oo = (long long)d * T * B * H;
+  const float* wd = w + size_t(d) * 3 * H * H;
+  // The tile's rows and its h: without WS one tile a block, at the start of
+  // shared memory, so that the row index and every address derived from it
+  // stay uniform over the block (with them derived from threadIdx.y K3's
+  // forward at the head's shape took 1.30 ms for 1.12 on an H100). With WS
+  // blockDim.y tiles share the block's copy of W; blockDim.x is whole warps,
+  // so threadIdx.y is one value a warp, and the shuffle tells the compiler.
+  int b0 = blockIdx.x * RT;
+  float* hs = smem;
+  const float* w_s = nullptr;
+  if constexpr (WS) {
+    const int group = __shfl_sync(0xffffffffu, int(threadIdx.y), 0);
+    b0 = (blockIdx.x * blockDim.y + group) * RT;
+    hs = smem + size_t(group) * RT * H;
+    float* stage = smem + (size_t(blockDim.y) * RT * H + 3) / 4 * 4;
+    const int n_threads = blockDim.x * blockDim.y;
+    for (int idx = threadIdx.y * blockDim.x + threadIdx.x; idx < 3 * H * H;
+         idx += n_threads)
+      stage[idx] = wd[idx];
+    w_s = stage;  // visible after the tile's first barrier
+  }
+  gru_recurrence_tile<RES, TX, WS, RT>(
+      xr + xo, xz + xo, xn + xo, sxt, sxb, wd, b + size_t(d) * 3 * H, h0, out + oo,
+      RES ? r_out + oo : nullptr, RES ? z_out + oo : nullptr,
+      RES ? n_out + oo : nullptr, RES ? hnb_out + oo : nullptr, (long long)B * H, H, T,
+      B, H, b0, d == 1, hs, w_s);
+}
+
+// `small_h`: take the shared-memory variant where W fits (K2's second phase);
+// without it every shape runs the 8-row tile that reads W from L2 (K3).
+template <bool RES, typename TX>
+cudaError_t launch_streams_fwd(const void* xr, const void* xz, const void* xn,
+                               long long sxd, long long sxt, long long sxb,
+                               const void* w, const void* b, const void* h0, void* out,
+                               void* r, void* z, void* n, void* hnb, int T, int B,
+                               int H, int D, bool small_h, cudaStream_t st) {
+  const bool ws = small_h && whh_in_shared(H);
+  auto* kernel = ws ? gru_streams_fwd_kernel<RES, TX, true, WS_RT>
+                    : gru_streams_fwd_kernel<RES, TX, false, BT>;
+  const size_t smem = ws ? ws_smem_bytes(H) : size_t(BT) * H * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int groups = ws ? ws_row_groups(H) : 1;
+  const int rows = groups * (ws ? WS_RT : BT);
+  kernel<<<dim3((B + rows - 1) / rows, D), dim3((H + 31) / 32 * 32, groups), smem, st>>>(
+      static_cast<const TX*>(xr), static_cast<const TX*>(xz),
+      static_cast<const TX*>(xn), sxd, sxt, sxb, static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(h0),
+      static_cast<float*>(out), static_cast<float*>(r), static_cast<float*>(z),
+      static_cast<float*>(n), static_cast<float*>(hnb), T, B, H);
+  return cudaGetLastError();
 }
 
 // The serial part of a GRU layer's backward, one block per (batch tile,

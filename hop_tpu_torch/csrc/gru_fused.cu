@@ -3,33 +3,45 @@
 //
 // Replaces the TPU kernels `_make_fwd_kernel` (:113-144, `_fwd_call`
 // :147-195) and `_make_bwd_kernel` (:202-310, `_bwd_call` :313-373) of
-// hop_tpu/ops/pallas_gru_fused.py. One layer, both directions, with the gate
-// input projections x . W_ih computed inside the recurrence, gates ordered
-// r, z, n as in torch.nn.GRU:
+// hop_tpu/ops/pallas_gru_fused.py. One layer, both directions, from the
+// layer's input and weights, gates ordered r, z, n as in torch.nn.GRU:
 //   r = sigmoid(x W_ih[r] + b_ih[r] + h W_hh[r] + b_hh[r])
 //   z = sigmoid(x W_ih[z] + b_ih[z] + h W_hh[z] + b_hh[z])
 //   n = tanh(x W_ih[n] + b_ih[n] + r * hnb),  hnb = h W_hh[n] + b_hh[n]
 //   h' = (1 - z) n + z h
 // x (T, B, I), W_ih (D, 3, I, H), W_hh (D, 3, H, H), biases (D, 3, 1, H),
-// h0 (B, H), out (D, T, B, H); all f32, f32 accumulation, no TF32.
+// h0 (B, H), out (D, T, B, H); all f32 at f32 accuracy.
 //
-// Forward. The TPU grid (D, batch tiles, T) ran in order and carried h from
-// one time step to the next in VMEM scratch. A GPU grid carries nothing
-// between blocks, so T is a loop inside the block:
-//   * one block per (batch tile of 8 rows, direction); at B=256 that is 64
-//     blocks;
-//   * one thread per hidden unit j (blockDim = H rounded up to a warp); each
-//     step it accumulates the six projections of column j for the tile's 8
-//     rows, from x_t and h_{t-1} held in shared memory;
-//   * W_ih (4.2 MB at I=992) and W_hh (1.47 MB) of a direction do not fit
-//     shared memory; they are read through L2 (50 MB), coalesced along j;
-//   * the backward direction walks t from T-1 down to 0 and writes its
-//     outputs at their natural time index;
-//   * for training it also writes r, z, n and hnb (D, T, B, H), the
-//     residuals `_fwd_call(..., with_residuals=True)` writes.
-// What bounds it: each block re-reads its direction's weights from L2 at
-// every step (5.7 MB per step at I=992), and the FMAs of the tile (22.5
-// MFLOP per step) run on one SM; 64 blocks leave half the 132 SMs idle.
+// Forward. The TPU computed x_t . W_ih inside its sequential grid over T to
+// keep the projected gates out of HBM. That product does not depend on h, and
+// on this card the projected gates are 73 MB (T=34, B=256, H=350: 0.04 ms of
+// device-memory traffic) while a projection inside the serial loop re-reads
+// W_ih from L2 at every step on the few SMs the recurrence can fill. So one
+// entry, hop_gru_fused_fwd, runs two phases on the caller's stream:
+//   A. gru_proj_kernel: xp (T, B, D, 3, H) = x . W_ih + b_ih, one product of
+//      M = T * B rows, on the tensor cores at f32 accuracy: each f32 operand
+//      is split into TF32 hi + lo and a product is three mma.sync.m16n8k8
+//      (a_lo b_hi + a_hi b_lo + a_hi b_hi) into f32 accumulators. 128 x 128
+//      block tiles that never straddle a (direction, gate) boundary (H = 350
+//      is ragged: masked), 32-deep operand tiles copied as they lie by
+//      cp.async three stages deep, the bias added in the epilogue;
+//   B. gru_streams_fwd_kernel (gru_common.cuh, the tile K3 and K6 run): the
+//      recurrence of (batch tile, direction) with T looped inside the block,
+//      reading xp by its strides; the backward direction walks t from T-1
+//      down and writes at the natural time index; with residuals it also
+//      writes r, z, n and hnb (D, T, B, H). Where a direction's W_hh fits a
+//      block's shared memory (H <= 138: the discriminator's H = 64, 49 KB) it
+//      is staged there once and each thread carries 2 rows, 4 row groups a
+//      block; else (the head's H = 350, 1.47 MB) 8 rows a thread and W_hh
+//      from L2 at every step.
+// What bounds it: operations, 49.1 GFLOP of f32 work at (T=34, B=256, I=992,
+// H=350, D=2); phase A runs three times its 36.3 GFLOP as TF32 MMAs (0.73
+// ms on an H100, 30% of the TF32 peak: mma.sync with the operand split on the
+// same warps), phase B is K3's recurrence (1.10 ms, bound by instruction
+// dispatch on 64 of 132 SMs; its redesign is K3's). The tensor cores' f32
+// accumulation truncates, so xp agrees with an f64 product to 7e-5 where a
+// cuBLAS f32 product agrees to 1.4e-5 (|xp| up to 8); the layer's outputs
+// stay within 4e-5 of the plain version's.
 //
 // Backward. The TPU did everything in one reversed traversal and summed the
 // weight gradients over its sequential batch tiles in VMEM; GPU tiles run in
@@ -56,130 +68,222 @@
 // No atomics, and every sum has one order for a given shape: the
 // gradients are bitwise the same from run to run.
 // What bounds the backward: the scalar f32 FMAs of the GEMMs (85 of the
-// ~98 GFLOP at I=992), and in (a), as in the forward, the re-read of a
-// direction's W_hh (1.47 MB) from L2 at every step by 64 blocks.
+// ~98 GFLOP at I=992; phase A's MMA tile is their next form), and in (a), as
+// in the forward's phase B, the re-read of a direction's W_hh (1.47 MB) from
+// L2 at every step by 64 blocks.
 
 #include "gru_common.cuh"
 
 namespace {
 
-__global__ void gru_fused_fwd_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ wih,
-                                     const float* __restrict__ bih,
-                                     const float* __restrict__ whh,
-                                     const float* __restrict__ bhh,
-                                     const float* __restrict__ h0,
-                                     float* __restrict__ out,
-                                     float* __restrict__ r_out,
-                                     float* __restrict__ z_out,
-                                     float* __restrict__ n_out,
-                                     float* __restrict__ hnb_out,
-                                     int T, int B, int I, int H) {
+// --- phase A: xp = x . W_ih + b_ih on the tensor cores at f32 accuracy ---
+
+constexpr int PM = 128, PN = 128, PK = 32;   // block tile
+constexpr int P_THREADS = 256;               // 8 warps, 2 (M) x 4 (N), 64 x 32 each
+constexpr int P_STAGES = 3;
+constexpr int P_LDA = PK + 4;    // A rows [m][k]: fragment reads hit 32 banks
+constexpr int P_LDB = PN + 8;    // B rows [k][n]: likewise
+constexpr int P_STAGE_FLOATS = PM * P_LDA + PK * P_LDB;
+constexpr size_t P_SMEM_BYTES = size_t(P_STAGES) * P_STAGE_FLOATS * sizeof(float);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// V floats (4, 2 or 1) from device to shared memory, or zeros when !ok
+template <int V>
+__device__ __forceinline__ void cp_async_floats(float* dst, const float* src, bool ok) {
+  const int bytes = ok ? 4 * V : 0;
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else if constexpr (V == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x as hi + lo in TF32 (10 mantissa bits each): hi is x rounded to nearest
+// (ties away from zero) by integer arithmetic on its bits, lo the exact
+// remainder x - hi, whose low 13 mantissa bits the tensor core ignores:
+// hi + lo = x to 2^-21. (Three full-rate instructions; cvt.rna.tf32.f32 for
+// both halves made the projection 0.90 ms where this makes it 0.74 ms at the
+// head's first layer on an H100.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// xp[m, z, n] = sum_i x[m, i] wih[z, i, n] + bih[z, n] for m < M = T * B,
+// z < G = D * 3 (direction, gate), n < H: block (x, y, z) owns the 128 x 128
+// tile (y, x) of matrix z, so no tile straddles a (direction, gate) boundary;
+// xp is (M, G, H). Operands are copied as they lie (x rows along i, W_ih rows
+// along n) by cp.async in pieces of VA and VB floats (what their alignment
+// allows), three stages deep; tiles past M, I or H are zero-filled. Each f32
+// operand is split into TF32 hi + lo in registers and a product is three
+// MMAs, a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first, summed in
+// f32: f32 accuracy from the tensor cores ("3xTF32").
+template <int VA, int VB>
+__global__ void __launch_bounds__(P_THREADS, 2)
+gru_proj_kernel(const float* __restrict__ x, const float* __restrict__ wih,
+                const float* __restrict__ bih, float* __restrict__ xp, int M, int I,
+                int H, int G) {
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;          // (BT, I): x at the current step
-  float* hs = xs + BT * I;   // (BT, H): h_{t-1}
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const int z = blockIdx.z;
+  const int m0 = blockIdx.y * PM, n0 = blockIdx.x * PN;
+  const float* wz = wih + size_t(z) * I * H;
+  const int n_k = (I + PK - 1) / PK;
 
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int j = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const bool active = j < H;
-  const bool residuals = r_out != nullptr;
-
-  const float* Wi = wih + size_t(d) * 3 * I * H;
-  const float* Wh = whh + size_t(d) * 3 * H * H;
-  float bi[3] = {0.f, 0.f, 0.f}, bh[3] = {0.f, 0.f, 0.f};
-  if (active) {
+  auto load = [&](int kt, int stage) {
+    float* As = smem + stage * P_STAGE_FLOATS;
+    float* Bs = As + PM * P_LDA;
+    const int k0 = kt * PK;
 #pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      bi[g] = bih[(d * 3 + g) * H + j];
-      bh[g] = bhh[(d * 3 + g) * H + j];
+    for (int i = 0; i < PM * PK / VA / P_THREADS; ++i) {
+      const int c = tid + i * P_THREADS;
+      const int row = c / (PK / VA), kc = c % (PK / VA) * VA;
+      const bool ok = m0 + row < M && k0 + kc < I;
+      cp_async_floats<VA>(As + row * P_LDA + kc,
+                          ok ? x + size_t(m0 + row) * I + k0 + kc : x, ok);
     }
-  }
-
-  for (int idx = j; idx < BT * H; idx += nthreads) {
-    const int b = b0 + idx / H;
-    hs[idx] = b < B ? h0[size_t(b) * H + idx % H] : 0.f;
-  }
-
-  for (int t = 0; t < T; ++t) {
-    const int tt = d == 0 ? t : T - 1 - t;
-    // rows b0..b0+BT-1 of x[tt] are one contiguous run of BT * I floats
-    const float* xt = x + (size_t(tt) * B + b0) * I;
-    const int valid = min(BT, B - b0) * I;
-    for (int idx = j; idx < BT * I; idx += nthreads) xs[idx] = idx < valid ? xt[idx] : 0.f;
-    __syncthreads();  // x_t in place; h_{t-1} written by every thread
-
-    float hn[BT], rs[BT], zs[BT], ns[BT], hbs[BT];
-    if (active) {
-      float ar[BT], az[BT], an[BT], gr[BT], gz[BT], gn[BT];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        ar[r] = bi[0]; az[r] = bi[1]; an[r] = bi[2];
-        gr[r] = bh[0]; gz[r] = bh[1]; gn[r] = bh[2];
-      }
-      const float* w0 = Wi + j;
-      const float* w1 = Wi + size_t(I) * H + j;
-      const float* w2 = Wi + size_t(2) * I * H + j;
-#pragma unroll 4
-      for (int i = 0; i < I; ++i) {
-        const float a0 = __ldg(w0 + size_t(i) * H);
-        const float a1 = __ldg(w1 + size_t(i) * H);
-        const float a2 = __ldg(w2 + size_t(i) * H);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float xv = xs[r * I + i];
-          ar[r] += xv * a0;
-          az[r] += xv * a1;
-          an[r] += xv * a2;
-        }
-      }
-      const float* u0 = Wh + j;
-      const float* u1 = Wh + size_t(H) * H + j;
-      const float* u2 = Wh + size_t(2) * H * H + j;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float c0 = __ldg(u0 + size_t(k) * H);
-        const float c1 = __ldg(u1 + size_t(k) * H);
-        const float c2 = __ldg(u2 + size_t(k) * H);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float hv = hs[r * H + k];
-          gr[r] += hv * c0;
-          gz[r] += hv * c1;
-          gn[r] += hv * c2;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float rg = sigmoidf(ar[r] + gr[r]);
-        const float zg = sigmoidf(az[r] + gz[r]);
-        const float ng = tanhf(an[r] + rg * gn[r]);
-        hn[r] = (1.f - zg) * ng + zg * hs[r * H + j];
-        rs[r] = rg;
-        zs[r] = zg;
-        ns[r] = ng;
-        hbs[r] = gn[r];
-      }
+    for (int i = 0; i < PK * PN / VB / P_THREADS; ++i) {
+      const int c = tid + i * P_THREADS;
+      const int kr = c / (PN / VB), nc = c % (PN / VB) * VB;
+      const bool ok = k0 + kr < I && n0 + nc < H;
+      cp_async_floats<VB>(Bs + kr * P_LDB + nc,
+                          ok ? wz + size_t(k0 + kr) * H + n0 + nc : wz, ok);
     }
-    __syncthreads();  // every thread has read x_t and h_{t-1}
-    if (active) {
+  };
+
+  float acc[4][4][4];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        hs[r * H + j] = hn[r];
-        if (b0 + r < B) {
-          const size_t o = ((size_t(d) * T + tt) * B + b0 + r) * H + j;
-          out[o] = hn[r];
-          if (residuals) {
-            r_out[o] = rs[r];
-            z_out[o] = zs[r];
-            n_out[o] = ns[r];
-            hnb_out[o] = hbs[r];
-          }
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < P_STAGES - 1; ++s) {
+    if (s < n_k) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<P_STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is free for every warp
+    if (kt + P_STAGES - 1 < n_k) load(kt + P_STAGES - 1, (kt + P_STAGES - 1) % P_STAGES);
+    cp_async_commit();
+    const float* As = smem + (kt % P_STAGES) * P_STAGE_FLOATS;
+    const float* Bs = As + PM * P_LDA;
+    const int k_steps = (min(PK, I - kt * PK) + 7) / 8;
+    for (int k8 = 0; k8 < k_steps; ++k8) {
+      const int kb = k8 * 8;
+      // a[0], a[2]: row g, columns t4 and t4 + 4; a[1], a[3]: row g + 8
+      uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const float* ar = As + (wm + mi * 16 + g) * P_LDA + kb + t4;
+        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
+        split_tf32(ar[8 * P_LDA], a_hi[mi][1], a_lo[mi][1]);
+        split_tf32(ar[4], a_hi[mi][2], a_lo[mi][2]);
+        split_tf32(ar[8 * P_LDA + 4], a_hi[mi][3], a_lo[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        // b0: (k = t4, n = g); b1: (k = t4 + 4, n = g)
+        const float* br = Bs + (kb + t4) * P_LDB + wn + ni * 8 + g;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(br[0], b_hi[0], b_lo[0]);
+        split_tf32(br[4 * P_LDB], b_hi[1], b_lo[1]);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          mma_tf32(acc[mi][ni], a_lo[mi], b_hi[0], b_hi[1]);
+          mma_tf32(acc[mi][ni], a_hi[mi], b_lo[0], b_lo[1]);
+          mma_tf32(acc[mi][ni], a_hi[mi], b_hi[0], b_hi[1]);
         }
       }
     }
   }
+
+  // acc[..][0], [1]: row g, columns 2 t4, + 1; [2], [3]: row g + 8
+  const size_t ldc = size_t(G) * H;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = n0 + wn + ni * 8 + 2 * t4;
+    const float b0 = col < H ? bih[size_t(z) * H + col] : 0.f;
+    const float b1 = col + 1 < H ? bih[size_t(z) * H + col + 1] : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + mi * 16 + g + 8 * half;
+        if (row >= M) continue;
+        float* dst = xp + size_t(row) * ldc + size_t(z) * H + col;
+        if (col < H) dst[0] = acc[mi][ni][2 * half] + b0;
+        if (col + 1 < H) dst[1] = acc[mi][ni][2 * half + 1] + b1;
+      }
+    }
+  }
+}
+
+// pieces of 4, 2 or 1 floats: what the pointer and every row start allow
+int piece_floats(const void* p, size_t row_floats, size_t matrix_floats) {
+  const size_t a = reinterpret_cast<size_t>(p) | row_floats * 4 | matrix_floats * 4;
+  return a % 16 == 0 ? 4 : a % 8 == 0 ? 2 : 1;
+}
+
+template <int VA>
+cudaError_t launch_proj_vb(int vb, dim3 grid, cudaStream_t st, const float* x,
+                           const float* wih, const float* bih, float* xp, int M, int I,
+                           int H, int G) {
+#define HOP_PROJ(VB)                                                                  \
+  {                                                                                   \
+    cudaError_t err = cudaFuncSetAttribute(gru_proj_kernel<VA, VB>,                   \
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                           int(P_SMEM_BYTES));                        \
+    if (err != cudaSuccess) return err;                                               \
+    gru_proj_kernel<VA, VB><<<grid, P_THREADS, P_SMEM_BYTES, st>>>(x, wih, bih, xp, M, \
+                                                                   I, H, G);          \
+    return cudaGetLastError();                                                        \
+  }
+  if (vb == 4) HOP_PROJ(4)
+  if (vb == 2) HOP_PROJ(2)
+  HOP_PROJ(1)
+#undef HOP_PROJ
+}
+
+cudaError_t launch_proj(const float* x, const float* wih, const float* bih, float* xp,
+                        int M, int I, int H, int G, cudaStream_t st) {
+  const dim3 grid((H + PN - 1) / PN, (M + PM - 1) / PM, G);
+  const int va = piece_floats(x, I, 0);
+  const int vb = piece_floats(wih, H, size_t(I) * H);
+  if (va == 4) return launch_proj_vb<4>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+  if (va == 2) return launch_proj_vb<2>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+  return launch_proj_vb<1>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
 }
 
 // the three GEMMs of the backward: (M, N, K, nz) of dx, dW_ih and dW_hh
@@ -201,28 +305,40 @@ struct BwdGemms {
 
 }  // namespace
 
+// xp (T, B, D, 3, H) f32 is scratch the wrapper allocates; r_out .. hnb_out
+// NULL: the lean forward
 extern "C" int hop_gru_fused_fwd(const void* x, const void* wih, const void* bih,
                                  const void* whh, const void* bhh, const void* h0,
-                                 void* out, void* r_out, void* z_out, void* n_out,
-                                 void* hnb_out, int T, int B, int I, int H, int D,
-                                 void* stream) {
-  if (T < 1 || B < 1 || I < 1 || H < 1 || H > 1024 || D < 1 || D > 2)
+                                 void* xp, void* out, void* r_out, void* z_out,
+                                 void* n_out, void* hnb_out, int T, int B, int I,
+                                 int H, int D, void* stream) {
+  if (T < 1 || B < 1 || I < 1 || H < 1 || H > 1024 || D < 1 || D > 2 ||
+      (long long)T * B > 65535LL * PM || xp == nullptr)
     return int(cudaErrorInvalidValue);
-  const size_t smem = size_t(BT) * (I + H) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const bool res = r_out != nullptr;
+  if (res && (z_out == nullptr || n_out == nullptr || hnb_out == nullptr))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* gates = static_cast<const float*>(xp);
+  cudaError_t err = launch_proj(static_cast<const float*>(x),
+                                static_cast<const float*>(wih),
+                                static_cast<const float*>(bih), static_cast<float*>(xp),
+                                T * B, I, H, 3 * D, st);
   if (err != cudaSuccess) return int(err);
-  const int threads = (H + 31) / 32 * 32;
-  const dim3 grid((B + BT - 1) / BT, D);
-  gru_fused_fwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wih),
-      static_cast<const float*>(bih), static_cast<const float*>(whh),
-      static_cast<const float*>(bhh), static_cast<const float*>(h0),
-      static_cast<float*>(out), static_cast<float*>(r_out),
-      static_cast<float*>(z_out), static_cast<float*>(n_out),
-      static_cast<float*>(hnb_out), T, B, I, H);
-  return int(cudaGetLastError());
+  // element (d, t, b, gate, j) of xp: three gate pointers, strides of d, t, b
+  const long long sxd = 3LL * H, sxb = sxd * D, sxt = sxb * B;
+#define HOP_REC(RES)                                                                   \
+  launch_streams_fwd<RES, float>(gates, gates + H, gates + 2 * H, sxd, sxt, sxb, whh, \
+                                 bhh, h0, out, r_out, z_out, n_out, hnb_out, T, B, H, \
+                                 D, true, st)
+  err = res ? HOP_REC(true) : HOP_REC(false);
+#undef HOP_REC
+  return int(err);
 }
+
+// whether phase B stages W_hh in shared memory at this H (1) or reads it from
+// L2 at every step (0)
+extern "C" int hop_gru_fused_whh_in_shared(int H) { return whh_in_shared(H) ? 1 : 0; }
 
 // floats of workspace hop_gru_fused_bwd needs for these shapes (0: none)
 extern "C" long long hop_gru_fused_bwd_workspace(int T, int B, int I, int H, int D) {

@@ -40,9 +40,10 @@ __global__ void gru_seq_fwd_kernel(const float* __restrict__ xr,
                                    long long sob, int T, int B, int H,
                                    int reverse) {
   extern __shared__ __align__(16) float smem[];
-  gru_recurrence_tile<false, float>(xr, xz, xn, sxt, sxb, w_t, b_hh, h0, out, nullptr,
-                                    nullptr, nullptr, nullptr, sot, sob, T, B, H,
-                                    blockIdx.x * BT, reverse != 0, smem);
+  gru_recurrence_tile<false, float, false, BT>(xr, xz, xn, sxt, sxb, w_t, b_hh, h0, out,
+                                               nullptr, nullptr, nullptr, nullptr, sot,
+                                               sob, T, B, H, blockIdx.x * BT,
+                                               reverse != 0, smem, nullptr);
 }
 
 }  // namespace

@@ -20,9 +20,12 @@
 // Forward. The TPU put T on a sequential grid with the whole batch per step
 // and carried h in VMEM scratch. Here batch rows are independent, so a block
 // owns (8 rows, direction) and loops over T with h in shared memory
-// (gru_recurrence_tile in gru_common.cuh); any B, the ragged last tile is
-// masked. A direction's W (1.47 MB at H=350) does not fit an SM: every block
-// re-reads it from L2 at each step, coalesced along the hidden unit.
+// (gru_recurrence_tile under gru_streams_fwd_kernel in gru_common.cuh); any
+// B, the ragged last tile is masked. A direction's W (1.47 MB at H=350) does
+// not fit an SM: every block re-reads it from L2 at each step, coalesced
+// along the hidden unit. (K2's second phase runs the same kernel and, for a
+// narrow layer, its variant with W in shared memory; this entry does not
+// take that variant yet.)
 // What bounds it: operations. 12.8 GFLOP of f32 FMAs at the head's shape
 // (D=2, T=34, B=256, H=350) against 100 MB (lean) or 198 MB (residuals) of
 // traffic; on the card the L2 re-read (1.47 MB x 64 blocks x 34 steps) and
@@ -43,52 +46,6 @@
 
 namespace {
 
-template <bool RES, typename TX>
-__global__ void gru_stack_fwd_kernel(const TX* __restrict__ xr,
-                                     const TX* __restrict__ xz,
-                                     const TX* __restrict__ xn, long long sxd,
-                                     long long sxt, long long sxb,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ b,
-                                     const float* __restrict__ h0,
-                                     float* __restrict__ out,
-                                     float* __restrict__ r_out,
-                                     float* __restrict__ z_out,
-                                     float* __restrict__ n_out,
-                                     float* __restrict__ hnb_out, int T, int B,
-                                     int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int d = blockIdx.y;
-  const long long xo = d * sxd;
-  const long long oo = (long long)d * T * B * H;
-  gru_recurrence_tile<RES, TX>(
-      xr + xo, xz + xo, xn + xo, sxt, sxb, w + size_t(d) * 3 * H * H,
-      b + size_t(d) * 3 * H, h0, out + oo, RES ? r_out + oo : nullptr,
-      RES ? z_out + oo : nullptr, RES ? n_out + oo : nullptr,
-      RES ? hnb_out + oo : nullptr, (long long)B * H, H, T, B, H, blockIdx.x * BT,
-      d == 1, smem);
-}
-
-template <bool RES, typename TX>
-cudaError_t launch_fwd(const void* xr, const void* xz, const void* xn, long long sxd,
-                       long long sxt, long long sxb, const void* w, const void* b,
-                       const void* h0, void* out, void* r, void* z, void* n,
-                       void* hnb, int T, int B, int H, int D, cudaStream_t st) {
-  const size_t smem = size_t(BT) * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_stack_fwd_kernel<RES, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const int threads = (H + 31) / 32 * 32;
-  gru_stack_fwd_kernel<RES, TX><<<dim3((B + BT - 1) / BT, D), threads, smem, st>>>(
-      static_cast<const TX*>(xr), static_cast<const TX*>(xz),
-      static_cast<const TX*>(xn), sxd, sxt, sxb, static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<const float*>(h0),
-      static_cast<float*>(out), static_cast<float*>(r), static_cast<float*>(z),
-      static_cast<float*>(n), static_cast<float*>(hnb), T, B, H);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int T, int B, int H, int D) {
   return T < 1 || B < 1 || H < 1 || H > 1024 || D < 1 || D > 2;
 }
@@ -108,8 +65,9 @@ extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
   const bool res = r != nullptr;
   if (res && (z == nullptr || n == nullptr || hnb == nullptr))
     return int(cudaErrorInvalidValue);
-#define HOP_FWD(RES, TX) \
-  launch_fwd<RES, TX>(xr, xz, xn, sxd, sxt, sxb, w, b, h0, out, r, z, n, hnb, T, B, H, D, st)
+#define HOP_FWD(RES, TX)                                                            \
+  launch_streams_fwd<RES, TX>(xr, xz, xn, sxd, sxt, sxb, w, b, h0, out, r, z, n, hnb, T, \
+                              B, H, D, false, st)
   cudaError_t err;
   if (bf16)
     err = res ? HOP_FWD(true, __nv_bfloat16) : HOP_FWD(false, __nv_bfloat16);

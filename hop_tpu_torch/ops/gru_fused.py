@@ -4,15 +4,24 @@ Replaces the TPU kernel `gru_fused_layer` of hop_tpu/ops/pallas_gru_fused.py
 (`_make_fwd_kernel` :113-144 called at :147-195, `_make_bwd_kernel`
 :202-310 called at :313-373, custom VJP `_fused_fwd`/`_fused_bwd`
 :397-418) with the CUDA kernels in csrc/gru_fused.cu: one GRU layer, both
-directions, the gate input projections x · W_ih fused into the recurrence
-h · W_hh.
+directions, from the layer's input x and its weights, behind one call.
 
 On the card (HOP head: T=34, B=256, I=992 in layer 0 and 700 after,
-H=350; discriminator: T=28, H=64, I=8 then 128) the recurrence is serial
-in T, so the forward holds a batch tile's h in shared memory and loops
-over T inside one block per (tile, direction); the weights of a direction
-(5.7 MB at I=992) stay in L2 and are re-read at every step. In training the
-forward also writes the gates r, z, n and hnb = h W_hh[n] + b_hh[n]. The
+H=350; discriminator: T=28, H=64, I=8 then 128) the layer is bound by
+operations (49.1 GFLOP of f32 work at I=992). The TPU kernel computed the
+input projection x · W_ih inside its loop over T to keep the projected
+gates out of device memory; here they are 73 MB, a few hundredths of a
+millisecond of traffic, while the projection inside the serial loop re-read
+W_ih from L2 at every step. So the forward entry runs two phases on one
+stream: (A) a hand-written tensor-core product xp = x · W_ih + b_ih over
+all T * B rows at f32 accuracy (each operand split into TF32 hi + lo, three
+`mma.sync` a product, f32 accumulators) into a workspace (T, B, D, 3, H),
+and (B) the recurrence h · W_hh over T inside one block per (batch tile,
+direction), the tile the stack route's kernels run; where a direction's
+W_hh fits a block's shared memory (`whh_in_shared`: the discriminator's
+H=64) it is staged there once, else (H=350) it is re-read from L2 at every
+step. In training the forward also writes the gates r, z, n and
+hnb = h W_hh[n] + b_hh[n]. The
 backward runs the serial dh recurrence in one kernel (gate-gradient
 streams out) and everything else (dx, dW_ih, dW_hh: ≈85 of the ≈98 GFLOP
 of a head layer at I=992) as tiled GEMMs whose blocks each own an output
@@ -23,8 +32,10 @@ sums. No atomics, so the gradients repeat bit for bit (see the .cu file).
 `plain_gru_fused_layer` is the JAX scan math (hop_tpu/ops/gru.py:157-183)
 in torch on the same (D, 3, I, H) weight layout; `plain_gru_fused_layer_bwd`
 is the backward in the kernels' split (gate grads by a reversed loop, then
-products and sums). The wrappers take them only for a tensor on the CPU;
-for a CUDA tensor they launch the kernels or raise.
+products and sums); `two_phase_gru_fused_layer` repeats the forward
+kernels' arithmetic in torch for the CPU tests. The wrappers take the plain
+versions only for a tensor on the CPU; for a CUDA tensor they launch the
+kernels or raise.
 """
 
 from __future__ import annotations
@@ -63,6 +74,68 @@ def plain_gru_fused_layer(x, wih, bih, whh, bhh, h0,
     if not with_residuals:
         return out
     r, z, n, hnb = torch.stack(res, dim=1)                 # each (D, T, B, H)
+    return out, r, z, n, hnb
+
+
+#: a block's most shared memory on the card, the rows a thread carries and
+#: the threads of a block in the recurrence's shared-memory variant
+#: (SMEM_BLOCK_MAX, WS_RT, WS_THREADS in csrc/gru_common.cuh)
+SMEM_BLOCK_MAX = 232448
+WS_ROWS = 2
+WS_THREADS = 256
+
+
+def whh_in_shared(H: int) -> bool:
+    """Whether the forward's recurrence stages a direction's W_hh (3, H, H)
+    in shared memory once (it fits a block's 227 KB with the block's h
+    tiles) or re-reads it from L2 at every step."""
+    groups = max(1, WS_THREADS // (-(-H // 32) * 32))
+    h_floats = -(-groups * WS_ROWS * H // 4) * 4
+    return (h_floats + 3 * H * H) * 4 <= SMEM_BLOCK_MAX
+
+
+def _split_tf32(x: torch.Tensor):
+    """x as hi + lo in TF32 (10 mantissa bits), as the projection kernel
+    splits it: hi is x rounded to nearest, ties away from zero, with its low
+    13 mantissa bits cleared; lo is the remainder x - hi with its low 13
+    bits dropped, as the tensor core reads it."""
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+    hi = ((bits(x) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, (bits(x - hi) & ~0x1FFF).view(torch.float32)
+
+
+def two_phase_gru_fused_layer(x, wih, bih, whh, bhh, h0,
+                              with_residuals: bool = False):
+    """`plain_gru_fused_layer`'s contract in the forward kernels' two phases,
+    for tests: the projection xp (T, B, D, 3, H) once, each operand split
+    into TF32 hi + lo and the product summed from three (lo hi, hi lo,
+    hi hi), then the recurrence from xp."""
+    T = x.shape[0]
+    D = wih.shape[0]
+    x_hi, x_lo = _split_tf32(x)
+    w_hi, w_lo = _split_tf32(wih)
+    xp = (torch.einsum("tbi,dgih->tbdgh", x_lo, w_hi)
+          + torch.einsum("tbi,dgih->tbdgh", x_hi, w_lo)
+          + torch.einsum("tbi,dgih->tbdgh", x_hi, w_hi)) + bih[:, :, 0]
+    outs, res = [], []
+    for d in range(D):
+        h = h0
+        ys, gates = [None] * T, [None] * T
+        for t in (range(T) if d == 0 else reversed(range(T))):
+            hp = torch.einsum("bk,gkh->gbh", h, whh[d]) + bhh[d]
+            r = torch.sigmoid(xp[t, :, d, 0] + hp[0])
+            z = torch.sigmoid(xp[t, :, d, 1] + hp[1])
+            n = torch.tanh(xp[t, :, d, 2] + r * hp[2])
+            h = (1.0 - z) * n + z * h
+            ys[t] = h
+            gates[t] = torch.stack([r, z, n, hp[2]])
+        outs.append(torch.stack(ys))
+        res.append(torch.stack(gates, dim=1))
+    out = torch.stack(outs)
+    if not with_residuals:
+        return out
+    r, z, n, hnb = torch.stack(res, dim=1)
     return out, r, z, n, hnb
 
 
@@ -111,7 +184,8 @@ def _check(x, wih, bih, whh, bhh, h0):
 def gru_fused_layer_fwd(x: torch.Tensor, wih: torch.Tensor, bih: torch.Tensor,
                         whh: torch.Tensor, bhh: torch.Tensor, h0: torch.Tensor,
                         with_residuals: bool = False):
-    """One (bi)directional GRU layer, projection and recurrence in one kernel.
+    """One (bi)directional GRU layer, projection and recurrence in one call
+    (on CUDA one launch count: the projection kernel, then the recurrence).
 
     x:   (T, B, I) time-major layer input, shared by both directions.
     wih: (D, 3, I, H) per-gate input weights; bih: (D, 3, 1, H).
@@ -130,11 +204,13 @@ def gru_fused_layer_fwd(x: torch.Tensor, wih: torch.Tensor, bih: torch.Tensor,
     outs = [torch.empty((D, T, B, H), dtype=torch.float32, device=x.device)
             for _ in range(n_out)]
     res_ptrs = [o.data_ptr() for o in outs[1:]] or [None] * 4
+    # the projected gates, scratch between the entry's two phases
+    xp = torch.empty((T, B, D, 3, H), dtype=torch.float32, device=x.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.hop_gru_fused_fwd(x.data_ptr(), wih.data_ptr(), bih.data_ptr(),
                                 whh.data_ptr(), bhh.data_ptr(), h0.data_ptr(),
-                                outs[0].data_ptr(), *res_ptrs,
+                                xp.data_ptr(), outs[0].data_ptr(), *res_ptrs,
                                 T, B, I, H, D, stream)
     _build.check(err, "hop_gru_fused_fwd")
     launches += 1

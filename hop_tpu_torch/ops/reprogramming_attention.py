@@ -14,20 +14,27 @@ plain version draw the same mask. The serving path runs it at rate 0.
 
 On the card (HOP: B=256, L=34, H=8, E=128, S=1500) the (B, H, L, S) score
 tensor is 418 MB in f32. The plain version writes it to device memory and
-reads it back several times; the kernels keep each 64-key tile of scores in
-shared memory: the forward folds them into a running (max, sum) softmax
-and writes the per-row log-sum-exp, and the backward recomputes the
-probabilities from it (flash-attention-2 shape, deterministic dk/dv; see
-the .cu file). K and V are 3 MB each in bf16, too large for a block's
-227 KB of shared memory, so each block streams them in 64-key tiles; what
-bounds the kernels is the f32 FMA rate of their scalar products (forward
-53.5 GFLOP, backward 187 GFLOP at that shape). Tensor-core products are for
-a later change.
+reads it back several times; the kernels never form it. What bounds the
+forward is operations (53.5 GFLOP of bf16 products against 27 MB of
+traffic), so it runs on the tensor cores: the keys are shared by the batch,
+so a head's queries are one (B * L, E) matrix, cut into 64-row tiles
+whatever L is; a block walks S in 64-key bf16 tiles (cp.async, two stages),
+both products are `mma.sync` bf16 with f32 accumulators, the scores stay in
+the accumulator registers for the online (max, sum) softmax, and
+p * keep / (1 - rate) meets V as a hi + lo bf16 pair, so the result keeps
+f32 accuracy. Where row tiles x heads would not fill the card (B = 1), S is
+split across blocks and a second kernel combines the splits in order
+(`split_count`, a function of the shape alone). The backward recomputes the
+probabilities from the per-row log-sum-exp (flash-attention-2 shape,
+deterministic dk/dv, scalar f32 products: 187 GFLOP at that shape; see the
+.cu file).
 
 `plain_reprogramming_attention` is the JAX einsum path
 (hop_tpu/models/reprogramming.py:61-65) in torch, with the same dropout;
 `plain_reprogramming_attention_bwd` is the backward in the kernels'
-algorithm (LSE recompute, delta = rowsum(dO ∘ O)). The wrappers take them
+algorithm (LSE recompute, delta = rowsum(dO ∘ O));
+`tiled_reprogramming_attention` repeats the forward kernel's arithmetic in
+torch for the CPU tests. The wrappers take the plain versions
 only for a tensor on the CPU; for a CUDA tensor they launch the kernels or
 raise. On CUDA the operands (q, k, v, and dO in the backward) are cast to
 bf16, as the TPU wrapper does (pallas_reprogramming.py:78-82, :248);
@@ -46,10 +53,25 @@ launches = 0
 #: launches of the backward kernels (one per backward call)
 bwd_launches = 0
 
-#: query rows one block holds: nb samples of L rows each, nb = 68 // L
-#: (must equal MAX_ROWS in csrc/reprogramming_attention.cu)
-MAX_ROWS = 68
 HEAD_DIM = 128
+#: query rows and keys of one tile of the forward kernel, and the blocks that
+#: fill the card (FWD_ROWS, TILE_S in csrc/reprogramming_attention.cu; the
+#: SMs of an H100)
+ROW_TILE = 64
+KEY_TILE = 64
+SM_COUNT = 132
+
+
+def split_count(B: int, L: int, H: int, S: int) -> int:
+    """Runs of key tiles the forward kernel cuts S into: 1 when the row
+    tiles x heads fill the card, else enough runs to, every run holding the
+    same number of tiles but the last."""
+    blocks = -(-B * L // ROW_TILE) * H
+    tiles = -(-S // KEY_TILE)
+    if blocks >= SM_COUNT or tiles == 1:
+        return 1
+    per_run = -(-tiles // min(tiles, -(-SM_COUNT // blocks)))
+    return -(-tiles // per_run)
 
 
 def plain_reprogramming_attention(q: torch.Tensor, k: torch.Tensor,
@@ -93,15 +115,72 @@ def plain_reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
     return dq, dk, dv
 
 
+def _split_bf16(x: torch.Tensor):
+    """x as hi + lo, its bf16 rounding and the rounding of the remainder."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def tiled_reprogramming_attention(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, scale: float,
+                                  rate: float = 0.0, seed: int = 0,
+                                  with_lse: bool = False, n_split=None):
+    """`plain_reprogramming_attention`'s contract in the forward kernel's
+    arithmetic, for tests: bf16 operands, S walked in 64-key tiles (the last
+    one ragged) in `n_split` runs (`split_count` by default), an online
+    max / sum in the exp2 domain, the dropped probabilities fed to the
+    second product as hi + lo bf16, the runs combined in order."""
+    B, L, H, E = q.shape
+    S = k.shape[1]
+    n_split = split_count(B, L, H, S) if n_split is None else n_split
+    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    keep = (attention_keep(seed, rate, B, L, H, S, q.device)
+            if rate > 0.0 else None)
+    tiles = -(-S // KEY_TILE)
+    per_run = -(-tiles // n_split)
+    log2e = 1.4426950408889634
+    parts = []
+    for run in range(n_split):
+        m = q.new_full((B, H, L), float("-inf"), dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = q.new_zeros((B, H, L, E), dtype=torch.float32)
+        for tile in range(run * per_run, min(tiles, (run + 1) * per_run)):
+            s0, s1 = tile * KEY_TILE, min(S, (tile + 1) * KEY_TILE)
+            sc = torch.einsum("blhe,hse->bhls", qf, kf[:, s0:s1]) * (scale * log2e)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            if keep is not None:
+                p = p * keep[..., s0:s1]
+            hi, lo = _split_bf16(p)
+            acc = acc * alpha[..., None] + (
+                torch.einsum("bhls,hse->bhle", hi, vf[:, s0:s1])
+                + torch.einsum("bhls,hse->bhle", lo, vf[:, s0:s1]))
+            m = m_new
+        parts.append((m, l, acc))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for m_run, l_run, acc_run in parts:
+        w = torch.exp2(m_run - m)
+        l = l + l_run * w
+        acc = acc + acc_run * w[..., None]
+    out = (acc / l[..., None]).transpose(1, 2).contiguous()
+    if not with_lse:
+        return out
+    lse = (m + torch.log2(l)) * 0.6931471805599453
+    return out, lse.transpose(1, 2).contiguous()
+
+
 def _check(q, k, v):
     B, L, H, E = q.shape
     S = k.shape[1]
     if k.shape != (H, S, E) or v.shape != (H, S, E):
         raise ValueError(f"k/v must be (H, S, E) = {(H, S, E)}, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if E != HEAD_DIM or L > MAX_ROWS:
-        raise ValueError(f"kernel takes E == {HEAD_DIM} and L <= {MAX_ROWS}, "
-                         f"got E={E}, L={L}")
+    if E != HEAD_DIM:
+        raise ValueError(f"kernel takes E == {HEAD_DIM}, got E={E}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     return B, L, H, E, S
@@ -116,7 +195,8 @@ def reprogramming_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                 rate: float = 0.0, seed: int = 0,
                                 with_lse: bool = False):
     """The forward alone: out (B, L, H, E) f32, and lse (B, L, H) f32 with
-    `with_lse`. On CUDA it launches the forward kernel once."""
+    `with_lse`. On CUDA it launches the forward kernel once (with the kernel
+    that combines the key splits, where `split_count` is above 1)."""
     if q.device.type == "cpu":
         return plain_reprogramming_attention(q, k, v, scale, rate, seed,
                                              with_lse)
@@ -129,12 +209,21 @@ def reprogramming_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((B, L, H, E), dtype=torch.float32, device=q.device)
     lse = (torch.empty((B, L, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    n_split = split_count(B, L, H, S)
+    part_o = part_ml = None
+    if n_split > 1:
+        part_o = torch.empty((n_split, B, L, H, E), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((n_split, B, L, H, 2), dtype=torch.float32,
+                              device=q.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.hop_reprog_attn_fwd(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, B, L, H, S, float(scale),
-        *kernel_args(rate, seed), stream)
+        lse.data_ptr() if with_lse else None,
+        part_o.data_ptr() if n_split > 1 else None,
+        part_ml.data_ptr() if n_split > 1 else None, n_split, B, L, H, S,
+        float(scale), *kernel_args(rate, seed), stream)
     _build.check(err, "hop_reprog_attn_fwd")
     launches += 1
     return (out, lse) if with_lse else out

@@ -7,9 +7,11 @@ without the JAX test harness (tests/conftest.py imports jax):
   python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
 
 Tolerances: K1 reads bf16 operands, and both sides get the same
-bf16-rounded values, so what differs is f32 summation order and the online
-softmax's rescaling: 1e-4 on outputs of O(1). K2 is f32 throughout; its
-sums run in another order than cuBLAS's, carried through T steps: 1e-4.
+bf16-rounded values, so what differs is f32 summation order, the online
+softmax's rescaling and the probabilities' hi + lo bf16 split (2^-17
+relative): 1e-4 on outputs of O(1). K2 is f32 throughout (its projection on
+the tensor cores from TF32 hi + lo operands, 2^-21 relative); its sums run
+in another order than cuBLAS's, carried through T steps: 1e-4.
 The backwards sum over many more terms (K1's dk/dv over all B*L query
 rows, K2's weight gradients over T*B): their tolerance is 1e-4 relative to
 the largest gradient. Backward results must repeat bit for bit. K3 and K6
@@ -46,31 +48,45 @@ def device():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,L,H,S", [
-    (3, 34, 2, 65),        # ragged batch block and a one-key last tile
-    (5, 17, 1, 200),       # 4 samples per block
+    (3, 34, 2, 65),        # S split across blocks, a one-key last tile
+    (5, 17, 1, 200),       # a ragged row tile, 4 key splits
+    (3, 100, 2, 40),       # L above 68, rows of one sample in two tiles, S < a tile
+    (40, 70, 8, 100),      # one split, L not dividing the row tile
+    (1, 34, 8, 1500),      # one window of a clip: 12 key splits
     (256, 34, 8, 1500),    # the HOP serving shape
 ])
-def test_reprogramming_attention_kernel(device, B, L, H, S):
+def test_reprogramming_attention_kernel(device, B, L, H, S, rate):
     g = torch.Generator(device=device).manual_seed(B + S)
     q = torch.randn(B, L, H, 128, device=device, generator=g)
     k = torch.randn(H, S, 128, device=device, generator=g)
     v = torch.randn(H, S, 128, device=device, generator=g)
     before = K1.launches
-    got = K1.reprogramming_attention(q, k, v, 128 ** -0.5)
+    got, lse = K1.reprogramming_attention_fwd(q, k, v, 128 ** -0.5, rate, 7,
+                                              with_lse=True)
+    again = K1.reprogramming_attention_fwd(q, k, v, 128 ** -0.5, rate, 7)
     torch.cuda.synchronize()
-    assert K1.launches == before + 1
-    want = K1.plain_reprogramming_attention(
-        *(t.to(torch.bfloat16).float() for t in (q, k, v)), 128 ** -0.5)
+    assert K1.launches == before + 2
+    assert torch.equal(got, again)
+    want, want_lse = K1.plain_reprogramming_attention(
+        *(t.to(torch.bfloat16).float() for t in (q, k, v)), 128 ** -0.5, rate, 7,
+        with_lse=True)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("with_residuals", [False, True])
 @pytest.mark.parametrize("D", [1, 2])
 @pytest.mark.parametrize("T,B,I,H", [
-    (5, 11, 20, 40),        # ragged batch tile
+    (5, 11, 20, 40),        # ragged batch tile, W_hh in shared memory
+    (6, 9, 13, 10),         # widths that allow no 16- or 8-byte copies
+    (28, 256, 8, 64),       # the discriminator's first layer: one k-step
+    (28, 1, 128, 64),       # its upper layers at one sample
+    (34, 1, 992, 350),      # one window of a clip through the head
     (34, 256, 992, 350),    # the HOP head's first layer
 ])
-def test_gru_fused_kernel(device, D, T, B, I, H):
+def test_gru_fused_kernel(device, D, T, B, I, H, with_residuals):
     g = torch.Generator(device=device).manual_seed(D * 100 + I)
 
     def arr(*shape, scale):
@@ -80,11 +96,16 @@ def test_gru_fused_kernel(device, D, T, B, I, H):
             arr(D, 3, 1, H, scale=s), arr(D, 3, H, H, scale=s),
             arr(D, 3, 1, H, scale=s), arr(B, H, scale=0.5))
     before = K2.launches
-    got = K2.gru_fused_layer(*args)
+    got = K2.gru_fused_layer_fwd(*args, with_residuals=with_residuals)
+    again = K2.gru_fused_layer_fwd(*args, with_residuals=with_residuals)
     torch.cuda.synchronize()
-    assert K2.launches == before + 1
-    want = K2.plain_gru_fused_layer(*args)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert K2.launches == before + 2
+    want = K2.plain_gru_fused_layer(*args, with_residuals=with_residuals)
+    if not with_residuals:
+        got, again, want = (got,), (again,), (want,)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
 
 
 def _rel_close(got, want, rel=1e-4, name=""):
@@ -95,7 +116,8 @@ def _rel_close(got, want, rel=1e-4, name=""):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,L,H,S", [
-    (3, 34, 2, 65),        # ragged batch block and a one-key last tile
+    (3, 34, 2, 65),        # ragged row tile and a one-key last tile
+    (3, 100, 2, 65),       # L above 68: a sample's rows in two tiles of the dq kernel
     (256, 34, 8, 1500),    # the HOP training shape
 ])
 def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
@@ -348,3 +370,9 @@ def test_wrappers_check_operands(device):
         K1.reprogramming_attention(torch.zeros(1, 34, 2, 64, device=device),
                                    torch.zeros(2, 5, 64, device=device),
                                    torch.zeros(2, 5, 64, device=device), 0.1)
+    # any L: a sample's rows need not fit one tile of the forward
+    out = K1.reprogramming_attention(torch.zeros(1, 200, 2, 128, device=device),
+                                     torch.zeros(2, 5, 128, device=device),
+                                     torch.ones(2, 5, 128, device=device), 0.1)
+    assert out.shape == (1, 200, 2, 128)
+    torch.testing.assert_close(out, torch.ones_like(out), rtol=0, atol=1e-6)

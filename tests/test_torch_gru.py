@@ -9,6 +9,13 @@ them. The port takes its plain versions on the CPU. Both are f32: the
 tolerance covers f32 round-off carried through T recurrent steps, 1e-5;
 gradients 1e-4 of each tensor's largest element; bf16 streams 2e-2 (bf16
 quantisation of pre-activations of O(1), as tests/test_pallas_gru_stack.py).
+
+The forward kernel's two phases cannot run without a card;
+`two_phase_gru_fused_layer` repeats them in torch: the projection of all
+T * B rows once, each operand split into TF32 hi + lo (hi + lo = x to 2^-21
+relative) and summed from three products, then the recurrence from the
+projected gates. At these sizes (sums of at most 21 terms of O(0.1)) that
+stays inside the same f32 round-off: 1e-5.
 """
 
 import numpy as np
@@ -44,6 +51,80 @@ def test_plain_layer_matches_pallas_kernel(D, T, B, I, H):
     got = K2.gru_fused_layer(*map(torch.from_numpy, args))
     assert got.shape == (D, T, B, H)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+
+
+# H = 10 and 44 are ragged against the kernels' tiles as 350 is; I = 8 is the
+# discriminator's first layer (one k-step of the projection)
+TWO_PHASE_SHAPES = [(6, 3, 8, 10), (5, 4, 8, 44), (7, 2, 21, 10)]
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,B,I,H", TWO_PHASE_SHAPES)
+def test_two_phase_form_matches_plain_version(D, T, B, I, H):
+    args = [torch.from_numpy(a) for a in _layer_inputs(T, B, I, H, D, seed=D + T + H)]
+    assert args[5].abs().max() > 0          # a non-zero h0
+    got = K2.two_phase_gru_fused_layer(*args, with_residuals=True)
+    want = K2.plain_gru_fused_layer(*args, with_residuals=True)
+    for name, a, b in zip(("out", "r", "z", "n", "hnb"), got, want):
+        assert a.shape == (D, T, B, H)
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL, msg=name)
+    torch.testing.assert_close(K2.two_phase_gru_fused_layer(*args), got[0])
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,B,I,H", TWO_PHASE_SHAPES)
+def test_two_phase_form_matches_pallas_kernel(D, T, B, I, H):
+    args = _layer_inputs(T, B, I, H, D, seed=D + T + H)
+    want = jax_gru_fused_layer(*map(jnp.asarray, args), True)
+    got = K2.two_phase_gru_fused_layer(*map(torch.from_numpy, args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,B,I,H", TWO_PHASE_SHAPES)
+def test_two_phase_form_matches_torch_nn_gru(D, T, B, I, H):
+    """torch.nn.GRU holds a direction's gates stacked, (3H, I) and (3H, H),
+    applied as x W^T; the layer's layout is (D, 3, I, H), applied as x W."""
+    args = [torch.from_numpy(a) for a in _layer_inputs(T, B, I, H, D, seed=D + T + H)]
+    x, wih, bih, whh, bhh, h0 = args
+    ref = torch.nn.GRU(I, H, num_layers=1, bidirectional=D == 2)
+    sd = {}
+    for d, suffix in enumerate(["", "_reverse"][:D]):
+        sd[f"weight_ih_l0{suffix}"] = wih[d].transpose(1, 2).reshape(3 * H, I)
+        sd[f"weight_hh_l0{suffix}"] = whh[d].transpose(1, 2).reshape(3 * H, H)
+        sd[f"bias_ih_l0{suffix}"] = bih[d].reshape(3 * H)
+        sd[f"bias_hh_l0{suffix}"] = bhh[d].reshape(3 * H)
+    ref.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        want = ref(x, h0.expand(D, B, H).contiguous())[0]        # (T, B, D * H)
+    got = K2.two_phase_gru_fused_layer(*args)
+    torch.testing.assert_close(got.permute(1, 2, 0, 3).reshape(T, B, D * H), want,
+                               rtol=0, atol=TOL)
+
+
+def test_tf32_split_keeps_f32_accuracy():
+    """hi carries 10 mantissa bits, lo the next 10 of what is left: the pair
+    is x to 2^-21 relative, and neither has a bit a TF32 operand drops."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32)) * 37.0
+    hi, lo = K2._split_tf32(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -21).all()
+    assert ((hi - x).abs() <= x.abs() * 2.0 ** -11).all()
+    assert not torch.equal(hi, x)
+
+
+@pytest.mark.parametrize("H,want", [
+    (64, True),       # the discriminator: 49 KB a direction
+    (10, True),
+    (138, True),      # the widest that fits 227 KB with the block's h tiles
+    (139, False),
+    (350, False),     # the head: 1.47 MB a direction
+    (1024, False),
+])
+def test_whh_in_shared_is_pinned(H, want):
+    assert K2.whh_in_shared(H) is want
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():
