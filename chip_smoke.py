@@ -24,13 +24,16 @@ imports nothing of JAX. Phases, each ending in one line of output:
              four times; the first 8 samples against the same weights on
              the CPU through the plain versions; ms per forward
   6. clips   cli.test_checkpoint on 3 seeded 20 s synthetic clips at batch 1
-  7. K1 bwd  the training forward (dropout 0.1, log-sum-exp) and the
+  7. K1 bwd  the training forward (dropout 0.1 and 0, log-sum-exp) and the
              backward kernels, fed that forward's out and lse, vs their plain
-             versions with the same mask, at the HOP shape; two backward calls
-             bitwise equal
+             versions with the same mask, at the HOP shape, B=250 (a ragged
+             row tile) and B=1; two backward calls bitwise equal; the dq
+             kernel's, the dk/dv kernel's and the run combine's ms
   8. K2 bwd  the forward with residuals and the backward kernels vs their
              plain versions at the head's (I=992, I=700; H=350) and the
-             discriminator's (I=8, I=128; H=64) shapes; bitwise repeat
+             discriminator's (I=8, I=128; H=64) shapes; bitwise repeat; the
+             recurrence's, each GEMM's, the slice reduce's and the column
+             sums' ms; the wrapper's workspace size against the C entry's
   9. train   the fused GAN step (train.llm.make_hop_train_steps) at full
              TED width, bs 256: finite losses, every trainable parameter of
              both nets moved, BERT bit-unchanged, the kernels' launches in
@@ -43,7 +46,8 @@ imports nothing of JAX. Phases, each ending in one line of output:
              head's (D=2, T=34, B=256, H=350) and the discriminator's
              (T=28, H=64) shapes, B=250 (a ragged tile) and D=1
  12. K3 bwd  its backward from the forward's residuals at both shapes, f32
-             and bf16 streams: every output, dh0 too; bitwise repeat
+             and bf16 streams: every output, dh0 too; bitwise repeat; the
+             recurrence's and the dW_hh product's ms
  13. K6      the sequence kernel vs its plain version, both directions,
              B=256 and B=1; `gru_forward_seq` on the head's parameters
              against the same GRU through K2
@@ -59,7 +63,8 @@ imports nothing of JAX. Phases, each ending in one line of output:
              bidirectional torch.nn.GRU layer on cuDNN beside both routes'
              layer, forward and forward + backward, at the head's and the
              discriminator's shapes; F.scaled_dot_product_attention on K1's
-             shape at rate 0, and on K4's and K5's, forward and backward
+             shape at rate 0, forward and backward (held to K1's backward),
+             and on K4's and K5's, forward and backward
  18. K4, K5  the backbone's self-attention kernels vs their plain versions,
              forward (rate 0 and 0.1, the same mask) and backward (rate 0.1),
              at (B=256, T=34, H=12, D=64), B=1 and B=250 (a ragged last
@@ -136,6 +141,11 @@ ROUTE_TOL = 5e-4
 # the yardstick computes K1's function: its bf16 output (2^-8 relative
 # rounding of values of O(1)) against the kernel's f32 output
 SDPA_TOL = 2e-2
+
+# the yardstick's gradients leave it in bf16 (2^-8 relative rounding), its
+# P and dS meet the tensor cores as single bf16 values, and dk, dv sum 8704
+# query rows: relative to each gradient's largest element
+SDPA_BWD_REL_TOL = 2e-2
 
 # K4's results leave the kernel in bf16: one rounding (2^-8 relative) of
 # outputs up to ~4, of values the plain version holds in f32; its gradients
@@ -258,6 +268,25 @@ def kernel_ms_by_name(fn, n: int = 10) -> dict:
             if e.device_type == DeviceType.CUDA}
 
 
+def ms_of(names: dict, part: str) -> float:
+    """ms per call of the kernels whose name holds `part`."""
+    return sum(t for n, t in names.items() if part in n)
+
+
+def gemm_ms(names: dict, k_rows: bool) -> float:
+    """ms per call of the backward GEMM's instances whose operands' rows run
+    along k (dx) or whose row index is k (dW_ih, dW_hh): the kernel's third
+    template argument."""
+    import re
+    total = 0.0
+    for name, t in names.items():
+        m = re.search(r"gru_mma_gemm_kernel<([^>]*)>", name)
+        if m and (m.group(1).split(",")[2].strip().replace("(bool)", "")
+                  in ("true", "1")) == k_rows:
+            total += t
+    return total
+
+
 # (B, L, H, S) of K1's forward: the HOP batch, a ragged last row tile, and one
 # window of a long-form clip (too few row tiles for the card: the key splits)
 K1_SHAPES = ((256, 34, 8, 1500), (250, 34, 8, 1500), (1, 34, 8, 1500))
@@ -374,8 +403,8 @@ def phase_k2(dev, seed):
         r["res_ms"] = cuda_ms(lambda: K2.gru_fused_layer_fwd(*args, with_residuals=True))
         # the entry's two phases, each kernel's own time on the card
         names = kernel_ms_by_name(lambda: K2.gru_fused_layer_fwd(*args))
-        r["proj_ms"] = sum(t for n, t in names.items() if "gru_proj_kernel" in n)
-        r["rec_ms"] = sum(t for n, t in names.items() if "gru_streams_fwd_kernel" in n)
+        r["proj_ms"] = ms_of(names, "gru_proj_kernel")
+        r["rec_ms"] = ms_of(names, "gru_streams_fwd_kernel")
         check(r["proj_ms"] > 0 and r["rec_ms"] > 0
               and len(names) == 2, f"K2's forward at {shape} launched {sorted(names)}")
         if shape in K2_MAIN:
@@ -550,65 +579,99 @@ def rel_err(got, want) -> tuple:
     return err, err / max(want.abs().max().item(), 1e-30)
 
 
+def _k1_bwd_inputs(dev, seed, B, L, H, E, S):
+    """q, k, v, dO at bf16-exact values: the kernels read bf16, and the plain
+    versions get the same values."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + B)
+    q, do = (torch.randn(B, L, H, E, device=dev, generator=g) for _ in range(2))
+    k, v = (torch.randn(H, S, E, device=dev, generator=g) for _ in range(2))
+    return tuple(t.to(torch.bfloat16).float() for t in (q, k, v, do))
+
+
 def phase_k1_bwd(dev, seed):
     import torch
     from hop_tpu_torch.ops import reprogramming_attention as K1
-    B, L, H, E, S = 256, 34, 8, 128, 1500
-    rate, drop_seed = 0.1, 1234
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    q, do = (torch.randn(B, L, H, E, device=dev, generator=g) for _ in range(2))
-    k, v = (torch.randn(H, S, E, device=dev, generator=g) for _ in range(2))
-    # the kernels read bf16: give the plain versions the same values
-    q, k, v, do = (t.to(torch.bfloat16).float() for t in (q, k, v, do))
-    scale = E ** -0.5
-    args = (scale, rate, drop_seed)
+    E = K1.HEAD_DIM
+    scale, drop_seed = E ** -0.5, 1234
+    worst = {"out": 0.0, "abs": 0.0, "rel": 0.0}
+    for B, L, H, S in K1_SHAPES:
+        q, k, v, do = _k1_bwd_inputs(dev, seed + 1, B, L, H, E, S)
+        for rate in (0.1, 0.0):
+            args = (scale, rate, drop_seed)
+            out, lse = K1.reprogramming_attention_fwd(q, k, v, *args, with_lse=True)
+            want_out, want_lse = K1.plain_reprogramming_attention(q, k, v, *args,
+                                                                  with_lse=True)
+            got = K1.reprogramming_attention_bwd(q, k, v, out, lse, do, *args)
+            again = K1.reprogramming_attention_bwd(q, k, v, out, lse, do, *args)
+            want = K1.plain_reprogramming_attention_bwd(q, k, v, want_out, want_lse,
+                                                        do, *args)
+            torch.cuda.synchronize()
+            tag = f"B={B}, rate {rate}"
+            out_err = max((out - want_out).abs().max().item(),
+                          (lse - want_lse).abs().max().item())
+            check(out_err <= K1_TOL, f"K1 training forward at {tag}: {out_err} > {K1_TOL}")
+            worst["out"] = max(worst["out"], out_err)
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+                check(torch.equal(a, b), f"K1 bwd at {tag}: {name} differs between two "
+                                         f"calls")
+                e_abs, e_rel = rel_err(a, c)
+                check(e_rel <= BWD_REL_TOL,
+                      f"K1 bwd at {tag} {name}: {e_rel} > {BWD_REL_TOL} relative")
+                worst["abs"], worst["rel"] = max(worst["abs"], e_abs), max(worst["rel"], e_rel)
+            del want, want_out, want_lse
+    B, L, H, S = K1_SHAPES[0]
+    q, k, v, do = _k1_bwd_inputs(dev, seed + 1, B, L, H, E, S)
+    args = (scale, 0.1, drop_seed)
     out, lse = K1.reprogramming_attention_fwd(q, k, v, *args, with_lse=True)
-    want_out, want_lse = K1.plain_reprogramming_attention(q, k, v, *args,
-                                                          with_lse=True)
-    got = K1.reprogramming_attention_bwd(q, k, v, out, lse, do, *args)
-    again = K1.reprogramming_attention_bwd(q, k, v, out, lse, do, *args)
-    want = K1.plain_reprogramming_attention_bwd(q, k, v, want_out, want_lse,
-                                                do, *args)
-    torch.cuda.synchronize()
-    out_err = max((out - want_out).abs().max().item(),
-                  (lse - want_lse).abs().max().item())
-    check(out_err <= K1_TOL, f"K1 training forward: {out_err} > {K1_TOL}")
-    errs = {}
-    for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
-        check(torch.equal(a, b), f"K1 bwd: {name} differs between two calls")
-        errs[name] = rel_err(a, c)
-        check(errs[name][1] <= BWD_REL_TOL,
-              f"K1 bwd {name}: {errs[name][1]} > {BWD_REL_TOL} relative")
+
+    # timed as the autograd Function calls it: q, k, v saved in bf16, dO in f32
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+
+    def bwd():
+        return K1.reprogramming_attention_bwd(qb, kb, vb, out, lse, do, *args)
     fwd_ms = cuda_ms(lambda: K1.reprogramming_attention_fwd(
         q, k, v, *args, with_lse=True), reps=10)
     fwd_plain_ms = cuda_ms(lambda: K1.plain_reprogramming_attention(
         q, k, v, *args, with_lse=True), reps=5)
-    ms = cuda_ms(lambda: K1.reprogramming_attention_bwd(q, k, v, out, lse, do, *args),
-                 reps=10)
+    ms = cuda_ms(bwd, reps=10)
+    rate0_ms = cuda_ms(lambda: K1.reprogramming_attention_bwd(
+        qb, kb, vb, out, lse, do, scale, 0.0, drop_seed), reps=10)
     plain_ms = cuda_ms(lambda: K1.plain_reprogramming_attention_bwd(
-        q, k, v, want_out, want_lse, do, *args), reps=5)
-    print(f"K1 bwd (B={B}, L={L}, H={H}, E={E}, S={S}, rate {rate}): training "
-          f"forward out/lse max_abs_err {out_err:.3e} (tol {K1_TOL:g}), "
-          + ", ".join(f"{n} max_abs_err {e[0]:.3e} rel {e[1]:.2e}"
-                      for n, e in errs.items())
-          + f" (tol {BWD_REL_TOL:g} rel); bitwise repeat; forward kernel "
-          f"{fwd_ms:.3f} ms vs plain {fwd_plain_ms:.3f} ms; backward kernel "
-          f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        q, k, v, out, lse, do, *args), reps=5)
+    names = kernel_ms_by_name(bwd)
+    parts = {p: ms_of(names, "reprog_attn_bwd_" + p) for p in ("dq", "dkdv", "combine")}
+    runs = K1.bwd_row_runs(B, L, H, S)
+    check(all(t > 0 for t in parts.values()) and runs > 1,
+          f"K1's backward launched {sorted(names)} in {runs} row runs")
+    print(f"K1 bwd (B, L, H, S) {list(K1_SHAPES)}, E={E}, rate 0.1 and 0: training "
+          f"forward out/lse max_abs_err {worst['out']:.3e} (tol {K1_TOL:g}); dq, dk, dv "
+          f"max_abs_err {worst['abs']:.3e}, worst rel {worst['rel']:.2e} (tol "
+          f"{BWD_REL_TOL:g} rel); bitwise repeat. B={B}, rate 0.1: forward kernel "
+          f"{fwd_ms:.3f} ms vs plain {fwd_plain_ms:.3f} ms; backward kernel {ms:.3f} ms "
+          f"(rate 0: {rate0_ms:.3f}) vs plain {plain_ms:.3f} ms; dq kernel "
+          f"{parts['dq']:.3f} ms, dk/dv kernel in {runs} row runs {parts['dkdv']:.3f} "
+          f"ms, run combine {parts['combine']:.3f} ms (torch.profiler)")
     # the function needs five products (s, dp, dq, dk, dv); the two kernels
-    # recompute s and dp and run seven
-    return {"max_abs_err": max(e[0] for e in errs.values()), "ms": ms,
-            "plain_ms": plain_ms, "out_err": out_err,
-            **bound((q, k, v, out, lse, do), got, 5 * 2.0 * B * L * H * S * E,
+    # recompute s and dp
+    return {"max_abs_err": worst["abs"], "ms": ms, "plain_ms": plain_ms,
+            "out_err": worst["out"],
+            **bound((q, k, v, out, lse, do), bwd(), 5 * 2.0 * B * L * H * S * E,
                     BF16_FLOPS)}
 
 
 def phase_k2_bwd(dev, seed):
     import torch
+    from hop_tpu_torch.ops import _build
     from hop_tpu_torch.ops import gru_fused as K2
+    lib = _build.load()
     res = {}
     for T, B, I, H in ((34, 256, 992, 350), (34, 256, 700, 350),
                        (28, 256, 8, 64), (28, 256, 128, 64)):
         D = 2
+        check(K2.bwd_workspace_floats(T, B, I, H, D)
+              == lib.hop_gru_fused_bwd_workspace(T, B, I, H, D),
+              f"bwd_workspace_floats at I={I}, H={H} is not the kernel's count")
         g = torch.Generator(device=dev).manual_seed(seed + I + H)
         s = H ** -0.5
 
@@ -643,13 +706,25 @@ def phase_k2_bwd(dev, seed):
         plain_ms = cuda_ms(lambda: K2.plain_gru_fused_layer_bwd(*bwd_args), reps=5)
         fwd_ms = cuda_ms(lambda: K2.gru_fused_layer_fwd(*args, with_residuals=True),
                          reps=10)
+        # dx is the GEMM's instance with rows along k, dW_ih and dW_hh the one
+        # with k as the row index
+        names = kernel_ms_by_name(lambda: K2.gru_fused_layer_bwd(*bwd_args))
+        parts = {"recurrence": ms_of(names, "gru_bwd_recurrence_kernel"),
+                 "dx": gemm_ms(names, True),
+                 "dW_ih + dW_hh": gemm_ms(names, False),
+                 "slice reduce": ms_of(names, "gru_splitk_reduce_kernel"),
+                 "column sums": ms_of(names, "gru_colsum_kernel")}
+        check(all(t > 0 for t in parts.values()),
+              f"K2's backward at I={I} launched {sorted(names)}")
         worst = max(errs, key=lambda k: errs[k][1])
         print(f"K2 bwd (T={T}, B={B}, I={I}, H={H}, D={D}): forward with "
               f"residuals max_abs_err {fwd_err:.3e} (tol {K2_TOL:g}), "
               f"{fwd_ms:.3f} ms; backward worst {worst} rel "
               f"{errs[worst][1]:.2e} (tol {BWD_REL_TOL:g}), max_abs_err "
               f"{max(e[0] for e in errs.values()):.3e}; bitwise repeat; "
-              f"backward kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+              f"backward kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
+              + ", ".join(f"{k} {t:.3f}" for k, t in parts.items())
+              + " ms (torch.profiler)")
         # the dh carry (3H x H), dx and dW_ih (3H x I each), dW_hh (3H x H)
         res[(I, H)] = {"max_abs_err": max(e[0] for e in errs.values()), "ms": ms,
                        "plain_ms": plain_ms, "fwd_err": fwd_err,
@@ -1013,6 +1088,10 @@ def phase_k3_bwd(dev, seed):
                   f"K3 bwd at {tag}: dx dtype or dh0 shape")
             ms = cuda_ms(lambda: K3.gru_stack_bwd(*bwd_args), reps=10)
             plain_ms = cuda_ms(lambda: K3.plain_gru_stack_bwd(*bwd_args), reps=5)
+            kernels = kernel_ms_by_name(lambda: K3.gru_stack_bwd(*bwd_args))
+            rec_ms = ms_of(kernels, "gru_bwd_recurrence_kernel")
+            dw_ms = gemm_ms(kernels, False)
+            check(rec_ms > 0 and dw_ms > 0, f"K3's backward launched {sorted(kernels)}")
             # the dh carry through W^T and dW = hprev^T d_hid, 3H x H each
             res[(shape, dtype)] = {
                 "errs": errs, "ms": ms, "plain_ms": plain_ms,
@@ -1023,6 +1102,7 @@ def phase_k3_bwd(dev, seed):
                   f"{errs[worst][1]:.2e}, max_abs_err "
                   f"{res[(shape, dtype)]['max_abs_err']:.3e} (tol {BWD_REL_TOL:g} rel; "
                   f"bf16 dx {K3_BF16_DX_TOL:g}); bitwise repeat; kernel {ms:.3f} ms "
+                  f"(recurrence {rec_ms:.3f}, dW_hh product {dw_ms:.3f}) "
                   f"vs plain {plain_ms:.3f} ms (bound "
                   f"{res[(shape, dtype)]['bound_ms']:.3f} ms by "
                   f"{res[(shape, dtype)]['bound_by']})")
@@ -1267,8 +1347,32 @@ def phase_library(dev, seed):
     gap = (sdpa().float() - K1.reprogramming_attention(q, k, v, scale)).abs().max().item()
     check(gap <= SDPA_TOL, f"SDPA does not compute K1's function: {gap} > {SDPA_TOL}")
     lib["K1"] = cuda_ms(sdpa)
+
+    # its backward alone, on the same folded view: dk and dv come out summed
+    # over the batch, as K1's are
+    do = torch.randn(B, L, H, E, device=dev, generator=g).to(torch.bfloat16)
+
+    def k1_graph():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        qf = leaves[0].permute(2, 0, 1, 3).reshape(1, H, B * L, E)
+        out = F.scaled_dot_product_attention(qf, leaves[1][None], leaves[2][None],
+                                             scale=scale)
+        return leaves, out.reshape(H, B, L, E).permute(1, 2, 0, 3)
+
+    def k1_sdpa_bwd(made):
+        leaves, out = made
+        return torch.autograd.grad(out, leaves, do)
+    out, lse = K1.reprogramming_attention_fwd(q, k, v, scale, with_lse=True)
+    ours = K1.reprogramming_attention_bwd(q, k, v, out, lse, do, scale)
+    bwd_gap = max(rel_err(a.float(), b)[1]
+                  for a, b in zip(k1_sdpa_bwd(k1_graph()), ours))
+    check(bwd_gap <= SDPA_BWD_REL_TOL, f"SDPA's backward does not compute K1's: "
+                                       f"{bwd_gap} > {SDPA_BWD_REL_TOL} relative")
+    lib["K1_bwd"] = cuda_ms(k1_sdpa_bwd, setup=k1_graph)
     print(f"library: F.scaled_dot_product_attention (bf16, rate 0) at K1's shape "
-          f"{lib['K1']:.3f} ms, max_abs_diff to K1 {gap:.3e} (tol {SDPA_TOL:g})")
+          f"{lib['K1']:.3f} ms, max_abs_diff to K1 {gap:.3e} (tol {SDPA_TOL:g}); its "
+          f"backward alone {lib['K1_bwd']:.3f} ms, worst gradient rel diff to K1's "
+          f"backward {bwd_gap:.2e} (tol {SDPA_BWD_REL_TOL:g})")
 
     # K4 / K5: per-(sample, head) attention is SDPA on (B, H, T, D) views
     from hop_tpu_torch.ops import block_attention as K5
@@ -1419,9 +1523,9 @@ def main():
     kernels = [
         entry("reprogramming_attention_fwd", K1_SOURCE, K1_REPLACES, "K1",
               max(k1["max_abs_err"], k1_bwd["out_err"]), k1, lib["K1"]),
-        # no one call computes the backward under the hashed dropout mask
+        # SDPA's backward alone at rate 0 (no one call draws the hashed mask)
         entry("reprogramming_attention_bwd", K1_SOURCE, K1_BWD_REPLACES, "K1_bwd",
-              k1_bwd["max_abs_err"], k1_bwd, None),
+              k1_bwd["max_abs_err"], k1_bwd, lib["K1_bwd"]),
         entry("gru_fused_fwd", K2_SOURCE, K2_REPLACES, "K2",
               max([r["max_abs_err"] for r in k2.values()]
                   + [r["fwd_err"] for r in k2_bwd.values()]),

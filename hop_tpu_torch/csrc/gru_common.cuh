@@ -10,8 +10,11 @@
 //   * gru_bwd_recurrence_kernel: the serial part of a GRU layer's backward,
 //     the dh carry walked in the reverse of the forward's order (K2 and K3
 //     backward);
-//   * gru_gemm_kernel / gemm(): a tiled f32 GEMM over strided operands with
-//     ordered split-K (K2's dx, dW_ih, dW_hh; K3's dW_hh);
+//   * gru_mma_gemm_kernel / gemm(): an f32 GEMM on the tensor cores at f32
+//     accuracy (each operand split into TF32 hi + lo, three mma.sync.m16n8k8
+//     a product), operands staged as they lie by cp.async, ordered split-K
+//     (K2's dx, dW_ih, dW_hh; K3's dW_hh); its pieces (cp.async, split_tf32,
+//     mma_tf32) also serve K2's forward projection;
 //   * gru_colsum_kernel: ordered column sums (the bias gradients).
 // None uses atomics; every sum has one order for a given shape, so results
 // repeat bit for bit. Everything is in an unnamed namespace: each .cu that
@@ -368,17 +371,91 @@ cudaError_t launch_bwd_recurrence(const float* g, const float* r, const float* z
   return cudaGetLastError();
 }
 
-// C[m, n] = sum_k A[m, k] B[k, n] over one 64 x 64 output tile and one
-// slice of K per block, k in order. A[m, k] = A[m * sam + k * sak],
-// B[k, n] = B[k * sbk + n * sbn], C[m, n] = C[m * scm + n]. Matrix z of a
-// batch has its operands offset by (z / zdiv) * hi + (z % zdiv) * lo; block
-// z of the grid is slice z % ksplit of matrix z / ksplit. With ksplit > 1
-// a block writes its partial tile, packed (M, N), to part[z] instead of C.
-constexpr int GM = 64, GN = 64, GK = 16, GEMM_THREADS = 256;
-// blocks a GEMM should have to fill the card: two waves of two blocks on
-// each of an H100's 132 SMs
-constexpr int TARGET_BLOCKS = 4 * 132;
-constexpr int MIN_SLICE = 256;   // K per block at the least
+// --- the tensor-core pieces: cp.async, the TF32 split, mma.sync ---
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// V floats (4, 2 or 1) from device to shared memory, or zeros when !ok
+template <int V>
+__device__ __forceinline__ void cp_async_floats(float* dst, const float* src, bool ok) {
+  const int bytes = ok ? 4 * V : 0;
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else if constexpr (V == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x as hi + lo in TF32 (10 mantissa bits each): hi is x rounded to nearest
+// (ties away from zero) by integer arithmetic on its bits, lo the exact
+// remainder x - hi, whose low 13 mantissa bits the tensor core ignores:
+// hi + lo = x to 2^-21. (Three full-rate integer and float operations;
+// cvt.rna.tf32.f32 for both halves made K2's projection 0.90 ms where this
+// makes it 0.74 ms at the head's first layer on an H100.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// --- the backward's GEMM: f32 in and out, 3xTF32 on the tensor cores ---
+//
+// C[m, n] = sum over segments s < nseg and k < K of A_s[m, k] B_s[k, n], for
+// each matrix z of a batch. The operands are read as they lie, in one of the
+// two layouts the backward has:
+//   KROWS:  A_s[m, k] = A[s * a_seg + m * lda + k], B_s[k, n] = B[s * b_seg + n * ldb + k]
+//           (both operands' rows run along k)
+//   !KROWS: A_s[m, k] = A[s * a_seg + k * lda + m], B_s[k, n] = B[s * b_seg + k * ldb + n]
+//           (k is both operands' row index)
+// and C[m, n] = C[m * ldc + n]; matrix z has its operands offset by
+// (z / zdiv) * hi + (z % zdiv) * lo. dx = d_in . W_ih^T is KROWS with one
+// segment per (direction, gate): W_ih (D, 3, I, H) is read in place, k = h
+// contiguous, which is the col-major B fragment's own order. dW_ih = x^T d_in
+// and dW_hh = hprev^T d_hid are !KROWS: the tiles are staged as they lie,
+// [k][m] and [k][n], and the A fragment is read transposed from shared memory.
+// Rows are padded so that a fragment read hits 32 banks: a row along k by 4
+// floats (lane (g, t4) reads word 36 g + t4), a row along m or n by 8 (word
+// 8 t4 + g).
+//
+// A block owns one BM x BN output tile and one slice of the 32-deep k tiles
+// (segments laid end to end), summed in order; with ksplit > 1 it writes its
+// partial tile, packed (M, N), to part[blockIdx.z] and
+// gru_splitk_reduce_kernel adds the slices in slice order: no atomics.
+// 8 warps, 2 (M) x 4 (N); the 128 x 128 tile is the projection's
+// (gru_fused.cu), the 64 x 64 tile serves the discriminator's narrow shapes,
+// where a 128-wide tile would be mostly padding.
+constexpr int MK = 32;              // depth of an operand tile
+constexpr int MMA_THREADS = 256;
+constexpr int MMA_STAGES = 3;
+constexpr int SM_COUNT = 132;       // an H100's
+// K of one block. The tensor cores truncate where an f32 add rounds, and the
+// loss grows with the length of one accumulator chain (2e-5 relative at
+// K = 2000, as measured on the projection); a slice's chain ends at
+// MAX_SLICE, and the slices meet in ordinary f32 adds.
+constexpr int MIN_SLICE = 256;
+constexpr int MAX_SLICE = 2304;
 
 struct ZOff {
   long long hi, lo;
@@ -387,71 +464,152 @@ struct ZOff {
   }
 };
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-gru_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                float* __restrict__ C, float* __restrict__ part, int M, int N,
-                int K, int ksplit, long long sam, long long sak, long long sbk,
-                long long sbn, long long scm, int zdiv, ZOff za, ZOff zb,
-                ZOff zc) {
-  __shared__ float As[GK][GM + 4];
-  __shared__ float Bs[GK][GN + 4];
-  const int zm = blockIdx.z / ksplit, slice = blockIdx.z % ksplit;
-  A += za.at(zm, zdiv);
-  Bm += zb.at(zm, zdiv);
-  const int chunk = ((K + ksplit - 1) / ksplit + GK - 1) / GK * GK;
-  const int kbeg = slice * chunk, kend = min(K, kbeg + chunk);
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+// One batched product: nz matrices. gemm() fills part, ksplit and per_slice.
+struct Gemm {
+  const float* A;
+  const float* B;
+  float* C;
+  int M, N, K, nseg;
+  bool krows;
+  long long lda, ldb, ldc, a_seg, b_seg;
+  int nz, zdiv;
+  ZOff za, zb, zc;
+  float* part;
+  int ksplit, per_slice;   // slices of a matrix, k tiles of a slice
+};
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+template <int BM, int BN, bool KROWS>
+struct MmaTile {
+  static constexpr int LDA = KROWS ? MK + 4 : BM + 8;
+  static constexpr int LDB = KROWS ? MK + 4 : BN + 8;
+  static constexpr int A_FLOATS = (KROWS ? BM : MK) * LDA;
+  static constexpr int STAGE_FLOATS = A_FLOATS + (KROWS ? BN : MK) * LDB;
+  static constexpr size_t SMEM_BYTES = size_t(MMA_STAGES) * STAGE_FLOATS * sizeof(float);
+  static constexpr int BLOCKS_PER_SM = BM * BN >= 128 * 128 ? 2 : 3;
+};
 
-  for (int k0 = kbeg; k0 < kend; k0 += GK) {
-    // load along whichever axis is contiguous in memory
+// One operand's BX x MK tile (rows x0 .., depth k0 ..) from device to shared
+// memory in pieces of V floats, as it lies: [x][k] with KROWS, else [k][x];
+// what lies past X or K is zero-filled.
+template <int BX, bool KROWS, int V>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long ld,
+                                           int x0, int X, int k0, int K) {
+  constexpr int LD = KROWS ? MK + 4 : BX + 8;
+  constexpr int ROW = (KROWS ? MK : BX) / V;   // pieces of a staged row
+  static_assert(BX * MK / V % MMA_THREADS == 0, "whole pieces per thread");
 #pragma unroll
-    for (int e = 0; e < GM * GK / GEMM_THREADS; ++e) {
-      const int idx = tid + e * GEMM_THREADS;
-      const int m = sam == 1 ? idx % GM : idx / GK;
-      const int k = sam == 1 ? idx / GM : idx % GK;
-      const bool ok = m0 + m < M && k0 + k < kend;
-      As[k][m] = ok ? A[(m0 + m) * sam + (k0 + k) * sak] : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < GN * GK / GEMM_THREADS; ++e) {
-      const int idx = tid + e * GEMM_THREADS;
-      const int n = sbn == 1 ? idx % GN : idx / GK;
-      const int k = sbn == 1 ? idx / GN : idx % GK;
-      const bool ok = n0 + n < N && k0 + k < kend;
-      Bs[k][n] = ok ? Bm[(k0 + k) * sbk + (n0 + n) * sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Bs[k][tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] += a[i] * b[c];
-    }
-    __syncthreads();
+  for (int i = 0; i < BX * MK / V / MMA_THREADS; ++i) {
+    const int c = threadIdx.x + i * MMA_THREADS;
+    const int row = c / ROW, col = c % ROW * V;
+    const int x = x0 + (KROWS ? row : col), k = k0 + (KROWS ? col : row);
+    const bool ok = x < X && k < K;
+    const long long at = KROWS ? x * ld + k : k * ld + x;
+    cp_async_floats<V>(dst + row * LD + col, ok ? src + at : src, ok);
   }
-  float* out = ksplit == 1 ? C + zc.at(zm, zdiv) : part + size_t(blockIdx.z) * M * N;
-  const long long stride = ksplit == 1 ? scm : N;
+}
+
+template <int BM, int BN, bool KROWS, int V>
+__global__ void __launch_bounds__(MMA_THREADS, MmaTile<BM, BN, KROWS>::BLOCKS_PER_SM)
+gru_mma_gemm_kernel(const Gemm p) {
+  using Tile = MmaTile<BM, BN, KROWS>;
+  constexpr int LDA = Tile::LDA, LDB = Tile::LDB;
+  constexpr int MI = BM / 2 / 16, NI = BN / 4 / 8;   // MMA tiles of a warp
+  static_assert(BM % 32 == 0 && BN % 32 == 0, "2 x 4 warps of 16 x 8 MMA tiles");
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = (warp / 4) * (BM / 2), wn = (warp % 4) * (BN / 4);
+  const int zm = blockIdx.z / p.ksplit, slice = blockIdx.z % p.ksplit;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const float* Az = p.A + p.za.at(zm, p.zdiv);
+  const float* Bz = p.B + p.zb.at(zm, p.zdiv);
+  const int seg_tiles = (p.K + MK - 1) / MK;
+  const int kt0 = slice * p.per_slice;
+  const int n_k = min(p.nseg * seg_tiles, kt0 + p.per_slice) - kt0;
+
+  auto load = [&](int kt, int stage) {
+    float* As = smem + stage * Tile::STAGE_FLOATS;
+    const int seg = kt / seg_tiles, k0 = (kt - seg * seg_tiles) * MK;
+    stage_tile<BM, KROWS, V>(As, Az + seg * p.a_seg, p.lda, m0, p.M, k0, p.K);
+    stage_tile<BN, KROWS, V>(As + Tile::A_FLOATS, Bz + seg * p.b_seg, p.ldb, n0, p.N, k0,
+                             p.K);
+  };
+
+  float acc[MI][NI][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx + 16 * c;
-      if (m < M && n < N) out[m * stride + n] = acc[i][c];
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < n_k) load(kt0 + s, s);
+    cp_async_commit();
+  }
+  // fragment strides: to the next row (m or n) and to the next k
+  constexpr int A_ROW = KROWS ? LDA : 1, A_K = KROWS ? 1 : LDA;
+  constexpr int B_ROW = KROWS ? LDB : 1, B_K = KROWS ? 1 : LDB;
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<MMA_STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is free for every warp
+    if (kt + MMA_STAGES - 1 < n_k)
+      load(kt0 + kt + MMA_STAGES - 1, (kt + MMA_STAGES - 1) % MMA_STAGES);
+    cp_async_commit();
+    const float* As = smem + (kt % MMA_STAGES) * Tile::STAGE_FLOATS;
+    const float* Bs = As + Tile::A_FLOATS;
+    // tiles past a segment's K are zero-filled: whole 8-deep steps only
+    const int k_left = p.K - (kt0 + kt) % seg_tiles * MK;
+    const int k_steps = (min(MK, k_left) + 7) / 8;
+    for (int k8 = 0; k8 < k_steps; ++k8) {
+      const int kb = k8 * 8;
+      // a[0], a[2]: row g, columns t4 and t4 + 4; a[1], a[3]: row g + 8
+      uint32_t a_hi[MI][4], a_lo[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const float* ar = As + (wm + mi * 16 + g) * A_ROW + (kb + t4) * A_K;
+        split_tf32(ar[0], a_hi[mi][0], a_lo[mi][0]);
+        split_tf32(ar[8 * A_ROW], a_hi[mi][1], a_lo[mi][1]);
+        split_tf32(ar[4 * A_K], a_hi[mi][2], a_lo[mi][2]);
+        split_tf32(ar[8 * A_ROW + 4 * A_K], a_hi[mi][3], a_lo[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        // b0: (k = t4, n = g); b1: (k = t4 + 4, n = g)
+        const float* br = Bs + (wn + ni * 8 + g) * B_ROW + (kb + t4) * B_K;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(br[0], b_hi[0], b_lo[0]);
+        split_tf32(br[4 * B_K], b_hi[1], b_lo[1]);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          // the small terms first
+          mma_tf32(acc[mi][ni], a_lo[mi], b_hi[0], b_hi[1]);
+          mma_tf32(acc[mi][ni], a_hi[mi], b_lo[0], b_lo[1]);
+          mma_tf32(acc[mi][ni], a_hi[mi], b_hi[0], b_hi[1]);
+        }
+      }
+    }
+  }
+
+  // acc[..][0], [1]: row g, columns 2 t4, + 1; [2], [3]: row g + 8
+  const bool whole = p.ksplit == 1;
+  float* out = whole ? p.C + p.zc.at(zm, p.zdiv)
+                     : p.part + size_t(blockIdx.z) * p.M * p.N;
+  const long long ld = whole ? p.ldc : p.N;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int col = n0 + wn + ni * 8 + 2 * t4;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + mi * 16 + g + 8 * half;
+        if (row >= p.M) continue;
+        float* dst = out + row * ld + col;
+        if (col < p.N) dst[0] = acc[mi][ni][2 * half];
+        if (col + 1 < p.N) dst[1] = acc[mi][ni][2 * half + 1];
+      }
     }
   }
 }
@@ -495,45 +653,111 @@ inline cudaError_t colsum(const float* src, float* out, int rows, int cols,
   return cudaGetLastError();
 }
 
-// slices of K for a GEMM of nz matrices (M, N, K): enough blocks to fill
-// the card, each with at least MIN_SLICE of K
-inline int gemm_splits(int M, int N, int K, int nz) {
-  const long long blocks = (long long)((N + GN - 1) / GN) * ((M + GM - 1) / GM) * nz;
-  const long long want = (TARGET_BLOCKS + blocks - 1) / blocks;
-  return int(std::max(1LL, std::min(want, (long long)(K + MIN_SLICE - 1) / MIN_SLICE)));
+// The tile and the K slices of nz products (M, N) over n_kt k tiles, from
+// the shape alone. The 128 x 128 tile where both sides fill it and its
+// blocks can fill the card, else the 64 x 64 tile. A slice is at most
+// MAX_SLICE deep (the accumulator chain, above) and at least MIN_SLICE.
+// Where the tiles alone do not fill one wave of blocks, the slice count is
+// the smallest one whose blocks fill their last wave to 90%, else the one
+// that fills it most.
+struct GemmPlan {
+  bool big;
+  int ksplit, per_slice;
+};
+
+inline GemmPlan gemm_plan(int M, int N, int K, int nseg, int nz) {
+  const int n_kt = nseg * ((K + MK - 1) / MK);
+  const int lo = (n_kt * MK + MAX_SLICE - 1) / MAX_SLICE;
+  const int hi = std::max(lo, std::min(64, n_kt * MK / MIN_SLICE));
+  auto tiles = [&](int b) {
+    return (long long)((M + b - 1) / b) * ((N + b - 1) / b) * nz;
+  };
+  const bool big = M >= 128 && N >= 128 && tiles(128) * hi >= SM_COUNT;
+  const long long t = big ? tiles(128) : tiles(64);
+  const long long slots = (long long)SM_COUNT * (big ? 2 : 3);
+  int best = lo;
+  if (t < slots) {
+    double best_fill = 0.;
+    for (int ks = lo; ks <= hi && best_fill < 0.9; ++ks) {
+      const long long blocks = t * ks, waves = (blocks + slots - 1) / slots;
+      const double fill = double(blocks) / double(waves * slots);
+      if (fill > best_fill) {
+        best = ks;
+        best_fill = fill;
+      }
+    }
+  }
+  const int per_slice = (n_kt + best - 1) / best;
+  return {big, (n_kt + per_slice - 1) / per_slice, per_slice};
 }
 
 // floats of workspace gemm() needs for these shapes (0: none)
-inline size_t gemm_workspace(int M, int N, int K, int nz) {
-  const int ks = gemm_splits(M, N, K, nz);
+inline size_t gemm_workspace(int M, int N, int K, int nseg, int nz) {
+  const int ks = gemm_plan(M, N, K, nseg, nz).ksplit;
   return ks == 1 ? 0 : size_t(nz) * ks * M * N;
 }
 
-inline cudaError_t gemm(const float* A, const float* Bm, float* C, float* part,
-                        int M, int N, int K, long long sam, long long sak,
-                        long long sbk, long long sbn, long long scm, int nz,
-                        int zdiv, ZOff za, ZOff zb, ZOff zc, cudaStream_t st) {
-  const int ks = gemm_splits(M, N, K, nz);
-  const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM, nz * ks);
-  gru_gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, Bm, C, part, M, N, K, ks, sam,
-                                                 sak, sbk, sbn, scm, zdiv, za, zb, zc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ks == 1) return err;
-  const int total = nz * M * N;
-  gru_splitk_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(part, C, M, N, ks, scm,
-                                                                zdiv, zc, total);
+template <int BM, int BN, bool KROWS, int V>
+cudaError_t launch_mma_gemm(const Gemm& q, cudaStream_t st) {
+  using Tile = MmaTile<BM, BN, KROWS>;
+  auto* kernel = gru_mma_gemm_kernel<BM, BN, KROWS, V>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM_BYTES));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q.N + BN - 1) / BN, (q.M + BM - 1) / BM, q.nz * q.ksplit);
+  kernel<<<grid, MMA_THREADS, Tile::SMEM_BYTES, st>>>(q);
   return cudaGetLastError();
 }
 
-// dwhh[d, gate] (H, H) = hprev[d]^T (H, T*B) . d_hid[:, d, gate] (T*B, H):
-// the hidden weights' gradient of K2 and K3, 3 * D matrices in one launch
-inline cudaError_t dwhh_gemm(const float* hprev, const float* d_hid, float* dwhh,
-                             float* part, int T, int B, int H, int D,
-                             cudaStream_t st) {
-  const long long TB = (long long)T * B, G = 3LL * D * H;
-  return gemm(hprev, d_hid, dwhh, part, H, H, int(TB), 1, H, G, 1, H, 3 * D, 3,
-              ZOff{TB * H, 0}, ZOff{3LL * H, H}, ZOff{3LL * H * H, (long long)H * H},
-              st);
+template <bool KROWS>
+cudaError_t launch_mma_gemm_tile(bool big, int v, const Gemm& q, cudaStream_t st) {
+#define HOP_GEMM(V)                                                    \
+  return big ? launch_mma_gemm<128, 128, KROWS, V>(q, st)              \
+             : launch_mma_gemm<64, 64, KROWS, V>(q, st);
+  if (v == 4) HOP_GEMM(4)
+  if (v == 2) HOP_GEMM(2)
+  HOP_GEMM(1)
+#undef HOP_GEMM
+}
+
+// `part`: gemm_workspace floats (may be NULL when that is 0)
+inline cudaError_t gemm(Gemm q, float* part, cudaStream_t st) {
+  const GemmPlan plan = gemm_plan(q.M, q.N, q.K, q.nseg, q.nz);
+  if ((long long)q.nz * plan.ksplit > 65535 || (q.M + 63) / 64 > 65535)
+    return cudaErrorInvalidValue;
+  q.part = part;
+  q.ksplit = plan.ksplit;
+  q.per_slice = plan.per_slice;
+  // pieces of 4, 2 or 1 floats: what the pointers, every row start, every
+  // offset and the ragged edge along a row allow
+  const size_t floats = size_t(q.lda | q.ldb | q.a_seg | q.b_seg | q.za.hi | q.za.lo |
+                               q.zb.hi | q.zb.lo | (q.krows ? q.K : q.M | q.N));
+  const size_t a = reinterpret_cast<size_t>(q.A) | reinterpret_cast<size_t>(q.B) |
+                   floats * 4;
+  const int v = a % 16 == 0 ? 4 : a % 8 == 0 ? 2 : 1;
+  cudaError_t err = q.krows ? launch_mma_gemm_tile<true>(plan.big, v, q, st)
+                            : launch_mma_gemm_tile<false>(plan.big, v, q, st);
+  if (err != cudaSuccess || q.ksplit == 1) return err;
+  const int total = q.nz * q.M * q.N;
+  gru_splitk_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+      part, q.C, q.M, q.N, q.ksplit, q.ldc, q.zdiv, q.zc, total);
+  return cudaGetLastError();
+}
+
+// dw[d, gate] (rows, H) = a[d]^T (rows, T*B) . stream[:, d, gate] (T*B, H)
+// for a gate-gradient stream (T, B, D, 3, H): the weight gradients of K2 and
+// K3, 3 * D matrices in one launch. `a` is (T*B, rows) with element
+// (d, tb, m) at d * a_dir + tb * rows + m: x (a_dir 0) or hprev.
+inline Gemm dw_gemm(const float* a, long long a_dir, int rows, const float* stream,
+                    float* dw, int T, int B, int H, int D) {
+  const long long G = 3LL * D * H;
+  return Gemm{a, stream, dw, rows, H, T * B, 1, false, rows, G, H, 0, 0, 3 * D, 3,
+              ZOff{a_dir, 0}, ZOff{3LL * H, H},
+              ZOff{3LL * rows * H, (long long)rows * H}};
+}
+
+inline size_t dw_gemm_workspace(int rows, int T, int B, int H, int D) {
+  return gemm_workspace(rows, H, T * B, 1, 3 * D);
 }
 
 }  // namespace

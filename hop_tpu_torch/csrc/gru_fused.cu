@@ -55,22 +55,33 @@
 //       gate-gradient streams (T, B, D, 3, H): d_in = (dr, dz, dn) that the
 //       input projection sees and d_hid = (dr, dz, dn * r) that the hidden
 //       projection sees. 12.8 GFLOP of the ~98 at I=992 are here.
-//   (b) gru_gemm_kernel, a tiled f32 GEMM (64 x 64 tiles, 4 x 4 per thread)
-//       for dx = d_in . W_ih^T (K = D * 3 * H, so the sum over directions
-//       is inside), dW_ih = x^T d_in and dW_hh = hprev^T d_hid (K = T * B).
-//       Each block owns one output tile and one slice of K, summed in
-//       order. Where the output tiles are too few to fill the card (the
-//       discriminator's dW: 6 tiles over K = 7168) K is cut into slices
-//       whose partial tiles go to a workspace, and gru_splitk_reduce_kernel
-//       adds them in slice order;
+//   (b) gru_mma_gemm_kernel, one f32 GEMM on the tensor cores at f32
+//       accuracy (phase A's 3xTF32 mma.sync tile, operands staged as they lie
+//       by cp.async three stages deep), for the three products:
+//       dx = d_in . W_ih^T, its K running over the D * 3 (direction, gate)
+//       segments of H so that the sum over directions is inside and W_ih
+//       (D, 3, I, H) is read in place (k contiguous: the col-major B
+//       fragment's own order); dW_ih = x^T d_in and dW_hh = hprev^T d_hid
+//       over K = T * B, 3 * D matrices a launch, x and hprev staged [k][m] and
+//       read transposed from shared memory. 128 x 128 tiles at the head's
+//       shapes, 64 x 64 at the discriminator's. Each block owns one output
+//       tile and one slice of K, summed in order; a slice is at most 2304
+//       deep (the tensor cores truncate where an f32 add rounds: a longer
+//       chain would cost the 1e-4 the gradients hold), and where the output
+//       tiles do not fill the card (dW_ih: 144 tiles, dW_hh: 54, the
+//       discriminator's: 6-12) there are more slices; the partial tiles go
+//       to a workspace and gru_splitk_reduce_kernel adds them in slice order;
 //   (c) gru_colsum_kernel: the bias gradients, column sums of the streams
 //       over T * B in a fixed order.
 // No atomics, and every sum has one order for a given shape: the
 // gradients are bitwise the same from run to run.
-// What bounds the backward: the scalar f32 FMAs of the GEMMs (85 of the
-// ~98 GFLOP at I=992; phase A's MMA tile is their next form), and in (a), as
-// in the forward's phase B, the re-read of a direction's W_hh (1.47 MB) from
-// L2 at every step by 64 blocks.
+// What bounds the backward: operations, 98.1 GFLOP of f32 work at I=992.
+// The three products (85 GFLOP, run three times over as TF32 MMAs) take
+// 0.93 + 1.18 ms of the layer's 4.4 on an H100: 26-30% of the TF32 peak, as
+// phase A, less where the blocks come out in a ragged last wave (dx: 544
+// blocks on 264 slots). The rest is (a), 1.97 ms: as in the forward's phase
+// B, the re-read of a direction's W_hh (1.47 MB) from L2 at every step by 64
+// blocks; its redesign is K3's.
 
 #include "gru_common.cuh"
 
@@ -85,53 +96,6 @@ constexpr int P_LDA = PK + 4;    // A rows [m][k]: fragment reads hit 32 banks
 constexpr int P_LDB = PN + 8;    // B rows [k][n]: likewise
 constexpr int P_STAGE_FLOATS = PM * P_LDA + PK * P_LDB;
 constexpr size_t P_SMEM_BYTES = size_t(P_STAGES) * P_STAGE_FLOATS * sizeof(float);
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// V floats (4, 2 or 1) from device to shared memory, or zeros when !ok
-template <int V>
-__device__ __forceinline__ void cp_async_floats(float* dst, const float* src, bool ok) {
-  const int bytes = ok ? 4 * V : 0;
-  if constexpr (V == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  else if constexpr (V == 2)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x as hi + lo in TF32 (10 mantissa bits each): hi is x rounded to nearest
-// (ties away from zero) by integer arithmetic on its bits, lo the exact
-// remainder x - hi, whose low 13 mantissa bits the tensor core ignores:
-// hi + lo = x to 2^-21. (Three full-rate instructions; cvt.rna.tf32.f32 for
-// both halves made the projection 0.90 ms where this makes it 0.74 ms at the
-// head's first layer on an H100.)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // xp[m, z, n] = sum_i x[m, i] wih[z, i, n] + bih[z, n] for m < M = T * B,
 // z < G = D * 3 (direction, gate), n < H: block (x, y, z) owns the 128 x 128
@@ -286,22 +250,21 @@ cudaError_t launch_proj(const float* x, const float* wih, const float* bih, floa
   return launch_proj_vb<1>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
 }
 
-// the three GEMMs of the backward: (M, N, K, nz) of dx, dW_ih and dW_hh
-struct BwdGemms {
-  int m[3], n[3], k[3], nz[3];
-  BwdGemms(int T, int B, int I, int H, int D) {
-    const int TB = T * B, G = 3 * D * H;
-    const int v[3][4] = {{TB, I, G, 1}, {I, H, TB, 3 * D}, {H, H, TB, 3 * D}};
-    for (int i = 0; i < 3; ++i) {
-      m[i] = v[i][0]; n[i] = v[i][1]; k[i] = v[i][2]; nz[i] = v[i][3];
-    }
-  }
-  size_t workspace() const {
-    size_t w = 0;
-    for (int i = 0; i < 3; ++i) w = std::max(w, gemm_workspace(m[i], n[i], k[i], nz[i]));
-    return w;
-  }
-};
+// dx (T*B, I) = sum over (direction, gate) z of d_in[:, z] (T*B, H) . W_ih[z]^T
+// (H, I): one product whose K runs over the 3 D segments, W_ih read in place
+Gemm dx_gemm(const float* d_in, const float* wih, float* dx, int T, int B, int I, int H,
+             int D) {
+  const long long G = 3LL * D * H;
+  const ZOff none{0, 0};
+  return Gemm{d_in, wih, dx, T * B, I, H, 3 * D, true, G, H, I, H,
+              (long long)I * H, 1, 1, none, none, none};
+}
+
+// floats of workspace the backward's three products need
+size_t bwd_workspace(int T, int B, int I, int H, int D) {
+  return std::max({gemm_workspace(T * B, I, H, 3 * D, 1), dw_gemm_workspace(I, T, B, H, D),
+                   dw_gemm_workspace(H, T, B, H, D)});
+}
 
 }  // namespace
 
@@ -342,25 +305,25 @@ extern "C" int hop_gru_fused_whh_in_shared(int H) { return whh_in_shared(H) ? 1 
 
 // floats of workspace hop_gru_fused_bwd needs for these shapes (0: none)
 extern "C" long long hop_gru_fused_bwd_workspace(int T, int B, int I, int H, int D) {
-  return (long long)BwdGemms(T, B, I, H, D).workspace();
+  return (long long)bwd_workspace(T, B, I, H, D);
 }
 
-// g, r, z, n, hnb, hprev (D, T, B, H); x (T, B, I); wih_t (D, 3, H, I) and
-// whh_t (D, 3, H, H) are W_ih and W_hh with their last two axes swapped.
+// g, r, z, n, hnb, hprev (D, T, B, H); x (T, B, I); wih (D, 3, I, H) as the
+// forward takes it; whh_t (D, 3, H, H) is W_hh with its last two axes swapped.
 // d_in, d_hid (T, B, D, 3, H) and `work` (hop_gru_fused_bwd_workspace floats,
 // may be NULL when that is 0) are scratch. Writes dx (T, B, I) summed over
 // the directions, dwih (D, 3, I, H), dbih (D, 3, 1, H), dwhh (D, 3, H, H),
 // dbhh (D, 3, 1, H) and dh0 (D, B, H), one slice per direction.
 extern "C" int hop_gru_fused_bwd(const void* g, const void* x, const void* r,
                                  const void* z, const void* n, const void* hnb,
-                                 const void* hprev, const void* wih_t,
+                                 const void* hprev, const void* wih,
                                  const void* whh_t, void* d_in, void* d_hid,
                                  void* work, void* dx, void* dwih, void* dbih,
                                  void* dwhh, void* dbhh, void* dh0, int T, int B,
                                  int I, int H, int D, void* stream) {
   if (T < 1 || B < 1 || I < 1 || H < 1 || H > 1024 || D < 1 || D > 2)
     return int(cudaErrorInvalidValue);
-  if (BwdGemms(T, B, I, H, D).workspace() > 0 && work == nullptr)
+  if (bwd_workspace(T, B, I, H, D) > 0 && work == nullptr)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* din = static_cast<float*>(d_in);
@@ -374,22 +337,21 @@ extern "C" int hop_gru_fused_bwd(const void* g, const void* x, const void* r,
       D, st);
   if (err != cudaSuccess) return int(err);
 
-  const long long TB = (long long)T * B, G = 3LL * D * H;  // G: stream row width
-  const ZOff none{0, 0};
-  // dx (TB, I) = d_in (TB, D*3*H) . wih_t viewed (D*3*H, I)
-  err = gemm(din, static_cast<const float*>(wih_t), static_cast<float*>(dx), part,
-             int(TB), I, int(G), G, 1, I, 1, I, 1, 1, none, none, none, st);
+  err = gemm(dx_gemm(din, static_cast<const float*>(wih), static_cast<float*>(dx), T, B,
+                     I, H, D),
+             part, st);
   if (err != cudaSuccess) return int(err);
-  // dwih[d, gate] (I, H) = x^T (I, TB) . d_in[:, d, gate] (TB, H)
-  err = gemm(static_cast<const float*>(x), din, static_cast<float*>(dwih), part, I,
-             H, int(TB), 1, I, G, 1, H, 3 * D, 3, none, ZOff{3LL * H, H},
-             ZOff{3LL * I * H, (long long)I * H}, st);
+  err = gemm(dw_gemm(static_cast<const float*>(x), 0, I, din, static_cast<float*>(dwih),
+                     T, B, H, D),
+             part, st);
   if (err != cudaSuccess) return int(err);
-  err = dwhh_gemm(static_cast<const float*>(hprev), dhid, static_cast<float*>(dwhh),
-                  part, T, B, H, D, st);
+  err = gemm(dw_gemm(static_cast<const float*>(hprev), (long long)T * B * H, H, dhid,
+                     static_cast<float*>(dwhh), T, B, H, D),
+             part, st);
   if (err != cudaSuccess) return int(err);
+  const int TB = T * B, G = 3 * D * H;  // the streams' rows and row width
   // bias gradients: column sums of the streams, (D*3*H) columns each
-  err = colsum(din, static_cast<float*>(dbih), int(TB), int(G), st);
+  err = colsum(din, static_cast<float*>(dbih), TB, G, st);
   if (err != cudaSuccess) return int(err);
-  return int(colsum(dhid, static_cast<float*>(dbhh), int(TB), int(G), st));
+  return int(colsum(dhid, static_cast<float*>(dbhh), TB, G, st));
 }

@@ -35,12 +35,14 @@
 // resident block over its sequential grid. Here: gru_bwd_recurrence_kernel
 // (serial, per (8 rows, direction)) writes dxr, dxz, dxn into one
 // (T, B, D, 3, H) buffer in the streams' dtype and the f32 hidden-side
-// stream (dr, dz, dn * r); then the tiled f32 GEMM with ordered split-K gives
-// dW[g] = hprev^T . d_hid[g] over T * B rows, and ordered column sums give
-// db. No atomics: the gradients repeat bit for bit. dh0 comes out per
-// direction and is summed outside, as on the TPU.
-// What bounds it: operations, 25.6 GFLOP of scalar f32 FMAs (half serial in
-// the recurrence, half in the dW product).
+// stream (dr, dz, dn * r); then K2's backward GEMM (gru_common.cuh: 3xTF32
+// on the tensor cores, ordered split-K) gives dW[g] = hprev^T . d_hid[g] over
+// T * B rows, and ordered column sums give db. No atomics: the gradients
+// repeat bit for bit. dh0 comes out per direction and is summed outside, as
+// on the TPU.
+// What bounds it: operations, 25.6 GFLOP of f32 work, half serial in the
+// recurrence's scalar FMAs (1.97 of the 2.5 ms at the head on an H100), half
+// in the dW product (0.34 ms).
 
 #include "gru_common.cuh"
 
@@ -79,7 +81,7 @@ extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
 
 // floats of workspace hop_gru_stack_bwd needs for these shapes (0: none)
 extern "C" long long hop_gru_stack_bwd_workspace(int T, int B, int H, int D) {
-  return (long long)gemm_workspace(H, H, T * B, 3 * D);
+  return (long long)dw_gemm_workspace(H, T, B, H, D);
 }
 
 // g, r, z, n, hnb, hprev (D, T, B, H) f32 contiguous; w_t (D, 3, H, H) is w
@@ -94,7 +96,7 @@ extern "C" int hop_gru_stack_bwd(const void* g, const void* r, const void* z,
                                  void* work, void* dw, void* db, void* dh0, int T,
                                  int B, int H, int D, void* stream) {
   if (bad_shape(T, B, H, D)) return int(cudaErrorInvalidValue);
-  if (gemm_workspace(H, H, T * B, 3 * D) > 0 && work == nullptr)
+  if (dw_gemm_workspace(H, T, B, H, D) > 0 && work == nullptr)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* gf = static_cast<const float*>(g);
@@ -114,8 +116,9 @@ extern "C" int hop_gru_stack_bwd(const void* g, const void* r, const void* z,
                                           static_cast<float*>(dx), dhid, dh0f, T, B,
                                           H, D, st);
   if (err != cudaSuccess) return int(err);
-  err = dwhh_gemm(pf, dhid, static_cast<float*>(dw), static_cast<float*>(work), T, B,
-                  H, D, st);
+  err = gemm(dw_gemm(pf, (long long)T * B * H, H, dhid, static_cast<float*>(dw), T, B, H,
+                     D),
+             static_cast<float*>(work), st);
   if (err != cudaSuccess) return int(err);
   return int(colsum(dhid, static_cast<float*>(db), T * B, 3 * D * H, st));
 }

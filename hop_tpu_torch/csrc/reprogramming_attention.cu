@@ -47,23 +47,40 @@
 // the same warps.
 // wgmma on 64-row tiles with TMA loads is the further step.
 //
-// Backward (flash-attention-2 shape). The TPU summed dk and dv over batch
-// blocks in a VMEM accumulator, relying on its sequential grid; GPU blocks
-// run in parallel and in no order, so the sum is re-cut instead:
-//   * dq kernel: one block per (68-row tile of the (B * L, E) query matrix,
-//     head). It first forms delta = rowsum(dO * O) for its rows (and stores
-//     it for the next kernel), then walks the key tiles, recomputes
-//     p = exp(s - lse) and the mask,
-//     ds = p * (dO v^T * keep / (1 - rate) - delta) and adds ds k;
-//   * dk/dv kernel: one block per (head, 64-key tile) that walks ALL B*L
-//     query rows in chunks of 64, in a fixed order, accumulating
-//     dv += (p * keep / (1 - rate))^T dO and dk += ds^T q in registers.
-// Each output element is owned by one block and summed in one order: dk and
-// dv are deterministic, with no atomics and no cross-block reduction.
-// What bounds the backward: the scalar f32 FMAs of its seven products
-// (scores recomputed in both kernels: 187 GFLOP at the HOP shape); K/V and
-// Q/dO tiles are re-read from L2 by every block. Its tensor-core form is
-// later work.
+// Backward (flash-attention-2 shape), on the tensor cores. The TPU summed dk
+// and dv over batch blocks in a VMEM accumulator, relying on its sequential
+// grid; GPU blocks run in parallel and in no order, so the sum is re-cut. Both
+// kernels are the forward's block: 4 warps x 16 rows of a 64-row tile, bf16
+// tiles by cp.async two stages deep, every product mma.sync.m16n8k16 bf16 with
+// f32 accumulators, p = exp2(s * scale * log2(e) - lse * log2(e)) from the
+// saved log-sum-exp (no running max), the mask redrawn from the hash:
+//   * dq kernel: one block per (64-row tile of the (B * L, E) query matrix,
+//     head), any L, the ragged last tile masked by row. Q and dO sit in
+//     shared memory (fragments by ldmatrix; with them in registers beside the
+//     64 dq and the 32 + 32 score and dP accumulators a thread would spill).
+//     It first forms delta = rowsum(dO * O) for its rows (and stores it for
+//     the next kernel), then walks the key tiles: S = Q K^T and dP = dO V^T
+//     leave their accumulators only as dS = p * (dP * keep / (1 - rate) -
+//     delta), the A fragment (hi + lo bf16, two MMAs) of dq += dS K, with K
+//     read transposed by ldmatrix as the forward reads V;
+//   * dk/dv kernel: one block per (64-key tile, head, run of query rows),
+//     K and V of the tile in shared memory, Q and dO streaming through in
+//     64-row chunks. It computes the transposed scores S^T = K Q^T and
+//     dP^T = V dO^T, so Pd^T = (p * keep / (1 - rate))^T and dS^T are born in
+//     the accumulator layout and are the A fragments (hi + lo) of
+//     dv += Pd^T dO and dk += dS^T Q; 32 query rows a step, so that the two
+//     16 x 128 outputs and the step's scores fit the registers. 24 key tiles x
+//     8 heads would leave SMs idle and walk all 8704 rows each: the rows are
+//     cut into runs (a count the wrapper derives from the shape alone), each
+//     run's dk and dv go to a workspace, and reprog_attn_bwd_combine_kernel
+//     adds them in run order and scales dk.
+// Each output element is summed in one order: dk and dv are deterministic,
+// with no atomics and no "last block finishes" counters.
+// What bounds the backward: operations. The function needs five products
+// (133.7 GFLOP at the HOP shape, 0.135 ms at the bf16 peak); the kernels run
+// ten MMA units of 26.7 GFLOP (S and dP in both, and hi + lo doubles dq, dk
+// and dv), at the rate mma.sync starts with exp2, the hi/lo split and one
+// hash a score element on the same warps in each kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,19 +92,7 @@
 namespace {
 
 constexpr int E = 128;            // head dim
-constexpr int MAX_ROWS = 68;      // query rows per block of the dq kernel
 constexpr int TILE_S = 64;        // keys per tile
-constexpr int THREADS = 256;
-constexpr int KSTRIDE = E + 1;    // padded K row: conflict-free column reads
-// scores: thread -> key j = tid % 64, rows tid / 64 + 4 i
-constexpr int S_GROUPS = THREADS / TILE_S;          // 4
-constexpr int S_ROWS = MAX_ROWS / S_GROUPS;         // 17
-// output: thread -> column e = tid % 128, rows tid / 128 + 2 i
-constexpr int O_GROUPS = THREADS / E;               // 2
-constexpr int O_ROWS = MAX_ROWS / O_GROUPS;         // 34
-constexpr int WARPS = THREADS / 32;
-
-static_assert(MAX_ROWS % S_GROUPS == 0 && MAX_ROWS % O_GROUPS == 0, "rows");
 
 // forward: 4 warps x 16 query rows, bf16 K and V tiles two stages deep
 constexpr int FWD_WARPS = 4;
@@ -103,32 +108,26 @@ constexpr float LN2 = 0.6931471805599453f;
 static_assert(E % 16 == 0 && TILE_S % 16 == 0, "m16n8k16 tiles");
 static_assert((TILE_S * E / 8) % FWD_THREADS == 0, "16-byte pieces per thread");
 
-// dq kernel: Q, dO, K tile, V tile, ds tile, lse, delta, row keys
+// backward: the forward's block (4 warps x 16 rows of a 64-row tile, 64-row
+// bf16 tiles padded to KV_LD in shared memory, two cp.async stages)
+constexpr int BWD_ROWS = FWD_ROWS;
+// dq kernel: the block's Q and dO tiles, then [stage][K, V] tiles
 constexpr size_t DQ_SMEM_BYTES =
-    (2 * MAX_ROWS * E + 2 * TILE_S * KSTRIDE + MAX_ROWS * TILE_S + 3 * MAX_ROWS) *
-    sizeof(float);
-
-// dk/dv kernel: one block per (64-key tile, head), query rows in chunks of 64
-constexpr int KV_TILE = 64;       // keys per block
-constexpr int ROW_CHUNK = 64;     // query rows per step of the block's loop
-constexpr int PSTRIDE = KV_TILE + 1;
-constexpr size_t KV_SMEM_BYTES =
-    (2 * KV_TILE * KSTRIDE + 2 * ROW_CHUNK * KSTRIDE + 2 * ROW_CHUNK * PSTRIDE +
-     3 * ROW_CHUNK) * sizeof(float);
-static_assert(KV_TILE == 64 && ROW_CHUNK == 64 && THREADS == 256,
-              "the dk/dv thread maps assume 8 warps over 64 x 64 tiles");
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+    size_t(2 + FWD_STAGES * 2) * KV_TILE_ELEMS * sizeof(__nv_bfloat16);
+// dk/dv kernel: the block's K and V tiles, then [stage][Q, dO] tiles, then
+// [stage][lse * log2(e), delta, row key] of the stage's 64 query rows
+constexpr size_t DKDV_TILES_BYTES = DQ_SMEM_BYTES;
+constexpr size_t DKDV_SMEM_BYTES =
+    DKDV_TILES_BYTES + size_t(FWD_STAGES) * 3 * BWD_ROWS * sizeof(float);
+constexpr int Q_HALF = 32;   // query rows of one step of the dk/dv kernel
+static_assert(BWD_ROWS == TILE_S && BWD_ROWS % Q_HALF == 0, "one tile shape");
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// dropout: the probability scaled by 1 / (1 - rate) when kept, else 0
+// dropout: p scaled by 1 / (1 - rate) when (row key, key s) is kept, else 0
 __device__ __forceinline__ float drop(float p, uint32_t rk, uint32_t s,
                                       uint32_t thresh, float inv_keep) {
   if (thresh == 0u) return p;
@@ -413,10 +412,81 @@ reprog_attn_combine_kernel(const float* __restrict__ part_o,
   if (lse != nullptr && e == 0) lse[rh] = (m + log2f(l)) * LN2;
 }
 
+// 64 rows of 128 bf16 from a matrix whose row r lies at base + r * stride, into
+// a padded tile; rows from `rows` on are zero. Every thread of the block calls.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* base, long long stride,
+                                          int rows) {
+#pragma unroll
+  for (int i = 0; i < TILE_S * E / 8 / FWD_THREADS; ++i) {
+    const int c = threadIdx.x + i * FWD_THREADS;
+    const int row = c / (E / 8), piece = c % (E / 8);
+    const bool ok = row < rows;
+    cp_async16(tile + row * KV_LD + piece * 8,
+               base + (ok ? row * stride + piece * 8 : 0), ok);
+  }
+}
+
+// acc (16 x 128) += a (16 x 16 NK: 2 NK score tiles in the accumulator
+// layout, fed as hi + lo bf16) . tile (16 NK rows x 128, row-major bf16 in
+// shared memory, read transposed by ldmatrix): the shape of the forward's
+// second product, here dq += dS K, dv += Pd^T dO and dk += dS^T Q.
+template <int NK>
+__device__ __forceinline__ void mma_from_acc(float (&acc)[E / 8][4],
+                                             const float (&a)[2 * NK][4],
+                                             const __nv_bfloat16* tile, int lane) {
+  const int v_row = lane % 8 + (lane / 8 % 2) * 8, v_col = (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_pair(a[2 * kk][0], a[2 * kk][1], hi[0], lo[0]);
+    split_pair(a[2 * kk][2], a[2 * kk][3], hi[1], lo[1]);
+    split_pair(a[2 * kk + 1][0], a[2 * kk + 1][1], hi[2], lo[2]);
+    split_pair(a[2 * kk + 1][2], a[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int np = 0; np < E / 16; ++np) {
+      uint32_t b[4];  // columns 16 np .. + 7: b[0], b[1]; columns + 8: b[2], b[3]
+      ldmatrix_x4_trans(b, tile + (kk * 16 + v_row) * KV_LD + np * 16 + v_col);
+      mma_bf16(acc[2 * np], hi, b[0], b[1]);
+      mma_bf16(acc[2 * np], lo, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
+      mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+}
+
+// c (16 x 8 NT) = a_tile[16 rows from a_row0][128] . b_tile[8 NT rows][128]^T,
+// both row-major bf16 tiles in shared memory: the scores Q K^T and dO V^T of
+// the dq kernel, K Q^T and V dO^T of the dk/dv kernel
+template <int NT>
+__device__ __forceinline__ void mma_rows(float (&c)[NT][4], const __nv_bfloat16* a_tile,
+                                         const __nv_bfloat16* b_tile, int lane) {
+  static_assert(NT % 2 == 0, "ldmatrix.x4 brings two 8-row B tiles");
+  const int a_row = lane % 8 + (lane / 8 % 2) * 8, a_col = (lane / 16) * 8;
+  const int b_row = lane % 8 + (lane / 16) * 8, b_col = (lane / 8 % 2) * 8;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < E / 16; ++ks) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_tile + a_row * KV_LD + ks * 16 + a_col);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];  // rows 16 np .. + 7: b[0], b[1]; rows + 8: b[2], b[3]
+      ldmatrix_x4(b, b_tile + (np * 16 + b_row) * KV_LD + ks * 16 + b_col);
+      mma_bf16(c[2 * np], a, b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // dq = scale * sum_s ds[r, s] k[s], ds = p * (dp * keep / (1 - rate) - delta),
-// one block per (MAX_ROWS-row tile of the BL query rows, head); also stores
-// delta for the dk/dv kernel
-__global__ void __launch_bounds__(THREADS)
+// p = exp2(s * scale * log2(e) - lse * log2(e)): block (x, y) = (64-row tile of
+// the (R = B * L, E) query matrix of head y, head); warp w owns rows 16 w ..
+// Also stores delta = rowsum(dO * O) for the dk/dv kernel. The scores and
+// dp = dO V^T leave their accumulators only as the dS fragment (hi + lo bf16)
+// of dq += dS K.
+__global__ void __launch_bounds__(FWD_THREADS, 2)
 reprog_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -424,125 +494,130 @@ reprog_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ dout,
                           const float* __restrict__ lse,
                           float* __restrict__ delta, float* __restrict__ dq,
-                          int BL, int H, int S, float scale,
-                          uint32_t seed, uint32_t thresh, float inv_keep) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // (MAX_ROWS, E)
-  float* dOs = Qs + MAX_ROWS * E;            // (MAX_ROWS, E)
-  float* Ks = dOs + MAX_ROWS * E;            // (TILE_S, KSTRIDE)
-  float* Vs = Ks + TILE_S * KSTRIDE;         // (TILE_S, KSTRIDE)
-  float* Ds = Vs + TILE_S * KSTRIDE;         // (MAX_ROWS, TILE_S): ds
-  float* lse_s = Ds + MAX_ROWS * TILE_S;
-  float* dl_s = lse_s + MAX_ROWS;
-  uint32_t* rk_s = reinterpret_cast<uint32_t*>(dl_s + MAX_ROWS);
+                          int R, int H, int S, float scale, uint32_t seed,
+                          uint32_t thresh, float inv_keep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + KV_TILE_ELEMS;
+  __nv_bfloat16* kv = dOs + KV_TILE_ELEMS;     // [stage][K, V][key][KV_LD]
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.y;
-  // 32-bit row arithmetic (B * L is checked to fit): with row0 a size_t this
-  // kernel took 8.3 ms for 4.4 at the HOP shape on an H100
-  const int row0 = blockIdx.x * MAX_ROWS;
-  const int rows = min(MAX_ROWS, BL - row0);
-  const uint32_t hk = hop_dropout::head_key(seed, h);
   const int warp = tid / 32, lane = tid % 32;
-
-  // block row r is global query row row0 + r, at offset (row * H + h) * E
-  for (int idx = tid; idx < MAX_ROWS * E; idx += THREADS) {
-    const int r = idx / E, e = idx % E;
-    float qv = 0.f, dv = 0.f;
-    if (r < rows) {
-      const size_t off = (size_t(row0 + r) * H + h) * E + e;
-      qv = __bfloat162float(q[off]);
-      dv = __bfloat162float(dout[off]);
-    }
-    Qs[idx] = qv;
-    dOs[idx] = dv;
-  }
-  __syncthreads();
-  // delta = rowsum(dO * O), one warp per row
-  for (int r = warp; r < MAX_ROWS; r += WARPS) {
-    float part = 0.f;
-    const size_t row = size_t(row0 + r);
-    if (r < rows) {
-      const float* orow = out + (row * H + h) * E;
-      for (int e = lane; e < E; e += 32) part += dOs[r * E + e] * orow[e];
-    }
-    const float dsum = warp_sum(part);
-    if (lane == 0) {
-      dl_s[r] = dsum;
-      lse_s[r] = r < rows ? lse[row * H + h] : 0.f;
-      rk_s[r] = hop_dropout::row_key(hk, uint32_t(row));
-      if (r < rows) delta[row * H + h] = dsum;
-    }
-  }
-
-  const int sj = tid % TILE_S, sg = tid / TILE_S;
-  const int oe = tid % E, og = tid / E;
-  float acc[O_ROWS];
-#pragma unroll
-  for (int i = 0; i < O_ROWS; ++i) acc[i] = 0.f;
+  const int g = lane / 4, t4 = lane % 4;
+  const int h = blockIdx.y;
+  // 32-bit row arithmetic (B * L is checked to fit): a size_t row index
+  // doubled the time of this kernel's scalar predecessor
+  const int row0 = blockIdx.x * BWD_ROWS;
+  const int rows = min(BWD_ROWS, R - row0);
+  const int row_a = row0 + warp * 16 + g, row_b = row_a + 8;
+  const bool ok_a = row_a < R, ok_b = row_b < R;
+  const int n_tiles = (S + TILE_S - 1) / TILE_S;
+  const long long q_stride = (long long)H * E;
 
   const __nv_bfloat16* kh = k + size_t(h) * S * E;
   const __nv_bfloat16* vh = v + size_t(h) * S * E;
+  auto load_tile = [&](int tile, int stage) {
+    __nv_bfloat16* Ks = kv + stage * 2 * KV_TILE_ELEMS;
+    const int s0 = tile * TILE_S;
+    load_rows(Ks, kh + size_t(s0) * E, E, S - s0);
+    load_rows(Ks + KV_TILE_ELEMS, vh + size_t(s0) * E, E, S - s0);
+    cp_async_commit();
+  };
+  load_rows(Qs, q + (size_t(row0) * H + h) * E, q_stride, rows);
+  load_rows(dOs, dout + (size_t(row0) * H + h) * E, q_stride, rows);
+  load_tile(0, 0);   // one group with the Q and dO tiles
 
-  for (int s0 = 0; s0 < S; s0 += TILE_S) {
-    __syncthreads();  // previous tile fully consumed
-    for (int idx = tid; idx < TILE_S * E; idx += THREADS) {
-      const int j = idx / E, e = idx % E;
-      const bool ok = s0 + j < S;
-      const size_t off = size_t(s0 + j) * E + e;
-      Ks[j * KSTRIDE + e] = ok ? __bfloat162float(kh[off]) : 0.f;
-      Vs[j * KSTRIDE + e] = ok ? __bfloat162float(vh[off]) : 0.f;
+  // delta of the warp's 16 rows, each lane four columns; lane (g, t4) keeps
+  // rows g and g + 8, and waits for its own copies of dO first
+  cp_async_wait<0>();
+  __syncthreads();
+  float dl_a = 0.f, dl_b = 0.f;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = row0 + warp * 16 + r;
+    float part = 0.f;
+    if (row < R) {
+      const float4 o = *reinterpret_cast<const float4*>(
+          out + (size_t(row) * H + h) * E + 4 * lane);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(
+          dOs + (warp * 16 + r) * KV_LD + 4 * lane);
+      const float2 d01 = __bfloat1622float2(d2[0]), d23 = __bfloat1622float2(d2[1]);
+      part = d01.x * o.x + d01.y * o.y + d23.x * o.z + d23.y * o.w;
     }
-    __syncthreads();
+    const float dsum = warp_sum(part);
+    if (r == g) dl_a = dsum;
+    if (r == g + 8) dl_b = dsum;
+    if (lane == 0 && row < R) delta[size_t(row) * H + h] = dsum;
+  }
+  const float lse_a = ok_a ? lse[size_t(row_a) * H + h] * LOG2E : 0.f;
+  const float lse_b = ok_b ? lse[size_t(row_b) * H + h] * LOG2E : 0.f;
+  const float scale_log2 = scale * LOG2E;
 
-    {
-      float sc[S_ROWS], dp[S_ROWS];
+  const uint32_t hk = hop_dropout::head_key(seed, h);
+  const uint32_t rk_a = hop_dropout::row_key(hk, uint32_t(row_a));
+  const uint32_t rk_b = hop_dropout::row_key(hk, uint32_t(row_b));
+
+  float acc[E / 8][4];
 #pragma unroll
-      for (int i = 0; i < S_ROWS; ++i) sc[i] = dp[i] = 0.f;
-      const float* krow = Ks + sj * KSTRIDE;
-      const float* vrow = Vs + sj * KSTRIDE;
-#pragma unroll 2
-      for (int e = 0; e < E; ++e) {
-        const float kv = krow[e], vv = vrow[e];
+  for (int n = 0; n < E / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile % FWD_STAGES;
+    if (tile + 1 < n_tiles) {
+      load_tile(tile + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile's K and V have landed for every thread
+    const __nv_bfloat16* Ks = kv + stage * 2 * KV_TILE_ELEMS;
+    const __nv_bfloat16* Vs = Ks + KV_TILE_ELEMS;
+    const int s0 = tile * TILE_S;
+
+    // sc[n], dp[n]: the 16 x 8 tiles of keys s0 + 8 n ..
+    float sc[TILE_S / 8][4], dp[TILE_S / 8][4];
+    mma_rows<TILE_S / 8>(sc, Qs + warp * 16 * KV_LD, Ks, lane);
+    mma_rows<TILE_S / 8>(dp, dOs + warp * 16 * KV_LD, Vs, lane);
+    const bool ragged = s0 + TILE_S > S;
 #pragma unroll
-        for (int i = 0; i < S_ROWS; ++i) {
-          const int r = sg + S_GROUPS * i;
-          sc[i] += Qs[r * E + e] * kv;
-          dp[i] += dOs[r * E + e] * vv;
-        }
+    for (int n = 0; n < TILE_S / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t key = uint32_t(s0 + n * 8 + 2 * t4 + (c & 1));
+        const bool lower = c >= 2;
+        const float p = exp2f(sc[n][c] * scale_log2 - (lower ? lse_b : lse_a));
+        const float ds = p * (drop(dp[n][c], lower ? rk_b : rk_a, key, thresh, inv_keep) -
+                              (lower ? dl_b : dl_a));
+        // keys past S: their K rows are zero, but p may overflow there
+        sc[n][c] = ragged && key >= uint32_t(S) ? 0.f : ds;
       }
-      const bool ok = s0 + sj < S;
-#pragma unroll
-      for (int i = 0; i < S_ROWS; ++i) {
-        const int r = sg + S_GROUPS * i;
-        float ds = 0.f;
-        if (ok && r < rows) {
-          const float p = expf(sc[i] * scale - lse_s[r]);
-          ds = p * (drop(dp[i], rk_s[r], s0 + sj, thresh, inv_keep) - dl_s[r]);
-        }
-        Ds[r * TILE_S + sj] = ds;
-      }
     }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < TILE_S; ++j) {
-      const float kv = Ks[j * KSTRIDE + oe];
-#pragma unroll
-      for (int i = 0; i < O_ROWS; ++i) acc[i] += Ds[(og + O_GROUPS * i) * TILE_S + j] * kv;
-    }
+    mma_from_acc<TILE_S / 16>(acc, sc, Ks, lane);
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
+  float* dst_a = dq + (size_t(row_a) * H + h) * E + 2 * t4;
+  float* dst_b = dq + (size_t(row_b) * H + h) * E + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < O_ROWS; ++i) {
-    const int r = og + O_GROUPS * i;
-    if (r < rows) dq[(size_t(row0 + r) * H + h) * E + oe] = acc[i] * scale;
+  for (int n = 0; n < E / 8; ++n) {
+    if (ok_a)
+      *reinterpret_cast<float2*>(dst_a + n * 8) =
+          make_float2(acc[n][0] * scale, acc[n][1] * scale);
+    if (ok_b)
+      *reinterpret_cast<float2*>(dst_b + n * 8) =
+          make_float2(acc[n][2] * scale, acc[n][3] * scale);
   }
 }
 
-// dk, dv of one (64-key tile, head): walks every query row of the batch in
-// chunks of ROW_CHUNK, in order; needs delta from the dq kernel
-__global__ void __launch_bounds__(THREADS)
+// dk, dv of one (64-key tile x, head y) over run z of the query rows: chunks
+// [z * chunks_per_run, ...) of 64 rows, in order. Warp w owns keys 16 w .. of
+// the tile. The transposed scores S^T = K Q^T and dP^T = V dO^T are born in
+// the accumulator layout, so Pd^T and dS^T are the A fragments (hi + lo bf16)
+// of dv += Pd^T dO and dk += dS^T Q, 32 query rows a step (the registers hold
+// both 16 x 128 outputs). With one run it writes dk (scaled) and dv; with
+// more, run z's sums to part (run, 2, H, S, E), dk unscaled first, dv second.
+// Needs delta from the dq kernel.
+__global__ void __launch_bounds__(FWD_THREADS, 2)
 reprog_attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -550,140 +625,136 @@ reprog_attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
-                            int BL, int H, int S, float scale,
-                            uint32_t seed, uint32_t thresh, float inv_keep) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                          // (KV_TILE, KSTRIDE)
-  float* Vs = Ks + KV_TILE * KSTRIDE;        // (KV_TILE, KSTRIDE)
-  float* Qs = Vs + KV_TILE * KSTRIDE;        // (ROW_CHUNK, KSTRIDE)
-  float* dOs = Qs + ROW_CHUNK * KSTRIDE;     // (ROW_CHUNK, KSTRIDE)
-  float* Ps = dOs + ROW_CHUNK * KSTRIDE;     // (ROW_CHUNK, PSTRIDE): dropped p
-  float* Ds = Ps + ROW_CHUNK * PSTRIDE;      // (ROW_CHUNK, PSTRIDE): ds
-  float* lse_s = Ds + ROW_CHUNK * PSTRIDE;
-  float* dl_s = lse_s + ROW_CHUNK;
-  uint32_t* rk_s = reinterpret_cast<uint32_t*>(dl_s + ROW_CHUNK);
+                            float* __restrict__ part, int R, int H, int S,
+                            int chunks_per_run, float scale, uint32_t seed,
+                            uint32_t thresh, float inv_keep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + KV_TILE_ELEMS;
+  __nv_bfloat16* qd = Vs + KV_TILE_ELEMS;      // [stage][Q, dO][row][KV_LD]
+  float* row_f = reinterpret_cast<float*>(smem_raw + DKDV_TILES_BYTES);
+  // [stage][lse * log2(e), delta, row key][row]
 
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * KV_TILE;
-  const int h = blockIdx.y;
   const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int h = blockIdx.y;
+  const int s0 = blockIdx.x * TILE_S;
+  const int n_chunks = (R + BWD_ROWS - 1) / BWD_ROWS;
+  const int chunk0 = blockIdx.z * chunks_per_run;
+  const int chunk1 = min(n_chunks, chunk0 + chunks_per_run);
+  const long long q_stride = (long long)H * E;
   const uint32_t hk = hop_dropout::head_key(seed, h);
 
-  const __nv_bfloat16* kh = k + size_t(h) * S * E;
-  const __nv_bfloat16* vh = v + size_t(h) * S * E;
-  for (int idx = tid; idx < KV_TILE * E; idx += THREADS) {
-    const int j = idx / E, e = idx % E;
-    const bool ok = j0 + j < S;
-    const size_t off = size_t(j0 + j) * E + e;
-    Ks[j * KSTRIDE + e] = ok ? __bfloat162float(kh[off]) : 0.f;
-    Vs[j * KSTRIDE + e] = ok ? __bfloat162float(vh[off]) : 0.f;
-  }
-
-  // phase A: thread -> keys lane + 32 c (c < 2), rows warp + 8 i (i < 8)
-  // phase B: thread -> columns lane + 32 c (c < 4), keys warp + 8 i (i < 8)
-  float acc_dk[8][4], acc_dv[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
-
-  for (int r0 = 0; r0 < BL; r0 += ROW_CHUNK) {
-    __syncthreads();  // K/V loaded / previous chunk fully consumed
-    for (int idx = tid; idx < ROW_CHUNK * E; idx += THREADS) {
-      const int r = idx / E, e = idx % E;
-      float qv = 0.f, gv = 0.f;
-      if (r0 + r < BL) {
-        const size_t off = (size_t(r0 + r) * H + h) * E + e;
-        qv = __bfloat162float(q[off]);
-        gv = __bfloat162float(dout[off]);
-      }
-      Qs[r * KSTRIDE + e] = qv;
-      dOs[r * KSTRIDE + e] = gv;
+  auto load_chunk = [&](int chunk, int stage) {
+    __nv_bfloat16* Qs = qd + stage * 2 * KV_TILE_ELEMS;
+    const int r0 = chunk * BWD_ROWS;
+    const int rows = min(BWD_ROWS, R - r0);
+    load_rows(Qs, q + (size_t(r0) * H + h) * E, q_stride, rows);
+    load_rows(Qs + KV_TILE_ELEMS, dout + (size_t(r0) * H + h) * E, q_stride, rows);
+    cp_async_commit();
+    if (tid < BWD_ROWS) {
+      float* f = row_f + stage * 3 * BWD_ROWS;
+      const bool ok = tid < rows;
+      f[tid] = ok ? lse[size_t(r0 + tid) * H + h] * LOG2E : 0.f;
+      f[BWD_ROWS + tid] = ok ? delta[size_t(r0 + tid) * H + h] : 0.f;
+      reinterpret_cast<uint32_t*>(f)[2 * BWD_ROWS + tid] =
+          hop_dropout::row_key(hk, uint32_t(r0 + tid));
     }
-    for (int r = tid; r < ROW_CHUNK; r += THREADS) {
-      const bool ok = r0 + r < BL;
-      lse_s[r] = ok ? lse[size_t(r0 + r) * H + h] : 0.f;
-      dl_s[r] = ok ? delta[size_t(r0 + r) * H + h] : 0.f;
-      rk_s[r] = hop_dropout::row_key(hk, uint32_t(r0 + r));
-    }
-    __syncthreads();
+  };
+  load_rows(Ks, k + (size_t(h) * S + s0) * E, E, S - s0);
+  load_rows(Vs, v + (size_t(h) * S + s0) * E, E, S - s0);
+  load_chunk(chunk0, 0);   // one group with the K and V tiles
 
-    // phase A: scores and dO v^T for the chunk, then the dropped p and ds
-    {
-      float sc[8][2], dp[8][2];
+  float acc_dk[E / 8][4], acc_dv[E / 8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sc[i][0] = sc[i][1] = dp[i][0] = dp[i][1] = 0.f;
-      const float* k0 = Ks + lane * KSTRIDE;
-      const float* k1 = Ks + (lane + 32) * KSTRIDE;
-      const float* v0 = Vs + lane * KSTRIDE;
-      const float* v1 = Vs + (lane + 32) * KSTRIDE;
-#pragma unroll 2
-      for (int e = 0; e < E; ++e) {
-        const float ka = k0[e], kb = k1[e], va = v0[e], vb = v1[e];
+  for (int n = 0; n < E / 8; ++n)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float qv = Qs[(warp + 8 * i) * KSTRIDE + e];
-          const float gv = dOs[(warp + 8 * i) * KSTRIDE + e];
-          sc[i][0] += qv * ka;
-          sc[i][1] += qv * kb;
-          dp[i][0] += gv * va;
-          dp[i][1] += gv * vb;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = warp + 8 * i;
-        const bool row_ok = r0 + r < BL;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = lane + 32 * c;
-          float pd = 0.f, ds = 0.f;
-          if (row_ok) {
-            // keys past S meet zero K/V rows; their dk/dv are never stored
-            const float p = expf(sc[i][c] * scale - lse_s[r]);
-            pd = drop(p, rk_s[r], j0 + j, thresh, inv_keep);
-            ds = p * (drop(dp[i][c], rk_s[r], j0 + j, thresh, inv_keep) - dl_s[r]);
-          }
-          Ps[r * PSTRIDE + j] = pd;
-          Ds[r * PSTRIDE + j] = ds;
-        }
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < 4; ++c) acc_dk[n][c] = acc_dv[n][c] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t key_a = uint32_t(s0 + warp * 16 + g), key_b = key_a + 8;
 
-    // phase B: dv += pd^T dO, dk += ds^T q over the chunk's rows
-#pragma unroll 2
-    for (int r = 0; r < ROW_CHUNK; ++r) {
-      float gv[4], qv[4];
+  for (int chunk = chunk0; chunk < chunk1; ++chunk) {
+    const int stage = (chunk - chunk0) % FWD_STAGES;
+    if (chunk + 1 < chunk1) {
+      load_chunk(chunk + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this chunk's Q, dO and row values are there for every thread
+    const __nv_bfloat16* Qs = qd + stage * 2 * KV_TILE_ELEMS;
+    const __nv_bfloat16* dOs = Qs + KV_TILE_ELEMS;
+    const float* f = row_f + stage * 3 * BWD_ROWS;
+    const uint32_t* rk = reinterpret_cast<const uint32_t*>(f) + 2 * BWD_ROWS;
+
+#pragma unroll 1
+    for (int half = 0; half < BWD_ROWS / Q_HALF; ++half) {
+      const int qr = half * Q_HALF;
+      // st[n], dpt[n]: keys (g, g + 8) x query rows qr + 8 n + 2 t4, + 1
+      float st[Q_HALF / 8][4], dpt[Q_HALF / 8][4];
+      mma_rows<Q_HALF / 8>(st, Ks + warp * 16 * KV_LD, Qs + qr * KV_LD, lane);
+      mma_rows<Q_HALF / 8>(dpt, Vs + warp * 16 * KV_LD, dOs + qr * KV_LD, lane);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        gv[c] = dOs[r * KSTRIDE + lane + 32 * c];
-        qv[c] = Qs[r * KSTRIDE + lane + 32 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float pd = Ps[r * PSTRIDE + warp + 8 * i];
-        const float ds = Ds[r * PSTRIDE + warp + 8 * i];
+      for (int n = 0; n < Q_HALF / 8; ++n) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          acc_dv[i][c] += pd * gv[c];
-          acc_dk[i][c] += ds * qv[c];
+          const int r = qr + n * 8 + 2 * t4 + (c & 1);
+          const float p = exp2f(st[n][c] * scale_log2 - f[r]);
+          const float keep = drop(1.f, rk[r], c >= 2 ? key_b : key_a, thresh, inv_keep);
+          st[n][c] = p * keep;                                    // Pd^T
+          dpt[n][c] = p * (dpt[n][c] * keep - f[BWD_ROWS + r]);   // dS^T
         }
       }
+      mma_from_acc<Q_HALF / 16>(acc_dv, st, dOs + qr * KV_LD, lane);
+      mma_from_acc<Q_HALF / 16>(acc_dk, dpt, Qs + qr * KV_LD, lane);
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
+  // keys past S met zero K and V rows; their sums are not stored
+  const bool whole = gridDim.z == 1;
+  const size_t hse = size_t(H) * S * E;
+  float* dk_out = whole ? dk : part + size_t(blockIdx.z) * 2 * hse;
+  float* dv_out = whole ? dv : dk_out + hse;
+  const float w = whole ? scale : 1.f;
+  const size_t off_a = (size_t(h) * S + key_a) * E + 2 * t4;
+  const size_t off_b = (size_t(h) * S + key_b) * E + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int j = j0 + warp + 8 * i;
-    if (j < S) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const size_t off = (size_t(h) * S + j) * E + lane + 32 * c;
-        dk[off] = acc_dk[i][c] * scale;
-        dv[off] = acc_dv[i][c];
-      }
+  for (int n = 0; n < E / 8; ++n) {
+    if (key_a < uint32_t(S)) {
+      *reinterpret_cast<float2*>(dk_out + off_a + n * 8) =
+          make_float2(acc_dk[n][0] * w, acc_dk[n][1] * w);
+      *reinterpret_cast<float2*>(dv_out + off_a + n * 8) =
+          make_float2(acc_dv[n][0], acc_dv[n][1]);
     }
+    if (key_b < uint32_t(S)) {
+      *reinterpret_cast<float2*>(dk_out + off_b + n * 8) =
+          make_float2(acc_dk[n][2] * w, acc_dk[n][3] * w);
+      *reinterpret_cast<float2*>(dv_out + off_b + n * 8) =
+          make_float2(acc_dv[n][2], acc_dv[n][3]);
+    }
+  }
+}
+
+// dk = scale * sum of the runs' dk, dv = sum of the runs' dv, in run order:
+// one thread per four floats of (2, H, S, E)
+__global__ void reprog_attn_bwd_combine_kernel(const float* __restrict__ part,
+                                               float* __restrict__ dk,
+                                               float* __restrict__ dv, long long hse,
+                                               int n_runs, float scale) {
+  const long long i = (long long)(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i * 4 >= 2 * hse) return;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < n_runs; ++r) {
+    const float4 x = *reinterpret_cast<const float4*>(part + r * 2 * hse + i * 4);
+    s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+  }
+  if (i * 4 < hse) {
+    s.x *= scale; s.y *= scale; s.z *= scale; s.w *= scale;
+    *reinterpret_cast<float4*>(dk + i * 4) = s;
+  } else {
+    *reinterpret_cast<float4*>(dv + i * 4 - hse) = s;
   }
 }
 
@@ -733,15 +804,26 @@ extern "C" int hop_reprog_attn_fwd(const void* q, const void* k, const void* v,
   return int(cudaGetLastError());
 }
 
-// delta (B, L, H) f32 is scratch the wrapper allocates
+// delta (B, L, H) f32 is scratch the wrapper allocates. n_runs > 1 cuts the
+// 64-row chunks of the B * L query rows into n_runs runs of
+// ceil(chunks / n_runs) for the dk/dv kernel (every run must hold a chunk)
+// and needs the workspace part (n_runs, 2, H, S, E) f32; with n_runs == 1 it
+// may be NULL.
 extern "C" int hop_reprog_attn_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout,
                                    const void* lse, void* delta, void* dq,
-                                   void* dk, void* dv, int B, int L, int H,
-                                   int S, float scale, uint32_t seed,
-                                   uint32_t thresh, float inv_keep,
+                                   void* dk, void* dv, void* part, int n_runs,
+                                   int B, int L, int H, int S, float scale,
+                                   uint32_t seed, uint32_t thresh, float inv_keep,
                                    void* stream) {
   if (bad_shape(B, L, H, S)) return int(cudaErrorInvalidValue);
+  const int R = B * L;
+  const int n_chunks = (R + BWD_ROWS - 1) / BWD_ROWS;
+  if (n_runs < 1 || n_runs > n_chunks || n_runs > 65535)
+    return int(cudaErrorInvalidValue);
+  const int per_run = (n_chunks + n_runs - 1) / n_runs;
+  if ((n_runs - 1) * per_run >= n_chunks) return int(cudaErrorInvalidValue);
+  if (n_runs > 1 && part == nullptr) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
       reprog_attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -749,23 +831,29 @@ extern "C" int hop_reprog_attn_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(
       reprog_attn_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(KV_SMEM_BYTES));
+      int(DKDV_SMEM_BYTES));
   if (err != cudaSuccess) return int(err);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const auto* gb = static_cast<const __nv_bfloat16*>(dout);
-  reprog_attn_bwd_dq_kernel<<<dim3((B * L + MAX_ROWS - 1) / MAX_ROWS, H), THREADS,
-                              DQ_SMEM_BYTES, st>>>(
+  reprog_attn_bwd_dq_kernel<<<dim3(n_chunks, H), FWD_THREADS, DQ_SMEM_BYTES, st>>>(
       qb, kb, vb, static_cast<const float*>(out), gb,
       static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<float*>(dq), B * L, H, S, scale, seed, thresh, inv_keep);
+      static_cast<float*>(dq), R, H, S, scale, seed, thresh, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  reprog_attn_bwd_dkdv_kernel<<<dim3((S + KV_TILE - 1) / KV_TILE, H), THREADS,
-                                KV_SMEM_BYTES, st>>>(
+  reprog_attn_bwd_dkdv_kernel<<<dim3((S + TILE_S - 1) / TILE_S, H, n_runs), FWD_THREADS,
+                                DKDV_SMEM_BYTES, st>>>(
       qb, kb, vb, gb, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), B * L, H, S, scale, seed, thresh, inv_keep);
+      static_cast<float*>(dv), static_cast<float*>(part), R, H, S, per_run, scale, seed,
+      thresh, inv_keep);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_runs == 1) return int(err);
+  const long long hse = (long long)H * S * E;
+  reprog_attn_bwd_combine_kernel<<<unsigned((2 * hse / 4 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dk), static_cast<float*>(dv),
+      hse, n_runs, scale);
   return int(cudaGetLastError());
 }

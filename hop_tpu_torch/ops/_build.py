@@ -39,15 +39,15 @@ SIGNATURES = {
     # splits, or NULL), n_split, B, L, H, S, scale, seed, thresh, inv_keep,
     # stream
     "hop_reprog_attn_fwd": [_P] * 7 + [_I] * 5 + [_F, _U, _U, _F, _P],
-    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, L, H, S, scale, seed,
-    # thresh, inv_keep, stream
-    "hop_reprog_attn_bwd": [_P] * 10 + [_I] * 4 + [_F, _U, _U, _F, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, part (workspace of the row
+    # runs, or NULL), n_runs, B, L, H, S, scale, seed, thresh, inv_keep, stream
+    "hop_reprog_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _U, _U, _F, _P],
     # x, wih, bih, whh, bhh, h0, xp (workspace), out, r, z, n, hnb (residuals
     # or NULL), T, B, I, H, D, stream
     "hop_gru_fused_fwd": [_P] * 12 + [_I] * 5 + [_P],
     # H -> 1 when the recurrence stages W_hh in shared memory
     "hop_gru_fused_whh_in_shared": [_I],
-    # g, x, r, z, n, hnb, hprev, wih_t, whh_t, d_in, d_hid, work, dx, dwih,
+    # g, x, r, z, n, hnb, hprev, wih, whh_t, d_in, d_hid, work, dx, dwih,
     # dbih, dwhh, dbhh, dh0, T, B, I, H, D, stream
     "hop_gru_fused_bwd": [_P] * 18 + [_I] * 5 + [_P],
     # T, B, I, H, D -> floats of workspace hop_gru_fused_bwd needs

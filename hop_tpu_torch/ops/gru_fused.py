@@ -24,16 +24,23 @@ step. In training the forward also writes the gates r, z, n and
 hnb = h W_hh[n] + b_hh[n]. The
 backward runs the serial dh recurrence in one kernel (gate-gradient
 streams out) and everything else (dx, dW_ih, dW_hh: ≈85 of the ≈98 GFLOP
-of a head layer at I=992) as tiled GEMMs whose blocks each own an output
-tile and a slice of K (slices summed in order by a second kernel where the
-tiles are too few to fill the card); the bias gradients are ordered column
-sums. No atomics, so the gradients repeat bit for bit (see the .cu file).
+of a head layer at I=992) as three products of one hand-written GEMM on the
+tensor cores at f32 accuracy, the projection's 3×TF32 `mma.sync` tile: the
+operands are staged as they lie (W_ih in place for dx, x and hprev read
+transposed from shared memory for dW), a block owns an output tile (128 ×
+128, or 64 × 64 at the discriminator's narrow shapes) and a slice of K;
+slices are at most 2304 deep, because the tensor cores' f32 accumulation
+truncates, and where the tiles are too few to fill the card there are more
+of them (`gemm_plan`, a function of the shape alone), summed in slice order
+by a second kernel; the bias gradients are ordered column sums. No atomics,
+so the gradients repeat bit for bit (see the .cu files).
 
 `plain_gru_fused_layer` is the JAX scan math (hop_tpu/ops/gru.py:157-183)
 in torch on the same (D, 3, I, H) weight layout; `plain_gru_fused_layer_bwd`
 is the backward in the kernels' split (gate grads by a reversed loop, then
-products and sums); `two_phase_gru_fused_layer` repeats the forward
-kernels' arithmetic in torch for the CPU tests. The wrappers take the plain
+products and sums); `two_phase_gru_fused_layer` and
+`sliced_gru_fused_layer_bwd` repeat the forward and backward kernels'
+arithmetic in torch for the CPU tests. The wrappers take the plain
 versions only for a tensor on the CPU; for a CUDA tensor they launch the
 kernels or raise.
 """
@@ -139,8 +146,10 @@ def two_phase_gru_fused_layer(x, wih, bih, whh, bhh, h0,
     return out, r, z, n, hnb
 
 
-def plain_gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
-    """Same contract as `gru_fused_layer_bwd`, in torch."""
+def _gate_grad_streams(g, r, z, n, hnb, hprev, whh):
+    """The serial part of the backward: the gate-gradient streams d_in =
+    (dr, dz, dn) and d_hid = (dr, dz, dn * r), each (T, B, D, 3, H), and the
+    dh carry after the last step, (D, B, H)."""
     D, T, B, H = g.shape
     d_in = g.new_zeros((T, B, D, 3, H))
     d_hid = g.new_zeros((T, B, D, 3, H))
@@ -156,9 +165,113 @@ def plain_gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
             d_hid[t, :, d] = torch.stack([dr, dz, dn * r[d, t]], dim=1)
             dh = gt * z[d, t] + torch.einsum("bgk,gjk->bj", d_hid[t, :, d], whh[d])
         dh0[d] = dh
+    return d_in, d_hid, dh0
+
+
+def plain_gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
+    """Same contract as `gru_fused_layer_bwd`, in torch."""
+    d_in, d_hid, dh0 = _gate_grad_streams(g, r, z, n, hnb, hprev, whh)
     dx = torch.einsum("tbdgj,dgij->tbi", d_in, wih)
     dwih = torch.einsum("tbi,tbdgj->dgij", x, d_in)
     dwhh = torch.einsum("dtbk,tbdgj->dgkj", hprev, d_hid)
+    dbih = d_in.sum(dim=(0, 1))[:, :, None]
+    dbhh = d_hid.sum(dim=(0, 1))[:, :, None]
+    return dx, dwih, dbih, dwhh, dbhh, dh0.sum(0)
+
+
+#: the backward GEMM's constants (MK, MIN_SLICE, MAX_SLICE, SM_COUNT in
+#: csrc/gru_common.cuh): depth of a k tile, least and most K of one block's
+#: accumulator chain, the SMs of an H100
+GEMM_K_TILE = 32
+GEMM_MIN_SLICE = 256
+GEMM_MAX_SLICE = 2304
+SM_COUNT = 132
+
+
+def gemm_plan(M: int, N: int, K: int, nseg: int, nz: int):
+    """(big tile?, K slices, k tiles a slice) of the backward's GEMM for nz
+    products (M, N) over nseg segments of K, as the kernel's host side
+    chooses them (`gemm_plan` in csrc/gru_common.cuh), from the shape alone:
+    the 128 x 128 tile where both sides fill it and its blocks can fill the
+    card, else 64 x 64; slices between GEMM_MIN_SLICE and GEMM_MAX_SLICE
+    deep; where the tiles alone do not fill one wave of blocks, the fewest
+    slices whose blocks fill their last wave to 90%, else the count that
+    fills it most."""
+    n_kt = nseg * -(-K // GEMM_K_TILE)
+    lo = -(-n_kt * GEMM_K_TILE // GEMM_MAX_SLICE)
+    hi = max(lo, min(64, n_kt * GEMM_K_TILE // GEMM_MIN_SLICE))
+
+    def tiles(b):
+        return -(-M // b) * -(-N // b) * nz
+    big = M >= 128 and N >= 128 and tiles(128) * hi >= SM_COUNT
+    t = tiles(128) if big else tiles(64)
+    slots = SM_COUNT * (2 if big else 3)
+    best = lo
+    if t < slots:
+        best_fill = 0.0
+        for ks in range(lo, hi + 1):
+            blocks = t * ks
+            fill = blocks / (-(-blocks // slots) * slots)
+            if fill > best_fill:
+                best, best_fill = ks, fill
+            if fill >= 0.9:
+                break
+    per_slice = -(-n_kt // best)
+    return big, -(-n_kt // per_slice), per_slice
+
+
+def bwd_workspace_floats(T: int, B: int, I: int, H: int, D: int) -> int:
+    """Floats of split-K workspace the backward's three products need: the
+    wrapper's copy of `hop_gru_fused_bwd_workspace`."""
+    def floats(M, N, K, nseg, nz):
+        ks = gemm_plan(M, N, K, nseg, nz)[1]
+        return 0 if ks == 1 else nz * ks * M * N
+    return max(floats(T * B, I, H, 3 * D, 1), floats(I, H, T * B, 1, 3 * D),
+               floats(H, H, T * B, 1, 3 * D))
+
+
+def _sliced_tf32_matmul(a, b, nseg: int = 1):
+    """a (..., M, K') . b (..., K', N) as the backward's GEMM sums it: K' is
+    nseg segments of K end to end, each operand split into TF32 hi + lo, a
+    product summed from three (lo hi, hi lo, hi hi) inside a slice of k
+    tiles, the slices added in order."""
+    M, N = a.shape[-2], b.shape[-1]
+    K = a.shape[-1] // nseg
+    nz = max(a.shape[:-2].numel(), b.shape[:-2].numel())
+    _, ksplit, per_slice = gemm_plan(M, N, K, nseg, nz)
+    seg_tiles = -(-K // GEMM_K_TILE)
+
+    def tile_start(kt):      # element of K' where k tile kt begins
+        seg, tile = divmod(kt, seg_tiles)
+        return min(seg * K + tile * GEMM_K_TILE, nseg * K)
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    out = None
+    for s in range(ksplit):
+        k = slice(tile_start(s * per_slice),
+                  tile_start(min((s + 1) * per_slice, nseg * seg_tiles)))
+        part = (a_lo[..., k] @ b_hi[..., k, :] + a_hi[..., k] @ b_lo[..., k, :]
+                + a_hi[..., k] @ b_hi[..., k, :])
+        out = part if out is None else out + part
+    return out
+
+
+def sliced_gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
+    """`plain_gru_fused_layer_bwd`'s contract in the backward kernels'
+    arithmetic, for tests: the same gate-gradient streams, then dx, dW_ih
+    and dW_hh as 3xTF32 products over ordered K slices (`gemm_plan`)."""
+    D, T, B, H = g.shape
+    I = x.shape[-1]
+    TB = T * B
+    d_in, d_hid, dh0 = _gate_grad_streams(g, r, z, n, hnb, hprev, whh)
+    # dx: K runs over the 3 D (direction, gate) segments of H
+    dx = _sliced_tf32_matmul(d_in.reshape(TB, 3 * D * H),
+                             wih.transpose(2, 3).reshape(3 * D * H, I),
+                             nseg=3 * D).reshape(T, B, I)
+    # dW: 3 D products over K = T * B, each stream column block its own B
+    streams = [s.reshape(TB, D, 3, H).permute(1, 2, 0, 3) for s in (d_in, d_hid)]
+    dwih = _sliced_tf32_matmul(x.reshape(TB, I).t(), streams[0])
+    dwhh = _sliced_tf32_matmul(hprev.reshape(D, 1, TB, H).transpose(2, 3), streams[1])
     dbih = d_in.sum(dim=(0, 1))[:, :, None]
     dbhh = d_hid.sum(dim=(0, 1))[:, :, None]
     return dx, dwih, dbih, dwhh, dbhh, dh0.sum(0)
@@ -241,8 +354,9 @@ def gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
     if D > 2 or H > 1024:
         raise ValueError(f"kernel takes D <= 2 and H <= 1024, got D={D}, H={H}")
     g, x, r, z, n, hnb, hprev = (t.contiguous() for t in (g, x, r, z, n, hnb, hprev))
-    # the kernels read W_ih and W_hh transposed, coalesced along their rows
-    wih_t = wih.transpose(2, 3).contiguous()
+    # the recurrence reads W_hh transposed, coalesced along its rows; the dx
+    # product reads W_ih as it lies
+    wih = wih.contiguous()
     whh_t = whh.transpose(2, 3).contiguous()
     f32 = dict(dtype=torch.float32, device=g.device)
     d_in = torch.empty((T, B, D, 3, H), **f32)
@@ -259,7 +373,7 @@ def gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.hop_gru_fused_bwd(
         g.data_ptr(), x.data_ptr(), r.data_ptr(), z.data_ptr(), n.data_ptr(),
-        hnb.data_ptr(), hprev.data_ptr(), wih_t.data_ptr(), whh_t.data_ptr(),
+        hnb.data_ptr(), hprev.data_ptr(), wih.data_ptr(), whh_t.data_ptr(),
         d_in.data_ptr(), d_hid.data_ptr(), work.data_ptr() if n_work else None,
         dx.data_ptr(), dwih.data_ptr(), dbih.data_ptr(), dwhh.data_ptr(),
         dbhh.data_ptr(), dh0.data_ptr(), T, B, I, H, D, stream)

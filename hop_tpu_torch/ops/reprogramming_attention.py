@@ -25,16 +25,23 @@ p * keep / (1 - rate) meets V as a hi + lo bf16 pair, so the result keeps
 f32 accuracy. Where row tiles x heads would not fill the card (B = 1), S is
 split across blocks and a second kernel combines the splits in order
 (`split_count`, a function of the shape alone). The backward recomputes the
-probabilities from the per-row log-sum-exp (flash-attention-2 shape,
-deterministic dk/dv, scalar f32 products: 187 GFLOP at that shape; see the
-.cu file).
+probabilities from the per-row log-sum-exp (flash-attention-2 shape) in two
+kernels of the forward's block, every product `mma.sync` bf16: the dq
+kernel walks the key tiles for a 64-row tile, dS meeting K as a hi + lo bf16
+pair; the dk/dv kernel computes the transposed scores for a 64-key tile so
+that (p ∘ keep)ᵀ and dSᵀ are born as the A fragments of dv and dk, over a
+run of the query rows (`bwd_row_runs`, a function of the shape alone); the
+runs' partial dk and dv are added in run order by a third kernel, so the
+gradients repeat bit for bit without atomics. Operations bound it: five
+products, 133.7 GFLOP at that shape (see the .cu file).
 
 `plain_reprogramming_attention` is the JAX einsum path
 (hop_tpu/models/reprogramming.py:61-65) in torch, with the same dropout;
 `plain_reprogramming_attention_bwd` is the backward in the kernels'
 algorithm (LSE recompute, delta = rowsum(dO ∘ O));
-`tiled_reprogramming_attention` repeats the forward kernel's arithmetic in
-torch for the CPU tests. The wrappers take the plain versions
+`tiled_reprogramming_attention` and `tiled_reprogramming_attention_bwd`
+repeat the forward and backward kernels' arithmetic in torch for the CPU
+tests. The wrappers take the plain versions
 only for a tensor on the CPU; for a CUDA tensor they launch the kernels or
 raise. On CUDA the operands (q, k, v, and dO in the backward) are cast to
 bf16, as the TPU wrapper does (pallas_reprogramming.py:78-82, :248);
@@ -72,6 +79,32 @@ def split_count(B: int, L: int, H: int, S: int) -> int:
         return 1
     per_run = -(-tiles // min(tiles, -(-SM_COUNT // blocks)))
     return -(-tiles // per_run)
+
+
+#: runs the dk/dv kernel may cut the query rows into (each run's partial dk
+#: and dv are H * S * E * 8 bytes of workspace)
+MAX_ROW_RUNS = 16
+
+
+def bwd_row_runs(B: int, L: int, H: int, S: int) -> int:
+    """Runs of 64-row chunks the backward's dk/dv kernel cuts the B * L query
+    rows into, each run a block of its own per (key tile, head): the fewest
+    runs whose blocks fill their last wave (two blocks an SM) to 90%, else
+    the count that fills it most; every run holds the same number of chunks
+    but the last."""
+    chunks = -(-B * L // ROW_TILE)
+    tiles = -(-S // KEY_TILE) * H
+    slots = 2 * SM_COUNT
+    best, best_fill = 1, 0.0
+    for want in range(1, min(chunks, MAX_ROW_RUNS) + 1):
+        runs = -(-chunks // -(-chunks // want))
+        blocks = tiles * runs
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill > best_fill:
+            best, best_fill = runs, fill
+        if fill >= 0.9:
+            break
+    return best
 
 
 def plain_reprogramming_attention(q: torch.Tensor, k: torch.Tensor,
@@ -173,6 +206,55 @@ def tiled_reprogramming_attention(q: torch.Tensor, k: torch.Tensor,
     return out, lse.transpose(1, 2).contiguous()
 
 
+def tiled_reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
+                                      rate: float = 0.0, seed: int = 0,
+                                      n_runs=None):
+    """`plain_reprogramming_attention_bwd`'s contract in the backward
+    kernels' arithmetic, for tests: bf16 q, k, v and dO, p = exp2 from the
+    saved lse, S walked in 64-key tiles for dq, dS and p ∘ keep fed to the
+    second products as hi + lo bf16, dk and dv summed over `n_runs` runs of
+    64-row chunks of the (B * L) query rows (`bwd_row_runs` by default) that
+    are added in run order, dk scaled at the end."""
+    B, L, H, E = q.shape
+    S = k.shape[1]
+    R = B * L
+    n_runs = bwd_row_runs(B, L, H, S) if n_runs is None else n_runs
+    qf, kf, vf, do = (t.to(torch.bfloat16).float() for t in (q, k, v, dout))
+    log2e = 1.4426950408889634
+    # (H, R, ...) views: a head's queries are one (B * L, E) matrix
+    q2, do2 = (t.reshape(R, H, E).transpose(0, 1) for t in (qf, do))
+    lse2 = lse.float().reshape(R, H).t() * log2e
+    delta = (do * out.float()).sum(-1).reshape(R, H).t()
+    keep = (attention_keep(seed, rate, B, L, H, S, q.device)
+            .transpose(0, 1).reshape(H, R, S) if rate > 0.0 else None)
+    sc = torch.einsum("hre,hse->hrs", q2, kf) * (scale * log2e)
+    p = torch.exp2(sc - lse2[..., None])
+    dp = torch.einsum("hre,hse->hrs", do2, vf)
+    pd = p
+    if keep is not None:
+        pd, dp = p * keep, dp * keep
+    ds = p * (dp - delta[..., None])
+    ds_hi, ds_lo = _split_bf16(ds)
+    pd_hi, pd_lo = _split_bf16(pd)
+    dq = torch.zeros_like(q2)
+    for s0 in range(0, S, KEY_TILE):
+        tile = slice(s0, s0 + KEY_TILE)
+        dq = dq + (torch.einsum("hrs,hse->hre", ds_hi[..., tile], kf[:, tile])
+                   + torch.einsum("hrs,hse->hre", ds_lo[..., tile], kf[:, tile]))
+    chunks = -(-R // ROW_TILE)
+    per_run = -(-chunks // n_runs) * ROW_TILE
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for r0 in range(0, R, per_run):
+        run = slice(r0, r0 + per_run)
+        dv = dv + (torch.einsum("hrs,hre->hse", pd_hi[:, run], do2[:, run])
+                   + torch.einsum("hrs,hre->hse", pd_lo[:, run], do2[:, run]))
+        dk = dk + (torch.einsum("hrs,hre->hse", ds_hi[:, run], q2[:, run])
+                   + torch.einsum("hrs,hre->hse", ds_lo[:, run], q2[:, run]))
+    dq = (dq * scale).transpose(0, 1).reshape(B, L, H, E)
+    return dq, dk * scale, dv
+
+
 def _check(q, k, v):
     B, L, H, E = q.shape
     S = k.shape[1]
@@ -232,7 +314,8 @@ def reprogramming_attention_fwd(q: torch.Tensor, k: torch.Tensor,
 def reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
                                 rate: float = 0.0, seed: int = 0):
     """The backward alone: (dq, dk, dv) f32 from the forward's out and lse.
-    On CUDA it launches the dq and dk/dv kernels (one count)."""
+    On CUDA it launches the dq and dk/dv kernels and, where `bwd_row_runs`
+    is above 1, the kernel that adds the runs (one count)."""
     if q.device.type == "cpu":
         return plain_reprogramming_attention_bwd(q, k, v, out, lse, dout,
                                                  scale, rate, seed)
@@ -254,13 +337,15 @@ def reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
     dq = torch.empty((B, L, H, E), **f32)
     dk = torch.empty((H, S, E), **f32)
     dv = torch.empty((H, S, E), **f32)
+    n_runs = bwd_row_runs(B, L, H, S)
+    part = torch.empty((n_runs, 2, H, S, E), **f32) if n_runs > 1 else None
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.hop_reprog_attn_bwd(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), outf.data_ptr(),
         gb.data_ptr(), lsef.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, L, H, S, float(scale),
-        *kernel_args(rate, seed), stream)
+        dk.data_ptr(), dv.data_ptr(), part.data_ptr() if n_runs > 1 else None,
+        n_runs, B, L, H, S, float(scale), *kernel_args(rate, seed), stream)
     _build.check(err, "hop_reprog_attn_bwd")
     bwd_launches += 1
     return dq, dk, dv

@@ -13,8 +13,9 @@ relative): 1e-4 on outputs of O(1). K2 is f32 throughout (its projection on
 the tensor cores from TF32 hi + lo operands, 2^-21 relative); its sums run
 in another order than cuBLAS's, carried through T steps: 1e-4.
 The backwards sum over many more terms (K1's dk/dv over all B*L query
-rows, K2's weight gradients over T*B): their tolerance is 1e-4 relative to
-the largest gradient. Backward results must repeat bit for bit. K3 and K6
+rows, K2's weight gradients over T*B), K1's with dS and P as hi + lo bf16
+pairs and K2's and K3's products as 3xTF32 on the tensor cores in K slices
+of at most 2304: their tolerance is 1e-4 relative to the largest gradient. Backward results must repeat bit for bit. K3 and K6
 are f32 recurrences like K2 (1e-4); with bf16 streams both sides read the
 same bf16-rounded values, and K3's bf16 stream gradients may differ from the
 plain version's by one bf16 rounding (2^-8 relative) where the f32 values
@@ -28,6 +29,7 @@ kernel in bf16, so they carry one bf16 rounding: 1e-2 of the largest.
 import pytest
 import torch
 
+from hop_tpu_torch.ops import _build
 from hop_tpu_torch.ops import attention as K4
 from hop_tpu_torch.ops import block_attention as K5
 from hop_tpu_torch.ops import gru_fused as K2
@@ -116,9 +118,13 @@ def _rel_close(got, want, rel=1e-4, name=""):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,L,H,S", [
-    (3, 34, 2, 65),        # ragged row tile and a one-key last tile
-    (3, 100, 2, 65),       # L above 68: a sample's rows in two tiles of the dq kernel
-    (256, 34, 8, 1500),    # the HOP training shape
+    (3, 34, 2, 65),        # ragged row tile (B * L = 102) and a one-key last tile
+    (3, 100, 2, 65),       # a sample's rows in two row tiles; 5 row runs
+    (5, 17, 1, 200),       # one head, B * L = 85, S = 3 tiles + 8 keys
+    (40, 70, 8, 100),      # 44 row chunks in 15 runs of 3, the last run ragged
+    (1, 34, 8, 1500),      # one window of a clip: one row chunk, one run
+    (250, 34, 8, 1500),    # a ragged last row tile at full size
+    (256, 34, 8, 1500),    # the HOP training shape: 4 row runs
 ])
 def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
     g = torch.Generator(device=device).manual_seed(B + S)
@@ -145,9 +151,13 @@ def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
 
 @pytest.mark.parametrize("D", [1, 2])
 @pytest.mark.parametrize("T,B,I,H", [
-    (5, 11, 20, 40),        # ragged batch tile
+    (5, 11, 20, 40),        # ragged batch tile, one K slice
+    (6, 9, 13, 10),         # widths that allow no 16- or 8-byte copies
+    (7, 33, 8, 64),         # I = 8: a product 8 rows tall on a 64 x 64 tile
+    (9, 70, 130, 131),      # I and H just above a tile, not multiples of 8
+    (28, 256, 8, 64),       # the discriminator's first layer: 28 K slices
     (28, 256, 128, 64),     # the discriminator's upper layers
-    (34, 256, 992, 350),    # the HOP head's first layer
+    (34, 256, 992, 350),    # the HOP head's first layer: 128 x 128 tiles
 ])
 def test_gru_fused_bwd_kernel(device, D, T, B, I, H):
     gen = torch.Generator(device=device).manual_seed(D * 100 + I)
@@ -166,6 +176,8 @@ def test_gru_fused_bwd_kernel(device, D, T, B, I, H):
     hprev = K2.hprev_of(h_seq, args[5])
     bwd_args = (g, args[0], r, z, n, hnb, hprev, args[1], args[3])
     before = K2.bwd_launches
+    assert (K2.bwd_workspace_floats(T, B, I, H, D)
+            == _build.load().hop_gru_fused_bwd_workspace(T, B, I, H, D))
     got = K2.gru_fused_layer_bwd(*bwd_args)
     again = K2.gru_fused_layer_bwd(*bwd_args)
     torch.cuda.synchronize()
