@@ -254,18 +254,25 @@ def phase_build():
 
 def kernel_ms_by_name(fn, n: int = 10) -> dict:
     """Device time of each kernel that n calls of fn() launch, in ms per call,
-    by the kernel's name (torch.profiler)."""
+    by the kernel's name (torch.profiler). The profiler now and then loses a
+    whole window's device records: an empty answer is asked for again, twice
+    at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    names = {}
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return names
 
 
 def ms_of(names: dict, part: str) -> float:
@@ -353,12 +360,16 @@ def phase_k1(dev, seed):
 
 # (T, B, I, H, D) of K2's forward: the head's two layers' shapes and the
 # discriminator's two (the main path's), then a ragged batch tile, one window
-# of a clip, one direction, and the discriminator's at a ragged tile and B=1
+# of a clip (the cluster's one-row-tile instance), one direction, and the
+# discriminator's at a ragged tile and B=1
 K2_MAIN = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
            (28, 256, 8, 64, 2), (28, 256, 128, 64, 2))
 K2_SHAPES = K2_MAIN + ((34, 250, 992, 350, 2), (34, 1, 992, 350, 2),
                        (34, 256, 700, 350, 1), (28, 250, 8, 64, 1),
-                       (28, 1, 128, 64, 2))
+                       (28, 1, 128, 64, 2),
+                       # widths that are no multiple of 8 or of the cluster's
+                       # blocks: one block (H = 100), a cluster (H = 203)
+                       (7, 13, 20, 100, 2), (6, 43, 24, 203, 2))
 
 
 def _k2_inputs(dev, seed, T, B, I, H, D):
@@ -381,6 +392,20 @@ def phase_k2(dev, seed):
     for H in (10, 64, 138, 139, 350):   # the wrapper's copy of the kernel's choice
         check(K2.whh_in_shared(H) == bool(lib.hop_gru_fused_whh_in_shared(H)),
               f"whh_in_shared({H}) is not the kernel's choice")
+    # the wide layer's clusters: how many the card holds at once, against the
+    # clusters of a bs-256 launch (one wave), forward and backward
+    need = 2 * -(-256 // K2.CLUSTER_ROWS)
+    for backward in (False, True):
+        held = lib.hop_gru_active_clusters(350, int(backward))
+        check(held >= need, f"the card holds {held} clusters of the H=350 recurrence "
+                            f"(backward: {backward}); a bs-256 launch is {need}")
+        check(lib.hop_gru_active_clusters(64, int(backward)) == 0,
+              "the H=64 recurrence should run without clusters")
+        print(f"GRU recurrence at H=350, {'backward' if backward else 'forward'}: "
+              f"{K2.recurrence_variant(350, backward)} of {K2.CLUSTER_BLOCKS} blocks x "
+              f"{K2.CLUSTER_ROWS} rows, {K2.recurrence_smem_bytes(350, backward)} B of "
+              f"shared memory a block; active clusters {held}, a bs-256 launch has "
+              f"{need}; at H=64: {K2.recurrence_variant(64, backward)}")
     res = {}
     for shape in K2_SHAPES:
         T, B, I, H, D = shape
@@ -404,7 +429,11 @@ def phase_k2(dev, seed):
         # the entry's two phases, each kernel's own time on the card
         names = kernel_ms_by_name(lambda: K2.gru_fused_layer_fwd(*args))
         r["proj_ms"] = ms_of(names, "gru_proj_kernel")
-        r["rec_ms"] = ms_of(names, "gru_streams_fwd_kernel")
+        r["rec_ms"] = (ms_of(names, "gru_streams_fwd_kernel")
+                       + ms_of(names, "gru_fwd_cluster_kernel"))
+        check(ms_of(names, "gru_fwd_cluster_kernel" if K2.recurrence_variant(H)
+                    == "cluster" else "gru_streams_fwd_kernel") > 0,
+              f"K2's recurrence at {shape} is not the {K2.recurrence_variant(H)} kernel")
         check(r["proj_ms"] > 0 and r["rec_ms"] > 0
               and len(names) == 2, f"K2's forward at {shape} launched {sorted(names)}")
         if shape in K2_MAIN:
@@ -422,8 +451,8 @@ def phase_k2(dev, seed):
                     f"{r['bound_by']})" if "plain_ms" in r else "")
             print(f"K2 at {shape}: lean {r['ms']:.3f} ms, with residuals "
                   f"{r['res_ms']:.3f} ms; projection kernel {r['proj_ms']:.3f} ms, "
-                  f"recurrence kernel {r['rec_ms']:.3f} ms (W_hh in shared memory: "
-                  f"{K2.whh_in_shared(shape[3])}){tail}")
+                  f"recurrence kernel {r['rec_ms']:.3f} ms (W_hh resident in a "
+                  f"{K2.recurrence_variant(shape[3])}){tail}")
     return res
 
 
@@ -709,7 +738,7 @@ def phase_k2_bwd(dev, seed):
         # dx is the GEMM's instance with rows along k, dW_ih and dW_hh the one
         # with k as the row index
         names = kernel_ms_by_name(lambda: K2.gru_fused_layer_bwd(*bwd_args))
-        parts = {"recurrence": ms_of(names, "gru_bwd_recurrence_kernel"),
+        parts = {"recurrence": ms_of(names, "gru_bwd_resident_kernel"),
                  "dx": gemm_ms(names, True),
                  "dW_ih + dW_hh": gemm_ms(names, False),
                  "slice reduce": ms_of(names, "gru_splitk_reduce_kernel"),
@@ -1005,23 +1034,34 @@ def _k3_inputs(dev, seed, D, T, B, H, dtype):
         arr(D, T, B, H, scale=1.0)
 
 
-# (D, T, B, H): the head, the discriminator, a ragged last tile, one direction
+# (D, T, B, H): the head, the discriminator, a ragged last tile, one
+# direction, one window of a clip (the cluster's one-row-tile instance), the
+# discriminator's at one direction and a ragged tile, and widths that are no
+# multiple of 8 or of the cluster's blocks (H = 100: the forward in one block,
+# the backward in a cluster; H = 203: both in a cluster)
 K3_HEAD = (2, 34, 256, 350)
 K3_DISC = (2, 28, 256, 64)
-K3_SHAPES = (K3_HEAD, K3_DISC, (2, 34, 250, 350), (1, 34, 256, 350))
+K3_ONE = (2, 34, 1, 350)
+K3_SHAPES = (K3_HEAD, K3_DISC, (2, 34, 250, 350), (1, 34, 256, 350), K3_ONE,
+             (1, 28, 250, 64), (2, 7, 13, 100), (2, 6, 43, 203))
 
 
 def phase_k3_fwd(dev, seed):
     import torch
     from hop_tpu_torch.ops import gru_stack as K3
+    from hop_tpu_torch.ops.gru_fused import recurrence_variant
     res = {}
     for shape in K3_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             args, _ = _k3_inputs(dev, seed, *shape, dtype)
             full = K3.gru_stack_fwd(*args, with_residuals=True)
+            again = K3.gru_stack_fwd(*args, with_residuals=True)
             lean = K3.gru_stack_fwd(*args)
             want = K3.plain_gru_stack(*args, with_residuals=True)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(full, again))
+                  and torch.equal(lean, full[0]),
+                  f"K3 forward at {shape} {dtype}: two calls differ")
             err = max((a - b).abs().max().item() for a, b in zip(full, want))
             lean_err = (lean - want[0]).abs().max().item()
             tag = f"{shape} {str(dtype).split('.')[-1]}"
@@ -1041,11 +1081,30 @@ def phase_k3_fwd(dev, seed):
         full = K3.gru_stack_fwd(*args, with_residuals=True)
         r["bound"] = bound(args, full, flops, F32_FLOPS)
         r["lean_bound"] = bound(args, full[0], flops, F32_FLOPS)
+    # the recurrence kernel's own time at the discriminator's shape (the
+    # one-block kernel) and at one window of a clip
+    own = {}
+    for shape in (K3_HEAD, K3_DISC, K3_ONE):
+        args, _ = _k3_inputs(dev, seed, *shape, torch.float32)
+        for label, with_res in (("residuals", True), ("lean", False)):
+            names = kernel_ms_by_name(
+                lambda: K3.gru_stack_fwd(*args, with_residuals=with_res))
+            variant = recurrence_variant(shape[3])
+            kernel = ("gru_fwd_cluster_kernel" if variant == "cluster"
+                      else "gru_streams_fwd_kernel")
+            check(len(names) == 1 and ms_of(names, kernel) > 0,
+                  f"K3's forward at {shape} ({variant}) launched {sorted(names)}")
+            own[(shape, label)] = ms_of(names, kernel)
+    print("K3 fwd, the recurrence kernel's own ms (torch.profiler), with residuals / "
+          "lean: " + "; ".join(
+              f"{shape} ({recurrence_variant(shape[3])}) "
+              f"{own[(shape, 'residuals')]:.3f} / {own[(shape, 'lean')]:.3f}"
+              for shape in (K3_HEAD, K3_DISC, K3_ONE)))
     f32, b16 = res[(K3_HEAD, torch.float32)], res[(K3_HEAD, torch.bfloat16)]
     worst = max(max(r["err"], r["lean_err"]) for r in res.values())
     print(f"K3 fwd gru_stack: {len(res)} cases (D, T, B, H) x (f32, bf16 streams) "
           f"{[s for s in K3_SHAPES]}, non-zero h0, strided streams: max_abs_err "
-          f"{worst:.3e} (tol {K3_TOL:g}), residuals and lean. At {K3_HEAD}: with "
+          f"{worst:.3e} (tol {K3_TOL:g}), residuals and lean, bitwise repeat. At {K3_HEAD}: with "
           f"residuals {f32['ms']:.3f} ms f32 / {b16['ms']:.3f} ms bf16 streams vs "
           f"plain {f32['plain_ms']:.3f} ms (bound {f32['bound']['bound_ms']:.3f} ms "
           f"by {f32['bound']['bound_by']}); lean {f32['lean_ms']:.3f} ms f32 / "
@@ -1059,10 +1118,10 @@ def phase_k3_fwd(dev, seed):
 def phase_k3_bwd(dev, seed):
     import torch
     from hop_tpu_torch.ops import gru_stack as K3
-    from hop_tpu_torch.ops.gru_fused import hprev_of
+    from hop_tpu_torch.ops.gru_fused import hprev_of, recurrence_variant
     names = ("dxr", "dxz", "dxn", "dw", "db", "dh0")
     res = {}
-    for shape in (K3_HEAD, K3_DISC):
+    for shape in K3_SHAPES:
         D, T, B, H = shape
         for dtype in (torch.float32, torch.bfloat16):
             args, g = _k3_inputs(dev, seed + 1, *shape, dtype)
@@ -1086,10 +1145,17 @@ def phase_k3_bwd(dev, seed):
                       f"K3 bwd at {tag} {name}: {errs[name][1]} > {tol} relative")
             check(got[0].dtype == dtype and got[5].shape == (D, B, H),
                   f"K3 bwd at {tag}: dx dtype or dh0 shape")
+            if shape not in (K3_HEAD, K3_DISC):     # correctness and repeat only
+                worst = max(errs, key=lambda k: errs[k][1])
+                print(f"K3 bwd gru_stack_bwd {tag} "
+                      f"({recurrence_variant(H, backward=True)}): worst {worst} rel "
+                      f"{errs[worst][1]:.2e}; bitwise repeat")
+                res[(shape, dtype)] = {"max_abs_err": max(e[0] for e in errs.values())}
+                continue
             ms = cuda_ms(lambda: K3.gru_stack_bwd(*bwd_args), reps=10)
             plain_ms = cuda_ms(lambda: K3.plain_gru_stack_bwd(*bwd_args), reps=5)
             kernels = kernel_ms_by_name(lambda: K3.gru_stack_bwd(*bwd_args))
-            rec_ms = ms_of(kernels, "gru_bwd_recurrence_kernel")
+            rec_ms = ms_of(kernels, "gru_bwd_resident_kernel")
             dw_ms = gemm_ms(kernels, False)
             check(rec_ms > 0 and dw_ms > 0, f"K3's backward launched {sorted(kernels)}")
             # the dh carry through W^T and dW = hprev^T d_hid, 3H x H each
@@ -1504,6 +1570,8 @@ def main():
         dev, SEED, gru_kernel="stack", attention="block")
     phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED, "stack", attention="block")
     del model_cpu, disc_cpu
+    _, _, paths["parity_step_stack_fused_attn"] = phase_train(
+        dev, SEED, gru_kernel="stack", fused_step=False, attention="fused")
     lib = phase_library(dev, SEED)
 
     # launches: over one run of each path (a bs-256 forward on either GRU route

@@ -30,11 +30,15 @@ import statistics
 import subprocess
 import sys
 
-# (T, B, I, H, D) of the fused GRU layer: the head's two, the discriminator's two
+# (T, B, I, H, D) of the fused GRU layer: the head's two, the discriminator's
+# two, the head's first at one window of a clip (bs 1)
 K2_SHAPES = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
-             (28, 256, 8, 64, 2), (28, 256, 128, 64, 2))
-# (D, T, B, H) of the time-grid recurrence: the head, the discriminator
-K3_SHAPES = ((2, 34, 256, 350), (2, 28, 256, 64))
+             (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), (34, 1, 992, 350, 2))
+# (D, T, B, H) of the time-grid recurrence: the head at bs 256 and bs 1, the
+# discriminator. The recurrence kernels' own lines are `gru_fwd_cluster_kernel`
+# / `gru_streams_fwd_kernel` (forward: a cluster at H = 350, one block at
+# H = 64) and `gru_bwd_resident_kernel` (backward) in each call's list.
+K3_SHAPES = ((2, 34, 256, 350), (2, 34, 1, 350), (2, 28, 256, 64))
 # (B, L, H, E, S) of the reprogramming attention
 K1_SHAPE = (256, 34, 8, 128, 1500)
 

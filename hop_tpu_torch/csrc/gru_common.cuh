@@ -4,12 +4,16 @@
 //
 //   * gru_recurrence_tile: the forward recurrence of one (batch tile,
 //     direction) from precomputed gate streams, T looped inside the block
-//     with h in shared memory (K2's second phase, K3 forward, K3 lean
-//     forward, K6), W_hh read from L2 at every step or, where it fits, from
-//     a copy in shared memory; gru_streams_fwd_kernel runs it over a grid;
-//   * gru_bwd_recurrence_kernel: the serial part of a GRU layer's backward,
-//     the dh carry walked in the reverse of the forward's order (K2 and K3
-//     backward);
+//     with h in shared memory and scalar f32 FMAs; W_hh from a copy in shared
+//     memory where it fits a block (gru_streams_fwd_kernel: K2's second phase
+//     and K3's forwards at a narrow H), or from L2 at every step (K6);
+//   * gru_fwd_cluster_kernel: the same recurrence for a wide layer (the
+//     head's H = 350): a cluster of 8 blocks holds W_hh in shared memory for
+//     the whole time loop, the per-step product on the tensor cores;
+//   * gru_bwd_resident_kernel: the serial part of a GRU layer's backward, the
+//     dh carry walked in the reverse of the forward's order (K2 and K3
+//     backward), W_hh resident in one block (narrow) or a cluster (wide), the
+//     per-step product on the tensor cores;
 //   * gru_mma_gemm_kernel / gemm(): an f32 GEMM on the tensor cores at f32
 //     accuracy (each operand split into TF32 hi + lo, three mma.sync.m16n8k8
 //     a product), operands staged as they lie by cp.async, ordered split-K
@@ -31,7 +35,8 @@
 
 namespace {
 
-constexpr int BT = 8;  // batch rows per block of the recurrences
+constexpr int BT = 8;  // batch rows per block of the L2 recurrence tile (K6)
+constexpr int SM_COUNT = 132;       // an H100's
 
 // Unroll depth of a recurrence's loop over weight rows: the rows come from
 // L2 (the weights fit no SM), and 16 rows of loads in flight per thread hide
@@ -49,6 +54,55 @@ __device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
 __device__ __forceinline__ void st_stream(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+
+// --- the tensor-core pieces: cp.async, the TF32 split, mma.sync ---
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// V floats (4, 2 or 1) from device to shared memory, or zeros when !ok
+template <int V>
+__device__ __forceinline__ void cp_async_floats(float* dst, const float* src, bool ok) {
+  const int bytes = ok ? 4 * V : 0;
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else if constexpr (V == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x as hi + lo in TF32 (10 mantissa bits each): hi is x rounded to nearest
+// (ties away from zero) by integer arithmetic on its bits, lo the exact
+// remainder x - hi, whose low 13 mantissa bits the tensor core ignores:
+// hi + lo = x to 2^-21. (Three full-rate integer and float operations;
+// cvt.rna.tf32.f32 for both halves made K2's projection 0.90 ms where this
+// makes it 0.74 ms at the head's first layer on an H100.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The forward recurrence of batch rows b0..b0+RT-1 of one direction:
@@ -162,10 +216,10 @@ __device__ __forceinline__ void gru_recurrence_tile(
   }
 }
 
-// The shared-memory variant of the recurrence: W of a direction staged once
-// per block, RT = 2 rows a thread and blockDim.y row groups that share the
-// copy, so that a narrow layer (the discriminator's H = 64) is not left with
-// two warps a block and a long serial chain a step.
+// The shared-memory variant of the tile above, over a grid: W of a direction
+// staged once per block, RT = 2 rows a thread and blockDim.y row groups that
+// share the copy, so that a narrow layer (the discriminator's H = 64) is not
+// left with two warps a block and a long serial chain a step.
 constexpr int WS_RT = 2;
 constexpr int WS_THREADS = 256;
 constexpr size_t SMEM_BLOCK_MAX = 232448;   // 227 KB, a block's most on sm_90
@@ -180,11 +234,14 @@ inline size_t ws_smem_bytes(int H) {
 // does a direction's W_hh with the block's h tiles fit a block's shared memory
 inline bool whh_in_shared(int H) { return ws_smem_bytes(H) <= SMEM_BLOCK_MAX; }
 
-// The forward recurrence over a grid of (batch tile, direction) from gate
+// The forward recurrence over a grid of (batch tiles, direction) from gate
 // streams whose element (d, t, b, j) lies at d * sxd + t * sxt + b * sxb + j;
-// w (D, 3, H, H), b (D, 3, H), h0 (B, H); outputs (D, T, B, H). K3's forward
-// and lean forward (WS false) and K2's second phase (either).
-template <bool RES, typename TX, bool WS, int RT>
+// w (D, 3, H, H), b (D, 3, H), h0 (B, H); outputs (D, T, B, H). blockDim.y
+// tiles of WS_RT rows share the block's copy of W; blockDim.x is whole warps,
+// so threadIdx.y is one value a warp, and the shuffle tells the compiler
+// (with the row index derived from threadIdx.y alone K3's forward at the
+// head's shape took 1.30 ms for 1.12 on an H100).
+template <bool RES, typename TX>
 __global__ void gru_streams_fwd_kernel(const TX* __restrict__ xr,
                                        const TX* __restrict__ xz,
                                        const TX* __restrict__ xn, long long sxd,
@@ -203,114 +260,515 @@ __global__ void gru_streams_fwd_kernel(const TX* __restrict__ xr,
   const long long xo = d * sxd;
   const long long oo = (long long)d * T * B * H;
   const float* wd = w + size_t(d) * 3 * H * H;
-  // The tile's rows and its h: without WS one tile a block, at the start of
-  // shared memory, so that the row index and every address derived from it
-  // stay uniform over the block (with them derived from threadIdx.y K3's
-  // forward at the head's shape took 1.30 ms for 1.12 on an H100). With WS
-  // blockDim.y tiles share the block's copy of W; blockDim.x is whole warps,
-  // so threadIdx.y is one value a warp, and the shuffle tells the compiler.
-  int b0 = blockIdx.x * RT;
-  float* hs = smem;
-  const float* w_s = nullptr;
-  if constexpr (WS) {
-    const int group = __shfl_sync(0xffffffffu, int(threadIdx.y), 0);
-    b0 = (blockIdx.x * blockDim.y + group) * RT;
-    hs = smem + size_t(group) * RT * H;
-    float* stage = smem + (size_t(blockDim.y) * RT * H + 3) / 4 * 4;
-    const int n_threads = blockDim.x * blockDim.y;
-    for (int idx = threadIdx.y * blockDim.x + threadIdx.x; idx < 3 * H * H;
-         idx += n_threads)
-      stage[idx] = wd[idx];
-    w_s = stage;  // visible after the tile's first barrier
-  }
-  gru_recurrence_tile<RES, TX, WS, RT>(
+  const int group = __shfl_sync(0xffffffffu, int(threadIdx.y), 0);
+  const int b0 = (blockIdx.x * blockDim.y + group) * WS_RT;
+  float* hs = smem + size_t(group) * WS_RT * H;
+  float* stage = smem + (size_t(blockDim.y) * WS_RT * H + 3) / 4 * 4;
+  const int n_threads = blockDim.x * blockDim.y;
+  for (int idx = threadIdx.y * blockDim.x + threadIdx.x; idx < 3 * H * H;
+       idx += n_threads)
+    stage[idx] = wd[idx];   // visible after the tile's first barrier
+  gru_recurrence_tile<RES, TX, true, WS_RT>(
       xr + xo, xz + xo, xn + xo, sxt, sxb, wd, b + size_t(d) * 3 * H, h0, out + oo,
       RES ? r_out + oo : nullptr, RES ? z_out + oo : nullptr,
       RES ? n_out + oo : nullptr, RES ? hnb_out + oo : nullptr, (long long)B * H, H, T,
-      B, H, b0, d == 1, hs, w_s);
+      B, H, b0, d == 1, hs, stage);
 }
 
-// `small_h`: take the shared-memory variant where W fits (K2's second phase);
-// without it every shape runs the 8-row tile that reads W from L2 (K3).
+// --- the recurrences of a wide layer: W_hh resident across a cluster ---
+//
+// A direction's W_hh at the head's H = 350 is 1.47 MB: it fits no block, and
+// the first kernels re-read it from L2 at every step in every block (3.2 GB
+// of L2 traffic a launch). Here a thread-block cluster of RC_CL = 8 blocks
+// owns (direction, RC_ROWS = 40 batch rows) and splits the hidden units: block
+// c holds units [c SL, c SL + SL), SL = ceil(H / 8) (44 at H = 350), and with
+// them its eighth of W_hh (185 KB) in shared memory, read from device memory
+// once, before the loop over T. Each step a block computes its units' part
+// of the product on the tensor cores at f32 accuracy (3xTF32, as the GEMM
+// below: W on the A side, so M is the units and N the batch rows; warp
+// (mi, ni) of 3 x 5 owns 16 units x 8 rows), does the elementwise part on the
+// accumulators where they lie, and leaves what its peers need of it (the
+// forward: its slice of h; the backward: its slice of d_hid) in its own
+// shared memory. The K axis runs over the peers: a block pulls one peer's
+// slice at a time through distributed shared memory (16-byte
+// ld.shared::cluster into registers while the previous slice is multiplied,
+// then into a staging buffer: 4-byte remote loads from the MMA loop itself
+// ran at about one request a clock, 34 us a step), block c starting at its
+// own slice and walking the ranks upwards, so that no two blocks pull from
+// the same peer at once. W never leaves the SM and nothing is re-read from
+// L2. Cluster barriers order the exchange.
+//
+// 40 rows a cluster because an H100 holds 15 such clusters at once
+// (cudaOccupancyMaxActiveClusters; a block with this much shared memory has
+// an SM to itself, and one GPC is short of two clusters): B = 256 in two
+// directions is 14 clusters, one wave, where 32 rows would be 16 and two
+// waves. A row of the staged operands is padded to 4 (mod 8) floats so that a
+// fragment read (lane (g, t4) reads word g * ld + t4) hits 32 banks. SL is no
+// multiple of 8, so a slice's last 8-deep k step runs past it: there the B
+// operand reads the zero padding of its row and the A operand reads on into
+// finite neighbours (the next peer's columns, or the row's zero padding).
+constexpr int RC_CL = 8;                      // blocks of a cluster
+constexpr int RC_MT = 3, RC_NT = 5;           // warps: 16-unit tiles x 8-row tiles
+constexpr int RC_ROWS = 8 * RC_NT;            // batch rows of a cluster
+// A batch of at most 8 rows (one window of a clip) runs the same kernels with
+// one row tile: every MMA of the four others would multiply masked rows, and
+// a step is bound by the MMAs (mma.sync starts one TF32 m16n8k8 per ~14 clocks
+// a tensor core: 15 warps' 48 x 9 of them are 17 of the forward's 22 us a
+// step at 40 rows). Its 3 MMA warps are joined by 5 that only stage W_hh and
+// move slices.
+constexpr int RC_SMALL_B = 8;
+__host__ __device__ constexpr int rc_threads(int nt) {
+  return 32 * RC_MT * nt < 256 ? 256 : 32 * RC_MT * nt;
+}
+constexpr int RC_MAX_SL = 44;                 // most hidden units of a block
+constexpr int RC_MAX_H = RC_CL * RC_MAX_SL;
+
+__host__ __device__ constexpr int pad4mod8(int x) { return (x + 3) / 8 * 8 + 4; }
+// the row of a slice buffer K deep: whole 8-deep k steps, so that the product
+// needs no mask (what lies past K is zero, written once), then 4 (mod 8)
+__host__ __device__ constexpr int slice_ld(int K) { return (K + 7) / 8 * 8 + 4; }
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Float4 `idx` (idx = thread + i * THREADS < n_vec) of the buffer at this
+// block's shared address `a`, read from block `rank` of the cluster
+template <int NV, int THREADS>
+__device__ __forceinline__ void pull_slice(float4 (&regs)[NV], uint32_t a, int rank,
+                                           int n_vec) {
+  uint32_t base;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(base) : "r"(a), "r"(rank));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (idx < n_vec)
+      asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(regs[i].x), "=f"(regs[i].y), "=f"(regs[i].z), "=f"(regs[i].w)
+                   : "r"(base + 16 * idx));
+  }
+}
+template <int NV, int THREADS>
+__device__ __forceinline__ void put_slice(float* stage, const float4 (&regs)[NV],
+                                          int n_vec) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (idx < n_vec) reinterpret_cast<float4*>(stage)[idx] = regs[i];
+  }
+}
+
+// One slice's part of a warp's product: acc[gt] (16 units x 8 rows) +=
+// A_gt (16 x K) . S^T (K x 8) as 3xTF32, the three terms (lo hi, hi lo,
+// hi hi) in accumulators of their own, so that a k step adds one dependent
+// MMA to each chain, not three (a dependent mma.sync costs ~27 clocks, and at
+// a narrow layer or one sample the chain is the step); `mma_sum` adds them,
+// the small terms first. `a` points at the slice's first
+// column of the A rows (lane's t4 added), rows ra and rb (the fragment's two,
+// as offsets), row group gt at gt * a_gate; `s` at the lane's row of the
+// staged slice (t4 added); K deep in whole k steps: the staged rows are zero
+// past K.
+template <int GT>
+__device__ __forceinline__ void mma_slice(float (&acc)[GT][3][4], const float* a, int ra,
+                                          int rb, int a_gate, const float* s, int K) {
+  const int n_ks = (K + 7) / 8;
+  float av[GT][4], bv[2];
+  auto load = [&](int ks) {
+#pragma unroll
+    for (int gt = 0; gt < GT; ++gt) {
+      const float* q = a + gt * a_gate + ks * 8;
+      av[gt][0] = q[ra];
+      av[gt][1] = q[rb];
+      av[gt][2] = q[ra + 4];
+      av[gt][3] = q[rb + 4];
+    }
+    bv[0] = s[ks * 8];
+    bv[1] = s[ks * 8 + 4];
+  };
+  load(0);
+#pragma unroll 2
+  for (int ks = 0; ks < n_ks; ++ks) {
+    uint32_t a_hi[GT][4], a_lo[GT][4], b_hi[2], b_lo[2];
+#pragma unroll
+    for (int gt = 0; gt < GT; ++gt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(av[gt][q], a_hi[gt][q], a_lo[gt][q]);
+    split_tf32(bv[0], b_hi[0], b_lo[0]);
+    split_tf32(bv[1], b_hi[1], b_lo[1]);
+    if (ks + 1 < n_ks) load(ks + 1);
+#pragma unroll
+    for (int gt = 0; gt < GT; ++gt) {
+      mma_tf32(acc[gt][0], a_lo[gt], b_hi[0], b_hi[1]);
+      mma_tf32(acc[gt][1], a_hi[gt], b_lo[0], b_lo[1]);
+      mma_tf32(acc[gt][2], a_hi[gt], b_hi[0], b_hi[1]);
+    }
+  }
+}
+__device__ __forceinline__ float mma_sum(const float (&acc)[3][4], int q) {
+  return (acc[0][q] + acc[1][q]) + acc[2][q];
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_in_clusters(void (*kernel)(Params...), dim3 grid, int threads,
+                               size_t smem, int cluster, cudaStream_t st,
+                               Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// clusters of `cluster` blocks of `kernel` that the card holds at once
+template <typename... Params>
+cudaError_t active_clusters(void (*kernel)(Params...), int threads, size_t smem,
+                            int cluster, int* count) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * SM_COUNT);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+}
+
+// The forward recurrence of a wide layer. Warp (mi, ni) owns units mi x rows
+// ni of all three gates, so the gate math runs on the accumulators where
+// they lie, and carries its h in registers. Shared memory: As (3, SL, LDA),
+// As[gate][u][k] = w[gate][k][c SL + u] (the A operand, read transposed from
+// device memory once); hb (2, 40, LDH), the block's slice of h,
+// double-buffered so that one cluster barrier a step is enough (step s reads
+// every peer's hb[s & 1] and writes its own hb[(s + 1) & 1]); stage (40, LDH),
+// the peer's slice being multiplied. Three accumulator chains over K (8 x 6 k
+// steps at H = 350), one per 3xTF32 term; the bias is added after.
+inline size_t fwd_cluster_smem(int H, int nt) {
+  const int SL = (H + RC_CL - 1) / RC_CL;
+  const int LDA = pad4mod8(RC_CL * SL + (8 - SL % 8) % 8);
+  return (size_t(3) * SL * LDA + size_t(3) * 8 * nt * slice_ld(SL)) * sizeof(float);
+}
+
+template <bool RES, typename TX, int NT>
+__global__ void __launch_bounds__(rc_threads(NT), 1)
+gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
+                       const TX* __restrict__ xn, long long sxd, long long sxt,
+                       long long sxb, const float* __restrict__ w,
+                       const float* __restrict__ bias, const float* __restrict__ h0,
+                       float* __restrict__ out, float* __restrict__ r_out,
+                       float* __restrict__ z_out, float* __restrict__ n_out,
+                       float* __restrict__ hnb_out, int T, int B, int H) {
+  constexpr int ROWS = 8 * NT, THREADS = rc_threads(NT);
+  constexpr int NV = (ROWS * slice_ld(RC_MAX_SL) / 4 + THREADS - 1) / THREADS;
+  extern __shared__ __align__(16) float smem[];
+  const int SL = (H + RC_CL - 1) / RC_CL;
+  const int LDH = slice_ld(SL);
+  const int LDA = pad4mod8(RC_CL * SL + (8 - SL % 8) % 8);
+  float* As = smem;
+  float* hb = As + 3 * SL * LDA;
+  float* stage = hb + 2 * ROWS * LDH;
+  const int n_vec = ROWS * LDH / 4;
+  const int c = int(cluster_rank());
+  const int d = blockIdx.y, b0 = (blockIdx.x / RC_CL) * ROWS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int mi = warp / NT, ni = warp % NT;
+  const bool worker = warp < RC_MT * NT;   // the other warps only move data
+  const float* wd = w + size_t(d) * 3 * H * H;
+
+  for (int idx = tid; idx < 3 * SL * LDA + 3 * ROWS * LDH; idx += THREADS)
+    smem[idx] = 0.f;
+  __syncthreads();
+  for (int idx = tid; idx < 3 * H * SL; idx += THREADS) {
+    const int gate = idx / (H * SL), rem = idx - gate * (H * SL);
+    const int k = rem / SL, u = rem - k * SL;
+    if (c * SL + u < H)
+      As[(gate * SL + u) * LDA + k] = wd[(size_t(gate) * H + k) * H + c * SL + u];
+  }
+
+  // the thread's four elements: accumulator q is unit ue[q / 2], row re[q % 2]
+  const int ue[2] = {mi * 16 + gq, mi * 16 + gq + 8};
+  const int re[2] = {ni * 8 + 2 * t4, ni * 8 + 2 * t4 + 1};
+  bool ok[4];
+  float hreg[4], bh[3][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int u = ue[q / 2], j = c * SL + u, b = b0 + re[q % 2];
+    ok[q] = worker && u < SL && j < H && b < B;
+    hreg[q] = ok[q] ? h0[size_t(b) * H + j] : 0.f;
+    if (worker && u < SL) hb[re[q % 2] * LDH + u] = hreg[q];
+  }
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    const int j = c * SL + ue[v];
+    const bool has = ue[v] < SL && j < H;
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+      bh[gate][v] = has ? bias[(size_t(d) * 3 + gate) * H + j] : 0.f;
+  }
+  // the A fragment's two rows (clamped: rows past SL are computed and dropped)
+  const int ra = min(ue[0], SL - 1) * LDA, rb = min(ue[1], SL - 1) * LDA;
+  const float* srow = stage + (ni * 8 + gq) * LDH + t4;
+  const long long xo = d * sxd;
+  const size_t oo = size_t(d) * T * B * H;
+  cluster_arrive();
+  cluster_wait();   // every block's W and h0 slice are in place
+
+  for (int s = 0; s < T; ++s) {
+    const int t = d == 1 ? T - 1 - s : s;
+    const uint32_t hcur = smem_addr(hb + (s & 1) * ROWS * LDH);
+    float* hnext = hb + ((s + 1) & 1) * ROWS * LDH;
+    float4 regs[NV];
+    pull_slice<NV, THREADS>(regs, hcur, c, n_vec);
+    // the step's stream values do not depend on h: load them first
+    float vr[4], vz[4], vn[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long o =
+          xo + t * sxt + (long long)(b0 + re[q % 2]) * sxb + c * SL + ue[q / 2];
+      vr[q] = ok[q] ? ld_stream(xr + o) : 0.f;
+      vz[q] = ok[q] ? ld_stream(xz + o) : 0.f;
+      vn[q] = ok[q] ? ld_stream(xn + o) : 0.f;
+    }
+    float acc[3][3][4];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[gate][term][q] = 0.f;
+    for (int i = 0; i < RC_CL; ++i) {
+      const int p = (c + i) % RC_CL;
+      __syncthreads();   // every warp is done with the staged slice
+      put_slice<NV, THREADS>(stage, regs, n_vec);
+      __syncthreads();
+      if (i + 1 < RC_CL) pull_slice<NV, THREADS>(regs, hcur, (p + 1) % RC_CL, n_vec);
+      if (worker) mma_slice<3>(acc, As + p * SL + t4, ra, rb, SL * LDA, srow, SL);
+    }
+
+    float rg[4], zg[4], ng[4], hnb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = q / 2;
+      hnb[q] = mma_sum(acc[2], q) + bh[2][v];
+      rg[q] = sigmoidf(vr[q] + mma_sum(acc[0], q) + bh[0][v]);
+      zg[q] = sigmoidf(vz[q] + mma_sum(acc[1], q) + bh[1][v]);
+      ng[q] = tanhf(vn[q] + rg[q] * hnb[q]);
+      hreg[q] = ok[q] ? (1.f - zg[q]) * ng[q] + zg[q] * hreg[q] : 0.f;
+      if (worker && ue[v] < SL) hnext[re[q % 2] * LDH + ue[v]] = hreg[q];
+    }
+    cluster_arrive();   // the block's slice of h_t is written, h_{t-1} is read
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (ok[q]) {
+        const size_t o = oo + (size_t(t) * B + b0 + re[q % 2]) * H + c * SL + ue[q / 2];
+        out[o] = hreg[q];
+        if (RES) {
+          r_out[o] = rg[q];
+          z_out[o] = zg[q];
+          n_out[o] = ng[q];
+          hnb_out[o] = hnb[q];
+        }
+      }
+    }
+    cluster_wait();
+  }
+}
+
+// Which forward runs is a function of the shape alone: where a direction's
+// W_hh fits one block (H <= 138: the discriminator's 64) the shared-memory
+// tile, else the cluster (H <= RC_MAX_H: the head's 350), with one row tile
+// for a batch of at most RC_SMALL_B rows and five otherwise.
 template <bool RES, typename TX>
 cudaError_t launch_streams_fwd(const void* xr, const void* xz, const void* xn,
                                long long sxd, long long sxt, long long sxb,
                                const void* w, const void* b, const void* h0, void* out,
                                void* r, void* z, void* n, void* hnb, int T, int B,
-                               int H, int D, bool small_h, cudaStream_t st) {
-  const bool ws = small_h && whh_in_shared(H);
-  auto* kernel = ws ? gru_streams_fwd_kernel<RES, TX, true, WS_RT>
-                    : gru_streams_fwd_kernel<RES, TX, false, BT>;
-  const size_t smem = ws ? ws_smem_bytes(H) : size_t(BT) * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const int groups = ws ? ws_row_groups(H) : 1;
-  const int rows = groups * (ws ? WS_RT : BT);
-  kernel<<<dim3((B + rows - 1) / rows, D), dim3((H + 31) / 32 * 32, groups), smem, st>>>(
-      static_cast<const TX*>(xr), static_cast<const TX*>(xz),
-      static_cast<const TX*>(xn), sxd, sxt, sxb, static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<const float*>(h0),
-      static_cast<float*>(out), static_cast<float*>(r), static_cast<float*>(z),
-      static_cast<float*>(n), static_cast<float*>(hnb), T, B, H);
-  return cudaGetLastError();
+                               int H, int D, cudaStream_t st) {
+  const auto* xrp = static_cast<const TX*>(xr);
+  const auto* xzp = static_cast<const TX*>(xz);
+  const auto* xnp = static_cast<const TX*>(xn);
+  const auto* wp = static_cast<const float*>(w);
+  const auto* bp = static_cast<const float*>(b);
+  const auto* hp = static_cast<const float*>(h0);
+  auto* op = static_cast<float*>(out);
+  auto* rp = static_cast<float*>(r);
+  auto* zp = static_cast<float*>(z);
+  auto* np = static_cast<float*>(n);
+  auto* hnbp = static_cast<float*>(hnb);
+  if (whh_in_shared(H)) {
+    auto* kernel = gru_streams_fwd_kernel<RES, TX>;
+    const size_t smem = ws_smem_bytes(H);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    const int groups = ws_row_groups(H), rows = groups * WS_RT;
+    kernel<<<dim3((B + rows - 1) / rows, D), dim3((H + 31) / 32 * 32, groups), smem, st>>>(
+        xrp, xzp, xnp, sxd, sxt, sxb, wp, bp, hp, op, rp, zp, np, hnbp, T, B, H);
+    return cudaGetLastError();
+  }
+  if (H > RC_MAX_H) return cudaErrorInvalidValue;
+  if (B <= RC_SMALL_B)
+    return launch_in_clusters(gru_fwd_cluster_kernel<RES, TX, 1>, dim3(RC_CL, D),
+                              rc_threads(1), fwd_cluster_smem(H, 1), RC_CL, st, xrp, xzp,
+                              xnp, sxd, sxt, sxb, wp, bp, hp, op, rp, zp, np, hnbp, T, B,
+                              H);
+  const int tiles = (B + RC_ROWS - 1) / RC_ROWS;
+  return launch_in_clusters(gru_fwd_cluster_kernel<RES, TX, RC_NT>,
+                            dim3(RC_CL * tiles, D), rc_threads(RC_NT),
+                            fwd_cluster_smem(H, RC_NT), RC_CL, st, xrp, xzp, xnp, sxd, sxt,
+                            sxb, wp, bp, hp, op, rp, zp, np, hnbp, T, B, H);
 }
 
-// The serial part of a GRU layer's backward, one block per (batch tile,
-// direction): walks t in the reverse of the forward's order with the dh
-// carry in registers; per step forms the gate gradients
+// The serial part of a GRU layer's backward: walks t in the reverse of the
+// forward's order with the dh carry in registers; per step forms the gate
+// gradients
 //   dn = g (1 - z)(1 - n^2), dz = g (hprev - n) z (1 - z), dr = dn hnb r (1 - r)
-// (g = the upstream gradient plus the carry), carries dh = g z + d_hid W^T
+// (g = the upstream gradient plus the carry), carries
+//   dh[b, j] = g z + sum over gate, k of d_hid[b, gate, k] whh[gate][j][k]
 // and writes the two gate-gradient streams (T, B, D, 3, H):
 //   d_in  = (dr, dz, dn)      what the input projection sees, in TX
 //   d_hid = (dr, dz, dn * r)  what the hidden projection sees, f32
-// g, r, z, n, hnb, hprev are (D, T, B, H) f32; whh_t (D, 3, H, H) holds
-// W_hh^T so that thread j reads row k of it coalesced:
-// whh_t[d, g, k, j] = whh[d, g, j, k]. dh0 (D, B, H) gets the carry after the
-// last step. Shared memory: 3 * H * BT floats, [gate][k][row].
-template <typename TX>
-__global__ void gru_bwd_recurrence_kernel(const float* __restrict__ g,
-                                          const float* __restrict__ r_in,
-                                          const float* __restrict__ z_in,
-                                          const float* __restrict__ n_in,
-                                          const float* __restrict__ hnb_in,
-                                          const float* __restrict__ hprev,
-                                          const float* __restrict__ whh_t,
-                                          TX* __restrict__ d_in,
-                                          float* __restrict__ d_hid,
-                                          float* __restrict__ dh0,
-                                          int T, int B, int H, int D) {
+// g, r, z, n, hnb, hprev are (D, T, B, H) f32; whh (D, 3, H, H) as the forward
+// takes it; dh0 (D, B, H) gets the carry after the last step.
+//
+// A cluster of CL blocks owns (direction, 8 NT rows); block c holds units
+// [c SL, c SL + SL), SL = ceil(H / CL) <= 16 MT; warp (mi, ni) of MT x NT owns
+// 16 units x 8 rows and does their elementwise part on its accumulators. Two
+// instances: the head's <8, 3, 5> on the scaffolding above, and <1, 4, 1> for
+// a narrow layer (H <= 64, the discriminator's), whose whole W fits one
+// block: no cluster, 8 rows and 4 warps a block. Shared memory: Ws (SL, LDA),
+// the A operand, Ws[u][p K3 + gate SL + kl] = whh[gate][c SL + u][p SL + kl]
+// (K3 = 3 SL; W_hh's rows as they lie: no transposed copy); buf (R, LDB),
+// this step's d_hid of the block's units, [row][gate SL + u], which the peers
+// pull; stage (R, LDB), the slice being multiplied (CL > 1). Three accumulator
+// chains over K (one per 3xTF32 term), the peers from the block's own rank
+// upwards. Barriers of a step (CL > 1): "buf is written"
+// (arrive + wait) before the pulls, "buf is read" (arrive after the last
+// pull has landed, wait before the next step writes buf).
+constexpr int RC_NARROW_H = 64;   // the widest layer of the one-block instance
+
+template <int CL, int NT>
+inline size_t bwd_resident_smem(int H) {
+  const int SL = (H + CL - 1) / CL, K3 = 3 * SL, R = 8 * NT;
+  const int LDA = pad4mod8(CL * K3 + (8 - K3 % 8) % 8);
+  return (size_t(SL) * LDA + size_t(CL > 1 ? 2 : 1) * R * slice_ld(K3)) * sizeof(float);
+}
+
+template <int CL, int MT, int NT, typename TX>
+__global__ void __launch_bounds__(CL > 1 ? rc_threads(NT) : 32 * MT * NT, 1)
+gru_bwd_resident_kernel(const float* __restrict__ g, const float* __restrict__ r_in,
+                        const float* __restrict__ z_in, const float* __restrict__ n_in,
+                        const float* __restrict__ hnb_in,
+                        const float* __restrict__ hprev, const float* __restrict__ whh,
+                        TX* __restrict__ d_in, float* __restrict__ d_hid,
+                        float* __restrict__ dh0, int T, int B, int H, int D) {
+  constexpr int R = 8 * NT, THREADS = CL > 1 ? rc_threads(NT) : 32 * MT * NT;
+  constexpr int NV = (R * slice_ld(3 * RC_MAX_SL) / 4 + THREADS - 1) / THREADS;
   extern __shared__ __align__(16) float smem[];
-  float* gh = smem;          // (3, H, BT): this step's d_hid of the tile
+  const int SL = (H + CL - 1) / CL, K3 = 3 * SL;
+  const int LDB = slice_ld(K3);
+  const int LDA = pad4mod8(CL * K3 + (8 - K3 % 8) % 8);
+  float* Ws = smem;
+  float* buf = Ws + SL * LDA;
+  float* stage = CL > 1 ? buf + R * LDB : buf;
+  const int n_vec = R * LDB / 4;
+  const int c = CL == 1 ? 0 : int(cluster_rank());
+  const int d = blockIdx.y, b0 = (blockIdx.x / CL) * R;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int mi = warp / NT, ni = warp % NT;
+  const bool worker = warp < MT * NT;   // the other warps only move data
 
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int j = threadIdx.x;
-  const bool active = j < H;
-  const float* Wt = whh_t + size_t(d) * 3 * H * H;
+  const float* Wd = whh + size_t(d) * 3 * H * H;
+  for (int idx = tid; idx < SL * LDA; idx += THREADS) {
+    const int u = idx / LDA, col = idx - u * LDA;
+    float v = 0.f;
+    if (col < CL * K3) {
+      const int p = col / K3, rem = col - p * K3, gate = rem / SL, kl = rem - gate * SL;
+      const int j = c * SL + u, k = p * SL + kl;
+      if (j < H && k < H) v = Wd[(size_t(gate) * H + j) * H + k];
+    }
+    Ws[idx] = v;
+  }
+  for (int idx = tid; idx < (CL > 1 ? 2 : 1) * R * LDB; idx += THREADS) buf[idx] = 0.f;
+  __syncthreads();
 
-  float dh[BT];
+  // the thread's four elements: accumulator q is unit ue[q / 2], row re[q % 2]
+  const int ue[2] = {mi * 16 + gq, mi * 16 + gq + 8};
+  const int re[2] = {ni * 8 + 2 * t4, ni * 8 + 2 * t4 + 1};
+  bool ok[4];
+  float dh[4];
 #pragma unroll
-  for (int r = 0; r < BT; ++r) dh[r] = 0.f;
+  for (int q = 0; q < 4; ++q) {
+    ok[q] = worker && ue[q / 2] < SL && c * SL + ue[q / 2] < H && b0 + re[q % 2] < B;
+    dh[q] = 0.f;
+  }
+  float pg[4], pr[4], pz[4], pn[4], ph[4], pp[4];
+  auto load_step = [&](int tt) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (ok[q]) {
+        const size_t idx =
+            ((size_t(d) * T + tt) * B + b0 + re[q % 2]) * H + c * SL + ue[q / 2];
+        pg[q] = g[idx];
+        pr[q] = r_in[idx];
+        pz[q] = z_in[idx];
+        pn[q] = n_in[idx];
+        ph[q] = hnb_in[idx];
+        pp[q] = hprev[idx];
+      }
+    }
+  };
+  // the forward walked d=0 up and d=1 down in t; the backward reverses it
+  load_step(d == 0 ? T - 1 : 0);
+  const int ra = min(ue[0], SL - 1) * LDA, rb = min(ue[1], SL - 1) * LDA;
+  const float* srow = stage + (ni * 8 + gq) * LDB + t4;
+  const uint32_t buf_a = smem_addr(buf);
 
   for (int s = 0; s < T; ++s) {
-    // the forward walked d=0 up and d=1 down in t; the backward reverses it
     const int tt = d == 0 ? T - 1 - s : s;
-    float dhz[BT];
+    if (CL > 1 && s > 0) cluster_wait();   // every peer has pulled the last step's buf
+    float keep[4];
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const int b = b0 + r;
-      float dr = 0.f, dz = 0.f, dnh = 0.f, keep = 0.f;
-      if (active && b < B) {
-        const size_t idx = ((size_t(d) * T + tt) * B + b) * H + j;
-        const float gt = g[idx] + dh[r];
-        const float rv = r_in[idx], zv = z_in[idx], nv = n_in[idx];
+    for (int q = 0; q < 4; ++q) {
+      float dr = 0.f, dz = 0.f, dnh = 0.f;
+      keep[q] = 0.f;
+      if (ok[q]) {
+        const float gt = pg[q] + dh[q];
+        const float rv = pr[q], zv = pz[q], nv = pn[q];
         const float dn = gt * (1.f - zv) * (1.f - nv * nv);
-        dz = gt * (hprev[idx] - nv) * zv * (1.f - zv);
-        dr = dn * hnb_in[idx] * rv * (1.f - rv);
+        dz = gt * (pp[q] - nv) * zv * (1.f - zv);
+        dr = dn * ph[q] * rv * (1.f - rv);
         dnh = dn * rv;
-        keep = gt * zv;
-        const size_t o = ((size_t(tt) * B + b) * D + d) * 3 * H + j;
+        keep[q] = gt * zv;
+        const size_t o =
+            ((size_t(tt) * B + b0 + re[q % 2]) * D + d) * 3 * H + c * SL + ue[q / 2];
         st_stream(d_in + o, dr);
         st_stream(d_in + o + H, dz);
         st_stream(d_in + o + 2 * H, dn);
@@ -318,106 +776,84 @@ __global__ void gru_bwd_recurrence_kernel(const float* __restrict__ g,
         d_hid[o + H] = dz;
         d_hid[o + 2 * H] = dnh;
       }
-      dhz[r] = keep;
-      if (active) {
-        gh[(0 * H + j) * BT + r] = dr;
-        gh[(1 * H + j) * BT + r] = dz;
-        gh[(2 * H + j) * BT + r] = dnh;
+      if (worker && ue[q / 2] < SL) {
+        float* bp = buf + re[q % 2] * LDB + ue[q / 2];
+        bp[0] = dr;
+        bp[SL] = dz;
+        bp[2 * SL] = dnh;
       }
     }
-    __syncthreads();  // the tile's d_hid is in shared memory
-    if (active) {
-      // the three gates' rows k side by side: three loads in flight per k
-      const float* w = Wt + j;
-#pragma unroll KU
-      for (int k = 0; k < H; ++k) {
-#pragma unroll
-        for (int gate = 0; gate < 3; ++gate) {
-          const float wv = __ldg(w + (size_t(gate) * H + k) * H);
-          const float* ghk = gh + (gate * H + k) * BT;
-          const float4 ga = *reinterpret_cast<const float4*>(ghk);
-          const float4 gb = *reinterpret_cast<const float4*>(ghk + 4);
-          const float gv[BT] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-          for (int r = 0; r < BT; ++r) dhz[r] += gv[r] * wv;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) dh[r] = dhz[r];
+    if constexpr (CL > 1) {
+      cluster_arrive();
+      cluster_wait();   // every block's buf (and, at s = 0, Ws) is written
+    } else {
+      __syncthreads();
     }
-    __syncthreads();  // every thread has read this step's d_hid
-  }
-  if (active) {
+    if (s + 1 < T) load_step(d == 0 ? T - 2 - s : s + 1);
+
+    float acc[1][3][4];
 #pragma unroll
-    for (int r = 0; r < BT; ++r)
-      if (b0 + r < B) dh0[(size_t(d) * B + b0 + r) * H + j] = dh[r];
+    for (int term = 0; term < 3; ++term)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[0][term][q] = 0.f;
+    if constexpr (CL > 1) {
+      float4 regs[NV];
+      pull_slice<NV, THREADS>(regs, buf_a, c, n_vec);
+      for (int i = 0; i < CL; ++i) {
+        const int p = (c + i) % CL;
+        __syncthreads();   // every warp is done with the staged slice
+        put_slice<NV, THREADS>(stage, regs, n_vec);
+        __syncthreads();
+        if (i + 1 < CL)
+          pull_slice<NV, THREADS>(regs, buf_a, (p + 1) % CL, n_vec);
+        else
+          cluster_arrive();   // this block has pulled every peer's buf
+        if (worker) mma_slice<1>(acc, Ws + p * K3 + t4, ra, rb, 0, srow, K3);
+      }
+    } else {
+      mma_slice<1>(acc, Ws + t4, ra, rb, 0, srow, K3);
+      __syncthreads();   // every warp has read buf
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dh[q] = keep[q] + mma_sum(acc[0], q);
   }
+  if (CL > 1) cluster_wait();   // no block leaves while a peer may pull its buf
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (ok[q])
+      dh0[(size_t(d) * B + b0 + re[q % 2]) * H + c * SL + ue[q / 2]] = dh[q];
 }
 
+// Which backward runs is a function of the shape alone: H <= RC_NARROW_H the
+// one-block instance, else the cluster with one row tile (B <= RC_SMALL_B)
+// or five.
 template <typename TX>
 cudaError_t launch_bwd_recurrence(const float* g, const float* r, const float* z,
                                   const float* n, const float* hnb,
-                                  const float* hprev, const float* whh_t, TX* d_in,
+                                  const float* hprev, const float* whh, TX* d_in,
                                   float* d_hid, float* dh0, int T, int B, int H,
                                   int D, cudaStream_t st) {
-  const size_t smem = size_t(3) * BT * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_recurrence_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const int threads = (H + 31) / 32 * 32;
-  gru_bwd_recurrence_kernel<TX><<<dim3((B + BT - 1) / BT, D), threads, smem, st>>>(
-      g, r, z, n, hnb, hprev, whh_t, d_in, d_hid, dh0, T, B, H, D);
-  return cudaGetLastError();
-}
-
-// --- the tensor-core pieces: cp.async, the TF32 split, mma.sync ---
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// V floats (4, 2 or 1) from device to shared memory, or zeros when !ok
-template <int V>
-__device__ __forceinline__ void cp_async_floats(float* dst, const float* src, bool ok) {
-  const int bytes = ok ? 4 * V : 0;
-  if constexpr (V == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  else if constexpr (V == 2)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x as hi + lo in TF32 (10 mantissa bits each): hi is x rounded to nearest
-// (ties away from zero) by integer arithmetic on its bits, lo the exact
-// remainder x - hi, whose low 13 mantissa bits the tensor core ignores:
-// hi + lo = x to 2^-21. (Three full-rate integer and float operations;
-// cvt.rna.tf32.f32 for both halves made K2's projection 0.90 ms where this
-// makes it 0.74 ms at the head's first layer on an H100.)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if (H <= RC_NARROW_H) {
+    auto* kernel = gru_bwd_resident_kernel<1, 4, 1, TX>;
+    const size_t smem = bwd_resident_smem<1, 1>(H);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((B + 7) / 8, D), 128, smem, st>>>(g, r, z, n, hnb, hprev, whh, d_in,
+                                                    d_hid, dh0, T, B, H, D);
+    return cudaGetLastError();
+  }
+  if (H > RC_MAX_H) return cudaErrorInvalidValue;
+  if (B <= RC_SMALL_B)
+    return launch_in_clusters(gru_bwd_resident_kernel<RC_CL, RC_MT, 1, TX>,
+                              dim3(RC_CL, D), rc_threads(1),
+                              bwd_resident_smem<RC_CL, 1>(H), RC_CL, st, g, r, z, n, hnb,
+                              hprev, whh, d_in, d_hid, dh0, T, B, H, D);
+  const int tiles = (B + RC_ROWS - 1) / RC_ROWS;
+  return launch_in_clusters(gru_bwd_resident_kernel<RC_CL, RC_MT, RC_NT, TX>,
+                            dim3(RC_CL * tiles, D), rc_threads(RC_NT),
+                            bwd_resident_smem<RC_CL, RC_NT>(H), RC_CL, st, g, r, z, n,
+                            hnb, hprev, whh, d_in, d_hid, dh0, T, B, H, D);
 }
 
 // --- the backward's GEMM: f32 in and out, 3xTF32 on the tensor cores ---
@@ -449,7 +885,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 constexpr int MK = 32;              // depth of an operand tile
 constexpr int MMA_THREADS = 256;
 constexpr int MMA_STAGES = 3;
-constexpr int SM_COUNT = 132;       // an H100's
 // K of one block. The tensor cores truncate where an f32 add rounds, and the
 // loss grows with the length of one accumulator chain (2e-5 relative at
 // K = 2000, as measured on the projection); a slice's chain ends at

@@ -25,20 +25,24 @@
 //      block tiles that never straddle a (direction, gate) boundary (H = 350
 //      is ragged: masked), 32-deep operand tiles copied as they lie by
 //      cp.async three stages deep, the bias added in the epilogue;
-//   B. gru_streams_fwd_kernel (gru_common.cuh, the tile K3 and K6 run): the
-//      recurrence of (batch tile, direction) with T looped inside the block,
-//      reading xp by its strides; the backward direction walks t from T-1
-//      down and writes at the natural time index; with residuals it also
-//      writes r, z, n and hnb (D, T, B, H). Where a direction's W_hh fits a
-//      block's shared memory (H <= 138: the discriminator's H = 64, 49 KB) it
-//      is staged there once and each thread carries 2 rows, 4 row groups a
-//      block; else (the head's H = 350, 1.47 MB) 8 rows a thread and W_hh
-//      from L2 at every step.
+//   B. the recurrence from xp by its strides (gru_common.cuh, the kernels K3
+//      runs), T looped inside the kernel with W_hh resident on the chip; the
+//      backward direction walks t from T-1 down and writes at the natural
+//      time index; with residuals it also writes r, z, n and hnb
+//      (D, T, B, H). Where a direction's W_hh fits a block's shared memory
+//      (H <= 138: the discriminator's H = 64, 49 KB) gru_streams_fwd_kernel
+//      stages it there once and each thread carries 2 rows, 4 row groups a
+//      block, scalar f32 FMAs; else (the head's H = 350, 1.47 MB)
+//      gru_fwd_cluster_kernel: a cluster of 8 blocks owns 40 batch rows (8 for
+//      a batch of at most 8), each block holds an eighth of W_hh for the whole
+//      loop and computes its 44 hidden units' products on the tensor cores
+//      (3xTF32), the slices of h exchanged through distributed shared memory.
 // What bounds it: operations, 49.1 GFLOP of f32 work at (T=34, B=256, I=992,
 // H=350, D=2); phase A runs three times its 36.3 GFLOP as TF32 MMAs (0.73
 // ms on an H100, 30% of the TF32 peak: mma.sync with the operand split on the
-// same warps), phase B is K3's recurrence (1.10 ms, bound by instruction
-// dispatch on 64 of 132 SMs; its redesign is K3's). The tensor cores' f32
+// same warps), phase B three times its 12.8 GFLOP on 112 of the 132 SMs
+// (0.79 ms: mma.sync starts one TF32 m16n8k8 per ~14 clocks a tensor core,
+// and a step's 48 x 9 MMAs a warp are 70% of it). The tensor cores' f32
 // accumulation truncates, so xp agrees with an f64 product to 7e-5 where a
 // cuBLAS f32 product agrees to 1.4e-5 (|xp| up to 8); the layer's outputs
 // stay within 4e-5 of the plain version's.
@@ -48,13 +52,17 @@
 // parallel, so the work is split into what is serial and what is not:
 // (the kernels of (a), (b) and (c) are in gru_common.cuh: K3's backward
 // runs (a), the dW_hh product of (b) and (c) too)
-//   (a) gru_bwd_recurrence_kernel: one block per (batch tile, direction),
-//       walking t in the reverse of the forward's order with the dh carry in
-//       registers. Per step it forms the gate gradients, carries dh through
-//       W_hh^T (read transposed, coalesced along j) and writes the two
+//   (a) gru_bwd_resident_kernel: walks t in the reverse of the forward's
+//       order with the dh carry in registers. Per step it forms the gate
+//       gradients, carries dh through W_hh (its rows as they lie: no
+//       transposed copy) on the tensor cores (3xTF32) and writes the two
 //       gate-gradient streams (T, B, D, 3, H): d_in = (dr, dz, dn) that the
 //       input projection sees and d_hid = (dr, dz, dn * r) that the hidden
-//       projection sees. 12.8 GFLOP of the ~98 at I=992 are here.
+//       projection sees. W_hh stays in shared memory for the whole loop: in
+//       one block of 8 rows at a narrow layer (H <= 64), across a cluster of
+//       8 blocks and 40 rows at the head's H = 350, the blocks exchanging
+//       their slices of d_hid through distributed shared memory. 12.8 GFLOP
+//       of the ~98 at I=992 are here.
 //   (b) gru_mma_gemm_kernel, one f32 GEMM on the tensor cores at f32
 //       accuracy (phase A's 3xTF32 mma.sync tile, operands staged as they lie
 //       by cp.async three stages deep), for the three products:
@@ -79,9 +87,9 @@
 // The three products (85 GFLOP, run three times over as TF32 MMAs) take
 // 0.93 + 1.18 ms of the layer's 4.4 on an H100: 26-30% of the TF32 peak, as
 // phase A, less where the blocks come out in a ragged last wave (dx: 544
-// blocks on 264 slots). The rest is (a), 1.97 ms: as in the forward's phase
-// B, the re-read of a direction's W_hh (1.47 MB) from L2 at every step by 64
-// blocks; its redesign is K3's.
+// blocks on 264 slots). The rest is (a), 1.09 ms: as in the forward's phase
+// B, mma.sync's rate for three TF32 MMAs a product, and the operand split and
+// the slice exchange that do not overlap it.
 
 #include "gru_common.cuh"
 
@@ -275,7 +283,7 @@ extern "C" int hop_gru_fused_fwd(const void* x, const void* wih, const void* bih
                                  void* xp, void* out, void* r_out, void* z_out,
                                  void* n_out, void* hnb_out, int T, int B, int I,
                                  int H, int D, void* stream) {
-  if (T < 1 || B < 1 || I < 1 || H < 1 || H > 1024 || D < 1 || D > 2 ||
+  if (T < 1 || B < 1 || I < 1 || H < 1 || H > RC_MAX_H || D < 1 || D > 2 ||
       (long long)T * B > 65535LL * PM || xp == nullptr)
     return int(cudaErrorInvalidValue);
   const bool res = r_out != nullptr;
@@ -293,14 +301,14 @@ extern "C" int hop_gru_fused_fwd(const void* x, const void* wih, const void* bih
 #define HOP_REC(RES)                                                                   \
   launch_streams_fwd<RES, float>(gates, gates + H, gates + 2 * H, sxd, sxt, sxb, whh, \
                                  bhh, h0, out, r_out, z_out, n_out, hnb_out, T, B, H, \
-                                 D, true, st)
+                                 D, st)
   err = res ? HOP_REC(true) : HOP_REC(false);
 #undef HOP_REC
   return int(err);
 }
 
-// whether phase B stages W_hh in shared memory at this H (1) or reads it from
-// L2 at every step (0)
+// whether phase B keeps W_hh in one block's shared memory at this H (1) or
+// across a cluster (0)
 extern "C" int hop_gru_fused_whh_in_shared(int H) { return whh_in_shared(H) ? 1 : 0; }
 
 // floats of workspace hop_gru_fused_bwd needs for these shapes (0: none)
@@ -309,7 +317,7 @@ extern "C" long long hop_gru_fused_bwd_workspace(int T, int B, int I, int H, int
 }
 
 // g, r, z, n, hnb, hprev (D, T, B, H); x (T, B, I); wih (D, 3, I, H) as the
-// forward takes it; whh_t (D, 3, H, H) is W_hh with its last two axes swapped.
+// forward takes it; whh (D, 3, H, H) likewise.
 // d_in, d_hid (T, B, D, 3, H) and `work` (hop_gru_fused_bwd_workspace floats,
 // may be NULL when that is 0) are scratch. Writes dx (T, B, I) summed over
 // the directions, dwih (D, 3, I, H), dbih (D, 3, 1, H), dwhh (D, 3, H, H),
@@ -317,11 +325,11 @@ extern "C" long long hop_gru_fused_bwd_workspace(int T, int B, int I, int H, int
 extern "C" int hop_gru_fused_bwd(const void* g, const void* x, const void* r,
                                  const void* z, const void* n, const void* hnb,
                                  const void* hprev, const void* wih,
-                                 const void* whh_t, void* d_in, void* d_hid,
+                                 const void* whh, void* d_in, void* d_hid,
                                  void* work, void* dx, void* dwih, void* dbih,
                                  void* dwhh, void* dbhh, void* dh0, int T, int B,
                                  int I, int H, int D, void* stream) {
-  if (T < 1 || B < 1 || I < 1 || H < 1 || H > 1024 || D < 1 || D > 2)
+  if (T < 1 || B < 1 || I < 1 || H < 1 || H > RC_MAX_H || D < 1 || D > 2)
     return int(cudaErrorInvalidValue);
   if (bwd_workspace(T, B, I, H, D) > 0 && work == nullptr)
     return int(cudaErrorInvalidValue);
@@ -333,7 +341,7 @@ extern "C" int hop_gru_fused_bwd(const void* g, const void* x, const void* r,
       static_cast<const float*>(g), static_cast<const float*>(r),
       static_cast<const float*>(z), static_cast<const float*>(n),
       static_cast<const float*>(hnb), static_cast<const float*>(hprev),
-      static_cast<const float*>(whh_t), din, dhid, static_cast<float*>(dh0), T, B, H,
+      static_cast<const float*>(whh), din, dhid, static_cast<float*>(dh0), T, B, H,
       D, st);
   if (err != cudaSuccess) return int(err);
 

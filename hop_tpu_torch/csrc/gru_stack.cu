@@ -18,22 +18,25 @@
 // All arithmetic and the h path are f32.
 //
 // Forward. The TPU put T on a sequential grid with the whole batch per step
-// and carried h in VMEM scratch. Here batch rows are independent, so a block
-// owns (8 rows, direction) and loops over T with h in shared memory
-// (gru_recurrence_tile under gru_streams_fwd_kernel in gru_common.cuh); any
-// B, the ragged last tile is masked. A direction's W (1.47 MB at H=350) does
-// not fit an SM: every block re-reads it from L2 at each step, coalesced
-// along the hidden unit. (K2's second phase runs the same kernel and, for a
-// narrow layer, its variant with W in shared memory; this entry does not
-// take that variant yet.)
-// What bounds it: operations. 12.8 GFLOP of f32 FMAs at the head's shape
+// and carried h in VMEM scratch. Here batch rows are independent and T is a
+// loop inside the kernel, W resident on the chip for all of it
+// (launch_streams_fwd in gru_common.cuh chooses by the shape alone, for this
+// entry as for K2's second phase): where a direction's W fits a block's
+// shared memory (H <= 138: the discriminator's 64) a block owns 8 rows in 4
+// groups of 2 and runs scalar f32 FMAs from its copy; else (the head's H =
+// 350, 1.47 MB) a cluster of 8 blocks owns 40 rows (8 for a batch of at most
+// 8), each block keeps an eighth of W and computes its 44 hidden units on the
+// tensor cores (3xTF32 mma.sync), and the blocks exchange their slices of h
+// through distributed shared memory. Any B: the ragged last tile is masked.
+// What bounds it: operations. 12.8 GFLOP of f32 work at the head's shape
 // (D=2, T=34, B=256, H=350) against 100 MB (lean) or 198 MB (residuals) of
-// traffic; on the card the L2 re-read (1.47 MB x 64 blocks x 34 steps) and
-// 64 blocks on 132 SMs keep it well above that bound.
+// traffic; as three TF32 MMAs a product on 112 SMs at mma.sync's rate it
+// takes 0.79 ms on an H100, 4x that bound.
 //
 // Backward. The TPU ran one reversed pass that also added dW and db into a
-// resident block over its sequential grid. Here: gru_bwd_recurrence_kernel
-// (serial, per (8 rows, direction)) writes dxr, dxz, dxn into one
+// resident block over its sequential grid. Here: gru_bwd_resident_kernel
+// (serial in T; W resident in one block for H <= 64, else across a cluster,
+// the carry's product on the tensor cores) writes dxr, dxz, dxn into one
 // (T, B, D, 3, H) buffer in the streams' dtype and the f32 hidden-side
 // stream (dr, dz, dn * r); then K2's backward GEMM (gru_common.cuh: 3xTF32
 // on the tensor cores, ordered split-K) gives dW[g] = hprev^T . d_hid[g] over
@@ -41,15 +44,15 @@
 // repeat bit for bit. dh0 comes out per direction and is summed outside, as
 // on the TPU.
 // What bounds it: operations, 25.6 GFLOP of f32 work, half serial in the
-// recurrence's scalar FMAs (1.97 of the 2.5 ms at the head on an H100), half
-// in the dW product (0.34 ms).
+// recurrence (1.09 of the 1.6 ms at the head on an H100), half in the dW
+// product (0.34 ms).
 
 #include "gru_common.cuh"
 
 namespace {
 
 bool bad_shape(int T, int B, int H, int D) {
-  return T < 1 || B < 1 || H < 1 || H > 1024 || D < 1 || D > 2;
+  return T < 1 || B < 1 || H < 1 || H > RC_MAX_H || D < 1 || D > 2;
 }
 
 }  // namespace
@@ -69,7 +72,7 @@ extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
     return int(cudaErrorInvalidValue);
 #define HOP_FWD(RES, TX)                                                            \
   launch_streams_fwd<RES, TX>(xr, xz, xn, sxd, sxt, sxb, w, b, h0, out, r, z, n, hnb, T, \
-                              B, H, D, false, st)
+                              B, H, D, st)
   cudaError_t err;
   if (bf16)
     err = res ? HOP_FWD(true, __nv_bfloat16) : HOP_FWD(false, __nv_bfloat16);
@@ -79,20 +82,40 @@ extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
   return int(err);
 }
 
+// Clusters of the wide layer's recurrence (forward: backward == 0) that the
+// card holds at once at this H, or minus the CUDA error; 0 where the layer is
+// narrow enough to run without clusters.
+extern "C" int hop_gru_active_clusters(int H, int backward) {
+  if (H < 1 || H > RC_MAX_H) return -int(cudaErrorInvalidValue);
+  int count = 0;
+  cudaError_t err = cudaSuccess;
+  if (backward) {
+    if (H <= RC_NARROW_H) return 0;
+    err = active_clusters(gru_bwd_resident_kernel<RC_CL, RC_MT, RC_NT, float>,
+                          rc_threads(RC_NT), bwd_resident_smem<RC_CL, RC_NT>(H), RC_CL,
+                          &count);
+  } else {
+    if (whh_in_shared(H)) return 0;
+    err = active_clusters(gru_fwd_cluster_kernel<true, float, RC_NT>, rc_threads(RC_NT),
+                          fwd_cluster_smem(H, RC_NT), RC_CL, &count);
+  }
+  return err == cudaSuccess ? count : -int(err);
+}
+
 // floats of workspace hop_gru_stack_bwd needs for these shapes (0: none)
 extern "C" long long hop_gru_stack_bwd_workspace(int T, int B, int H, int D) {
   return (long long)dw_gemm_workspace(H, T, B, H, D);
 }
 
-// g, r, z, n, hnb, hprev (D, T, B, H) f32 contiguous; w_t (D, 3, H, H) is w
-// with its last two axes swapped. Writes dx (T, B, D, 3, H), bf16 when `bf16`
+// g, r, z, n, hnb, hprev (D, T, B, H) f32 contiguous; w (D, 3, H, H) as the
+// forward takes it. Writes dx (T, B, D, 3, H), bf16 when `bf16`
 // is non-zero, else f32: dx[:, :, d, 0] is dxr, 1 dxz, 2 dxn; dw (D, 3, H, H),
 // db (D, 3, 1, H) and dh0 (D, B, H), one slice per direction. d_hid
 // (T, B, D, 3, H) f32 and `work` (hop_gru_stack_bwd_workspace floats, may be
 // NULL when that is 0) are scratch.
 extern "C" int hop_gru_stack_bwd(const void* g, const void* r, const void* z,
                                  const void* n, const void* hnb, const void* hprev,
-                                 const void* w_t, void* dx, int bf16, void* d_hid,
+                                 const void* w, void* dx, int bf16, void* d_hid,
                                  void* work, void* dw, void* db, void* dh0, int T,
                                  int B, int H, int D, void* stream) {
   if (bad_shape(T, B, H, D)) return int(cudaErrorInvalidValue);
@@ -105,7 +128,7 @@ extern "C" int hop_gru_stack_bwd(const void* g, const void* r, const void* z,
   const auto* nf = static_cast<const float*>(n);
   const auto* hf = static_cast<const float*>(hnb);
   const auto* pf = static_cast<const float*>(hprev);
-  const auto* wf = static_cast<const float*>(w_t);
+  const auto* wf = static_cast<const float*>(w);
   auto* dhid = static_cast<float*>(d_hid);
   auto* dh0f = static_cast<float*>(dh0);
   cudaError_t err =

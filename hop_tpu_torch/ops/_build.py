@@ -45,9 +45,12 @@ SIGNATURES = {
     # x, wih, bih, whh, bhh, h0, xp (workspace), out, r, z, n, hnb (residuals
     # or NULL), T, B, I, H, D, stream
     "hop_gru_fused_fwd": [_P] * 12 + [_I] * 5 + [_P],
-    # H -> 1 when the recurrence stages W_hh in shared memory
+    # H -> 1 when the forward recurrence keeps W_hh in one block
     "hop_gru_fused_whh_in_shared": [_I],
-    # g, x, r, z, n, hnb, hprev, wih, whh_t, d_in, d_hid, work, dx, dwih,
+    # H, backward flag -> clusters of the wide recurrence the card holds at
+    # once (0: a narrow layer, no clusters; negative: minus a CUDA error)
+    "hop_gru_active_clusters": [_I, _I],
+    # g, x, r, z, n, hnb, hprev, wih, whh, d_in, d_hid, work, dx, dwih,
     # dbih, dwhh, dbhh, dh0, T, B, I, H, D, stream
     "hop_gru_fused_bwd": [_P] * 18 + [_I] * 5 + [_P],
     # T, B, I, H, D -> floats of workspace hop_gru_fused_bwd needs
@@ -55,7 +58,7 @@ SIGNATURES = {
     # xr, xz, xn, their strides of D, T and B (elements), bf16 flag, w, b,
     # h0, out, r, z, n, hnb (residuals or NULL), T, B, H, D, stream
     "hop_gru_stack_fwd": [_P] * 3 + [_L] * 3 + [_I] + [_P] * 8 + [_I] * 4 + [_P],
-    # g, r, z, n, hnb, hprev, w_t, dx, bf16 flag, d_hid, work, dw, db, dh0,
+    # g, r, z, n, hnb, hprev, w, dx, bf16 flag, d_hid, work, dw, db, dh0,
     # T, B, H, D, stream
     "hop_gru_stack_bwd": [_P] * 8 + [_I] + [_P] * 5 + [_I] * 4 + [_P],
     # T, B, H, D -> floats of workspace hop_gru_stack_bwd needs

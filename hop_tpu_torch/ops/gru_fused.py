@@ -16,14 +16,18 @@ W_ih from L2 at every step. So the forward entry runs two phases on one
 stream: (A) a hand-written tensor-core product xp = x · W_ih + b_ih over
 all T * B rows at f32 accuracy (each operand split into TF32 hi + lo, three
 `mma.sync` a product, f32 accumulators) into a workspace (T, B, D, 3, H),
-and (B) the recurrence h · W_hh over T inside one block per (batch tile,
-direction), the tile the stack route's kernels run; where a direction's
-W_hh fits a block's shared memory (`whh_in_shared`: the discriminator's
-H=64) it is staged there once, else (H=350) it is re-read from L2 at every
-step. In training the forward also writes the gates r, z, n and
+and (B) the recurrence h · W_hh over T inside one kernel, W_hh resident on
+the chip for the whole loop (the kernels the stack route runs): where a
+direction's W_hh fits a block's shared memory (`whh_in_shared`: the
+discriminator's H=64) one block stages it once and runs scalar f32 products;
+else (H=350) a thread-block cluster of eight blocks shares it, each block
+computing its 44 hidden units on the tensor cores (3×TF32) and exchanging
+slices of h through distributed shared memory (`recurrence_variant`). In
+training the forward also writes the gates r, z, n and
 hnb = h W_hh[n] + b_hh[n]. The
-backward runs the serial dh recurrence in one kernel (gate-gradient
-streams out) and everything else (dx, dW_ih, dW_hh: ≈85 of the ≈98 GFLOP
+backward runs the serial dh recurrence in one kernel of the same kind (W_hh
+resident in a block or a cluster, the carry's product on the tensor cores,
+gate-gradient streams out) and everything else (dx, dW_ih, dW_hh: ≈85 of the ≈98 GFLOP
 of a head layer at I=992) as three products of one hand-written GEMM on the
 tensor cores at f32 accuracy, the projection's 3×TF32 `mma.sync` tile: the
 operands are staged as they lie (W_ih in place for dx, x and hprev read
@@ -40,7 +44,8 @@ in torch on the same (D, 3, I, H) weight layout; `plain_gru_fused_layer_bwd`
 is the backward in the kernels' split (gate grads by a reversed loop, then
 products and sums); `two_phase_gru_fused_layer` and
 `sliced_gru_fused_layer_bwd` repeat the forward and backward kernels'
-arithmetic in torch for the CPU tests. The wrappers take the plain
+arithmetic in torch for the CPU tests, the recurrences' through
+`resident_hidden_product` and `resident_carry_product`. The wrappers take the plain
 versions only for a tensor on the CPU; for a CUDA tensor they launch the
 kernels or raise.
 """
@@ -85,20 +90,68 @@ def plain_gru_fused_layer(x, wih, bih, whh, bhh, h0,
 
 
 #: a block's most shared memory on the card, the rows a thread carries and
-#: the threads of a block in the recurrence's shared-memory variant
+#: the threads of a block in the recurrence's one-block forward
 #: (SMEM_BLOCK_MAX, WS_RT, WS_THREADS in csrc/gru_common.cuh)
 SMEM_BLOCK_MAX = 232448
 WS_ROWS = 2
 WS_THREADS = 256
+#: the wide layer's recurrences (RC_CL, RC_ROWS, RC_MAX_SL, RC_NARROW_H in
+#: csrc/gru_common.cuh): blocks of a cluster, batch rows of a cluster, most
+#: hidden units of a block, the widest layer of the backward's one-block
+#: instance
+CLUSTER_BLOCKS = 8
+CLUSTER_ROWS = 40
+CLUSTER_MAX_UNITS = 44
+MAX_H = CLUSTER_BLOCKS * CLUSTER_MAX_UNITS
+NARROW_BWD_H = 64
 
 
 def whh_in_shared(H: int) -> bool:
-    """Whether the forward's recurrence stages a direction's W_hh (3, H, H)
-    in shared memory once (it fits a block's 227 KB with the block's h
-    tiles) or re-reads it from L2 at every step."""
+    """Whether the forward's recurrence keeps a direction's W_hh (3, H, H)
+    in one block's shared memory (it fits a block's 227 KB with the block's
+    h tiles) or across a cluster of blocks."""
     groups = max(1, WS_THREADS // (-(-H // 32) * 32))
     h_floats = -(-groups * WS_ROWS * H // 4) * 4
     return (h_floats + 3 * H * H) * 4 <= SMEM_BLOCK_MAX
+
+
+def recurrence_variant(H: int, backward: bool = False) -> str:
+    """Which recurrence kernel runs at hidden width H, as the host side
+    chooses it (`launch_streams_fwd`, `launch_bwd_recurrence` in
+    csrc/gru_common.cuh), from H alone: "block" where one block holds the
+    direction's W_hh (the forward with scalar f32 products up to H = 138, the
+    backward on the tensor cores up to NARROW_BWD_H), "cluster" where eight
+    blocks share it (up to MAX_H, on the tensor cores)."""
+    if H < 1 or H > MAX_H:
+        raise ValueError(f"the GRU kernels take 1 <= H <= {MAX_H}, got H={H}")
+    narrow = H <= NARROW_BWD_H if backward else whh_in_shared(H)
+    return "block" if narrow else "cluster"
+
+
+def _pad4mod8(x: int) -> int:
+    return (x + 3) // 8 * 8 + 4
+
+
+def _slice_ld(k: int) -> int:
+    return -(-k // 8) * 8 + 4
+
+
+def recurrence_smem_bytes(H: int, backward: bool = False) -> int:
+    """Dynamic shared memory of a block of the kernel `recurrence_variant`
+    names, the wrapper's copy of the host side's sizes."""
+    variant = recurrence_variant(H, backward)
+    if not backward:
+        if variant == "block":
+            groups = max(1, WS_THREADS // (-(-H // 32) * 32))
+            return (-(-groups * WS_ROWS * H // 4) * 4 + 3 * H * H) * 4
+        sl = -(-H // CLUSTER_BLOCKS)
+        lda = _pad4mod8(CLUSTER_BLOCKS * sl + (8 - sl % 8) % 8)
+        return (3 * sl * lda + 3 * CLUSTER_ROWS * _slice_ld(sl)) * 4
+    blocks, rows = (1, 8) if variant == "block" else (CLUSTER_BLOCKS, CLUSTER_ROWS)
+    sl = -(-H // blocks)
+    k3 = 3 * sl
+    lda = _pad4mod8(blocks * k3 + (8 - k3 % 8) % 8)
+    return (sl * lda + (1 if blocks == 1 else 2) * rows * _slice_ld(k3)) * 4
 
 
 def _split_tf32(x: torch.Tensor):
@@ -112,12 +165,104 @@ def _split_tf32(x: torch.Tensor):
     return hi, (bits(x - hi) & ~0x1FFF).view(torch.float32)
 
 
+def _tf32x3(pairs) -> torch.Tensor:
+    """The sum of a @ b over `pairs` as the recurrence kernels' tensor-core
+    chains sum it: each operand split into TF32 hi + lo, the three terms
+    (lo hi, hi lo, hi hi) each summed over the pairs in order in a chain of
+    its own, then added, the small terms first."""
+    terms = [None, None, None]
+    for a, b in pairs:
+        a_hi, a_lo = _split_tf32(a)
+        b_hi, b_lo = _split_tf32(b)
+        for i, part in enumerate((a_lo @ b_hi, a_hi @ b_lo, a_hi @ b_hi)):
+            terms[i] = part if terms[i] is None else terms[i] + part
+    return (terms[0] + terms[1]) + terms[2]
+
+
+def _unit_slices(H: int, blocks: int):
+    """The hidden units of each block of a cluster: `blocks` slices of
+    ceil(H / blocks) units, the last ones short or empty."""
+    sl = -(-H // blocks)
+    return [slice(min(c * sl, H), min((c + 1) * sl, H)) for c in range(blocks)]
+
+
+def _own_and_peers(H: int):
+    """For each block of a cluster with units of its own: its slice and its
+    peers' slices in the order it multiplies them, from its own rank upwards."""
+    slices = _unit_slices(H, CLUSTER_BLOCKS)
+    for c, own in enumerate(slices):
+        if own.stop > own.start:
+            order = [slices[(c + i) % CLUSTER_BLOCKS] for i in range(CLUSTER_BLOCKS)]
+            yield own, [p for p in order if p.stop > p.start]
+
+
+def resident_hidden_product(h, w, bias):
+    """h (B, H) . w (3, H, H) + bias (3, 1, H) -> (3, B, H) in the forward
+    recurrence kernel's arithmetic at this H: the one-block kernel's plain
+    f32 sums, or the cluster's: each block's units from 3xTF32 products over
+    the peers' slices of h, the bias added last."""
+    H = h.shape[-1]
+    if recurrence_variant(H) == "block":
+        return torch.einsum("bk,gkh->gbh", h, w) + bias
+    out = h.new_zeros((3, h.shape[0], H))
+    for own, peers in _own_and_peers(H):
+        out[:, :, own] = _tf32x3((h[:, p], w[:, p, own]) for p in peers)
+    return out + bias
+
+
+def resident_gru_recurrence(xr, xz, xn, w, b, h0, with_residuals: bool = False):
+    """`ops.gru_stack.plain_gru_stack`'s contract (streams (D, T, B, H), w
+    (D, 3, H, H), b (D, 3, 1, H), h0 (B, H)) with the hidden product as the
+    forward kernel chosen for this H computes it, for tests."""
+    D, T = xr.shape[:2]
+    xr, xz, xn = (t.to(h0.dtype) for t in (xr, xz, xn))
+    outs, res = [], []
+    for d in range(D):
+        h = h0
+        ys, gates = [None] * T, [None] * T
+        for t in (range(T) if d == 0 else reversed(range(T))):
+            hp = resident_hidden_product(h, w[d], b[d])
+            r = torch.sigmoid(xr[d, t] + hp[0])
+            z = torch.sigmoid(xz[d, t] + hp[1])
+            n = torch.tanh(xn[d, t] + r * hp[2])
+            h = (1.0 - z) * n + z * h
+            ys[t] = h
+            gates[t] = torch.stack([r, z, n, hp[2]])
+        outs.append(torch.stack(ys))
+        res.append(torch.stack(gates, dim=1))
+    out = torch.stack(outs)
+    if not with_residuals:
+        return out
+    r, z, n, hnb = torch.stack(res, dim=1)
+    return out, r, z, n, hnb
+
+
+def resident_carry_product(d_hid, whh):
+    """sum over gate, k of d_hid[b, gate, k] whh[gate][j][k] -> (B, H) in the
+    backward recurrence kernel's arithmetic at this H: 3xTF32 chains over
+    K = 3 H laid out gate by gate in the one-block kernel, and in the cluster
+    over the peers' slices of the units (a slice's three gates side by
+    side)."""
+    B, _, H = d_hid.shape
+    if recurrence_variant(H, backward=True) == "block":
+        return _tf32x3([(d_hid.reshape(B, 3 * H),
+                         whh.permute(0, 2, 1).reshape(3 * H, H))])
+    out = d_hid.new_zeros((B, H))
+    for own, peers in _own_and_peers(H):
+        out[:, own] = _tf32x3(
+            (d_hid[:, :, p].reshape(B, -1),                           # [b, (gate, k)]
+             whh[:, own, p].permute(0, 2, 1).reshape(-1, own.stop - own.start))
+            for p in peers)
+    return out
+
+
 def two_phase_gru_fused_layer(x, wih, bih, whh, bhh, h0,
                               with_residuals: bool = False):
     """`plain_gru_fused_layer`'s contract in the forward kernels' two phases,
     for tests: the projection xp (T, B, D, 3, H) once, each operand split
     into TF32 hi + lo and the product summed from three (lo hi, hi lo,
-    hi hi), then the recurrence from xp."""
+    hi hi), then the recurrence from xp with the hidden product as the
+    kernel for this H sums it (`resident_hidden_product`)."""
     T = x.shape[0]
     D = wih.shape[0]
     x_hi, x_lo = _split_tf32(x)
@@ -130,7 +275,7 @@ def two_phase_gru_fused_layer(x, wih, bih, whh, bhh, h0,
         h = h0
         ys, gates = [None] * T, [None] * T
         for t in (range(T) if d == 0 else reversed(range(T))):
-            hp = torch.einsum("bk,gkh->gbh", h, whh[d]) + bhh[d]
+            hp = resident_hidden_product(h, whh[d], bhh[d])
             r = torch.sigmoid(xp[t, :, d, 0] + hp[0])
             z = torch.sigmoid(xp[t, :, d, 1] + hp[1])
             n = torch.tanh(xp[t, :, d, 2] + r * hp[2])
@@ -146,10 +291,16 @@ def two_phase_gru_fused_layer(x, wih, bih, whh, bhh, h0,
     return out, r, z, n, hnb
 
 
-def _gate_grad_streams(g, r, z, n, hnb, hprev, whh):
+def plain_carry_product(d_hid, whh):
+    """A step's d_hid (B, 3, H) through W_hh (3, H, H) to the dh carry (B, H)."""
+    return torch.einsum("bgk,gjk->bj", d_hid, whh)
+
+
+def _gate_grad_streams(g, r, z, n, hnb, hprev, whh, carry=plain_carry_product):
     """The serial part of the backward: the gate-gradient streams d_in =
     (dr, dz, dn) and d_hid = (dr, dz, dn * r), each (T, B, D, 3, H), and the
-    dh carry after the last step, (D, B, H)."""
+    dh carry after the last step, (D, B, H). `carry` takes a step's d_hid
+    (B, 3, H) through W_hh (3, H, H) to the carry (B, H)."""
     D, T, B, H = g.shape
     d_in = g.new_zeros((T, B, D, 3, H))
     d_hid = g.new_zeros((T, B, D, 3, H))
@@ -163,7 +314,7 @@ def _gate_grad_streams(g, r, z, n, hnb, hprev, whh):
             dr = dn * hnb[d, t] * r[d, t] * (1.0 - r[d, t])
             d_in[t, :, d] = torch.stack([dr, dz, dn], dim=1)
             d_hid[t, :, d] = torch.stack([dr, dz, dn * r[d, t]], dim=1)
-            dh = gt * z[d, t] + torch.einsum("bgk,gjk->bj", d_hid[t, :, d], whh[d])
+            dh = gt * z[d, t] + carry(d_hid[t, :, d], whh[d])
         dh0[d] = dh
     return d_in, d_hid, dh0
 
@@ -258,12 +409,15 @@ def _sliced_tf32_matmul(a, b, nseg: int = 1):
 
 def sliced_gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
     """`plain_gru_fused_layer_bwd`'s contract in the backward kernels'
-    arithmetic, for tests: the same gate-gradient streams, then dx, dW_ih
-    and dW_hh as 3xTF32 products over ordered K slices (`gemm_plan`)."""
+    arithmetic, for tests: the gate-gradient streams with the carry's
+    product as the recurrence kernel for this H sums it
+    (`resident_carry_product`), then dx, dW_ih and dW_hh as 3xTF32 products
+    over ordered K slices (`gemm_plan`)."""
     D, T, B, H = g.shape
     I = x.shape[-1]
     TB = T * B
-    d_in, d_hid, dh0 = _gate_grad_streams(g, r, z, n, hnb, hprev, whh)
+    d_in, d_hid, dh0 = _gate_grad_streams(g, r, z, n, hnb, hprev, whh,
+                                          carry=resident_carry_product)
     # dx: K runs over the 3 D (direction, gate) segments of H
     dx = _sliced_tf32_matmul(d_in.reshape(TB, 3 * D * H),
                              wih.transpose(2, 3).reshape(3 * D * H, I),
@@ -289,8 +443,8 @@ def _check(x, wih, bih, whh, bhh, h0):
             raise ValueError(f"{name} must be contiguous float32")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if D > 2 or H > 1024:
-        raise ValueError(f"kernel takes D <= 2 and H <= 1024, got D={D}, H={H}")
+    if D > 2 or H > MAX_H:
+        raise ValueError(f"kernel takes D <= 2 and H <= {MAX_H}, got D={D}, H={H}")
     return T, B, I, H, D
 
 
@@ -351,13 +505,11 @@ def gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != g.device:
             raise ValueError(f"{name} must be float32 {shape} on {g.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if D > 2 or H > 1024:
-        raise ValueError(f"kernel takes D <= 2 and H <= 1024, got D={D}, H={H}")
+    if D > 2 or H > MAX_H:
+        raise ValueError(f"kernel takes D <= 2 and H <= {MAX_H}, got D={D}, H={H}")
     g, x, r, z, n, hnb, hprev = (t.contiguous() for t in (g, x, r, z, n, hnb, hprev))
-    # the recurrence reads W_hh transposed, coalesced along its rows; the dx
-    # product reads W_ih as it lies
-    wih = wih.contiguous()
-    whh_t = whh.transpose(2, 3).contiguous()
+    # the recurrence and the dx product read W_hh and W_ih as they lie
+    wih, whh = wih.contiguous(), whh.contiguous()
     f32 = dict(dtype=torch.float32, device=g.device)
     d_in = torch.empty((T, B, D, 3, H), **f32)
     d_hid = torch.empty((T, B, D, 3, H), **f32)
@@ -373,7 +525,7 @@ def gru_fused_layer_bwd(g, x, r, z, n, hnb, hprev, wih, whh):
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.hop_gru_fused_bwd(
         g.data_ptr(), x.data_ptr(), r.data_ptr(), z.data_ptr(), n.data_ptr(),
-        hnb.data_ptr(), hprev.data_ptr(), wih.data_ptr(), whh_t.data_ptr(),
+        hnb.data_ptr(), hprev.data_ptr(), wih.data_ptr(), whh.data_ptr(),
         d_in.data_ptr(), d_hid.data_ptr(), work.data_ptr() if n_work else None,
         dx.data_ptr(), dwih.data_ptr(), dbih.data_ptr(), dwhh.data_ptr(),
         dbhh.data_ptr(), dh0.data_ptr(), T, B, I, H, D, stream)

@@ -8,9 +8,10 @@ csrc/gru_stack.cu. The input projection x · W_ih + b_ih stays a plain matrix
 product outside (one `torch.matmul` per layer, `ops/gru.py`); these kernels
 run the recurrence from its three per-gate streams.
 
-On the card a block owns a batch tile and a direction and loops over T with
-h in shared memory; direction 1 is a reversed time index, not a flipped
-copy. The streams are taken by their strides (unit stride on H), so the
+On the card a block (a narrow layer) or a cluster of eight blocks (the
+head's H = 350: `gru_fused.recurrence_variant`) owns a batch tile and a
+direction and loops over T with W resident in shared memory; direction 1 is a
+reversed time index, not a flipped copy. The streams are taken by their strides (unit stride on H), so the
 three of them may be views of one (T, B, D, 3, H) product, and the backward
 writes dxr, dxz, dxn into one such buffer and returns views of it. Streams
 and their gradients may be bf16 (`GRU(bf16_streams=True)`); all arithmetic,
@@ -18,7 +19,9 @@ the h path and every other gradient are f32. The weight and bias gradients
 are sums over T · B rows in a fixed order (no atomics): they repeat bit for
 bit. See the .cu file for what bounds the kernels.
 
-`plain_gru_stack` and `plain_gru_stack_bwd` are the same functions in torch.
+`plain_gru_stack` and `plain_gru_stack_bwd` are the same functions in torch;
+`resident_gru_stack` and `resident_gru_stack_bwd` repeat the kernels'
+arithmetic (the cluster's slices, 3xTF32 chains) for the CPU tests.
 The wrappers take them only for a tensor on the CPU; for a CUDA tensor they
 launch the kernels or raise.
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from hop_tpu_torch.ops import _build
+from hop_tpu_torch.ops import gru_fused
 from hop_tpu_torch.ops.gru_fused import hprev_of
 
 #: launches of the forward kernel with residuals since the last reset
@@ -65,8 +69,10 @@ def plain_gru_stack(xr, xz, xn, w, b, h0, with_residuals: bool = False):
     return out, r, z, n, hnb
 
 
-def plain_gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype=torch.float32):
-    """Same contract as `gru_stack_bwd`, in torch."""
+def plain_gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype=torch.float32,
+                        carry=gru_fused.plain_carry_product):
+    """Same contract as `gru_stack_bwd`, in torch. `carry` takes a step's
+    d_hid (B, 3, H) through w[d] to the dh carry (B, H)."""
     D, T, B, H = g.shape
     dx = g.new_zeros((T, B, D, 3, H))
     d_hid = g.new_zeros((T, B, D, 3, H))
@@ -80,11 +86,25 @@ def plain_gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype=torch.float32):
             dr = dn * hnb[d, t] * r[d, t] * (1.0 - r[d, t])
             dx[t, :, d] = torch.stack([dr, dz, dn], dim=1)
             d_hid[t, :, d] = torch.stack([dr, dz, dn * r[d, t]], dim=1)
-            dh = gt * z[d, t] + torch.einsum("bgk,gjk->bj", d_hid[t, :, d], w[d])
+            dh = gt * z[d, t] + carry(d_hid[t, :, d], w[d])
         dh0[d] = dh
     dw = torch.einsum("dtbk,tbdgj->dgkj", hprev, d_hid)
     db = d_hid.sum(dim=(0, 1))[:, :, None]
     return (*_stream_views(dx.to(dx_dtype)), dw, db, dh0)
+
+
+def resident_gru_stack(xr, xz, xn, w, b, h0, with_residuals: bool = False):
+    """`plain_gru_stack`'s contract in the forward kernel's arithmetic at
+    this H (`gru_fused.resident_hidden_product`), for tests."""
+    return gru_fused.resident_gru_recurrence(xr, xz, xn, w, b, h0, with_residuals)
+
+
+def resident_gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype=torch.float32):
+    """`plain_gru_stack_bwd`'s contract with the carry's product as the
+    backward recurrence kernel at this H sums it
+    (`gru_fused.resident_carry_product`), for tests."""
+    return plain_gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype,
+                               carry=gru_fused.resident_carry_product)
 
 
 def _stream_views(dx: torch.Tensor):
@@ -101,8 +121,9 @@ def _check_f32(named, shape, device):
 
 
 def _check_dims(D, H):
-    if D > 2 or H > 1024:
-        raise ValueError(f"kernel takes D <= 2 and H <= 1024, got D={D}, H={H}")
+    if D > 2 or H > gru_fused.MAX_H:
+        raise ValueError(f"kernel takes D <= 2 and H <= {gru_fused.MAX_H}, got "
+                         f"D={D}, H={H}")
 
 
 def gru_stack_fwd(xr: torch.Tensor, xz: torch.Tensor, xn: torch.Tensor,
@@ -179,9 +200,7 @@ def gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype=torch.float32):
     _check_f32((("g", g), ("r", r), ("z", z), ("n", n), ("hnb", hnb),
                 ("hprev", hprev)), (D, T, B, H), g.device)
     _check_f32([("w", w)], (D, 3, H, H), g.device)
-    g, r, z, n, hnb, hprev = (t.contiguous() for t in (g, r, z, n, hnb, hprev))
-    # the recurrence reads W^T, coalesced along its rows
-    w_t = w.transpose(2, 3).contiguous()
+    g, r, z, n, hnb, hprev, w = (t.contiguous() for t in (g, r, z, n, hnb, hprev, w))
     f32 = dict(dtype=torch.float32, device=g.device)
     dx = torch.empty((T, B, D, 3, H), dtype=dx_dtype, device=g.device)
     d_hid = torch.empty((T, B, D, 3, H), **f32)
@@ -194,7 +213,7 @@ def gru_stack_bwd(g, r, z, n, hnb, hprev, w, dx_dtype=torch.float32):
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.hop_gru_stack_bwd(
         g.data_ptr(), r.data_ptr(), z.data_ptr(), n.data_ptr(), hnb.data_ptr(),
-        hprev.data_ptr(), w_t.data_ptr(), dx.data_ptr(),
+        hprev.data_ptr(), w.data_ptr(), dx.data_ptr(),
         int(dx_dtype == torch.bfloat16), d_hid.data_ptr(),
         work.data_ptr() if n_work else None, dw.data_ptr(), db.data_ptr(),
         dh0.data_ptr(), T, B, H, D, stream)

@@ -85,7 +85,10 @@ def test_reprogramming_attention_kernel(device, B, L, H, S, rate):
     (6, 9, 13, 10),         # widths that allow no 16- or 8-byte copies
     (28, 256, 8, 64),       # the discriminator's first layer: one k-step
     (28, 1, 128, 64),       # its upper layers at one sample
-    (34, 1, 992, 350),      # one window of a clip through the head
+    (34, 1, 992, 350),      # one window of a clip: the cluster's one-row-tile instance
+    (34, 9, 700, 350),      # just above it: one cluster of five row tiles
+    (7, 13, 20, 100),       # one block, a width that is no multiple of 8
+    (6, 43, 24, 203),       # a cluster of slices of 26 units, the last short
     (34, 256, 992, 350),    # the HOP head's first layer
 ])
 def test_gru_fused_kernel(device, D, T, B, I, H, with_residuals):
@@ -157,6 +160,9 @@ def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
     (9, 70, 130, 131),      # I and H just above a tile, not multiples of 8
     (28, 256, 8, 64),       # the discriminator's first layer: 28 K slices
     (28, 256, 128, 64),     # the discriminator's upper layers
+    (6, 43, 24, 203),       # the carry through a cluster, ragged slices and rows
+    (34, 1, 700, 350),      # one sample: the cluster's one-row-tile instance
+    (34, 250, 700, 350),    # a ragged last row tile at the head's width
     (34, 256, 992, 350),    # the HOP head's first layer: 128 x 128 tiles
 ])
 def test_gru_fused_bwd_kernel(device, D, T, B, I, H):
@@ -207,6 +213,11 @@ def _k3_args(device, D, T, B, H, dtype, seed):
 @pytest.mark.parametrize("D,T,B,H", [
     (2, 5, 11, 40),         # ragged batch tile
     (1, 28, 250, 64),       # one direction, the discriminator's width
+    (2, 7, 13, 100),        # forward in one block, backward in a cluster
+    (2, 6, 43, 203),        # both in a cluster, slices of 26 units, ragged rows
+    (2, 34, 1, 350),        # one window of a clip: one row tile a cluster
+    (2, 34, 8, 350),        # the widest batch of that instance
+    (1, 34, 250, 350),      # one direction, a ragged last row tile
     (2, 34, 256, 350),      # the HOP head
 ])
 def test_gru_stack_kernels(device, D, T, B, H, dtype):
@@ -233,6 +244,35 @@ def test_gru_stack_kernels(device, D, T, B, H, dtype):
         assert a.dtype == c.dtype and a.shape == c.shape, name
         _rel_close(a.float(), c.float(), rel if name.startswith("dx") else 1e-4,
                    name=name)
+
+
+@pytest.mark.parametrize("H", [10, 64, 65, 138, 139, 203, 350, 352])
+def test_recurrence_variant_is_the_kernels_choice(device, H):
+    """The wrappers' copy of the host side's rule: clusters only where the
+    rule says "cluster", and then enough of them at once for a bs-256 launch
+    of both directions to be one wave."""
+    lib = _build.load()
+    assert K2.whh_in_shared(H) == bool(lib.hop_gru_fused_whh_in_shared(H))
+    for backward in (False, True):
+        held = lib.hop_gru_active_clusters(H, int(backward))
+        if K2.recurrence_variant(H, backward) == "block":
+            assert held == 0
+        else:
+            assert held >= 2 * -(-256 // K2.CLUSTER_ROWS), held
+
+
+def test_gru_kernels_refuse_a_layer_too_wide(device):
+    H = K2.MAX_H + 1
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        K2.gru_fused_layer_fwd(z(2, 1, 4, device=device), z(1, 3, 4, H, device=device),
+                               z(1, 3, 1, H, device=device), z(1, 3, H, H, device=device),
+                               z(1, 3, 1, H, device=device), z(1, H, device=device))
+    with pytest.raises(ValueError):
+        K3.gru_stack_fwd(*(z(1, 2, 1, H, device=device) for _ in range(3)),
+                         z(1, 3, H, H, device=device), z(1, 3, 1, H, device=device),
+                         z(1, H, device=device))
+    assert _build.load().hop_gru_active_clusters(H, 0) < 0
 
 
 def test_gru_stack_trains_through_the_kernels(device):

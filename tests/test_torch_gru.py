@@ -55,7 +55,11 @@ def test_plain_layer_matches_pallas_kernel(D, T, B, I, H):
 
 # H = 10 and 44 are ragged against the kernels' tiles as 350 is; I = 8 is the
 # discriminator's first layer (one k-step of the projection)
-TWO_PHASE_SHAPES = [(6, 3, 8, 10), (5, 4, 8, 44), (7, 2, 21, 10)]
+# the last two: a layer wide enough for the cluster's forward recurrence
+# (hidden units in eight slices of 26, the last one short; one sample, and a
+# ragged batch)
+TWO_PHASE_SHAPES = [(6, 3, 8, 10), (5, 4, 8, 44), (7, 2, 21, 10), (4, 1, 9, 203),
+                    (3, 5, 12, 203)]
 
 
 @pytest.mark.parametrize("D", [1, 2])
@@ -125,6 +129,48 @@ def test_tf32_split_keeps_f32_accuracy():
 ])
 def test_whh_in_shared_is_pinned(H, want):
     assert K2.whh_in_shared(H) is want
+
+
+@pytest.mark.parametrize("H,forward,backward", [
+    (10, "block", "block"),
+    (64, "block", "block"),        # the discriminator: no cluster either way
+    (65, "block", "cluster"),      # the backward's one-block instance ends at 64
+    (100, "block", "cluster"),
+    (138, "block", "cluster"),
+    (139, "cluster", "cluster"),   # W_hh no longer fits one block
+    (203, "cluster", "cluster"),
+    (350, "cluster", "cluster"),   # the head
+    (352, "cluster", "cluster"),   # the widest: 8 blocks of 44 units
+])
+def test_recurrence_variant_is_pinned(H, forward, backward):
+    """Which recurrence kernel runs is a function of H alone, and what it
+    keeps in shared memory fits a block's 227 KB."""
+    assert K2.recurrence_variant(H) == forward
+    assert K2.recurrence_variant(H, backward=True) == backward
+    assert (K2.recurrence_variant(H) == "block") is K2.whh_in_shared(H)
+    for bwd in (False, True):
+        assert 0 < K2.recurrence_smem_bytes(H, bwd) <= K2.SMEM_BLOCK_MAX
+
+
+@pytest.mark.parametrize("H", [0, 353, 1024])
+def test_recurrence_variant_refuses_other_widths(H):
+    with pytest.raises(ValueError):
+        K2.recurrence_variant(H)
+
+
+@pytest.mark.parametrize("H", [37, 100, 203, 350, 352])
+def test_cluster_slices_cover_the_units_once(H):
+    """Eight slices of ceil(H / 8) units, the last short (or empty), and each
+    block walks its peers from its own rank upwards."""
+    slices = K2._unit_slices(H, K2.CLUSTER_BLOCKS)
+    assert len(slices) == K2.CLUSTER_BLOCKS
+    units = [u for sl in slices for u in range(sl.start, sl.stop)]
+    assert units == list(range(H))
+    assert max(sl.stop - sl.start for sl in slices) <= K2.CLUSTER_MAX_UNITS
+    for c, (own, peers) in enumerate(K2._own_and_peers(H)):
+        assert own == slices[c] and peers[0] == own
+        assert sorted(p.start for p in peers) == sorted(
+            sl.start for sl in slices if sl.stop > sl.start)
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():

@@ -14,6 +14,12 @@ on the CPU. The same numpy inputs from a seed go through both. Tolerances:
   * bf16 stream gradients, port against Pallas on the same bf16 streams:
     1e-2 of the largest element, since f32 values that differ in round-off
     may round to neighbouring bf16 values (2^-8 relative).
+`resident_gru_stack` and `resident_gru_stack_bwd` repeat the card's
+recurrence kernels' arithmetic in torch (hidden units in the cluster's eight
+slices, each product as three TF32 hi/lo terms in chains of their own, the
+peers in each block's order): held to the plain versions and to the Pallas
+kernels at the same tolerances, at widths that are no multiple of 8 or of
+the cluster's blocks.
 """
 
 import numpy as np
@@ -145,6 +151,53 @@ def test_bf16_streams_match_pallas_and_track_f32():
     for a16, a32 in zip(got_g, g32):
         np.testing.assert_allclose(a16.float().numpy(), a32.numpy(), rtol=0,
                                    atol=BF16_TOL)
+
+
+# (T, B, H): the forward in one block (plain f32 sums) and the backward in
+# one block (H <= 64); the forward in one block and the backward in a cluster;
+# both in a cluster, one sample and a ragged batch
+RESIDENT_SHAPES = [(5, 1, 37), (4, 3, 100), (3, 1, 203), (3, 9, 203)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,B,H", RESIDENT_SHAPES)
+def test_resident_forward_matches_plain_and_pallas(D, T, B, H, dtype):
+    args, _ = _inputs(D, T, B, H, seed=D + T + H)
+    targs = [torch.from_numpy(a) for a in args]
+    targs[:3] = [t.to(dtype) for t in targs[:3]]
+    got = K3.resident_gru_stack(*targs, with_residuals=True)
+    want = K3.plain_gru_stack(*targs, with_residuals=True)
+    for name, a, b in zip(("h", "r", "z", "n", "hnb"), got, want):
+        assert a.shape == (D, T, B, H) and a.dtype == torch.float32, name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=TOL, err_msg=name)
+    assert torch.equal(K3.resident_gru_stack(*targs), got[0])
+    jargs = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                   else jnp.float32) for t in targs[:3]]
+    pallas = jax_gru_stack(*jargs, *map(jnp.asarray, args[3:]), True)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(pallas), rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("T,B,H", RESIDENT_SHAPES)
+def test_resident_backward_matches_plain_and_pallas(D, T, B, H, dtype):
+    args, g = _inputs(D, T, B, H, seed=D * 3 + T + H)
+    targs = [torch.from_numpy(a) for a in args]
+    h_seq, r, z, n, hnb = K3.plain_gru_stack(*targs, with_residuals=True)
+    bwd_args = (torch.from_numpy(g), r, z, n, hnb, hprev_of(h_seq, targs[5]), targs[3],
+                dtype)
+    got = K3.resident_gru_stack_bwd(*bwd_args)
+    want = K3.plain_gru_stack_bwd(*bwd_args)
+    _, vjp = jax.vjp(lambda *a: jax_gru_stack(*a, True), *map(jnp.asarray, args))
+    pallas = vjp(jnp.asarray(g))
+    for i, (name, a, b) in enumerate(zip(NAMES, got, want)):
+        rel = 1e-2 if dtype == torch.bfloat16 and name.startswith("dx") else GRAD_REL
+        assert a.dtype == b.dtype, name
+        _assert_rel(a, b.float().numpy(), rel, name)
+        # the Pallas kernel returns dh0 summed over the directions
+        ref = np.asarray(pallas[i], np.float32)
+        _assert_rel(a.sum(0) if name == "dh0" else a, ref, rel, name + " vs pallas")
 
 
 def test_lean_forward_without_a_gradient():

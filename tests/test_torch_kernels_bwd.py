@@ -164,7 +164,10 @@ def _rel(got, want):
 # K cut into slices that cross its (direction, gate) segments; both sides
 # above one 64-wide tile
 K2_SLICED = [(7, 4, 12, 16, 1), (7, 4, 12, 16, 2), (40, 128, 12, 16, 2),
-             (7, 4, 12, 100, 2), (9, 70, 130, 131, 2)]
+             (7, 4, 12, 100, 2), (9, 70, 130, 131, 2),
+             # the dh carry through a cluster's eight slices of the units at a
+             # ragged width, one sample and one direction; and in one block
+             (5, 1, 12, 203, 2), (4, 9, 10, 203, 1), (5, 1, 9, 37, 2)]
 
 
 def _k2_bwd_args(T, B, I, H, D, seed):
@@ -183,6 +186,20 @@ def test_k2_sliced_bwd_matches_plain(T, B, I, H, D):
     for name, a, b in zip(("dx", "dwih", "dbih", "dwhh", "dbhh", "dh0"), got, want):
         assert a.shape == b.shape, name
         assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("B,H", [(1, 37), (5, 64), (3, 100), (1, 203), (7, 350)])
+def test_resident_carry_product_matches_plain(B, H):
+    """d_hid . W_hh^T as the backward recurrence kernel sums it (one block up
+    to H = 64, the cluster's slices above) against the plain product."""
+    r = np.random.default_rng(B + H)
+    d_hid = torch.from_numpy(r.standard_normal((B, 3, H)).astype(np.float32))
+    whh = torch.from_numpy((r.standard_normal((3, H, H)) * H ** -0.5).astype(np.float32))
+    want = torch.einsum("bgk,gjk->bj", d_hid.double(), whh.double()).float()
+    got = K2.resident_carry_product(d_hid, whh)
+    assert got.shape == (B, H)
+    assert _rel(got, want) <= 2e-6, _rel(got, want)
+    assert _rel(K2.plain_carry_product(d_hid, whh), want) <= 2e-6
 
 
 def test_k2_sliced_products_cut_k_as_planned():
