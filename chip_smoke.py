@@ -64,18 +64,24 @@ imports nothing of JAX. Phases, each ending in one line of output:
              layer, forward and forward + backward, at the head's and the
              discriminator's shapes; F.scaled_dot_product_attention on K1's
              shape at rate 0, forward and backward (held to K1's backward),
-             and on K4's and K5's, forward and backward
+             and on K4's and K5's, forward and backward, each also by its
+             kernels' own time (torch.profiler) and over 50 calls a pair of
+             CUDA events
  18. K4, K5  the backbone's self-attention kernels vs their plain versions,
              forward (rate 0 and 0.1, the same mask) and backward (rate 0.1),
              at (B=256, T=34, H=12, D=64), B=1 and B=250 (a ragged last
-             group); K5 against K4; K5 in groups of 1, 2 and 4; bitwise repeat
+             group); K5 against K4; K5 in groups of 1, 2 and 4; bitwise
+             repeat; each kernel's own time (torch.profiler, only its own
+             kernel in the call) and its time over 50 calls a pair of CUDA
+             events, beside the event time of one call
  19. serve, kernel attention   phase 14's model with the backbone's attention
              switched to "fused" (K4) and "block" (K5): the bs-256 forward
              against the plain route's, launches, ms per forward of all three
              routes; one 20 s clip at bs 1 on each
  20. train, kernel attention   the fused GAN step on the stack route at full
              TED width, bs 256, with "fused" and with "block": phase 9's checks
-             and measurements; then phase 10 on the block route
+             and measurements; then phase 10 on the block route; then phase
+             15's 3-forward step with "fused" and with "block"
  21. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -253,26 +259,42 @@ def phase_build():
 
 
 def kernel_ms_by_name(fn, n: int = 10) -> dict:
-    """Device time of each kernel that n calls of fn() launch, in ms per call,
-    by the kernel's name (torch.profiler). The profiler now and then loses a
-    whole window's device records: an empty answer is asked for again, twice
-    at most."""
+    """Each kernel's device time per call of fn(), by name (torch.profiler,
+    checked by count: `hop_tpu_torch.cli.time_kernels.kernel_ms_by_name`)."""
+    from hop_tpu_torch.cli.time_kernels import kernel_ms_by_name as by_name
+    return by_name(fn, n)
+
+
+def own_ms(fn, what: str, n: int = 10) -> tuple:
+    """(ms, names): the device time of all kernels one call of fn()
+    launches (torch.profiler), and their names; (None, []) when the profiler
+    recorded nothing, which is said on a line of its own."""
+    names = kernel_ms_by_name(fn, n)
+    if not names:
+        print(f"{what}: torch.profiler recorded no window whole in six; its own "
+              f"time is not recorded")
+        return None, []
+    return sum(names.values()), sorted(names)
+
+
+def fmt_ms(x) -> str:
+    """A measured ms to four places, or "not recorded"."""
+    return "not recorded" if x is None else f"{x:.4f}"
+
+
+def loop_ms(fn, n: int = 50) -> float:
+    """ms per call of n calls of fn() between one pair of CUDA events, after
+    a warm-up call: the card runs one call while the host launches the
+    next, so this is the larger of the two rates."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    names = {}
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        names = {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
-        if names:
-            break
-    return names
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def ms_of(names: dict, part: str) -> float:
@@ -1318,6 +1340,7 @@ def phase_bert_attention(dev, seed):
     check(grouping <= K5_TOL, f"K5 in groups of 1, 2, 4 vs 8: {grouping} > {K5_TOL}")
 
     B = ATTN_SHAPE[0]
+    q1, k1, v1, do1 = _attention_inputs(dev, seed, 1)
     flops = 2 * 2.0 * B * H * T * T * D                   # q k^T and p v
     for name, (_, fwd, bwd, plain, plain_bwd, _, _) in mods.items():
         r = res[name]
@@ -1330,6 +1353,18 @@ def phase_bert_attention(dev, seed):
         # five products: s, dp, dq, dk, dv
         r["bwd_bound"] = bound((q, k, v, do), bwd(q, k, v, do, *args), 2.5 * flops,
                                BF16_FLOPS)
+        # own device time (the call launches its kernel and nothing else) and
+        # the time over 50 calls a pair of events
+        own = {}
+        for key, fn in (("kernel_ms", lambda: fwd(q, k, v, scale)),
+                        ("drop_kernel_ms", lambda: fwd(q, k, v, *args)),
+                        ("b1_kernel_ms", lambda: fwd(q1, k1, v1, scale)),
+                        ("bwd_kernel_ms", lambda: bwd(q, k, v, do, *args))):
+            r[key], own[key] = own_ms(fn, f"{name} {key}")
+            check(len(own[key]) <= 1 and all("attn_" in k for k in own[key]),
+                  f"{name}: a call launched {own[key]}, not its kernel alone")
+        r["loop_ms"] = loop_ms(lambda: fwd(q, k, v, scale))
+        r["bwd_loop_ms"] = loop_ms(lambda: bwd(q, k, v, do, *args))
         print(f"{name} {fwd.__name__} / {bwd.__name__} (B={B}, T={T}, H={H}, D={D}; also "
               f"B=1 and B=250): forward max_abs_err {r['fwd_err']:.3e} (tol "
               f"{mods[name][5]:g}; rate 0 and 0.1, the plain version's mask), "
@@ -1340,6 +1375,12 @@ def phase_bert_attention(dev, seed):
               f"{r['bound']['bound_by']}); backward kernel {r['bwd_ms']:.3f} ms vs plain "
               f"{r['bwd_plain_ms']:.3f} ms (bound {r['bwd_bound']['bound_ms']:.3f} ms by "
               f"{r['bwd_bound']['bound_by']})")
+        print(f"{name} own device time (torch.profiler): forward {fmt_ms(r['kernel_ms'])} "
+              f"ms (rate 0.1: {fmt_ms(r['drop_kernel_ms'])}; B=1: "
+              f"{fmt_ms(r['b1_kernel_ms'])}); backward {fmt_ms(r['bwd_kernel_ms'])} ms; "
+              f"50 calls a pair of events: forward {r['loop_ms']:.4f}, backward "
+              f"{r['bwd_loop_ms']:.4f} ms a call; kernels "
+              f"{[k[:48] for k in own['kernel_ms'] + own['bwd_kernel_ms']]}")
     print(f"K5 vs K4 on the same inputs and seed: max_abs_diff {cross:.3e} (tol "
           f"{K4_TOL:g}: K4's bf16 output); K5 in groups of 1, 2, 4 vs 8 samples: "
           f"max_abs_diff {grouping:.3e} (tol {K5_TOL:g})")
@@ -1463,10 +1504,29 @@ def phase_library(dev, seed):
     lib["attn_fwd"] = cuda_ms(bert_sdpa)
     lib["attn_bwd"] = cuda_ms(sdpa_bwd, setup=sdpa_graph)
     both = cuda_ms(lambda: sdpa_bwd(sdpa_graph()))
+    # own device times: every kernel of the call; the backward's as the
+    # kernels of forward + backward less those of the forward with its
+    # leaves' copies
+    lib["attn_fwd_kernel"], fwd_names = own_ms(bert_sdpa, "SDPA forward")
+    graph_ms, _ = own_ms(sdpa_graph, "SDPA forward with its leaves' copies")
+    both_ms, bwd_names = own_ms(lambda: sdpa_bwd(sdpa_graph()), "SDPA forward + backward")
+    lib["attn_bwd_kernel"] = (None if None in (both_ms, graph_ms)
+                              else both_ms - graph_ms)
+    q1, k1, v1, _ = _attention_inputs(dev, seed, 1)
+    lib["attn_fwd_b1_kernel"], _ = own_ms(lambda: bert_sdpa(q1, k1, v1), "SDPA at B=1")
+    lib["attn_fwd_loop"] = loop_ms(bert_sdpa)
+    lib["attn_bwd_loop"] = loop_ms(lambda: sdpa_bwd(sdpa_graph())) - loop_ms(sdpa_graph)
     print(f"library: F.scaled_dot_product_attention (bf16, rate 0) at K4's and K5's "
           f"shape {ATTN_SHAPE}: forward {lib['attn_fwd']:.3f} ms, backward alone "
           f"{lib['attn_bwd']:.3f} ms, forward + backward with its leaves' copies "
-          f"{both:.3f} ms; max_abs_diff to K5 {gap:.3e} (tol {SDPA_TOL:g})")
+          f"{both:.3f} ms; max_abs_diff to K5 {gap:.3e} (tol {SDPA_TOL:g}); own device "
+          f"time (torch.profiler): forward {fmt_ms(lib['attn_fwd_kernel'])} ms (B=1: "
+          f"{fmt_ms(lib['attn_fwd_b1_kernel'])}; kernels {[n[:40] for n in fwd_names]}); "
+          f"backward {fmt_ms(lib['attn_bwd_kernel'])} ms "
+          f"(kernels of forward + backward {fmt_ms(both_ms)} less the forward's "
+          f"{fmt_ms(graph_ms)}; "
+          f"{len(bwd_names)} kernels); 50 calls a pair of events: forward "
+          f"{lib['attn_fwd_loop']:.4f} ms, backward {lib['attn_bwd_loop']:.4f} ms a call")
 
     # one bidirectional GRU layer: cuDNN's, and the port's on both routes
     for T, Bt, I, Hh in ((34, 256, 992, 350), (34, 256, 700, 350),
@@ -1572,6 +1632,8 @@ def main():
     del model_cpu, disc_cpu
     _, _, paths["parity_step_stack_fused_attn"] = phase_train(
         dev, SEED, gru_kernel="stack", fused_step=False, attention="fused")
+    _, _, paths["parity_step_stack_block_attn"] = phase_train(
+        dev, SEED, gru_kernel="stack", fused_step=False, attention="block")
     lib = phase_library(dev, SEED)
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
@@ -1579,14 +1641,14 @@ def main():
     # route, the head through the sequence kernel, one GAN step of each kind);
     # errors: every comparison of that kernel with its plain version in this
     # run; times and bounds at the head's first layer or K1's shape
-    def entry(name, source, replaces, count, err, timed, library_ms):
+    def entry(name, source, replaces, count, err, timed, library_ms, **own):
         by_path = {path: c[count] for path, c in paths.items()}
         check(sum(by_path.values()) > 0, f"{name} was launched on no path")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": err, "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                 "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **own}
     k3_head = k3["head"]
     kernels = [
         entry("reprogramming_attention_fwd", K1_SOURCE, K1_REPLACES, "K1",
@@ -1614,17 +1676,22 @@ def main():
               None),
     ]
     # the backbone's self-attention: SDPA computes the forward at rate 0; its
-    # backward alone stands beside the kernels' backward (at rate 0.1)
+    # backward alone stands beside the kernels' backward (at rate 0.1). Beside
+    # the event time of one call: the kernel's own device time, the library
+    # call's likewise
     for name, count, source, replaces in (
             ("bert_attention", "K4", K4_SOURCE, (K4_REPLACES, K4_BWD_REPLACES)),
             ("bert_block_attention", "K5", K5_SOURCE, (K5_REPLACES, K5_BWD_REPLACES))):
         r = attn[count]
         kernels.append(entry(name + "_fwd", source, replaces[0], count, r["fwd_err"],
-                             {**r, **r["bound"]}, lib["attn_fwd"]))
+                             {**r, **r["bound"]}, lib["attn_fwd"],
+                             kernel_ms=r["kernel_ms"],
+                             library_kernel_ms=lib["attn_fwd_kernel"]))
         kernels.append(entry(
             name + "_bwd", source, replaces[1], count + "_bwd", r["bwd_err"],
             {"ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"], **r["bwd_bound"]},
-            lib["attn_bwd"]))
+            lib["attn_bwd"], kernel_ms=r["bwd_kernel_ms"],
+            library_kernel_ms=lib["attn_bwd_kernel"]))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

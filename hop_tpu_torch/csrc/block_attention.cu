@@ -18,27 +18,43 @@
 //
 // Why stack on this card: the tensor cores take 16-row tiles, and T=34 is
 // not a multiple of 16, but nb = 8 samples are M = 272 = 17 * 16 rows
-// exactly. A block is one (group, head); each of its warps owns a 16-row
-// strip of queries and runs bf16 m16n16k16 tiles (nvcuda::wmma, mma.sync)
-// with f32 accumulators. The strip's rows belong to at most two samples, so
-// only the key tiles that hold those samples' keys (at most MAX_TILES) are
-// computed; the mask is applied inside those tiles and the all-masked tiles
-// are skipped, not computed and discarded. The TPU program kept the whole
-// (272, 272) f32 score matrix of a head resident and looped over the heads.
-//
-// Forward, per strip: S = Q K^T into the warp's shared-memory strip, masked
-// f32 softmax with two lanes a row, dropout by the hash of dropout_bits.cuh
-// with the key's index INSIDE ITS SAMPLE as the key coordinate (so K4 and K5
-// draw one mask), then O = P V. The tensor cores want bf16 operands: each f32
-// probability goes in as hi + lo, its bf16 rounding and the rounding of the
-// remainder (two mma per tile), so no accuracy is given up to bf16. A ragged
-// last group (fewer than nb samples, or rows past the end of the batch) is
-// masked by row: tiles that reach past the last row of the batch are staged
-// through shared memory with zeros, their rows get probability 0 and are
+// exactly. A block is one (group, head); a warp owns 16-row strips of
+// queries. A strip's rows belong to at most two samples, so only the key
+// tiles that hold those samples' keys (at most MAX_TILES) are computed; the
+// mask is applied inside those tiles and the all-masked tiles are skipped,
+// not computed and discarded. The TPU program kept the whole (272, 272) f32
+// score matrix of a head resident and looped over the heads. The dropout
+// is the hash of dropout_bits.cuh with the key's index INSIDE ITS SAMPLE as
+// the key coordinate, so K4 and K5 draw one mask. The tensor cores want bf16
+// operands: each f32 probability (and dS) goes in as hi + lo, its bf16
+// rounding and the rounding of the remainder (two mma per tile), so no
+// accuracy is given up to bf16. A ragged last group (fewer than nb samples)
+// is masked by row: rows past the group's last get probability 0 and are
 // never stored.
 //
-// Backward, one kernel, two phases around one __syncthreads():
-//   1. query strips, as the forward: p, then dP = dO V^T tile by tile, once
+// Forward (redesigned for the H100): the group's Q, K and V rows of one head
+// (Rg x 64 bf16 each, 34.8 KB at Rg = 272) come once into shared memory by
+// cp.async, unpadded with XOR-swizzled 16-byte pieces (attention_tiles.cuh),
+// Q and K as one copy group and V as a second. Nine warps take two strips
+// each, and 104 KB of tiles let two blocks share an SM, so one block's copies
+// run under the other's products. Per strip, everything stays in registers:
+//   * S = Q K^T on mma.sync.m16n8k16 bf16 with f32 accumulators, fragments by
+//     ldmatrix from the tiles (no warp re-reads a tile from L2): at most
+//     2 * NTILE accumulator tiles of 8 keys, NTILE = key_tiles(T, nb) a
+//     template argument (5 at T=34, nb=8: 40 registers);
+//   * the mask, the f32 softmax and the dropout on the accumulators, a row in
+//     the four lanes of a quad (two shuffles for its max and its sum);
+//   * O = P V, P as hi + lo A fragments from the accumulators, V by
+//     ldmatrix.trans: 8 tiles of 8 columns, 32 registers;
+//   * O stored from the fragments as float2, a full 32-byte sector per row.
+// The first strip's probabilities are formed while V lands. Registers: two
+// blocks of 9 warps an SM leave a thread 112 (65536 / 576, in steps of 8);
+// the peak is P (40) + O (32) + the hi / lo and V fragments (12) + indices.
+//
+// Backward, one kernel on bf16 m16n16k16 tiles (nvcuda::wmma, f32
+// accumulators), two phases around one __syncthreads():
+//   1. query strips, one a warp: p (scores through a shared-memory strip),
+//      then dP = dO V^T tile by tile, once
 //      for delta = rowsum(dP o keep o p) and once more for dS = p (dP o keep
 //      - delta) scale, dQ = dS K (dS as hi + lo); each row's log-sum-exp and
 //      delta go to shared memory;
@@ -54,11 +70,11 @@
 // measured cheaper on an H100 than spilling them.
 //
 // What bounds it: bytes (0.9 / 2.3 GFLOP against 67 / 134 MB at B=256, T=34,
-// H=12: 0.020 / 0.040 ms at 3.35 TB/s). Operand tiles are read straight from
-// device memory into fragments, each by the few warps whose samples it
-// belongs to (L1/L2 serve the re-reads); no intermediate reaches device
-// memory. A block of 17 warps uses 222 KB of shared memory (13 KB a warp), so
-// one block runs per SM; wgmma, TMA and a leaner strip layout are later work.
+// H=12: 0.020 / 0.040 ms at 3.35 TB/s); no intermediate reaches device
+// memory. The backward is still the first design: operand tiles read
+// straight from device memory into wmma fragments by the few warps whose
+// samples they belong to (L1/L2 serve the re-reads), a block of 17 warps
+// with 222 KB of shared memory (13 KB a warp), one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +82,7 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
 #include "dropout_bits.cuh"
 
 namespace {
@@ -79,6 +96,7 @@ constexpr int NB_MAX = 8;                   // samples a group stacks at most
 constexpr int MAX_ROWS = 272;               // rows of a group at most
 constexpr int MAX_STRIPS = MAX_ROWS / STRIP;
 constexpr int MAX_TILES = 6;                // key tiles a strip needs at most
+constexpr int FWD_MAX_WARPS = (MAX_STRIPS + 1) / 2;   // forward: two strips a warp
 constexpr int COLS = MAX_TILES * STRIP;
 constexpr int SA = COLS + 4;                // f32 score strip: row stride
 constexpr int SB = COLS + 8;                // bf16 hi / lo strips: row stride
@@ -287,54 +305,129 @@ __device__ __forceinline__ float strip_softmax(float* A, const RowInfo ri, int n
   return ri.valid ? mx + logf(sum) : 0.f;
 }
 
-__global__ void __launch_bounds__(MAX_STRIPS * 32)
+// ---- forward: the group's tiles in shared memory, P in registers ----------
+
+// S and the dropped probabilities of the 16-row strip at group row r0, over
+// the strip's key tiles (at most NTILE): Q and K fragments by ldmatrix from
+// the group's tiles (rows past the group's last read as its last, never
+// kept), mma.m16n8k16 into 2 NTILE accumulator tiles of 8 keys, then the
+// block-diagonal mask, softmax and dropout on the accumulators. Key tiles
+// past the strip's own are not computed; the mask zeroes their columns.
+template <int NTILE>
+__device__ __forceinline__ void strip_probs(float (&s)[2 * NTILE][4], const unsigned char* Qs,
+                                            const unsigned char* Ks, int r0, int Rg, int T,
+                                            long long g0, uint32_t hk, float scale_log2,
+                                            uint32_t thresh, float inv_keep, int lane) {
+  using namespace hop_tiles;
+  const Span span = sample_span(r0, Rg, T);
+  const int last = Rg - 1;
+#pragma unroll
+  for (int n = 0; n < 2 * NTILE; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    a_frag(a, Qs, r0, last, ks, lane);
+#pragma unroll
+    for (int t = 0; t < NTILE; ++t) {
+      if (t < span.ntiles) {
+        uint32_t bk[4];
+        k_frag(bk, Ks, span.c0 + t * STRIP, last, ks, lane);
+        mma_bf16(s[2 * t], a, bk[0], bk[1]);
+        mma_bf16(s[2 * t + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+  const int ra = r0 + (lane >> 2), rb = ra + 8;
+  const int lo_a = ra < Rg ? ra / T * T : 0, lo_b = rb < Rg ? rb / T * T : 0;
+  softmax_rows<2 * NTILE>(s, span.c0, lo_a, ra < Rg ? lo_a + T : 0, lo_b,
+                          rb < Rg ? lo_b + T : 0, hop_dropout::row_key(hk, uint32_t(g0 + ra)),
+                          hop_dropout::row_key(hk, uint32_t(g0 + rb)), scale_log2, thresh,
+                          inv_keep, lane & 3);
+}
+
+// O = P V for the strip at group row r0: P as hi + lo A fragments straight
+// from the accumulators, V by ldmatrix.trans; the strip's rows of the group
+// stored as float2 from the fragments (a full 32-byte sector a row and
+// instruction) at out_h, the group's first row of this head (row stride ld).
+template <int NTILE>
+__device__ __forceinline__ void strip_out(const float (&s)[2 * NTILE][4],
+                                          const unsigned char* Vs, float* out_h, int r0,
+                                          int Rg, int T, int ld, int lane) {
+  using namespace hop_tiles;
+  const Span span = sample_span(r0, Rg, T);
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NTILE; ++t) {
+    if (t < span.ntiles) {
+      uint32_t hi[4], lo[4];
+      p_frags(hi, lo, s[2 * t], s[2 * t + 1]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t bv[4];
+        v_frag(bv, Vs, span.c0 + t * STRIP, Rg - 1, np, lane);
+        mma_bf16(o[2 * np], hi, bv[0], bv[1]);
+        mma_bf16(o[2 * np], lo, bv[0], bv[1]);
+        mma_bf16(o[2 * np + 1], hi, bv[2], bv[3]);
+        mma_bf16(o[2 * np + 1], lo, bv[2], bv[3]);
+      }
+    }
+  }
+  const int ra = r0 + (lane >> 2), rb = ra + 8;
+  float* dst = out_h + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    if (ra < Rg) *reinterpret_cast<float2*>(dst + ra * ld + n * 8) = make_float2(o[n][0], o[n][1]);
+    if (rb < Rg) *reinterpret_cast<float2*>(dst + rb * ld + n * 8) = make_float2(o[n][2], o[n][3]);
+  }
+}
+
+// Block (x, h) is group x (samples x nb ..) of head h. Its Q, K and V rows
+// (Rg x 64 bf16 each, Rg = 272 for a full group at T=34) come by cp.async
+// into three swizzled tiles, Q and K as one group, V as a second. Warp w
+// takes strips w, w + warps, ...: its first strip's probabilities are formed
+// while V lands, the rest in turn. NTILE = key_tiles(T, nb).
+template <int NTILE>
+__global__ void __launch_bounds__(FWD_MAX_WARPS * 32, 2)
 block_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, float* __restrict__ out, int B, int T,
-                      int H, int nb, float scale, uint32_t seed, uint32_t thresh,
+                      int H, int nb, float scale_log2, uint32_t seed, uint32_t thresh,
                       float inv_keep) {
+  using namespace hop_tiles;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const int h = blockIdx.y;
   const int b0 = blockIdx.x * nb;
   const int Rg = min(nb, B - b0) * T;           // rows of this group
-  const long long R = (long long)B * T;         // stacked rows of the batch
-  const long long g0 = (long long)b0 * T;       // the group's first
-  const int ldg = H * D;
+  const long long g0 = (long long)b0 * T;       // the group's first stacked row
+  const int ld = H * D;
+  const long long off = g0 * ld + h * D;
+  const int cap = nb * T * ROW_BYTES;           // a full group's tile
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + cap;
+  unsigned char* Vs = Ks + cap;
+  load_rows(Qs, q + off, ld, Rg, threadIdx.x, blockDim.x);
+  load_rows(Ks, k + off, ld, Rg, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  load_rows(Vs, v + off, ld, Rg, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
   const uint32_t hk = hop_dropout::head_key(seed, h);
-  const bf16 *qh = q + h * D, *kh = k + h * D, *vh = v + h * D;
-
-  float* A = reinterpret_cast<float*>(smem + warp * WARP_BYTES);   // scores
-  bf16* Phi = reinterpret_cast<bf16*>(smem + warp * WARP_BYTES + A_BYTES);
-  bf16* Plo = Phi + STRIP * SB;
-
   const int nstrips = (Rg + STRIP - 1) / STRIP;
+  float s[2 * NTILE][4];
+  if (warp < nstrips)
+    strip_probs<NTILE>(s, Qs, Ks, warp * STRIP, Rg, T, g0, hk, scale_log2, thresh, inv_keep,
+                       lane);
+  cp_async_wait<0>();
+  __syncthreads();
   for (int strip = warp; strip < nstrips; strip += nwarps) {
-    const int r0 = strip * STRIP;
-    const Span span = sample_span(r0, Rg, T);
-    const int ncols = span.ntiles * STRIP;
-    // the probabilities do not exist yet: their strips stage operand tiles
-    strip_scores(A, qh, kh, g0, r0, span, R, ldg, Phi, lane);
-
-    const RowInfo ri = row_info(lane, r0, Rg, T, span, hk, g0);
-    strip_softmax(A, ri, ncols, scale);
-    for (int j = ri.half; j < ncols; j += 2) {
-      float p = A[ri.row * SA + j];
-      if (p != 0.f) p *= keep_factor(ri.rk, uint32_t(j - ri.lo), thresh, inv_keep);
-      split(p, Phi[ri.row * SB + j], Plo[ri.row * SB + j]);
-    }
-    __syncwarp();
-
-    FragC acc[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-    for (int t = 0; t < span.ntiles; ++t) {
-      // the scores are dead: their strip stages V tiles
-      const Rows vr = tile_rows(vh, g0 + span.c0 + t * STRIP, R, ldg,
-                                reinterpret_cast<bf16*>(A), lane);
-      mma_split(acc, Phi + t * STRIP, Plo + t * STRIP, SB, vr);
-    }
-    store_rows(out + (g0 + r0) * ldg + h * D, acc, r0, Rg, ldg, A, lane);
-    __syncwarp();   // the warp's next strip reuses the region
+    if (strip != warp)
+      strip_probs<NTILE>(s, Qs, Ks, strip * STRIP, Rg, T, g0, hk, scale_log2, thresh,
+                         inv_keep, lane);
+    strip_out<NTILE>(s, Vs, out + off, strip * STRIP, Rg, T, ld, lane);
   }
 }
 
@@ -521,7 +614,44 @@ bool bad_shape(int B, int T, int H, int nb) {
   return false;
 }
 
+// strips of a full group: the backward's warps
 int block_warps(int T, int nb) { return (nb * T + STRIP - 1) / STRIP; }
+
+// 16-key tiles a strip of a full group of nb samples needs at most (ops/
+// block_attention.py `key_tiles`): the forward's template argument
+int key_tiles(int T, int nb) {
+  int most = 0;
+  for (int r0 = 0; r0 < nb * T; r0 += STRIP) {
+    const int n = sample_span(r0, nb * T, T).ntiles;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// The forward's launch: {groups, heads, warps a block (two strips each),
+// dynamic shared bytes (Q, K and V tiles of a full group)}. Two blocks of
+// the largest group share an SM's 228 KB (1 KB of it reserved a block).
+static_assert(2 * (3 * MAX_ROWS * hop_tiles::ROW_BYTES + 1024) <= 228 * 1024,
+              "two forward blocks an SM");
+void fwd_plan(int B, int T, int H, int nb, int (&plan)[4]) {
+  plan[0] = (B + nb - 1) / nb;
+  plan[1] = H;
+  plan[2] = (block_warps(T, nb) + 1) / 2;
+  plan[3] = 3 * nb * T * hop_tiles::ROW_BYTES;
+}
+
+template <int NTILE>
+cudaError_t launch_fwd(const int (&plan)[4], const void* q, const void* k, const void* v,
+                       void* out, int B, int T, int H, int nb, float scale_log2, uint32_t seed,
+                       uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(block_attn_fwd_kernel<NTILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, plan[3]);
+  if (err != cudaSuccess) return err;
+  block_attn_fwd_kernel<NTILE><<<dim3(plan[0], plan[1]), plan[2] * 32, plan[3], stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<float*>(out), B, T, H, nb, scale_log2, seed, thresh, inv_keep);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -529,16 +659,16 @@ extern "C" int hop_block_attn_fwd(const void* q, const void* k, const void* v, v
                                   int B, int T, int H, int nb, float scale, uint32_t seed,
                                   uint32_t thresh, float inv_keep, void* stream) {
   if (bad_shape(B, T, H, nb)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_STRIPS * WARP_BYTES);
-  if (err != cudaSuccess) return int(err);
-  const int warps = block_warps(T, nb);
-  block_attn_fwd_kernel<<<dim3((B + nb - 1) / nb, H), warps * 32, warps * WARP_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<float*>(out), B, T, H, nb, scale, seed, thresh, inv_keep);
-  return int(cudaGetLastError());
+  int plan[4];
+  fwd_plan(B, T, H, nb, plan);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  using Launch = cudaError_t (*)(const int(&)[4], const void*, const void*, const void*, void*,
+                                 int, int, int, int, float, uint32_t, uint32_t, float,
+                                 cudaStream_t);
+  constexpr Launch by_tiles[MAX_TILES] = {launch_fwd<1>, launch_fwd<2>, launch_fwd<3>,
+                                          launch_fwd<4>, launch_fwd<5>, launch_fwd<6>};
+  return int(by_tiles[key_tiles(T, nb) - 1](plan, q, k, v, out, B, T, H, nb, scale_log2, seed,
+                                            thresh, inv_keep, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int hop_block_attn_bwd(const void* q, const void* k, const void* v,

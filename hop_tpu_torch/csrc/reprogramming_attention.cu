@@ -87,6 +87,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
 #include "dropout_bits.cuh"
 
 namespace {
@@ -134,68 +135,17 @@ __device__ __forceinline__ float drop(float p, uint32_t rk, uint32_t s,
   return hop_dropout::bits(rk, s) >= thresh ? p * inv_keep : 0.f;
 }
 
-// --- the forward's building blocks: cp.async, ldmatrix, mma.sync ---
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device to shared memory, or 16 zero bytes when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const int bytes = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and gets elements (l / 4, 2 (l % 4) .. + 1) of each (transposed:
-// (2 (l % 4) .. + 1, l / 4))
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) as two packed bf16 pairs hi and lo with hi + lo = (x, y) to 2^-17:
-// the bf16 rounding and the rounding of the remainder; x in the low half
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+// the tile layer shared with K4 and K5 (attention_tiles.cuh): cp.async,
+// ldmatrix, mma.sync, the hi + lo split and the quad reductions
+using hop_tiles::cp_async16;
+using hop_tiles::cp_async_commit;
+using hop_tiles::cp_async_wait;
+using hop_tiles::ldmatrix_x4;
+using hop_tiles::ldmatrix_x4_trans;
+using hop_tiles::mma_bf16;
+using hop_tiles::quad_max;
+using hop_tiles::quad_sum;
+using hop_tiles::split_pair;
 
 // Block (x, y, z) = (64-row tile of the (R = B * L, E) query matrix of head
 // y, head, key split z): key tiles [z * tiles_per_split, ...). Lane l of a

@@ -20,20 +20,26 @@ blocking.
 
 On the card (HOP's backbone: B=256 or 1, T=34, H=12, D=64) the work is 0.9
 GFLOP forward and 2.3 GFLOP backward against 53 and 94 MB of operands and
-results: the kernels are bound by bytes. A (sample, head) problem is three
-34 x 64 tiles and a 34 x 34 score tile, which fit in a block's shared memory,
-so one block owns one (sample, head): operands are read once, in 16-byte
-pieces of the 128-byte head rows, the probabilities never reach device
-memory, and the backward (one kernel, same grid) recomputes them from q, k,
-v and redraws the mask; each block owns its dq, dk, dv rows, so nothing is
-summed across blocks and the results repeat bit for bit. The products are
-scalar f32 FMAs for now.
+results: the kernels are bound by bytes. Operands are read once, in 16-byte
+pieces of the 128-byte head rows, and the probabilities never reach device
+memory.
+
+The forward runs on the tensor cores: one warp owns a (sample, head), a
+block holds four heads of one sample. Its Q, K and V
+tiles come by cp.async into shared memory as bf16; per 16-row tile of
+queries S = Q K^T is bf16 `mma.sync` with f32 accumulators, the softmax and
+the dropout run on the accumulators, and P enters O = P V as hi + lo bf16
+(`tiled_fused_attention` repeats that arithmetic in torch for the tests).
+The backward (one block per (sample, head)) recomputes the probabilities
+from q, k, v and redraws the mask; each block owns its dq, dk, dv rows, so
+nothing is summed across blocks and the results repeat bit for bit. Its
+products are still scalar f32 FMAs.
 
 Types on the card: the wrapper casts q, k, v (and dout) to bf16, as the TPU
-path ran under `compute_bf16`. Scores, softmax, the probabilities that meet
-v, ds and every accumulation are f32 (the TPU kernel rounded the
-probabilities and ds to the operand type before their products; here they
-stay f32). out, dq, dk, dv leave the kernels in bf16, the operand type, as
+path ran under `compute_bf16`. Scores, softmax, ds and every accumulation
+are f32, and the probabilities meet v at f32 accuracy (the TPU kernel
+rounded the probabilities and ds to the operand type before their
+products). out, dq, dk, dv leave the kernels in bf16, the operand type, as
 the TPU kernel's did; `fused_attention` returns them in q's dtype.
 
 `plain_fused_attention` is the einsum path of hop_tpu/models/bert.py:134-138
@@ -60,6 +66,7 @@ bwd_launches = 0
 #: MAX_T in csrc/attention.cu)
 HEAD_DIM = 64
 MAX_T = 64
+LOG2E = 1.4426950408889634
 
 
 def compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -99,6 +106,51 @@ def plain_fused_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def split_bf16(x: torch.Tensor):
+    """x as hi + lo, its bf16 rounding and the rounding of the remainder."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def exp2_softmax(s: torch.Tensor, allowed: torch.Tensor, scale: float) -> torch.Tensor:
+    """The kernels' softmax over the last axis where `allowed`: exp2 of the
+    scores times scale * log2(e) less the row's max, times the reciprocal of
+    the row's sum; 0 where not allowed and in a row with nothing allowed."""
+    s = torch.where(allowed, s * (scale * LOG2E), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp2(s - torch.where(torch.isinf(m), 0.0, m))
+    total = e.sum(-1, keepdim=True)
+    return e * torch.where(total > 0, 1.0 / total, 0.0)
+
+
+def tiled_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float, rate: float = 0.0,
+                          seed: int = 0) -> torch.Tensor:
+    """`plain_fused_attention`'s contract in the forward kernel's arithmetic,
+    for tests: bf16 operands; queries in 16-row tiles and keys in whole
+    16-key steps, the rows and keys past T read as row T - 1 (as the
+    kernel's clamped ldmatrix addresses do) and those keys masked; the
+    softmax in the exp2 domain; the dropped probabilities fed to P V as hi +
+    lo bf16, one 16-key step at a time, added in order in f32. Returns f32
+    (B, T, H, D): the kernel rounds it to bf16 once."""
+    B, T, H, D = q.shape
+    TP = -(-T // 16) * 16
+    idx = torch.arange(TP, device=q.device).clamp(max=T - 1)
+    qf, kf, vf = (t.to(torch.bfloat16).float()[:, idx] for t in (q, k, v))
+    p = exp2_softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf),
+                     torch.arange(TP, device=q.device) < T, scale)
+    if rate > 0.0:
+        keep = attention_keep(seed, rate, B, T, H, T, q.device)
+        p = p * torch.nn.functional.pad(keep, (0, TP - T, 0, TP - T))
+    hi, lo = split_bf16(p)
+    out = q.new_zeros((B, H, TP, D), dtype=torch.float32)
+    for j0 in range(0, TP, 16):
+        vs = vf[:, j0:j0 + 16]
+        out = out + torch.einsum("bhqk,bkhd->bhqd", hi[..., j0:j0 + 16], vs)
+        out = out + torch.einsum("bhqk,bkhd->bhqd", lo[..., j0:j0 + 16], vs)
+    return out[:, :, :T].transpose(1, 2).contiguous()
 
 
 def check_operands(name: str, q, k, v, max_t: int):

@@ -21,18 +21,25 @@ so K5 draws K4's mask for the same seed, whatever the grouping.
 On the card (HOP's backbone: B=256 or 1, T=34, H=12, D=64) the work is 0.9
 GFLOP forward, 2.3 GFLOP backward, against 67 and 134 MB: the kernels are
 bound by bytes. Stacking is what fills the tensor cores' 16-row tiles at
-T=34: NB = 8 samples are M = 272 = 17 * 16 rows exactly, a warp owns a
-16-row strip of queries and runs bf16 `mma.sync` tiles (nvcuda::wmma) with
-f32 accumulators. A strip touches at most two samples, so only the key tiles
-of those samples (at most 6) are computed, masked inside the tile and
-softmaxed in f32; the all-masked tiles are skipped. The TPU program looped
-over the heads with an (M, M) f32 score matrix resident, which a block's
-shared memory here cannot hold; a block here is one (group, head). A ragged
-last group (B=250, B=1) is masked by row, never padded with -inf rows. The
-backward is one kernel in two phases: query strips recompute the
-probabilities, keep each row's log-sum-exp and delta and write dq; then key
-strips recompute their transposed tiles from those and write dk and dv. Each
-output row has one owner: no atomics, results repeat bit for bit.
+T=34: NB = 8 samples are M = 272 = 17 * 16 rows exactly, and a warp owns
+16-row strips of queries. A strip touches at most two samples, so only the
+key tiles of those samples (at most 6) are computed, masked inside the tile
+and softmaxed in f32; the all-masked tiles are skipped. The TPU program
+looped over the heads with an (M, M) f32 score matrix resident, which a
+block's shared memory here cannot hold; a block here is one (group, head).
+A ragged last group (B=250, B=1) is masked by row, never padded with -inf
+rows.
+
+The forward brings the group's Q, K and V rows of its head into shared
+memory once by cp.async (bf16, 104 KB at M = 272, so two blocks share an
+SM); nine warps take two strips each, and per strip the scores, the masked
+softmax, the dropout and P stay in the `mma.sync` accumulators, P entering
+P V as hi + lo bf16 (`register_block_attention` repeats the arithmetic in
+torch for the tests). The backward is one kernel
+in two phases on wmma tiles: query strips recompute the probabilities, keep
+each row's log-sum-exp and delta and write dq; then key strips recompute
+their transposed tiles from those and write dk and dv. Each output row has
+one owner: no atomics, results repeat bit for bit.
 
 Types on the card: the wrapper casts q, k, v (and dout) to bf16, as the TPU
 caller did (`operand_dtype`, hop_tpu/models/bert.py:129-132). Scores and
@@ -58,8 +65,8 @@ from typing import Optional
 import torch
 
 from hop_tpu_torch.ops import _build
-from hop_tpu_torch.ops.attention import (bf16_operand, check_operands,
-                                         compute_dtype)
+from hop_tpu_torch.ops.attention import (bf16_operand, check_operands, compute_dtype,
+                                         exp2_softmax, split_bf16)
 from hop_tpu_torch.ops.dropout import attention_keep, kernel_args
 
 #: launches of the forward kernel since the last reset (a plain counter)
@@ -81,17 +88,20 @@ def group_size(B: int, T: int) -> int:
     return max(1, min(NB_MAX, B, MAX_ROWS // T))
 
 
+def sample_span(r0: int, rows: int, T: int) -> tuple:
+    """(first column, 16-column tiles) of the keys of the samples that rows
+    [r0, r0 + 16) of a group of `rows` rows belong to, widened to whole
+    tiles (`sample_span` in csrc/block_attention.cu)."""
+    first = r0 // T * T
+    last = (min(r0 + STRIP, rows) - 1) // T * T + T
+    return first // STRIP * STRIP, -(-last // STRIP) - first // STRIP
+
+
 @functools.lru_cache(maxsize=None)
 def key_tiles(T: int, nb: int) -> int:
     """The most 16-key tiles one 16-row strip of a group of nb samples needs:
     the tiles that hold the keys of the samples its rows belong to."""
-    rows = nb * T
-    most = 0
-    for r0 in range(0, rows, STRIP):
-        first = (r0 // T) * T
-        last = (min(r0 + STRIP, rows) - 1) // T * T + T
-        most = max(most, -(-last // STRIP) - first // STRIP)
-    return most
+    return max(sample_span(r0, nb * T, T)[1] for r0 in range(0, nb * T, STRIP))
 
 
 def _spans(B: int, nb: int):
@@ -179,6 +189,53 @@ def plain_block_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
                                   torch.einsum("ghmn,gmhd->gnhd", pd, do))):
             out.append(g.reshape(b1 - b0, *q.shape[1:]))
     return tuple(torch.cat(g) for g in grads)
+
+
+def register_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: float, rate: float = 0.0, seed: int = 0,
+                             nb: Optional[int] = None) -> torch.Tensor:
+    """`plain_block_attention`'s contract in the forward kernel's arithmetic,
+    for tests: bf16 operands stacked in groups of `nb` samples; per 16-row
+    strip only the key tiles of its samples (`sample_span`), the rows and
+    keys past the group's last read as its last row; the block-diagonal mask,
+    the softmax in the exp2 domain and the dropout on the strip's scores; P
+    fed to P V as hi + lo bf16 one 16-key tile at a time, added in order in
+    f32. Returns f32 (B, T, H, D)."""
+    B, T, H, D = q.shape
+    nb = group_size(B, T) if nb is None else nb
+    keep = _keep(q, rate, seed, torch.float32)
+    dev = q.device
+    out = []
+    for b0, b1, m in _spans(B, nb):
+        rows = m * T
+        qs, ks, vs = (_stack(t[b0:b1].to(torch.bfloat16), m, torch.float32)
+                      for t in (q, k, v))
+        kp = (None if keep is None else
+              keep[b0:b1].reshape(-1, m, H, T, T).transpose(1, 2))   # (G, H, m, T, T)
+        res = qs.new_zeros(qs.shape)
+        for r0 in range(0, rows, STRIP):
+            c0, nt = sample_span(r0, rows, T)
+            r = torch.arange(r0, r0 + STRIP, device=dev)
+            c = torch.arange(c0, c0 + nt * STRIP, device=dev)
+            ri, ci = r.clamp(max=rows - 1), c.clamp(max=rows - 1)
+            first = (r // T * T)[:, None]        # the row's sample's first key
+            allowed = (r < rows)[:, None] & (c[None] >= first) & (c[None] < first + T)
+            p = exp2_softmax(torch.einsum("gmhd,gnhd->ghmn", qs[:, ri], ks[:, ci]),
+                             allowed, scale)
+            if kp is not None:
+                p = p * kp[:, :, (ri // T)[:, None], (ri % T)[:, None],
+                           (c[None] - (ri // T * T)[:, None]).clamp(0, T - 1)]
+            hi, lo = split_bf16(p)
+            acc = qs.new_zeros((qs.shape[0], H, STRIP, D))
+            for t in range(nt):
+                cols = slice(t * STRIP, (t + 1) * STRIP)
+                vt = vs[:, ci[cols]]
+                acc = acc + torch.einsum("ghmn,gnhd->ghmd", hi[..., cols], vt)
+                acc = acc + torch.einsum("ghmn,gnhd->ghmd", lo[..., cols], vt)
+            r1 = min(r0 + STRIP, rows)
+            res[:, r0:r1] = acc[:, :, :r1 - r0].transpose(1, 2)
+        out.append(res.reshape(b1 - b0, T, H, D))
+    return torch.cat(out)
 
 
 def _check(name: str, q, k, v, nb: Optional[int]):

@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from hop_tpu_torch.ops import _build
+from hop_tpu_torch.ops.attention import split_bf16
 from hop_tpu_torch.ops.dropout import attention_keep, kernel_args
 
 #: launches of the forward kernel since the last reset (a plain counter)
@@ -148,12 +149,6 @@ def plain_reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
     return dq, dk, dv
 
 
-def _split_bf16(x: torch.Tensor):
-    """x as hi + lo, its bf16 rounding and the rounding of the remainder."""
-    hi = x.to(torch.bfloat16).float()
-    return hi, (x - hi).to(torch.bfloat16).float()
-
-
 def tiled_reprogramming_attention(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, scale: float,
                                   rate: float = 0.0, seed: int = 0,
@@ -186,7 +181,7 @@ def tiled_reprogramming_attention(q: torch.Tensor, k: torch.Tensor,
             l = l * alpha + p.sum(-1)
             if keep is not None:
                 p = p * keep[..., s0:s1]
-            hi, lo = _split_bf16(p)
+            hi, lo = split_bf16(p)
             acc = acc * alpha[..., None] + (
                 torch.einsum("bhls,hse->bhle", hi, vf[:, s0:s1])
                 + torch.einsum("bhls,hse->bhle", lo, vf[:, s0:s1]))
@@ -234,8 +229,8 @@ def tiled_reprogramming_attention_bwd(q, k, v, out, lse, dout, scale: float,
     if keep is not None:
         pd, dp = p * keep, dp * keep
     ds = p * (dp - delta[..., None])
-    ds_hi, ds_lo = _split_bf16(ds)
-    pd_hi, pd_lo = _split_bf16(pd)
+    ds_hi, ds_lo = split_bf16(ds)
+    pd_hi, pd_lo = split_bf16(pd)
     dq = torch.zeros_like(q2)
     for s0 in range(0, S, KEY_TILE):
         tile = slice(s0, s0 + KEY_TILE)

@@ -8,6 +8,15 @@ gradients 1e-4 of each gradient's largest element. With dropout on, the two
 packages draw different masks (hop_tpu seeds a generator per program, the
 port hashes global coordinates), so those cases hold the port to itself:
 keep rate, seeds, and a backward that reuses the forward's mask.
+
+The forward kernel's own arithmetic (16-row query tiles, keys padded to
+whole 16-key steps and masked, the softmax in the exp2 domain, the
+probabilities fed to P V as hi + lo bf16) cannot run without a card;
+`tiled_fused_attention` repeats it in torch. On bf16-exact operands what it
+adds to f32 round-off is the hi + lo pair's error, at most 2^-18 of each
+probability, so the output is off by at most ~4e-6 of the largest |v|:
+EMULATION_TOL is 1e-5 of the largest |v|, against the plain version (with
+the same mask) and against the Pallas kernel.
 """
 
 import dataclasses
@@ -33,6 +42,10 @@ from hop_tpu_torch.ops.dropout import attention_keep
 
 SHAPES = [(2, 34, 4, 16), (3, 10, 2, 8), (16, 34, 2, 8)]
 GRAD_REL = 1e-4
+EMULATION_TOL = 1e-5        # of the largest |v|
+# one 16-key step (10), whole steps (16, 64), one row past a step (17), the
+# backbone's (34), an odd count of 8-key tiles (40)
+TILED_T = [10, 16, 17, 34, 40, 64]
 
 
 @pytest.fixture(autouse=True)
@@ -43,6 +56,16 @@ def _interpret_mode(monkeypatch):
 def inputs(shape, seed, n=4):
     r = np.random.default_rng(seed)
     return [r.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def bf16_exact(arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16).float() for a in arrays]
+
+
+def assert_emulation_close(got, want, v):
+    want = torch.from_numpy(np.array(want))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=EMULATION_TOL * v.abs().max().item())
 
 
 def einsum_attention(q, k, v, scale, keep=None):
@@ -87,6 +110,25 @@ def test_gradients_match_pallas_and_autograd(shape):
     # the autograd Function gives the same
     assert_grads_close(torch.autograd.grad(
         K4.fused_attention(*leaves, scale), leaves, tg), got, rel=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", TILED_T)
+def test_tiled_forward_matches_plain_version(T, rate):
+    q, k, v = bf16_exact(inputs((3, T, 2, 16), seed=T, n=3))
+    got = K4.tiled_fused_attention(q, k, v, 0.25, rate, 11)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert_emulation_close(got, K4.plain_fused_attention(q, k, v, 0.25, rate, 11), v)
+    if rate > 0.0:      # the mask took effect: the plain version's
+        assert (got - K4.plain_fused_attention(q, k, v, 0.25)).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize("T", TILED_T)
+def test_tiled_forward_matches_pallas(T):
+    q, k, v = bf16_exact(inputs((2, T, 3, 16), seed=100 + T, n=3))
+    want = jax_fused_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                               jnp.asarray([0], jnp.int32), 0.25, 0.0)
+    assert_emulation_close(K4.tiled_fused_attention(q, k, v, 0.25), want, v)
 
 
 def test_gradcheck_float64():

@@ -8,6 +8,11 @@ the kernels do, so these cases are an oracle of the block-diagonal mask too:
 no sample sees another, however the batch is grouped, and a ragged last
 group is masked. Tolerances as tests/test_torch_attention.py: forward 1e-5,
 gradients 1e-4 of each gradient's largest element.
+
+`register_block_attention` repeats the forward kernel's arithmetic in torch
+(per 16-row strip only its samples' key tiles, the block-diagonal mask, the
+exp2 softmax and the dropout on the strip's scores, P as hi + lo bf16 one
+16-key tile at a time), held to EMULATION_TOL as K4's emulation is.
 """
 
 import numpy as np
@@ -23,8 +28,14 @@ from hop_tpu_torch.ops import attention as K4
 from hop_tpu_torch.ops import block_attention as K5
 from hop_tpu_torch.ops.dropout import attention_keep
 
-from test_torch_attention import (SHAPES, assert_grads_close, check_encoder_route,
-                                  einsum_attention, inputs)
+from test_torch_attention import (SHAPES, assert_emulation_close, assert_grads_close,
+                                  bf16_exact, check_encoder_route, einsum_attention,
+                                  inputs)
+
+# (B, T, nb): groups of 1, 2, 3 and 8 samples, the last three with a ragged
+# last group; T=17 puts a sample boundary inside a strip and T=40 a strip
+# across three key tiles
+REGISTER_CASES = [(3, 34, 1), (5, 34, 2), (11, 34, 3), (11, 34, 8), (9, 17, 8), (5, 40, 5)]
 
 
 @pytest.fixture(autouse=True)
@@ -58,6 +69,33 @@ def test_gradients_match_pallas_and_autograd(shape):
         einsum_attention(*leaves, scale), leaves, tg))
     assert_grads_close(torch.autograd.grad(
         K5.block_attention(*leaves, scale), leaves, tg), got, rel=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,nb", REGISTER_CASES)
+def test_register_forward_matches_plain_version(B, T, nb, rate):
+    q, k, v = bf16_exact(inputs((B, T, 2, 16), seed=B + T, n=3))
+    got = K5.register_block_attention(q, k, v, 0.25, rate, 13, nb=nb)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert_emulation_close(got, K5.plain_block_attention(q, k, v, 0.25, rate, 13, nb=nb), v)
+    # K4's plain version: the function per sample and its mask
+    assert_emulation_close(got, K4.plain_fused_attention(q, k, v, 0.25, rate, 13), v)
+
+
+@pytest.mark.parametrize("B,T,nb", REGISTER_CASES)
+def test_register_forward_matches_pallas(B, T, nb):
+    q, k, v = bf16_exact(inputs((B, T, 2, 16), seed=50 + B + T, n=3))
+    want = jax_block_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                               jnp.asarray([0], jnp.int32), 0.25, 0.0)
+    assert_emulation_close(K5.register_block_attention(q, k, v, 0.25, nb=nb), want, v)
+
+
+def test_strip_key_tiles():
+    """At the backbone's T=34 a strip needs at most 5 key tiles (the forward
+    kernel's template argument) in any grouping."""
+    # rows 32-47 hold samples 0 and 1: keys 0-67, tiles 0-4
+    assert K5.sample_span(32, 272, 34) == (0, 5) and K5.sample_span(16, 272, 34) == (0, 3)
+    assert max(K5.key_tiles(34, nb) for nb in range(1, 9)) == 5
 
 
 def test_gradcheck_float64():

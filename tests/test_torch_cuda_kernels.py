@@ -310,8 +310,11 @@ def _attention_args(device, B, T, H, seed):
             for _ in range(4)]
 
 
-# (B, T, H): the backbone's shape, long-form's, a ragged last group, small T
-ATTENTION_SHAPES = [(256, 34, 12), (1, 34, 12), (250, 34, 12), (5, 10, 3), (3, 40, 2)]
+# (B, T, H): the backbone's shape, long-form's, a ragged last group, small T;
+# then the forwards' padding edges: whole 16-row tiles (16, 48, 64), one row
+# past a tile (17), fewer heads than a K4 block holds (2, 3)
+ATTENTION_SHAPES = [(256, 34, 12), (1, 34, 12), (250, 34, 12), (5, 10, 3), (3, 40, 2),
+                    (7, 16, 3), (7, 17, 3), (4, 48, 2), (2, 64, 2)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -359,10 +362,12 @@ def test_block_attention_kernels(device, B, T, H, rate):
         _rel_close(a, c, name=name)
 
 
+@pytest.mark.parametrize("T", [34, 17])
 @pytest.mark.parametrize("nb", [1, 2, 3, 8])
-def test_block_attention_any_grouping(device, nb):
-    """Groups of any size give the per-sample result and draw the same mask."""
-    q, k, v, do = _attention_args(device, 21, 34, 2, seed=nb)
+def test_block_attention_any_grouping(device, nb, T):
+    """Groups of any size give the per-sample result and draw the same mask
+    (at T=17 a sample boundary falls inside every other strip)."""
+    q, k, v, do = _attention_args(device, 21, T, 2, seed=nb)
     args = (0.125, 0.2, 5)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     torch.testing.assert_close(K5.block_attention_fwd(q, k, v, *args, nb=nb),
