@@ -1311,17 +1311,19 @@ def phase_bert_attention(dev, seed):
                 check(err <= tol, f"{name} forward at B={B}, rate {rate}: {err} > {tol}")
                 r["fwd_err"] = max(r["fwd_err"], err)
                 outs[(name, rate)] = got.float()
-            args = (scale, 0.1, drop_seed)
-            grads, again = bwd(q, k, v, do, *args), bwd(q, k, v, do, *args)
-            want = plain_bwd(qf, kf, vf, dof, *args)
-            torch.cuda.synchronize()
-            for gname, a, b, c in zip(("dq", "dk", "dv"), grads, again, want):
-                check(torch.equal(a, b), f"{name} bwd at B={B}: {gname} differs "
-                                         f"between two calls")
-                e_abs, e_rel = rel_err(a.float(), c)
-                check(e_rel <= bwd_tol, f"{name} bwd at B={B} {gname}: {e_rel} > "
-                                        f"{bwd_tol} relative")
-                r["bwd_err"], r["bwd_rel"] = max(r["bwd_err"], e_abs), max(r["bwd_rel"], e_rel)
+            for rate in (0.0, 0.1):
+                args = (scale, rate, drop_seed)
+                grads, again = bwd(q, k, v, do, *args), bwd(q, k, v, do, *args)
+                want = plain_bwd(qf, kf, vf, dof, *args)
+                torch.cuda.synchronize()
+                for gname, a, b, c in zip(("dq", "dk", "dv"), grads, again, want):
+                    check(torch.equal(a, b), f"{name} bwd at B={B}, rate {rate}: {gname} "
+                                             f"differs between two calls")
+                    e_abs, e_rel = rel_err(a.float(), c)
+                    check(e_rel <= bwd_tol, f"{name} bwd at B={B}, rate {rate} {gname}: "
+                                            f"{e_rel} > {bwd_tol} relative")
+                    r["bwd_err"] = max(r["bwd_err"], e_abs)
+                    r["bwd_rel"] = max(r["bwd_rel"], e_rel)
         for rate in (0.0, 0.1):     # one function, one mask
             gap = (outs[("K5", rate)] - outs[("K4", rate)]).abs().max().item()
             check(gap <= K4_TOL, f"K5 vs K4 at B={B}, rate {rate}: {gap} > {K4_TOL}")
@@ -1359,7 +1361,10 @@ def phase_bert_attention(dev, seed):
         for key, fn in (("kernel_ms", lambda: fwd(q, k, v, scale)),
                         ("drop_kernel_ms", lambda: fwd(q, k, v, *args)),
                         ("b1_kernel_ms", lambda: fwd(q1, k1, v1, scale)),
-                        ("bwd_kernel_ms", lambda: bwd(q, k, v, do, *args))):
+                        ("bwd_kernel_ms", lambda: bwd(q, k, v, do, *args)),
+                        # rate 0, like for like with SDPA's backward
+                        ("bwd0_kernel_ms", lambda: bwd(q, k, v, do, scale)),
+                        ("b1_bwd_kernel_ms", lambda: bwd(q1, k1, v1, do1, *args))):
             r[key], own[key] = own_ms(fn, f"{name} {key}")
             check(len(own[key]) <= 1 and all("attn_" in k for k in own[key]),
                   f"{name}: a call launched {own[key]}, not its kernel alone")
@@ -1369,7 +1374,7 @@ def phase_bert_attention(dev, seed):
               f"B=1 and B=250): forward max_abs_err {r['fwd_err']:.3e} (tol "
               f"{mods[name][5]:g}; rate 0 and 0.1, the plain version's mask), "
               f"backward worst rel {r['bwd_rel']:.2e} (tol {mods[name][6]:g}), "
-              f"max_abs_err {r['bwd_err']:.3e}; bitwise repeat; forward kernel "
+              f"max_abs_err {r['bwd_err']:.3e}; rate 0 and 0.1; bitwise repeat; forward kernel "
               f"{r['ms']:.3f} ms (rate 0.1: {r['drop_ms']:.3f}) vs plain "
               f"{r['plain_ms']:.3f} ms (bound {r['bound']['bound_ms']:.3f} ms by "
               f"{r['bound']['bound_by']}); backward kernel {r['bwd_ms']:.3f} ms vs plain "
@@ -1377,7 +1382,9 @@ def phase_bert_attention(dev, seed):
               f"{r['bwd_bound']['bound_by']})")
         print(f"{name} own device time (torch.profiler): forward {fmt_ms(r['kernel_ms'])} "
               f"ms (rate 0.1: {fmt_ms(r['drop_kernel_ms'])}; B=1: "
-              f"{fmt_ms(r['b1_kernel_ms'])}); backward {fmt_ms(r['bwd_kernel_ms'])} ms; "
+              f"{fmt_ms(r['b1_kernel_ms'])}); backward {fmt_ms(r['bwd_kernel_ms'])} ms "
+              f"(rate 0: {fmt_ms(r['bwd0_kernel_ms'])}; B=1: "
+              f"{fmt_ms(r['b1_bwd_kernel_ms'])}); "
               f"50 calls a pair of events: forward {r['loop_ms']:.4f}, backward "
               f"{r['bwd_loop_ms']:.4f} ms a call; kernels "
               f"{[k[:48] for k in own['kernel_ms'] + own['bwd_kernel_ms']]}")
@@ -1677,8 +1684,9 @@ def main():
     ]
     # the backbone's self-attention: SDPA computes the forward at rate 0; its
     # backward alone stands beside the kernels' backward (at rate 0.1). Beside
-    # the event time of one call: the kernel's own device time, the library
-    # call's likewise
+    # the event time of one call: the kernel's own device time (the
+    # backward's also at rate 0, like for like with SDPA's, and at B=1), the
+    # library call's likewise
     for name, count, source, replaces in (
             ("bert_attention", "K4", K4_SOURCE, (K4_REPLACES, K4_BWD_REPLACES)),
             ("bert_block_attention", "K5", K5_SOURCE, (K5_REPLACES, K5_BWD_REPLACES))):
@@ -1691,6 +1699,7 @@ def main():
             name + "_bwd", source, replaces[1], count + "_bwd", r["bwd_err"],
             {"ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"], **r["bwd_bound"]},
             lib["attn_bwd"], kernel_ms=r["bwd_kernel_ms"],
+            kernel_ms_rate0=r["bwd0_kernel_ms"], b1_kernel_ms=r["b1_bwd_kernel_ms"],
             library_kernel_ms=lib["attn_bwd_kernel"]))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

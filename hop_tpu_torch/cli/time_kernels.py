@@ -199,18 +199,12 @@ def main(argv=None):
             q, k, v, do = (randn(*shape).to(torch.bfloat16) for _ in range(4))
             for rate in (0.0, 0.1):
                 attn = (shape[3] ** -0.5, rate, 5)
-                if "K4" in args.only:
-                    show(f"K4 fwd {shape}, rate {rate}",
-                         lambda: K4.fused_attention_fwd(q, k, v, *attn))
-                if "K5" in args.only:
-                    show(f"K5 fwd {shape}, rate {rate}",
-                         lambda: K5.block_attention_fwd(q, k, v, *attn))
-            if "K4" in args.only:
-                show(f"K4 bwd {shape}, rate {rate}",
-                     lambda: K4.fused_attention_bwd(q, k, v, do, *attn))
-            if "K5" in args.only:
-                show(f"K5 bwd {shape}, rate {rate}",
-                     lambda: K5.block_attention_bwd(q, k, v, do, *attn))
+                for name, fwd, bwd in (("K4", K4.fused_attention_fwd, K4.fused_attention_bwd),
+                                       ("K5", K5.block_attention_fwd, K5.block_attention_bwd)):
+                    if name in args.only:
+                        show(f"{name} fwd {shape}, rate {rate}", lambda: fwd(q, k, v, *attn))
+                        show(f"{name} bwd {shape}, rate {rate}",
+                             lambda: bwd(q, k, v, do, *attn))
 
 
 if __name__ == "__main__":

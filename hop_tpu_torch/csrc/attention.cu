@@ -42,14 +42,23 @@
 // The key-tile count is a template argument (one instance per ceil(T / 8)),
 // so every loop is unrolled and the fragments stay in registers.
 //
-// Backward: one block per (sample, head), grid (B, H). It recomputes p from
-// q, k, v (no log-sum-exp is saved), redraws the mask, and forms
-//   dV = (p o keep)^T dO,  dP = dO V^T o keep,
-//   dS = p o (dP - rowsum(dP o p)) * scale,  dQ = dS K,  dK = dS^T Q.
-// A block owns the dq, dk, dv rows of its (sample, head): nothing is summed
-// across blocks, and the results repeat bit for bit. Its products are still
-// scalar f32 FMAs on register tiles of 4 rows (operand rows read as float4
-// from f32 rows padded to 68 floats, conflict-free).
+// Backward (redesigned for the H100 as the forward was): K5's algorithm with
+// a sample as a group of one (attention_tiles.cuh, "the backward of K4 and
+// K5"): a block per (sample, head), grid (B, H), a warp per 16-row strip
+// (3 at T=34). Its Q, K, V and dO rows come by cp.async into four swizzled
+// bf16 tiles (17.8 KB with the statistics at T=34), Q and K as one copy
+// group, dO and V as a second that lands while the first strips'
+// probabilities are formed. Phase 1 over query strips (S, the undropped
+// softmax and each row's log2-sum-exp2, dP, delta, dS and dQ on
+// mma.sync.m16n8k16 accumulators), one __syncthreads(), phase 2 over key
+// strips (S^T and dP^T recomputed with the keys as rows, p o keep and dS^T on
+// the accumulators, dV and dK). P and dS enter their products as hi + lo
+// bf16 A fragments; the results are rounded to bf16 once. Every dq, dk, dv
+// row has one owner and one summation order: the results repeat bit for bit.
+// A warp a strip, not the forward's warp a (sample, head): one warp's serial
+// chain of 2 ceil(T / 16) strips is the whole time at B=1, and five small
+// blocks an SM (128 registers a thread) overlap one block's copies with
+// another's products. The strip count ceil(T / 16) is a template argument.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,113 +73,9 @@ namespace {
 constexpr int D = 64;             // head dim
 constexpr int MAX_T = 64;         // rows of a sample
 constexpr int FWD_WARPS = 4;      // forward: (sample, head) problems a block, heads of one sample
-constexpr int THREADS = 160;      // backward: 5 warps, 306 score and 144 output tasks at T=34
-constexpr int WARPS = THREADS / 32;
-constexpr int DS = D + 4;         // operand row stride (floats): float4-aligned, conflict-free
-constexpr int D4 = D / 4;         // float4 pieces of a row
-constexpr int PER_LANE = MAX_T / 32;  // keys a lane holds of one score row
 // the forward's three tiles a warp at the longest T, within the 227 KB a
 // block may opt in to
 static_assert(FWD_WARPS * 3 * MAX_T * hop_tiles::ROW_BYTES <= 227 * 1024, "forward tiles");
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// dropout factor of one probability: 1 / (1 - rate) when kept, else 0
-__device__ __forceinline__ float keep_factor(uint32_t rk, uint32_t s, uint32_t thresh,
-                                             float inv_keep) {
-  if (thresh == 0u) return 1.f;
-  return hop_dropout::bits(rk, s) >= thresh ? inv_keep : 0.f;
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4 v) {
-  acc.x += s * v.x;
-  acc.y += s * v.y;
-  acc.z += s * v.z;
-  acc.w += s * v.w;
-}
-
-// rows [0, T) of one (sample, head) as f32 into dst (rows of DS floats), in
-// 16-byte pieces of 8 bf16; rows [T, TP) are zero
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src,
-                                          size_t row0, int T, int TP, int H, int h) {
-  for (int idx = threadIdx.x; idx < TP * (D / 8); idx += THREADS) {
-    const int r = idx / (D / 8), c = idx % (D / 8);
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (r < T) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + ((row0 + r) * H + h) * D + c * 8);
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(p2[0]), b = __bfloat1622float2(p2[1]);
-      const float2 cc = __bfloat1622float2(p2[2]), d = __bfloat1622float2(p2[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(cc.x, cc.y, d.x, d.y);
-    }
-    float4* out = reinterpret_cast<float4*>(dst + r * DS + c * 8);
-    out[0] = lo;
-    out[1] = hi;
-  }
-}
-
-// four f32 values as bf16 to dst (8-byte aligned)
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
-
-// out[i][j] = A[i] . Bm[j] for i < TP (4 rows a task), j < T; both operands
-// rows of DS floats, out rows of TP floats
-__device__ __forceinline__ void rows_dot_rows(float* out, const float* A, const float* Bm,
-                                              int T, int TP, float scale) {
-  for (int task = threadIdx.x; task < (TP / 4) * T; task += THREADS) {
-    const int i0 = (task / T) * 4, j = task % T;
-    const float4* brow = reinterpret_cast<const float4*>(Bm + j * DS);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int e = 0; e < D4; ++e) {
-      const float4 bv = brow[e];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        acc[r] += dot4(reinterpret_cast<const float4*>(A + (i0 + r) * DS)[e], bv);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) out[(i0 + r) * TP + j] = acc[r] * scale;
-  }
-}
-
-// one task of dst[i][:] = sum_j W[i][j] M[j][:] for 4 rows i and 4 columns:
-// W rows of TP floats, M rows of DS floats; stores rows < T as bf16
-__device__ __forceinline__ void weights_times_rows(__nv_bfloat16* dst, const float* W,
-                                                   const float* M, int task, int T, int TP,
-                                                   size_t row0, int H, int h) {
-  const int i0 = (task / D4) * 4, d4 = task % D4;
-  float4 acc[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < T; ++j) {
-    const float4 mv = reinterpret_cast<const float4*>(M + j * DS)[d4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) fma4(acc[r], W[(i0 + r) * TP + j], mv);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    if (i0 + r < T) store4(dst + ((row0 + i0 + r) * H + h) * D + d4 * 4, acc[r]);
-}
 
 // ---- forward: one warp a (sample, head), bf16 tensor-core tiles -----------
 
@@ -269,119 +174,19 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-// ---- backward: one block a (sample, head), scalar f32 FMAs -----------------
+// ---- backward: a block a (sample, head), a warp a strip ------------------
 
-__global__ void __launch_bounds__(THREADS)
+template <int NTILE>
+__global__ void __launch_bounds__(MAX_T / hop_tiles::STRIP * 32, 4)
 attn_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                 __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv, int T, int H, float scale, uint32_t seed,
-                uint32_t thresh, float inv_keep) {
-  extern __shared__ __align__(16) float smem[];
-  const int TP = (T + 3) & ~3;
-  float* Qs = smem;                 // (TP, DS)
-  float* Ks = Qs + TP * DS;
-  float* Vs = Ks + TP * DS;
-  float* Gs = Vs + TP * DS;         // dO
-  float* Ps = Gs + TP * DS;         // (TP, TP): scores, then p o keep
-  float* Ss = Ps + TP * TP;         // (TP, TP): dO V^T, then dS
-
-  const int h = blockIdx.y;
-  const size_t row0 = size_t(blockIdx.x) * T;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_tile(Qs, q, row0, T, TP, H, h);
-  load_tile(Ks, k, row0, T, TP, H, h);
-  load_tile(Vs, v, row0, T, TP, H, h);
-  load_tile(Gs, dout, row0, T, TP, H, h);
-  __syncthreads();
-  rows_dot_rows(Ps, Qs, Ks, T, TP, scale);
-  rows_dot_rows(Ss, Gs, Vs, T, TP, 1.f);
-  __syncthreads();
-
-  // per row: p, dP = (dO V^T) o keep, dS = p (dP - sum_j dP p) scale; leaves
-  // p o keep in Ps and dS in Ss
-  const uint32_t hk = hop_dropout::head_key(seed, h);
-  for (int r = warp; r < T; r += WARPS) {
-    float* prow = Ps + r * TP;
-    float* srow = Ss + r * TP;
-    float p[PER_LANE], dp[PER_LANE], kf[PER_LANE];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < PER_LANE; ++c) {
-      const int j = lane + 32 * c;
-      p[c] = j < T ? prow[j] : -INFINITY;
-      mx = fmaxf(mx, p[c]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < PER_LANE; ++c) {
-      p[c] = expf(p[c] - mx);
-      sum += p[c];
-    }
-    const float inv = 1.f / warp_sum(sum);
-    const uint32_t rk = hop_dropout::row_key(hk, uint32_t(row0 + r));
-    float part = 0.f;
-#pragma unroll
-    for (int c = 0; c < PER_LANE; ++c) {
-      const int j = lane + 32 * c;
-      p[c] *= inv;
-      kf[c] = j < T ? keep_factor(rk, j, thresh, inv_keep) : 0.f;
-      dp[c] = j < T ? srow[j] * kf[c] : 0.f;
-      part += dp[c] * p[c];
-    }
-    const float delta = warp_sum(part);
-#pragma unroll
-    for (int c = 0; c < PER_LANE; ++c) {
-      const int j = lane + 32 * c;
-      if (j < T) {
-        prow[j] = p[c] * kf[c];
-        srow[j] = p[c] * (dp[c] - delta) * scale;
-      }
-    }
-  }
-  __syncthreads();
-
-  // dQ = dS K by tasks of (4 query rows, 4 columns); dK = dS^T Q and
-  // dV = (p o keep)^T dO by tasks of (4 key rows, 4 columns)
-  const int tasks = (TP / 4) * D4;
-  for (int task = threadIdx.x; task < 2 * tasks; task += THREADS) {
-    if (task < tasks) {
-      weights_times_rows(dq, Ss, Ks, task, T, TP, row0, H, h);
-      continue;
-    }
-    const int j0 = ((task - tasks) / D4) * 4, d4 = (task - tasks) % D4;
-    float4 acc_k[4], acc_v[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc_k[r] = acc_v[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = 0; i < T; ++i) {
-      const float4 qv = reinterpret_cast<const float4*>(Qs + i * DS)[d4];
-      const float4 gv = reinterpret_cast<const float4*>(Gs + i * DS)[d4];
-      const float4 pd = *reinterpret_cast<const float4*>(Ps + i * TP + j0);
-      const float4 ds = *reinterpret_cast<const float4*>(Ss + i * TP + j0);
-      fma4(acc_v[0], pd.x, gv);
-      fma4(acc_v[1], pd.y, gv);
-      fma4(acc_v[2], pd.z, gv);
-      fma4(acc_v[3], pd.w, gv);
-      fma4(acc_k[0], ds.x, qv);
-      fma4(acc_k[1], ds.y, qv);
-      fma4(acc_k[2], ds.z, qv);
-      fma4(acc_k[3], ds.w, qv);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      if (j0 + r < T) {
-        const size_t off = ((row0 + j0 + r) * H + h) * D + d4 * 4;
-        store4(dk + off, acc_k[r]);
-        store4(dv + off, acc_v[r]);
-      }
-  }
-}
-
-size_t bwd_smem(int T) {
-  const size_t TP = (T + 3) & ~3;
-  return (4 * TP * DS + 2 * TP * TP) * sizeof(float);
+                __nv_bfloat16* __restrict__ dv, int T, int H, float scale_log2, float scale,
+                uint32_t seed, uint32_t thresh, float inv_keep) {
+  extern __shared__ __align__(128) unsigned char tiles[];
+  hop_tiles::bwd_group<NTILE>(q, k, v, dout, dq, dk, dv, T, T, T, H, blockIdx.y,
+                              (long long)blockIdx.x * T, scale_log2, scale, seed, thresh,
+                              inv_keep, tiles);
 }
 
 bool bad_shape(int B, int T, int H) {
@@ -410,6 +215,24 @@ cudaError_t launch_fwd(const int (&plan)[3], const void* q, const void* k, const
   return cudaGetLastError();
 }
 
+// The backward's launch: grid (B, H), a warp a strip, the four tiles and the
+// statistics of T rows.
+template <int NTILE>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                       void* dk, void* dv, int B, int T, int H, float scale_log2, float scale,
+                       uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  const int smem = hop_tiles::bwd_group_smem(T);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_kernel<NTILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  attn_bwd_kernel<NTILE><<<dim3(B, H), NTILE * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), T, H, scale_log2, scale, seed, thresh, inv_keep);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int hop_attn_fwd(const void* q, const void* k, const void* v, void* out, int B,
@@ -433,13 +256,12 @@ extern "C" int hop_attn_bwd(const void* q, const void* k, const void* v, const v
                             void* dq, void* dk, void* dv, int B, int T, int H, float scale,
                             uint32_t seed, uint32_t thresh, float inv_keep, void* stream) {
   if (bad_shape(B, T, H)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bwd_smem(MAX_T)));
-  if (err != cudaSuccess) return int(err);
-  attn_bwd_kernel<<<dim3(B, H), THREADS, bwd_smem(T), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, H, scale, seed, thresh, inv_keep);
-  return int(cudaGetLastError());
+  using Launch = cudaError_t (*)(const void*, const void*, const void*, const void*, void*,
+                                 void*, void*, int, int, int, float, float, uint32_t, uint32_t,
+                                 float, cudaStream_t);
+  constexpr Launch by_strips[MAX_T / hop_tiles::STRIP] = {launch_bwd<1>, launch_bwd<2>,
+                                                          launch_bwd<3>, launch_bwd<4>};
+  return int(by_strips[(T + hop_tiles::STRIP - 1) / hop_tiles::STRIP - 1](
+      q, k, v, dout, dq, dk, dv, B, T, H, scale * 1.4426950408889634f, scale, seed, thresh,
+      inv_keep, static_cast<cudaStream_t>(stream)));
 }

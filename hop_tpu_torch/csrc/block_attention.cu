@@ -51,35 +51,42 @@
 // blocks of 9 warps an SM leave a thread 112 (65536 / 576, in steps of 8);
 // the peak is P (40) + O (32) + the hi / lo and V fragments (12) + indices.
 //
-// Backward, one kernel on bf16 m16n16k16 tiles (nvcuda::wmma, f32
-// accumulators), two phases around one __syncthreads():
-//   1. query strips, one a warp: p (scores through a shared-memory strip),
-//      then dP = dO V^T tile by tile, once
-//      for delta = rowsum(dP o keep o p) and once more for dS = p (dP o keep
-//      - delta) scale, dQ = dS K (dS as hi + lo); each row's log-sum-exp and
-//      delta go to shared memory;
-//   2. key strips, in two passes over the query tiles of the strip's
-//      samples: S^T = K Q^T is recomputed, p = exp(s - lse), and
-//      dV += (p o keep)^T dO accumulates in fragments; then again with
-//      dP^T = V dO^T for dK += dS^T Q.
-// Every dq, dk, dv row has one owner and one summation order: no atomics,
-// results repeat bit for bit. The function needs five products; the two
-// phases run nine (dP twice in phase 1; S twice and dP once more in phase 2):
-// a 17-warp block leaves a thread 96 registers, which hold one strip's
-// accumulators but not two, and recomputing a 16 x 16 x 64 tile product
-// measured cheaper on an H100 than spilling them.
+// Backward (redesigned for the H100 as the forward was): a block per (group,
+// head) stages the group's Q, K, V and dO rows of its head once by cp.async
+// (Rg x 64 bf16 each, 139 KB at Rg = 272, one block an SM), Q and K as one
+// copy group, dO and V as a second that lands while each warp's first
+// strip's probabilities are formed. A warp per 16-row strip (17 at T=34, nb =
+// 8; at most 16 warps, so warp 0 takes two), two phases around one
+// __syncthreads() (attention_tiles.cuh, "the backward of K4 and K5", which
+// K4 shares):
+//   1. query strips: S, the undropped softmax and each row's log2-sum-exp2,
+//      dP, delta, dS on the mma.sync.m16n8k16 accumulators, dQ = dS K; each
+//      row's statistics to shared memory;
+//   2. key strips: per 16-query tile of the strip's samples, S^T = K Q^T and
+//      dP^T = V dO^T recomputed with the keys as rows, p, p o keep and dS^T on
+//      the accumulators from those statistics, dV += (p o keep)^T dO, dK +=
+//      dS^T Q.
+// Only the key tiles (phase 1) or query tiles (phase 2) of the strip's
+// samples are computed, NTILE = key_tiles(T, nb) of them at most, a template
+// argument as in the forward. P and dS enter their products as hi + lo bf16
+// A fragments made in place, so nothing is given up to a bf16 rounding. Every
+// operand is read from device memory once and from the shared tiles by
+// ldmatrix; no intermediate leaves the registers but 3 Rg words of
+// statistics. Every dq, dk, dv row has one owner and one summation order: no
+// atomics, results repeat bit for bit. Registers: a block of 17 warps put 5
+// on one of the SM's four schedulers, which left a thread 96 registers and
+// spilled; 16 warps leave 128 (phase 1 holds S and dP, 2 x 40 at NTILE = 5;
+// phase 2 dK and dV, 2 x 32).
 //
 // What bounds it: bytes (0.9 / 2.3 GFLOP against 67 / 134 MB at B=256, T=34,
-// H=12: 0.020 / 0.040 ms at 3.35 TB/s); no intermediate reaches device
-// memory. The backward is still the first design: operand tiles read
-// straight from device memory into wmma fragments by the few warps whose
-// samples they belong to (L1/L2 serve the re-reads), a block of 17 warps
-// with 222 KB of shared memory (13 KB a warp), one block an SM.
+// H=12: 0.020 / 0.040 ms at 3.35 TB/s). The backward's products are 4.5
+// GFLOP with the hi + lo pairs, 11 as a strip's key tiles compute them (at
+// T=34 a strip spans two samples, 80 keys for a row's 34): 0.011 ms at the
+// tensor cores' peak, which mma.sync does not reach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
@@ -87,223 +94,22 @@
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using hop_tiles::sample_span;
+using hop_tiles::Span;
+using hop_tiles::STRIP;
 
 constexpr int D = 64;                       // head dim
-constexpr int STRIP = 16;                   // rows of a strip, keys of a tile
 constexpr int NB_MAX = 8;                   // samples a group stacks at most
 constexpr int MAX_ROWS = 272;               // rows of a group at most
 constexpr int MAX_STRIPS = MAX_ROWS / STRIP;
 constexpr int MAX_TILES = 6;                // key tiles a strip needs at most
 constexpr int FWD_MAX_WARPS = (MAX_STRIPS + 1) / 2;   // forward: two strips a warp
-constexpr int COLS = MAX_TILES * STRIP;
-constexpr int SA = COLS + 4;                // f32 score strip: row stride
-constexpr int SB = COLS + 8;                // bf16 hi / lo strips: row stride
-constexpr int ST = D + 8;                   // staged 16 x 64 bf16 tile: row stride
-constexpr int SO = D + 4;                   // staged 16 x 64 f32 result: row stride
-constexpr int SCR = 20;                     // 16 x 16 f32 scratch tile: row stride
-constexpr int HL = 24;                      // 16 x 16 bf16 hi / lo tile: row stride
-constexpr int A_BYTES = STRIP * SA * 4;     // 6400
-constexpr int B_BYTES = 2 * STRIP * SB * 2; // 6656
-constexpr int WARP_BYTES = A_BYTES + B_BYTES;
-constexpr int TILE_BYTES = STRIP * ST * 2;  // 2304
-constexpr int SCR_BYTES = STRIP * SCR * 4;  // 1280
-constexpr int HL_BYTES = STRIP * HL * 2;    // 768
-constexpr unsigned FULL = 0xffffffffu;
+// backward: a warp a strip, at most 16: a scheduler (SM quarter) then holds
+// 4 warps and a thread 128 registers, where 17 warps left 96 and spilled
+constexpr int BWD_MAX_WARPS = 16;
 
 static_assert(MAX_ROWS % STRIP == 0, "a full group is whole strips");
-static_assert(A_BYTES % 32 == 0 && B_BYTES % 32 == 0 && TILE_BYTES % 32 == 0 &&
-              SCR_BYTES % 32 == 0 && HL_BYTES % 32 == 0, "wmma wants 32-byte aligned tiles");
-static_assert(STRIP * SO * 4 <= WARP_BYTES && 2 * TILE_BYTES <= B_BYTES &&
-              TILE_BYTES + SCR_BYTES <= B_BYTES &&
-              4 * TILE_BYTES + SCR_BYTES + 2 * HL_BYTES <= WARP_BYTES,
-              "a warp's scratch layouts fit its region");
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// dropout factor of one probability: 1 / (1 - rate) when kept, else 0
-__device__ __forceinline__ float keep_factor(uint32_t rk, uint32_t s, uint32_t thresh,
-                                             float inv_keep) {
-  if (thresh == 0u) return 1.f;
-  return hop_dropout::bits(rk, s) >= thresh ? inv_keep : 0.f;
-}
-
-// x as hi + lo: its bf16 rounding and the rounding of the remainder
-__device__ __forceinline__ void split(float x, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16(x);
-  lo = __float2bfloat16(x - __bfloat162float(hi));
-}
-
-struct Rows {
-  const bf16* p;
-  int ld;
-};
-
-// The 16 x 64 tile of one head whose first row is stacked row `row` of the
-// whole batch (R rows, row stride ldg): straight from device memory when all
-// 16 rows exist, else a copy in `stage` with zeros past the last row.
-__device__ __forceinline__ Rows tile_rows(const bf16* head, long long row, long long R,
-                                          int ldg, bf16* stage, int lane) {
-  if (row + STRIP <= R) return {head + row * ldg, ldg};
-  __syncwarp();
-  for (int piece = lane; piece < STRIP * (D / 8); piece += 32) {
-    const int r = piece / (D / 8), c = piece % (D / 8);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row + r < R) val = *reinterpret_cast<const uint4*>(head + (row + r) * ldg + c * 8);
-    *reinterpret_cast<uint4*>(stage + r * ST + c * 8) = val;
-  }
-  __syncwarp();
-  return {stage, ST};
-}
-
-struct Span {
-  int c0;       // first column (a multiple of 16)
-  int ntiles;   // 16-column tiles
-};
-
-// The columns that hold the samples which rows [r0, r0 + 16) of a group of Rg
-// rows belong to, widened to whole tiles. (Keys of a query strip, or queries
-// of a key strip.)
-__host__ __device__ __forceinline__ Span sample_span(int r0, int Rg, int T) {
-  const int first = (r0 / T) * T;
-  const int end = r0 + STRIP < Rg ? r0 + STRIP : Rg;
-  const int last = ((end - 1) / T) * T + T;
-  const int c0 = first / STRIP * STRIP;
-  return {c0, (last + STRIP - 1) / STRIP - first / STRIP};
-}
-
-// acc[n] (n < 4) += (hi + lo) (16 x 16, rows of `ld`) x rows[:, 16 n : 16 n + 16]
-__device__ __forceinline__ void mma_split(FragC (&acc)[4], const bf16* hi, const bf16* lo,
-                                          int ld, const Rows rows) {
-  FragA a_hi, a_lo;
-  wmma::load_matrix_sync(a_hi, hi, ld);
-  wmma::load_matrix_sync(a_lo, lo, ld);
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    FragBr b;
-    wmma::load_matrix_sync(b, rows.p + n * 16, rows.ld);
-    wmma::mma_sync(acc[n], a_hi, b, acc[n]);
-    wmma::mma_sync(acc[n], a_lo, b, acc[n]);
-  }
-}
-
-// scr (16 x 16 f32, rows of SCR) = X Y^T for two 16 x 64 tiles
-__device__ __forceinline__ void rows_dot_rows_t(float* scr, const Rows x, const Rows y) {
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragA a;
-    FragBc b;
-    wmma::load_matrix_sync(a, x.p + kk * 16, x.ld);
-    wmma::load_matrix_sync(b, y.p + kk * 16, y.ld);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  __syncwarp();
-  wmma::store_matrix_sync(scr, acc, SCR, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// acc (16 x 64 f32) to rows [r0, r0 + 16) of dst (row stride ldg); rows at or
-// past Rg belong to no sample of this group and are not stored
-__device__ __forceinline__ void store_rows(float* dst, FragC (&acc)[4], int r0, int Rg,
-                                           int ldg, float* stage, int lane) {
-  if (r0 + STRIP <= Rg) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(dst + n * 16, acc[n], ldg, wmma::mem_row_major);
-    return;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], SO, wmma::mem_row_major);
-  __syncwarp();
-  for (int idx = lane; idx < STRIP * (D / 4); idx += 32) {
-    const int r = idx / (D / 4), c = idx % (D / 4);
-    if (r0 + r < Rg)
-      *reinterpret_cast<float4*>(dst + size_t(r) * ldg + c * 4) =
-          *reinterpret_cast<const float4*>(stage + r * SO + c * 4);
-  }
-  __syncwarp();
-}
-
-// S = X Y^T for the strip whose 16 rows of X start at stacked row `row`, over
-// the span's tiles of Y, into A (rows of SA floats)
-__device__ __forceinline__ void strip_scores(float* A, const bf16* xh, const bf16* yh,
-                                             long long g0, int r0, const Span span,
-                                             long long R, int ldg, bf16* stage, int lane) {
-  FragA xa[4];
-  {
-    const Rows xr = tile_rows(xh, g0 + r0, R, ldg, stage, lane);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wmma::load_matrix_sync(xa[kk], xr.p + kk * 16, xr.ld);
-  }
-  for (int t = 0; t < span.ntiles; ++t) {
-    const Rows yr = tile_rows(yh, g0 + span.c0 + t * STRIP, R, ldg, stage, lane);
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      FragBc yb;
-      wmma::load_matrix_sync(yb, yr.p + kk * 16, yr.ld);
-      wmma::mma_sync(acc, xa[kk], yb, acc);
-    }
-    wmma::store_matrix_sync(A + t * STRIP, acc, SA, wmma::mem_row_major);
-  }
-  __syncwarp();
-}
-
-// What one lane knows of its row of a strip: lanes 2 r and 2 r + 1 share row r
-struct RowInfo {
-  int row, half;
-  bool valid;       // the row belongs to a sample of this group
-  int lo, hi;       // its sample's keys, as columns of the strip
-  uint32_t rk;      // dropout key of the row
-};
-
-__device__ __forceinline__ RowInfo row_info(int lane, int r0, int Rg, int T, const Span span,
-                                            uint32_t hk, long long g0) {
-  RowInfo ri;
-  ri.row = lane >> 1;
-  ri.half = lane & 1;
-  const int gr = r0 + ri.row;
-  ri.valid = gr < Rg;
-  ri.lo = (ri.valid ? gr / T : 0) * T - span.c0;
-  ri.hi = ri.lo + T;
-  ri.rk = hop_dropout::row_key(hk, uint32_t(g0 + gr));
-  return ri;
-}
-
-// Masked f32 softmax of the strip's scores in place: A[row][j] becomes the
-// probability (0 at keys of other samples and in rows of no sample). Returns
-// the row's log-sum-exp of the scaled scores (0 for a row of no sample).
-__device__ __forceinline__ float strip_softmax(float* A, const RowInfo ri, int ncols,
-                                               float scale) {
-  float* srow = A + ri.row * SA;
-  float mx = -INFINITY;
-  if (ri.valid)
-    for (int j = ri.half; j < ncols; j += 2)
-      if (j >= ri.lo && j < ri.hi) mx = fmaxf(mx, srow[j] * scale);
-  mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
-  float sum = 0.f;
-  if (ri.valid)
-    for (int j = ri.half; j < ncols; j += 2)
-      if (j >= ri.lo && j < ri.hi) {
-        const float e = expf(srow[j] * scale - mx);
-        srow[j] = e;
-        sum += e;
-      }
-  sum += __shfl_xor_sync(FULL, sum, 1);
-  const float inv = ri.valid ? 1.f / sum : 0.f;
-  for (int j = ri.half; j < ncols; j += 2)
-    srow[j] = (ri.valid && j >= ri.lo && j < ri.hi) ? srow[j] * inv : 0.f;
-  return ri.valid ? mx + logf(sum) : 0.f;
-}
 
 // ---- forward: the group's tiles in shared memory, P in registers ----------
 
@@ -320,23 +126,7 @@ __device__ __forceinline__ void strip_probs(float (&s)[2 * NTILE][4], const unsi
                                             uint32_t thresh, float inv_keep, int lane) {
   using namespace hop_tiles;
   const Span span = sample_span(r0, Rg, T);
-  const int last = Rg - 1;
-#pragma unroll
-  for (int n = 0; n < 2 * NTILE; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    a_frag(a, Qs, r0, last, ks, lane);
-#pragma unroll
-    for (int t = 0; t < NTILE; ++t) {
-      if (t < span.ntiles) {
-        uint32_t bk[4];
-        k_frag(bk, Ks, span.c0 + t * STRIP, last, ks, lane);
-        mma_bf16(s[2 * t], a, bk[0], bk[1]);
-        mma_bf16(s[2 * t + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
+  span_products<NTILE>(s, Qs, Ks, r0, span, Rg - 1, lane);
   const int ra = r0 + (lane >> 2), rb = ra + 8;
   const int lo_a = ra < Rg ? ra / T * T : 0, lo_b = rb < Rg ? rb / T * T : 0;
   softmax_rows<2 * NTILE>(s, span.c0, lo_a, ra < Rg ? lo_a + T : 0, lo_b,
@@ -431,178 +221,20 @@ block_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-__global__ void __launch_bounds__(MAX_STRIPS * 32)
+// Block (x, h) is group x of head h, as in the forward (`bwd_group`: at
+// T=34, nb = 8 warp 0 takes two of the 17 strips, the others one).
+template <int NTILE>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, 1)
 block_attn_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      float* __restrict__ dq, float* __restrict__ dk,
-                      float* __restrict__ dv, int B, int T, int H, int nb, float scale,
+                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                      int B, int T, int H, int nb, float scale_log2, float scale,
                       uint32_t seed, uint32_t thresh, float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
-  const int h = blockIdx.y;
   const int b0 = blockIdx.x * nb;
-  const int Rg = min(nb, B - b0) * T;
-  const long long R = (long long)B * T;
-  const long long g0 = (long long)b0 * T;
-  const int ldg = H * D;
-  const uint32_t hk = hop_dropout::head_key(seed, h);
-  const bf16 *qh = q + h * D, *kh = k + h * D, *vh = v + h * D, *gh = dout + h * D;
-
-  unsigned char* W = smem + warp * WARP_BYTES;
-  // per query row of the group: log-sum-exp of its scaled scores, and delta
-  float* lse_s = reinterpret_cast<float*>(smem + nwarps * WARP_BYTES);
-  float* delta_s = lse_s + MAX_ROWS;
-  const int nstrips = (Rg + STRIP - 1) / STRIP;
-
-  // ---- phase 1: query strips -> lse, delta, dq ----------------------------
-  for (int strip = warp; strip < nstrips; strip += nwarps) {
-    const int r0 = strip * STRIP;
-    const Span span = sample_span(r0, Rg, T);
-    float* A = reinterpret_cast<float*>(W);                   // p, then dS
-    bf16* stage = reinterpret_cast<bf16*>(W + A_BYTES);       // operand tiles
-    float* scr = reinterpret_cast<float*>(W + A_BYTES + TILE_BYTES);
-    bf16* Shi = reinterpret_cast<bf16*>(W + A_BYTES);         // dS as hi + lo
-    bf16* Slo = Shi + STRIP * SB;
-
-    strip_scores(A, qh, kh, g0, r0, span, R, ldg, stage, lane);
-    const RowInfo ri = row_info(lane, r0, Rg, T, span, hk, g0);
-    const float lse = strip_softmax(A, ri, span.ntiles * STRIP, scale);
-    if (ri.half == 0) lse_s[r0 + ri.row] = lse;
-    __syncwarp();
-
-    // dP = dO V^T goes tile by tile through the scratch tile, where a lane
-    // reads 8 columns of its row: once for delta = sum_j dP keep p, and once
-    // more (recomputed, not kept: six fragments would not fit the registers)
-    // for dS = p (dP keep - delta) scale, which takes p's place
-    FragA ga[4];
-    {
-      const Rows gr = tile_rows(gh, g0 + r0, R, ldg, stage, lane);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wmma::load_matrix_sync(ga[kk], gr.p + kk * 16, gr.ld);
-    }
-    float delta = 0.f;
-    for (int pass = 0; pass < 2; ++pass) {
-      float part = 0.f;
-      for (int t = 0; t < span.ntiles; ++t) {
-        const Rows vr = tile_rows(vh, g0 + span.c0 + t * STRIP, R, ldg, stage, lane);
-        FragC dp;
-        wmma::fill_fragment(dp, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          FragBc vb;
-          wmma::load_matrix_sync(vb, vr.p + kk * 16, vr.ld);
-          wmma::mma_sync(dp, ga[kk], vb, dp);
-        }
-        __syncwarp();
-        wmma::store_matrix_sync(scr, dp, SCR, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int j = t * STRIP + ri.half * 8 + c;
-          const float p = A[ri.row * SA + j];
-          float dpk = 0.f;      // dP keep, where p is not 0
-          if (p != 0.f)
-            dpk = scr[ri.row * SCR + ri.half * 8 + c] *
-                  keep_factor(ri.rk, uint32_t(j - ri.lo), thresh, inv_keep);
-          if (pass == 0)
-            part += dpk * p;
-          else
-            A[ri.row * SA + j] = p * (dpk - delta) * scale;
-        }
-      }
-      if (pass == 0) {
-        delta = part + __shfl_xor_sync(FULL, part, 1);
-        if (ri.half == 0) delta_s[r0 + ri.row] = delta;
-      }
-    }
-    __syncwarp();
-    for (int j = ri.half; j < span.ntiles * STRIP; j += 2)
-      split(A[ri.row * SA + j], Shi[ri.row * SB + j], Slo[ri.row * SB + j]);
-    __syncwarp();
-
-    // dQ = dS K; dS as f32 is dead: its strip stages K tiles and the result
-    FragC acc[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-    for (int t = 0; t < span.ntiles; ++t) {
-      const Rows kr = tile_rows(kh, g0 + span.c0 + t * STRIP, R, ldg,
-                                reinterpret_cast<bf16*>(A), lane);
-      mma_split(acc, Shi + t * STRIP, Slo + t * STRIP, SB, kr);
-    }
-    store_rows(dq + (g0 + r0) * ldg + h * D, acc, r0, Rg, ldg, A, lane);
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // ---- phase 2: key strips -> dk, dv ---------------------------------------
-  for (int strip = warp; strip < nstrips; strip += nwarps) {
-    const int j0 = strip * STRIP;
-    const Span span = sample_span(j0, Rg, T);     // the strip's samples' queries
-    bf16* kst = reinterpret_cast<bf16*>(W);
-    bf16* vst = reinterpret_cast<bf16*>(W + TILE_BYTES);
-    bf16* qst = reinterpret_cast<bf16*>(W + 2 * TILE_BYTES);
-    bf16* gst = reinterpret_cast<bf16*>(W + 3 * TILE_BYTES);
-    float* scr = reinterpret_cast<float*>(W + 4 * TILE_BYTES);
-    bf16* thi = reinterpret_cast<bf16*>(W + 4 * TILE_BYTES + SCR_BYTES);
-    bf16* tlo = thi + STRIP * HL;
-
-    const int krow = lane >> 1, half = lane & 1;
-    const int gj = j0 + krow;                     // this lane's key, as a group row
-    const bool kvalid = gj < Rg;
-    const int samp = kvalid ? gj / T : -1;
-    const uint32_t kidx = uint32_t(gj - samp * T);    // its index inside its sample
-
-    // two passes over the strip's query tiles, dV then dK: one set of
-    // accumulators at a time fits the registers of a 17-warp block
-    for (int pass = 0; pass < 2; ++pass) {
-      // (staged again: the last store may have used their staging area)
-      const Rows kr = tile_rows(kh, g0 + j0, R, ldg, kst, lane);
-      const Rows vr = tile_rows(vh, g0 + j0, R, ldg, vst, lane);
-      FragC acc[4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-      for (int t = 0; t < span.ntiles; ++t) {
-        const int qb = span.c0 + t * STRIP;       // the tile's first query, as a group row
-        const Rows qr = tile_rows(qh, g0 + qb, R, ldg, qst, lane);
-        const Rows gr = tile_rows(gh, g0 + qb, R, ldg, gst, lane);
-        // S^T = K Q^T: (16 keys, 16 queries) through the scratch tile; a lane
-        // holds 8 queries of its key row
-        float p[8], pd[8];      // p and p o keep
-        rows_dot_rows_t(scr, kr, qr);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int gq = qb + half * 8 + c;
-          p[c] = pd[c] = 0.f;
-          if (kvalid && gq < Rg && gq / T == samp) {
-            p[c] = expf(scr[krow * SCR + half * 8 + c] * scale - lse_s[gq]);
-            pd[c] = p[c] * keep_factor(hop_dropout::row_key(hk, uint32_t(g0 + gq)), kidx,
-                                       thresh, inv_keep);
-          }
-        }
-        if (pass == 0) {        // dV += (p o keep)^T dO
-#pragma unroll
-          for (int c = 0; c < 8; ++c)
-            split(pd[c], thi[krow * HL + half * 8 + c], tlo[krow * HL + half * 8 + c]);
-        } else {                // dK += dS^T Q, dS = p (dP keep - delta) scale
-          rows_dot_rows_t(scr, vr, gr);       // dP^T = V dO^T
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const int gq = qb + half * 8 + c;
-            float ds = 0.f;
-            if (p[c] != 0.f)
-              ds = (scr[krow * SCR + half * 8 + c] * pd[c] - p[c] * delta_s[gq]) * scale;
-            split(ds, thi[krow * HL + half * 8 + c], tlo[krow * HL + half * 8 + c]);
-          }
-        }
-        __syncwarp();
-        mma_split(acc, thi, tlo, HL, pass == 0 ? gr : qr);
-        __syncwarp();
-      }
-      store_rows((pass == 0 ? dv : dk) + (g0 + j0) * ldg + h * D, acc, j0, Rg, ldg,
-                 reinterpret_cast<float*>(W), lane);
-    }
-    __syncwarp();
-  }
+  hop_tiles::bwd_group<NTILE>(q, k, v, dout, dq, dk, dv, min(nb, B - b0) * T, nb * T, T, H,
+                              blockIdx.y, (long long)b0 * T, scale_log2, scale, seed, thresh,
+                              inv_keep, smem);
 }
 
 // the checks of ops/block_attention.py `_check`, again
@@ -618,7 +250,7 @@ bool bad_shape(int B, int T, int H, int nb) {
 int block_warps(int T, int nb) { return (nb * T + STRIP - 1) / STRIP; }
 
 // 16-key tiles a strip of a full group of nb samples needs at most (ops/
-// block_attention.py `key_tiles`): the forward's template argument
+// block_attention.py `key_tiles`): the template argument of both kernels
 int key_tiles(int T, int nb) {
   int most = 0;
   for (int r0 = 0; r0 < nb * T; r0 += STRIP) {
@@ -653,6 +285,27 @@ cudaError_t launch_fwd(const int (&plan)[4], const void* q, const void* k, const
   return cudaGetLastError();
 }
 
+// The backward's launch: {groups, heads}, a warp a strip of a full group (at
+// most BWD_MAX_WARPS), the group's four tiles and its statistics (141 KB at
+// the largest group).
+static_assert(hop_tiles::bwd_group_smem(MAX_ROWS) <= 227 * 1024, "backward tiles");
+template <int NTILE>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                       void* dk, void* dv, int B, int T, int H, int nb, float scale_log2,
+                       float scale, uint32_t seed, uint32_t thresh, float inv_keep,
+                       cudaStream_t stream) {
+  const int smem = hop_tiles::bwd_group_smem(nb * T);
+  cudaError_t err = cudaFuncSetAttribute(block_attn_bwd_kernel<NTILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int warps = min(block_warps(T, nb), BWD_MAX_WARPS);
+  block_attn_bwd_kernel<NTILE><<<dim3((B + nb - 1) / nb, H), warps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), B, T, H, nb, scale_log2, scale, seed, thresh, inv_keep);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int hop_block_attn_fwd(const void* q, const void* k, const void* v, void* out,
@@ -676,17 +329,12 @@ extern "C" int hop_block_attn_bwd(const void* q, const void* k, const void* v,
                                   int T, int H, int nb, float scale, uint32_t seed,
                                   uint32_t thresh, float inv_keep, void* stream) {
   if (bad_shape(B, T, H, nb)) return int(cudaErrorInvalidValue);
-  constexpr int STATS_BYTES = 2 * MAX_ROWS * int(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      block_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_STRIPS * WARP_BYTES + STATS_BYTES);
-  if (err != cudaSuccess) return int(err);
-  const int warps = block_warps(T, nb);
-  block_attn_bwd_kernel<<<dim3((B + nb - 1) / nb, H), warps * 32,
-                          warps * WARP_BYTES + STATS_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), B, T, H, nb, scale, seed, thresh, inv_keep);
-  return int(cudaGetLastError());
+  using Launch = cudaError_t (*)(const void*, const void*, const void*, const void*, void*,
+                                 void*, void*, int, int, int, int, float, float, uint32_t,
+                                 uint32_t, float, cudaStream_t);
+  constexpr Launch by_tiles[MAX_TILES] = {launch_bwd<1>, launch_bwd<2>, launch_bwd<3>,
+                                          launch_bwd<4>, launch_bwd<5>, launch_bwd<6>};
+  return int(by_tiles[key_tiles(T, nb) - 1](q, k, v, dout, dq, dk, dv, B, T, H, nb,
+                                            scale * 1.4426950408889634f, scale, seed, thresh,
+                                            inv_keep, static_cast<cudaStream_t>(stream)));
 }

@@ -24,16 +24,20 @@ results: the kernels are bound by bytes. Operands are read once, in 16-byte
 pieces of the 128-byte head rows, and the probabilities never reach device
 memory.
 
-The forward runs on the tensor cores: one warp owns a (sample, head), a
-block holds four heads of one sample. Its Q, K and V
-tiles come by cp.async into shared memory as bf16; per 16-row tile of
-queries S = Q K^T is bf16 `mma.sync` with f32 accumulators, the softmax and
-the dropout run on the accumulators, and P enters O = P V as hi + lo bf16
+Both kernels run on the tensor cores, their operands brought by cp.async
+into shared memory as bf16. The forward: one warp owns a (sample, head), a
+block holds four heads of one sample; per 16-row tile of queries S = Q K^T
+is bf16 `mma.sync` with f32 accumulators, the softmax and the dropout run
+on the accumulators, and P enters O = P V as hi + lo bf16
 (`tiled_fused_attention` repeats that arithmetic in torch for the tests).
-The backward (one block per (sample, head)) recomputes the probabilities
-from q, k, v and redraws the mask; each block owns its dq, dk, dv rows, so
-nothing is summed across blocks and the results repeat bit for bit. Its
-products are still scalar f32 FMAs.
+The backward is K5's algorithm with a sample as a group of one, a block per
+(sample, head) and a warp per 16-row strip (`strip_attention_bwd` repeats
+it in torch): per query strip the probabilities are recomputed and the mask
+redrawn, dP, delta and dS formed on the accumulators and dQ = dS K; per key
+strip S^T and dP^T are recomputed with the keys as rows, from each query
+row's log-sum-exp and delta, for dV = (p o keep)^T dO and dK = dS^T Q. Each
+dq, dk, dv row has one owner, so nothing is summed across warps and the
+results repeat bit for bit.
 
 Types on the card: the wrapper casts q, k, v (and dout) to bf16, as the TPU
 path ran under `compute_bf16`. Scores, softmax, ds and every accumulation
@@ -67,6 +71,9 @@ bwd_launches = 0
 HEAD_DIM = 64
 MAX_T = 64
 LOG2E = 1.4426950408889634
+#: rows of a strip, keys or queries of a tile of the backward (and of K5's
+#: forward): STRIP in csrc/attention_tiles.cuh
+STRIP = 16
 
 
 def compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -153,6 +160,117 @@ def tiled_fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :, :T].transpose(1, 2).contiguous()
 
 
+def sample_span(r0: int, rows: int, T: int) -> tuple:
+    """(first row, 16-row tiles) of the samples that rows [r0, r0 + 16) of a
+    group of `rows` rows (samples of T rows stacked) belong to, widened to
+    whole tiles (`sample_span` in csrc/attention_tiles.cuh): the keys of a
+    query strip, or the queries of a key strip."""
+    first = r0 // T * T
+    last = (min(r0 + STRIP, rows) - 1) // T * T + T
+    return first // STRIP * STRIP, -(-last // STRIP) - first // STRIP
+
+
+def strip_attention_bwd(qs, ks, vs, dos, keep, T: int, scale: float):
+    """The backward kernels' arithmetic (K4's and K5's, one algorithm) in
+    torch, for tests. qs, ks, vs, dos: (G, M, H, D) f32 groups of M = m * T
+    stacked rows (K4: one sample a group), bf16-rounded; keep: (G, H, m, T, T)
+    keep factors of each sample, or None. Returns (dq, dk, dv), each (G, M,
+    H, D) f32.
+
+    Phase 1, per 16-row query strip: the key tiles of its samples
+    (`sample_span`), rows and keys past the group's last read as its last
+    row; S, the block-diagonal mask and the undropped softmax in the exp2
+    domain, each row's log2-sum-exp2; dP o keep, delta, dS = p (dP o keep -
+    delta) scale; dQ = dS K with dS as hi + lo bf16, one 16-key tile at a
+    time, hi then lo, added in order in f32. Phase 2, per 16-key strip: per
+    16-query tile of its samples S^T and dP^T, p = exp2(S^T scale log2(e) -
+    lse) where query and key share a sample and 0 elsewhere, p o keep and
+    dS^T; dV and dK as dQ, one query tile at a time."""
+    G, M, H, D = qs.shape
+    dev = qs.device
+    c = scale * LOG2E
+    lse = qs.new_zeros((G, H, M))
+    delta = qs.new_zeros((G, H, M))
+    grads = [torch.zeros_like(qs) for _ in range(3)]
+
+    def factor(rows, cols):
+        """keep at query rows x key columns of the group, 1 off a sample"""
+        if keep is None:
+            return 1.0
+        local = (cols[None] - (rows // T * T)[:, None]).clamp(0, T - 1)
+        return keep[:, :, (rows // T)[:, None], (rows % T)[:, None], local]
+
+    def products(acc, w, rows):
+        """acc + w (G, H, 16, 16 n) times `rows` (G, 16 n, H, D), a 16-row
+        tile of them at a time, hi then lo"""
+        hi, lo = split_bf16(w)
+        for t in range(w.shape[-1] // STRIP):
+            cols = slice(t * STRIP, (t + 1) * STRIP)
+            acc = acc + torch.einsum("ghmn,gnhd->ghmd", hi[..., cols], rows[:, cols])
+            acc = acc + torch.einsum("ghmn,gnhd->ghmd", lo[..., cols], rows[:, cols])
+        return acc
+
+    def store(out, r0, acc):
+        r1 = min(r0 + STRIP, M)
+        out[:, r0:r1] = acc[:, :, :r1 - r0].transpose(1, 2)
+
+    for r0 in range(0, M, STRIP):           # phase 1: query strips
+        c0, nt = sample_span(r0, M, T)
+        r = torch.arange(r0, r0 + STRIP, device=dev)
+        cols = torch.arange(c0, c0 + nt * STRIP, device=dev)
+        ri, ci = r.clamp(max=M - 1), cols.clamp(max=M - 1)
+        first = (r // T * T)[:, None]
+        allowed = (r < M)[:, None] & (cols[None] >= first) & (cols[None] < first + T)
+        s = torch.where(allowed, torch.einsum("gmhd,gnhd->ghmn", qs[:, ri], ks[:, ci]) * c,
+                        float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        m = torch.where(torch.isinf(m), 0.0, m)
+        e = torch.exp2(s - m)
+        total = e.sum(-1, keepdim=True)
+        p = e * torch.where(total > 0, 1.0 / total, 0.0)
+        dp = torch.einsum("gmhd,gnhd->ghmn", dos[:, ri], vs[:, ci])
+        dp = dp * torch.where(allowed, factor(ri, cols), 1.0)
+        d = (p * dp).sum(-1, keepdim=True)
+        valid = r[r < M]
+        lse[:, :, valid] = (m + torch.log2(total))[..., :len(valid), 0]
+        delta[:, :, valid] = d[..., :len(valid), 0]
+        store(grads[0], r0, products(qs.new_zeros((G, H, STRIP, D)),
+                                     p * (dp - d) * scale, ks[:, ci]))
+    for j0 in range(0, M, STRIP):           # phase 2: key strips
+        c0, nt = sample_span(j0, M, T)
+        j = torch.arange(j0, j0 + STRIP, device=dev)
+        jj = j.clamp(max=M - 1)
+        key_sample = torch.where(j < M, j // T, -1)
+        dk, dv = (qs.new_zeros((G, H, STRIP, D)) for _ in range(2))
+        for t in range(nt):
+            qc = torch.arange(c0 + t * STRIP, c0 + (t + 1) * STRIP, device=dev)
+            qi = qc.clamp(max=M - 1)
+            valid = key_sample[:, None] == torch.where(qc < M, qc // T, -2)[None]
+            st = torch.einsum("gmhd,gnhd->ghmn", ks[:, jj], qs[:, qi])
+            dpt = torch.einsum("gmhd,gnhd->ghmn", vs[:, jj], dos[:, qi])
+            p = torch.where(valid, torch.exp2(st * c - lse[:, :, None, qi]), 0.0)
+            kf = torch.where(valid, factor(qi, jj).transpose(-1, -2) if keep is not None
+                             else 1.0, 1.0)
+            dv = products(dv, p * kf, dos[:, qi])
+            dk = products(dk, p * (dpt * kf - delta[:, :, None, qi]) * scale, qs[:, qi])
+        store(grads[1], j0, dk)
+        store(grads[2], j0, dv)
+    return tuple(grads)
+
+
+def tiled_fused_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
+                              seed: int = 0):
+    """`plain_fused_attention_bwd`'s contract in the backward kernel's
+    arithmetic, for tests (`strip_attention_bwd` with each sample a group of
+    one). Returns f32 (dq, dk, dv), each (B, T, H, D): the kernel rounds them
+    to bf16 once."""
+    B, T, H, _ = q.shape
+    bf = [t.to(torch.bfloat16).float() for t in (q, k, v, dout)]
+    keep = (None if rate == 0.0 else
+            attention_keep(seed, rate, B, T, H, T, q.device).reshape(B, H, 1, T, T))
+    return strip_attention_bwd(*bf, keep, T, scale)
+
+
 def check_operands(name: str, q, k, v, max_t: int):
     """(B, T, H, D) of three same-shape tensors on one device that the CUDA
     kernels take; raises on anything else."""
@@ -200,7 +318,8 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fused_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
                         seed: int = 0):
     """The backward alone: (dq, dk, dv) from q, k, v and dout. On CUDA it
-    launches the backward kernel once and returns bf16."""
+    launches the backward kernel once and returns bf16; on the CPU the plain
+    version, in q's dtype."""
     if q.device.type == "cpu":
         return plain_fused_attention_bwd(q, k, v, dout, scale, rate, seed)
     if q.device.type != "cuda":

@@ -35,11 +35,14 @@ memory once by cp.async (bf16, 104 KB at M = 272, so two blocks share an
 SM); nine warps take two strips each, and per strip the scores, the masked
 softmax, the dropout and P stay in the `mma.sync` accumulators, P entering
 P V as hi + lo bf16 (`register_block_attention` repeats the arithmetic in
-torch for the tests). The backward is one kernel
-in two phases on wmma tiles: query strips recompute the probabilities, keep
-each row's log-sum-exp and delta and write dq; then key strips recompute
-their transposed tiles from those and write dk and dv. Each output row has
-one owner: no atomics, results repeat bit for bit.
+torch for the tests). The backward stages the group's Q, K, V and dO once
+(139 KB, one block an SM), a warp a strip, in two phases on the same
+registers-only tiles: query strips recompute the probabilities, keep each
+row's log-sum-exp and delta and write dq; then key strips recompute their
+transposed tiles from those and write dk and dv (`strip_attention_bwd` in
+ops/attention.py repeats it in torch; K4's backward is the same algorithm
+with a sample as a group). Each output row has one owner: no atomics,
+results repeat bit for bit.
 
 Types on the card: the wrapper casts q, k, v (and dout) to bf16, as the TPU
 caller did (`operand_dtype`, hop_tpu/models/bert.py:129-132). Scores and
@@ -65,8 +68,9 @@ from typing import Optional
 import torch
 
 from hop_tpu_torch.ops import _build
-from hop_tpu_torch.ops.attention import (bf16_operand, check_operands, compute_dtype,
-                                         exp2_softmax, split_bf16)
+from hop_tpu_torch.ops.attention import (STRIP, bf16_operand, check_operands,
+                                         compute_dtype, exp2_softmax, sample_span,
+                                         split_bf16, strip_attention_bwd)
 from hop_tpu_torch.ops.dropout import attention_keep, kernel_args
 
 #: launches of the forward kernel since the last reset (a plain counter)
@@ -74,27 +78,17 @@ launches = 0
 #: launches of the backward kernel
 bwd_launches = 0
 
-#: samples a group stacks at most, rows a group holds at most, rows of a
-#: strip and the key tiles a strip may need (must equal NB_MAX, MAX_ROWS,
-#: STRIP and MAX_TILES in csrc/block_attention.cu)
+#: samples a group stacks at most, rows a group holds at most and the key
+#: tiles a strip may need (must equal NB_MAX, MAX_ROWS and MAX_TILES in
+#: csrc/block_attention.cu); a strip is STRIP rows (ops/attention.py)
 NB_MAX = 8
 MAX_ROWS = 272
-STRIP = 16
 MAX_TILES = 6
 
 
 def group_size(B: int, T: int) -> int:
     """Samples stacked per group: 8, or fewer for a small batch or a long T."""
     return max(1, min(NB_MAX, B, MAX_ROWS // T))
-
-
-def sample_span(r0: int, rows: int, T: int) -> tuple:
-    """(first column, 16-column tiles) of the keys of the samples that rows
-    [r0, r0 + 16) of a group of `rows` rows belong to, widened to whole
-    tiles (`sample_span` in csrc/block_attention.cu)."""
-    first = r0 // T * T
-    last = (min(r0 + STRIP, rows) - 1) // T * T + T
-    return first // STRIP * STRIP, -(-last // STRIP) - first // STRIP
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,6 +230,26 @@ def register_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             res[:, r0:r1] = acc[:, :, :r1 - r0].transpose(1, 2)
         out.append(res.reshape(b1 - b0, T, H, D))
     return torch.cat(out)
+
+
+def register_block_attention_bwd(q, k, v, dout, scale: float, rate: float = 0.0,
+                                 seed: int = 0, nb: Optional[int] = None):
+    """`plain_block_attention_bwd`'s contract in the backward kernel's
+    arithmetic, for tests: bf16 operands stacked in groups of `nb` samples
+    (a ragged last group as the kernel takes it), then `strip_attention_bwd`
+    (ops/attention.py). Returns f32 (dq, dk, dv), each (B, T, H, D)."""
+    B, T, H, D = q.shape
+    nb = group_size(B, T) if nb is None else nb
+    keep = _keep(q, rate, seed, torch.float32)
+    grads = ([], [], [])
+    for b0, b1, m in _spans(B, nb):
+        stacked = [_stack(t[b0:b1].to(torch.bfloat16), m, torch.float32)
+                   for t in (q, k, v, dout)]
+        kp = (None if keep is None else
+              keep[b0:b1].reshape(-1, m, H, T, T).transpose(1, 2))   # (G, H, m, T, T)
+        for out, g in zip(grads, strip_attention_bwd(*stacked, kp, T, scale)):
+            out.append(g.reshape(b1 - b0, T, H, D))
+    return tuple(torch.cat(g) for g in grads)
 
 
 def _check(name: str, q, k, v, nb: Optional[int]):

@@ -17,6 +17,16 @@ adds to f32 round-off is the hi + lo pair's error, at most 2^-18 of each
 probability, so the output is off by at most ~4e-6 of the largest |v|:
 EMULATION_TOL is 1e-5 of the largest |v|, against the plain version (with
 the same mask) and against the Pallas kernel.
+
+The backward kernel's arithmetic (K5's algorithm with a sample as a group:
+16-row query tiles and 16-key tiles with clamped pad rows, the softmax
+recomputed in the exp2 domain in both phases, P o keep and dS fed to their
+products as hi + lo bf16, tile by tile) is `tiled_fused_attention_bwd`.
+Each term then carries at most 2^-18 of its size from the hi + lo pair
+besides f32 round-off; over T <= 64 terms the gradients agree with the
+plain version to ~7e-6 of their largest element: EMULATION_BWD_REL is 2e-5
+of each gradient's largest element, against the plain version and the
+Pallas kernel.
 """
 
 import dataclasses
@@ -46,6 +56,9 @@ EMULATION_TOL = 1e-5        # of the largest |v|
 # one 16-key step (10), whole steps (16, 64), one row past a step (17), the
 # backbone's (34), an odd count of 8-key tiles (40)
 TILED_T = [10, 16, 17, 34, 40, 64]
+# the backward's: also one row short of a 16-row tile past two (33)
+TILED_BWD_T = TILED_T + [33]
+EMULATION_BWD_REL = 2e-5    # of each gradient's largest element
 
 
 @pytest.fixture(autouse=True)
@@ -129,6 +142,29 @@ def test_tiled_forward_matches_pallas(T):
     want = jax_fused_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                                jnp.asarray([0], jnp.int32), 0.25, 0.0)
     assert_emulation_close(K4.tiled_fused_attention(q, k, v, 0.25), want, v)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", TILED_BWD_T)
+def test_tiled_backward_matches_plain_version(T, rate):
+    q, k, v, g = bf16_exact(inputs((3, T, 2, 16), seed=T))
+    got = K4.tiled_fused_attention_bwd(q, k, v, g, 0.25, rate, 11)
+    assert all(t.dtype == torch.float32 and t.shape == q.shape for t in got)
+    assert_grads_close(got, K4.plain_fused_attention_bwd(q, k, v, g, 0.25, rate, 11),
+                       EMULATION_BWD_REL)
+    if rate > 0.0:      # the mask took effect: the plain version's
+        undropped = K4.plain_fused_attention_bwd(q, k, v, g, 0.25)
+        assert all((a - b).abs().max().item() > 1e-2 for a, b in zip(got, undropped))
+
+
+@pytest.mark.parametrize("T", TILED_BWD_T)
+def test_tiled_backward_matches_pallas(T):
+    q, k, v, g = bf16_exact(inputs((2, T, 3, 16), seed=200 + T))
+    seed = jnp.asarray([0], jnp.int32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_fused_attention(q, k, v, seed, 0.25, 0.0),
+                     *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    assert_grads_close(K4.tiled_fused_attention_bwd(q, k, v, g, 0.25),
+                       vjp(jnp.asarray(g.numpy())), EMULATION_BWD_REL)
 
 
 def test_gradcheck_float64():

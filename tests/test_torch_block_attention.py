@@ -12,7 +12,10 @@ gradients 1e-4 of each gradient's largest element.
 `register_block_attention` repeats the forward kernel's arithmetic in torch
 (per 16-row strip only its samples' key tiles, the block-diagonal mask, the
 exp2 softmax and the dropout on the strip's scores, P as hi + lo bf16 one
-16-key tile at a time), held to EMULATION_TOL as K4's emulation is.
+16-key tile at a time), held to EMULATION_TOL as K4's emulation is;
+`register_block_attention_bwd` repeats the backward kernel's (groups
+stacked as the kernel stacks them, then `strip_attention_bwd`), held to
+EMULATION_BWD_REL as K4's is.
 """
 
 import numpy as np
@@ -28,9 +31,9 @@ from hop_tpu_torch.ops import attention as K4
 from hop_tpu_torch.ops import block_attention as K5
 from hop_tpu_torch.ops.dropout import attention_keep
 
-from test_torch_attention import (SHAPES, assert_emulation_close, assert_grads_close,
-                                  bf16_exact, check_encoder_route, einsum_attention,
-                                  inputs)
+from test_torch_attention import (EMULATION_BWD_REL, SHAPES, assert_emulation_close,
+                                  assert_grads_close, bf16_exact, check_encoder_route,
+                                  einsum_attention, inputs)
 
 # (B, T, nb): groups of 1, 2, 3 and 8 samples, the last three with a ragged
 # last group; T=17 puts a sample boundary inside a strip and T=40 a strip
@@ -88,6 +91,42 @@ def test_register_forward_matches_pallas(B, T, nb):
     want = jax_block_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                                jnp.asarray([0], jnp.int32), 0.25, 0.0)
     assert_emulation_close(K5.register_block_attention(q, k, v, 0.25, nb=nb), want, v)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,nb", REGISTER_CASES)
+def test_register_backward_matches_plain_version(B, T, nb, rate):
+    q, k, v, g = bf16_exact(inputs((B, T, 2, 16), seed=B + T))
+    got = K5.register_block_attention_bwd(q, k, v, g, 0.25, rate, 13, nb=nb)
+    assert all(t.dtype == torch.float32 and t.shape == q.shape for t in got)
+    assert_grads_close(got, K5.plain_block_attention_bwd(q, k, v, g, 0.25, rate, 13, nb=nb),
+                       EMULATION_BWD_REL)
+    # K4's plain version: the function per sample and its mask
+    assert_grads_close(got, K4.plain_fused_attention_bwd(q, k, v, g, 0.25, rate, 13),
+                       EMULATION_BWD_REL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("nb", [1, 2, 4, 8])
+def test_register_backward_in_any_grouping(nb, rate):
+    """B=11 in groups of 1, 2, 4 and 8 (the last three ragged): the same
+    gradients, and K4's emulation's (one algorithm, a sample a group)."""
+    q, k, v, g = bf16_exact(inputs((11, 34, 2, 16), seed=60))
+    got = K5.register_block_attention_bwd(q, k, v, g, 0.25, rate, 17, nb=nb)
+    assert_grads_close(got, K4.plain_fused_attention_bwd(q, k, v, g, 0.25, rate, 17),
+                       EMULATION_BWD_REL)
+    assert_grads_close(got, K4.tiled_fused_attention_bwd(q, k, v, g, 0.25, rate, 17),
+                       EMULATION_BWD_REL)
+
+
+@pytest.mark.parametrize("B,T,nb", REGISTER_CASES)
+def test_register_backward_matches_pallas(B, T, nb):
+    q, k, v, g = bf16_exact(inputs((B, T, 2, 16), seed=70 + B + T))
+    seed = jnp.asarray([0], jnp.int32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_block_attention(q, k, v, seed, 0.25, 0.0),
+                     *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    assert_grads_close(K5.register_block_attention_bwd(q, k, v, g, 0.25, nb=nb),
+                       vjp(jnp.asarray(g.numpy())), EMULATION_BWD_REL)
 
 
 def test_strip_key_tiles():

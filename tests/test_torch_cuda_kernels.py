@@ -24,6 +24,11 @@ both sides get the same bf16-rounded values. K5's results are f32 and the
 probabilities and dS enter its tensor-core products as hi + lo bf16 pairs:
 1e-4 on outputs of O(1), 1e-4 relative on gradients. K4's results leave the
 kernel in bf16, so they carry one bf16 rounding: 1e-2 of the largest.
+The two backwards share one algorithm; their CPU emulations
+(`tiled_fused_attention_bwd`, `register_block_attention_bwd`) run here on
+the card's tensors in f32: K5's gradients agree with them to 1e-5 relative
+(what is left is the order of f32 sums inside an mma), K4's to within one
+bf16 rounding (2^-8) of each element beyond that.
 """
 
 import pytest
@@ -362,8 +367,68 @@ def test_block_attention_kernels(device, B, T, H, rate):
         _rel_close(a, c, name=name)
 
 
+# (B, T, H) of the backwards: the backbone's at bs 256, a ragged last group
+# (250), one window (1); one row (T=1), a whole tile (16), one row past a
+# tile (17), one row short of three (33), a strip across three key tiles
+# (40), the longest (64)
+BWD_SHAPES = [(256, 34, 12), (250, 34, 12), (1, 34, 12), (9, 1, 3), (7, 16, 3),
+              (7, 17, 2), (5, 33, 3), (6, 40, 2), (3, 64, 12)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,T,H", BWD_SHAPES)
+def test_attention_backwards(device, B, T, H, rate):
+    """K4's and K5's backwards on one set of inputs and one mask: each
+    against the plain version and its emulation, bitwise repeat, one launch
+    a call, and K5's gradients against K4's."""
+    q, k, v, do = _attention_args(device, B, T, H, seed=3 * B + T)
+    args = (0.125, rate, 19)
+    before = (K4.bwd_launches, K5.bwd_launches)
+    g4, again4 = (K4.fused_attention_bwd(q, k, v, do, *args) for _ in range(2))
+    g5, again5 = (K5.block_attention_bwd(q, k, v, do, *args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (K4.bwd_launches, K5.bwd_launches) == (before[0] + 2, before[1] + 2)
+    f32 = [t.float() for t in (q, k, v, do)]
+    want = K4.plain_fused_attention_bwd(*f32, *args)
+    emu4 = K4.tiled_fused_attention_bwd(*f32, *args)
+    emu5 = K5.register_block_attention_bwd(*f32, *args)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert torch.equal(g4[i], again4[i]) and torch.equal(g5[i], again5[i]), name
+        assert g4[i].dtype == torch.bfloat16 and g5[i].dtype == torch.float32
+        _rel_close(g4[i].float(), want[i], 1e-2, name)
+        _rel_close(g5[i], want[i], 1e-4, name)
+        _rel_close(g5[i], emu5[i], 1e-5, name)
+        gap = (g4[i].float() - emu4[i]).abs()
+        slack = 1e-5 * max(1.0, emu4[i].abs().max().item())   # K5's f32 order, then
+        assert (gap <= 2 ** -8 * emu4[i].abs() + slack).all(), name   # one rounding
+        _rel_close(g5[i], g4[i].float(), 1e-2, name)
+
+
+@pytest.mark.parametrize("op", ["fused", "block"])
+@pytest.mark.parametrize("T", [17, 34])
+def test_attention_backward_rows_of_other_samples(device, op, T):
+    """Pad rows and other samples contribute nothing: with every sample but
+    the first changed (K5: the same group), the first sample's gradients are
+    bit for bit the same, and K4's equal those of the sample alone."""
+    bwd = K4.fused_attention_bwd if op == "fused" else K5.block_attention_bwd
+    q, k, v, do = _attention_args(device, 5, T, 3, seed=T)
+    args = (0.125, 0.1, 23)
+    base = bwd(q, k, v, do, *args)
+    other = [t.clone() for t in (q, k, v, do)]
+    for t in other:
+        t[1:] = (t[1:].float() * -3.0 + 1.0).to(t.dtype)
+    moved = bwd(*other, *args)
+    for a, b in zip(base, moved):
+        assert torch.equal(a[0], b[0])
+        assert not torch.equal(a[1:], b[1:])
+    if op == "fused":
+        alone = bwd(*(t[:1] for t in (q, k, v, do)), *args)
+        for a, b in zip(base, alone):
+            assert torch.equal(a[:1], b)
+
+
 @pytest.mark.parametrize("T", [34, 17])
-@pytest.mark.parametrize("nb", [1, 2, 3, 8])
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 8])
 def test_block_attention_any_grouping(device, nb, T):
     """Groups of any size give the per-sample result and draw the same mask
     (at T=17 a sample boundary falls inside every other strip)."""
