@@ -32,8 +32,9 @@ imports nothing of JAX. Phases, each ending in one line of output:
   8. K2 bwd  the forward with residuals and the backward kernels vs their
              plain versions at the head's (I=992, I=700; H=350) and the
              discriminator's (I=8, I=128; H=64) shapes; bitwise repeat; the
-             recurrence's, each GEMM's, the slice reduce's and the column
-             sums' ms; the wrapper's workspace size against the C entry's
+             forward's recurrence kernel's ms; the backward's recurrence's,
+             each GEMM's, the slice reduce's and the column sums' ms; the
+             wrapper's workspace size against the C entry's
   9. train   the fused GAN step (train.llm.make_hop_train_steps) at full
              TED width, bs 256: finite losses, every trainable parameter of
              both nets moved, BERT bit-unchanged, the kernels' launches in
@@ -44,13 +45,18 @@ imports nothing of JAX. Phases, each ending in one line of output:
  11. K3 fwd  the time-grid GRU recurrence kernel vs its plain version, with
              residuals and lean, f32 and bf16 streams, a non-zero h0, at the
              head's (D=2, T=34, B=256, H=350) and the discriminator's
-             (T=28, H=64) shapes, B=250 (a ragged tile) and D=1
+             (T=28, H=64) shapes, B=250 (a ragged tile) and D=1; the kernel's
+             own ms (the cluster or the one-block kernel, by name)
  12. K3 bwd  its backward from the forward's residuals at both shapes, f32
              and bf16 streams: every output, dh0 too; bitwise repeat; the
-             recurrence's and the dW_hh product's ms
- 13. K6      the sequence kernel vs its plain version, both directions,
-             B=256 and B=1; `gru_forward_seq` on the head's parameters
-             against the same GRU through K2
+             forward's recurrence kernel's ms, the backward's recurrence's
+             and the dW_hh product's ms
+ 13. K6      the sequence kernel vs its plain version, both directions, at
+             the head's layer (B=256 and B=1, H=350: the cluster) and at
+             H=64 (the one-block kernel); bitwise repeat, launches counted,
+             the recurrence kernel's own ms (torch.profiler) beside the call,
+             the plain version and the bound; `gru_forward_seq` on the head's
+             parameters against the same GRU through K2
  14. serve, stack route   phase 5's forward with gru_kernel="stack": K3 lean
              four times and K2 not at all, output against the fused route's
              on the same weights; then phase 6's clips on that route
@@ -297,6 +303,12 @@ def loop_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
+def fwd_kernel_name(H: int) -> str:
+    """The forward recurrence kernel's name at hidden width H."""
+    from hop_tpu_torch.ops.gru_fused import recurrence_variant
+    return f"gru_fwd_{recurrence_variant(H)}_kernel"
+
+
 def ms_of(names: dict, part: str) -> float:
     """ms per call of the kernels whose name holds `part`."""
     return sum(t for n, t in names.items() if part in n)
@@ -411,9 +423,18 @@ def phase_k2(dev, seed):
     from hop_tpu_torch.ops import _build
     from hop_tpu_torch.ops import gru_fused as K2
     lib = _build.load()
-    for H in (10, 64, 138, 139, 350):   # the wrapper's copy of the kernel's choice
-        check(K2.whh_in_shared(H) == bool(lib.hop_gru_fused_whh_in_shared(H)),
-              f"whh_in_shared({H}) is not the kernel's choice")
+    # the wrappers' copies of the kernels' choices: the recurrence kernel by H
+    # alone, one rule for both directions; a forward cluster's rows by (B, D)
+    for H in (10, 64, 65, 138, 139, 350, 352):
+        variant = lib.hop_gru_recurrence_variant(H)
+        check(variant in (0, 1) and ("block", "cluster")[variant]
+              == K2.recurrence_variant(H),
+              f"recurrence_variant({H}) is not the kernel's choice ({variant})")
+    check(lib.hop_gru_recurrence_variant(K2.MAX_H + 1) < 0,
+          f"the recurrence takes H={K2.MAX_H + 1}")
+    for B, D in ((1, 1), (8, 2), (9, 1), (256, 1), (9, 2), (256, 2)):
+        check(lib.hop_gru_fwd_cluster_rows(B, D) == K2.forward_cluster_rows(B, D),
+              f"forward_cluster_rows({B}, {D}) is not the kernel's choice")
     # the wide layer's clusters: how many the card holds at once, against the
     # clusters of a bs-256 launch (one wave), forward and backward
     need = 2 * -(-256 // K2.CLUSTER_ROWS)
@@ -424,10 +445,12 @@ def phase_k2(dev, seed):
         check(lib.hop_gru_active_clusters(64, int(backward)) == 0,
               "the H=64 recurrence should run without clusters")
         print(f"GRU recurrence at H=350, {'backward' if backward else 'forward'}: "
-              f"{K2.recurrence_variant(350, backward)} of {K2.CLUSTER_BLOCKS} blocks x "
-              f"{K2.CLUSTER_ROWS} rows, {K2.recurrence_smem_bytes(350, backward)} B of "
-              f"shared memory a block; active clusters {held}, a bs-256 launch has "
-              f"{need}; at H=64: {K2.recurrence_variant(64, backward)}")
+              f"{K2.recurrence_variant(350)} of {K2.CLUSTER_BLOCKS} blocks x "
+              f"{K2.CLUSTER_ROWS} rows (forward at one direction "
+              f"{K2.forward_cluster_rows(256, 1)}), "
+              f"{K2.recurrence_smem_bytes(350, backward)} B of shared memory a block; "
+              f"active clusters {held}, a bs-256 launch has {need}; at H=64: "
+              f"{K2.recurrence_variant(64)}, {K2.recurrence_smem_bytes(64, backward)} B")
     res = {}
     for shape in K2_SHAPES:
         T, B, I, H, D = shape
@@ -451,10 +474,8 @@ def phase_k2(dev, seed):
         # the entry's two phases, each kernel's own time on the card
         names = kernel_ms_by_name(lambda: K2.gru_fused_layer_fwd(*args))
         r["proj_ms"] = ms_of(names, "gru_proj_kernel")
-        r["rec_ms"] = (ms_of(names, "gru_streams_fwd_kernel")
-                       + ms_of(names, "gru_fwd_cluster_kernel"))
-        check(ms_of(names, "gru_fwd_cluster_kernel" if K2.recurrence_variant(H)
-                    == "cluster" else "gru_streams_fwd_kernel") > 0,
+        r["rec_ms"] = ms_of(names, fwd_kernel_name(H))
+        check(r["rec_ms"] > 0,
               f"K2's recurrence at {shape} is not the {K2.recurrence_variant(H)} kernel")
         check(r["proj_ms"] > 0 and r["rec_ms"] > 0
               and len(names) == 2, f"K2's forward at {shape} launched {sorted(names)}")
@@ -757,6 +778,10 @@ def phase_k2_bwd(dev, seed):
         plain_ms = cuda_ms(lambda: K2.plain_gru_fused_layer_bwd(*bwd_args), reps=5)
         fwd_ms = cuda_ms(lambda: K2.gru_fused_layer_fwd(*args, with_residuals=True),
                          reps=10)
+        fwd_names = kernel_ms_by_name(
+            lambda: K2.gru_fused_layer_fwd(*args, with_residuals=True))
+        fwd_rec_ms = ms_of(fwd_names, fwd_kernel_name(H))
+        check(fwd_rec_ms > 0, f"K2's forward at I={I}, H={H} launched {sorted(fwd_names)}")
         # dx is the GEMM's instance with rows along k, dW_ih and dW_hh the one
         # with k as the row index
         names = kernel_ms_by_name(lambda: K2.gru_fused_layer_bwd(*bwd_args))
@@ -770,7 +795,8 @@ def phase_k2_bwd(dev, seed):
         worst = max(errs, key=lambda k: errs[k][1])
         print(f"K2 bwd (T={T}, B={B}, I={I}, H={H}, D={D}): forward with "
               f"residuals max_abs_err {fwd_err:.3e} (tol {K2_TOL:g}), "
-              f"{fwd_ms:.3f} ms; backward worst {worst} rel "
+              f"{fwd_ms:.3f} ms (its recurrence kernel {fwd_rec_ms:.3f} ms, "
+              f"{fwd_kernel_name(H)}); backward worst {worst} rel "
               f"{errs[worst][1]:.2e} (tol {BWD_REL_TOL:g}), max_abs_err "
               f"{max(e[0] for e in errs.values()):.3e}; bitwise repeat; "
               f"backward kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms; "
@@ -778,7 +804,7 @@ def phase_k2_bwd(dev, seed):
               + " ms (torch.profiler)")
         # the dh carry (3H x H), dx and dW_ih (3H x I each), dW_hh (3H x H)
         res[(I, H)] = {"max_abs_err": max(e[0] for e in errs.values()), "ms": ms,
-                       "plain_ms": plain_ms, "fwd_err": fwd_err,
+                       "plain_ms": plain_ms, "fwd_err": fwd_err, "fwd_rec_ms": fwd_rec_ms,
                        **bound(bwd_args, got,
                                2.0 * T * B * D * 3 * H * (2 * H + 2 * I), F32_FLOPS)}
     return res
@@ -1105,22 +1131,28 @@ def phase_k3_fwd(dev, seed):
         r["lean_bound"] = bound(args, full[0], flops, F32_FLOPS)
     # the recurrence kernel's own time at the discriminator's shape (the
     # one-block kernel) and at one window of a clip
-    own = {}
+    own, own_bound = {}, {}
     for shape in (K3_HEAD, K3_DISC, K3_ONE):
         args, _ = _k3_inputs(dev, seed, *shape, torch.float32)
+        shape_flops = 2.0 * shape[1] * shape[2] * shape[0] * 3 * shape[3] ** 2
         for label, with_res in (("residuals", True), ("lean", False)):
+            own_bound[(shape, label)] = bound(
+                args, K3.gru_stack_fwd(*args, with_residuals=with_res), shape_flops,
+                F32_FLOPS)
             names = kernel_ms_by_name(
                 lambda: K3.gru_stack_fwd(*args, with_residuals=with_res))
             variant = recurrence_variant(shape[3])
-            kernel = ("gru_fwd_cluster_kernel" if variant == "cluster"
-                      else "gru_streams_fwd_kernel")
+            kernel = fwd_kernel_name(shape[3])
             check(len(names) == 1 and ms_of(names, kernel) > 0,
                   f"K3's forward at {shape} ({variant}) launched {sorted(names)}")
             own[(shape, label)] = ms_of(names, kernel)
     print("K3 fwd, the recurrence kernel's own ms (torch.profiler), with residuals / "
-          "lean: " + "; ".join(
+          "lean, beside the bound: " + "; ".join(
               f"{shape} ({recurrence_variant(shape[3])}) "
-              f"{own[(shape, 'residuals')]:.3f} / {own[(shape, 'lean')]:.3f}"
+              f"{own[(shape, 'residuals')]:.4f} / {own[(shape, 'lean')]:.4f} (bound "
+              + " / ".join(f"{own_bound[(shape, x)]['bound_ms']:.4f} by "
+                           f"{own_bound[(shape, x)]['bound_by']}"
+                           for x in ("residuals", "lean")) + ")"
               for shape in (K3_HEAD, K3_DISC, K3_ONE)))
     f32, b16 = res[(K3_HEAD, torch.float32)], res[(K3_HEAD, torch.bfloat16)]
     worst = max(max(r["err"], r["lean_err"]) for r in res.values())
@@ -1134,7 +1166,11 @@ def phase_k3_fwd(dev, seed):
           f"(bound {f32['lean_bound']['bound_ms']:.3f} ms)")
     return {"max_abs_err": max(r["err"] for r in res.values()),
             "lean_max_abs_err": max(r["lean_err"] for r in res.values()),
-            "head": f32, "head_bf16": b16}
+            "head": f32, "head_bf16": b16,
+            "disc_kernel_ms": own[(K3_DISC, "residuals")],
+            "disc_lean_kernel_ms": own[(K3_DISC, "lean")],
+            "disc_bound_ms": own_bound[(K3_DISC, "residuals")]["bound_ms"],
+            "disc_lean_bound_ms": own_bound[(K3_DISC, "lean")]["bound_ms"]}
 
 
 def phase_k3_bwd(dev, seed):
@@ -1170,12 +1206,16 @@ def phase_k3_bwd(dev, seed):
             if shape not in (K3_HEAD, K3_DISC):     # correctness and repeat only
                 worst = max(errs, key=lambda k: errs[k][1])
                 print(f"K3 bwd gru_stack_bwd {tag} "
-                      f"({recurrence_variant(H, backward=True)}): worst {worst} rel "
+                      f"({recurrence_variant(H)}): worst {worst} rel "
                       f"{errs[worst][1]:.2e}; bitwise repeat")
                 res[(shape, dtype)] = {"max_abs_err": max(e[0] for e in errs.values())}
                 continue
             ms = cuda_ms(lambda: K3.gru_stack_bwd(*bwd_args), reps=10)
             plain_ms = cuda_ms(lambda: K3.plain_gru_stack_bwd(*bwd_args), reps=5)
+            fwd_names = kernel_ms_by_name(
+                lambda: K3.gru_stack_fwd(*args, with_residuals=True))
+            fwd_rec_ms = ms_of(fwd_names, fwd_kernel_name(H))
+            check(fwd_rec_ms > 0, f"K3's forward at {tag} launched {sorted(fwd_names)}")
             kernels = kernel_ms_by_name(lambda: K3.gru_stack_bwd(*bwd_args))
             rec_ms = ms_of(kernels, "gru_bwd_resident_kernel")
             dw_ms = gemm_ms(kernels, False)
@@ -1189,7 +1229,9 @@ def phase_k3_bwd(dev, seed):
             print(f"K3 bwd gru_stack_bwd {tag}: worst {worst} rel "
                   f"{errs[worst][1]:.2e}, max_abs_err "
                   f"{res[(shape, dtype)]['max_abs_err']:.3e} (tol {BWD_REL_TOL:g} rel; "
-                  f"bf16 dx {K3_BF16_DX_TOL:g}); bitwise repeat; kernel {ms:.3f} ms "
+                  f"bf16 dx {K3_BF16_DX_TOL:g}); bitwise repeat; the forward's "
+                  f"recurrence {fwd_rec_ms:.3f} ms ({fwd_kernel_name(H)}); "
+                  f"kernel {ms:.3f} ms "
                   f"(recurrence {rec_ms:.3f}, dW_hh product {dw_ms:.3f}) "
                   f"vs plain {plain_ms:.3f} ms (bound "
                   f"{res[(shape, dtype)]['bound_ms']:.3f} ms by "
@@ -1204,25 +1246,36 @@ def phase_k6(gru, dev, seed):
     from hop_tpu_torch.ops import gru_seq as K6
     T, H = 34, gru.hidden_size
     res = {}
-    for B in (256, 1):
-        g = torch.Generator(device=dev).manual_seed(seed + B)
-        s = H ** -0.5
-        args = (torch.randn(B, T, 3 * H, device=dev, generator=g),
-                torch.randn(3 * H, H, device=dev, generator=g) * s,
-                torch.randn(3 * H, device=dev, generator=g) * s,
-                torch.randn(B, H, device=dev, generator=g) * 0.5)
+    # the head's layer at bs 256 and bs 1, and a narrow layer (the one-block
+    # kernel), one direction each call
+    for B, HK in ((256, H), (1, H), (256, 64)):
+        g = torch.Generator(device=dev).manual_seed(seed + B + HK)
+        s = HK ** -0.5
+        args = (torch.randn(B, T, 3 * HK, device=dev, generator=g),
+                torch.randn(3 * HK, HK, device=dev, generator=g) * s,
+                torch.randn(3 * HK, device=dev, generator=g) * s,
+                torch.randn(B, HK, device=dev, generator=g) * 0.5)
         err = 0.0
         for reverse in (False, True):
+            before = K6.launches
             got = K6.gru_seq_layer(*args, reverse=reverse)
-            want = K6.plain_gru_seq_layer(*args, reverse=reverse)
+            again = K6.gru_seq_layer(*args, reverse=reverse)
             torch.cuda.synchronize()
+            check(K6.launches == before + 2,
+                  f"K6 at B={B}, H={HK}: {K6.launches - before} launches for 2 calls")
+            check(torch.equal(got, again), f"K6 at B={B}, H={HK}: two calls differ")
+            want = K6.plain_gru_seq_layer(*args, reverse=reverse)
             err = max(err, (got - want).abs().max().item())
-        check(err <= K3_TOL, f"K6 disagrees with its plain version at B={B}: "
+        check(err <= K3_TOL, f"K6 disagrees with its plain version at B={B}, H={HK}: "
                              f"{err} > {K3_TOL}")
-        res[B] = {"max_abs_err": err,
-                  "ms": cuda_ms(lambda: K6.gru_seq_layer(*args, reverse=True)),
-                  "plain_ms": cuda_ms(lambda: K6.plain_gru_seq_layer(*args), reps=10),
-                  **bound(args, got, 2.0 * T * B * 3 * H * H, F32_FLOPS)}
+        names = kernel_ms_by_name(lambda: K6.gru_seq_layer(*args, reverse=True))
+        kernel_ms = ms_of(names, fwd_kernel_name(HK))
+        check(kernel_ms > 0, f"K6 at B={B}, H={HK} launched {sorted(names)}")
+        res[(B, HK)] = {
+            "max_abs_err": err, "kernel_ms": kernel_ms,
+            "ms": cuda_ms(lambda: K6.gru_seq_layer(*args, reverse=True)),
+            "plain_ms": cuda_ms(lambda: K6.plain_gru_seq_layer(*args), reps=10),
+            **bound(args, got, 2.0 * T * B * 3 * HK * HK, F32_FLOPS)}
     # the whole head through K6 against the same parameters through K2
     check(gru.kernel == "fused", "phase_k6 wants the fused-route head")
     params = dict(gru.named_parameters())
@@ -1251,17 +1304,22 @@ def phase_k6(gru, dev, seed):
         k3_ms = cuda_ms(via_gru, reps=10)
         gru.kernel = "fused"
         stack_ms[B] = (gap, cuda_ms(via_k6, reps=10), cuda_ms(via_gru, reps=10), k3_ms)
-    print(f"K6 gru_seq_layer (T={T}, H={H}, both directions): B=256 max_abs_err "
-          f"{res[256]['max_abs_err']:.3e}, kernel {res[256]['ms']:.3f} ms vs plain "
-          f"{res[256]['plain_ms']:.3f} ms (bound {res[256]['bound_ms']:.3f} ms by "
-          f"{res[256]['bound_by']}); B=1 max_abs_err {res[1]['max_abs_err']:.3e}, "
-          f"kernel {res[1]['ms']:.3f} ms vs plain {res[1]['plain_ms']:.3f} ms (tol "
-          f"{K3_TOL:g}). gru_forward_seq on the head's {gru.num_layers} x BiGRU({H}) parameters "
+    print(f"K6 gru_seq_layer (T={T}, one direction a call, both directions checked, "
+          f"bitwise repeat, tol {K3_TOL:g}): "
+          + "; ".join(f"B={B}, H={HK} ({fwd_kernel_name(HK)}) max_abs_err "
+                      f"{r['max_abs_err']:.3e}, kernel {r['ms']:.3f} ms, own "
+                      f"{r['kernel_ms']:.4f} ms vs plain {r['plain_ms']:.3f} ms (bound "
+                      f"{r['bound_ms']:.4f} ms by {r['bound_by']})"
+                      for (B, HK), r in res.items())
+          + f". gru_forward_seq on the head's {gru.num_layers} x BiGRU({H}) parameters "
           f"({D * gru.num_layers} launches) vs the GRU through K2: "
           + "; ".join(f"B={B} max_abs_diff {v[0]:.3e} (tol {ROUTE_TOL:g}), "
                       f"{v[1]:.3f} ms vs K2 route {v[2]:.3f} ms, K3 route {v[3]:.3f} ms"
                       for B, v in stack_ms.items()))
-    return res[256], launches
+    head = res[(256, H)]
+    return {**head, "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "b1_kernel_ms": res[(1, H)]["kernel_ms"],
+            "h64_kernel_ms": res[(256, 64)]["kernel_ms"]}, launches
 
 
 ATTN_SHAPE = (256, 34, 12, 64)      # (B, T, H, D) of the backbone at bs 256
@@ -1666,21 +1724,26 @@ def main():
         entry("gru_fused_fwd", K2_SOURCE, K2_REPLACES, "K2",
               max([r["max_abs_err"] for r in k2.values()]
                   + [r["fwd_err"] for r in k2_bwd.values()]),
-              k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)]),
+              k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)],
+              disc_rec_kernel_ms=k2[K2_MAIN[2]]["rec_ms"]),
         entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
               max(r["max_abs_err"] for r in k2_bwd.values()), k2_bwd[(992, 350)],
               lib[("gru_bwd", 992, 350)]),
         # K3 is the recurrence without its projection: no one call computes it
         entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3", k3["max_abs_err"],
-              {**k3_head, **k3_head["bound"]}, None),
+              {**k3_head, **k3_head["bound"]}, None,
+              disc_kernel_ms=k3["disc_kernel_ms"], disc_bound_ms=k3["disc_bound_ms"]),
         entry("gru_stack_fwd_lean", K3_SOURCE, K3_LEAN_REPLACES, "K3_lean",
               k3["lean_max_abs_err"],
               {"ms": k3_head["lean_ms"], "plain_ms": k3_head["lean_plain_ms"],
-               **k3_head["lean_bound"]}, None),
+               **k3_head["lean_bound"]}, None,
+              disc_kernel_ms=k3["disc_lean_kernel_ms"],
+              disc_bound_ms=k3["disc_lean_bound_ms"]),
         entry("gru_stack_bwd", K3_SOURCE, K3_BWD_REPLACES, "K3_bwd",
               k3_bwd["max_abs_err"], k3_bwd["head"], None),
         entry("gru_seq_fwd", K6_SOURCE, K6_REPLACES, "K6", k6["max_abs_err"], k6,
-              None),
+              None, kernel_ms=k6["kernel_ms"], b1_kernel_ms=k6["b1_kernel_ms"],
+              h64_kernel_ms=k6["h64_kernel_ms"]),
     ]
     # the backbone's self-attention: SDPA computes the forward at rate 0; its
     # backward alone stands beside the kernels' backward (at rate 0.1). Beside

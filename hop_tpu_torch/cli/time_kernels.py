@@ -40,9 +40,12 @@ K2_SHAPES = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
              (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), (34, 1, 992, 350, 2))
 # (D, T, B, H) of the time-grid recurrence: the head at bs 256 and bs 1, the
 # discriminator. The recurrence kernels' own lines are `gru_fwd_cluster_kernel`
-# / `gru_streams_fwd_kernel` (forward: a cluster at H = 350, one block at
+# / `gru_fwd_block_kernel` (forward: a cluster at H = 350, one block at
 # H = 64) and `gru_bwd_resident_kernel` (backward) in each call's list.
 K3_SHAPES = ((2, 34, 256, 350), (2, 34, 1, 350), (2, 28, 256, 64))
+# (B, T, H) of the sequence kernel, one direction: the head's layer at bs 256
+# and bs 1, and a narrow layer (the one-block kernel)
+K6_SHAPES = ((256, 34, 350), (1, 34, 350), (256, 28, 64))
 # (B, L, H, E, S) of the reprogramming attention
 K1_SHAPE = (256, 34, 8, 128, 1500)
 # (B, T, H, D) of the backbone's self-attention (K4, K5): bs 256 and one
@@ -159,6 +162,8 @@ def main(argv=None):
                      randn(B, H, scale=0.5))
             g = randn(D, T, B, H)
             show(f"K2 fwd lean {shape}", lambda: K2.gru_fused_layer(*layer))
+            show(f"K2 fwd res {shape}",
+                 lambda: K2.gru_fused_layer_fwd(*layer, with_residuals=True))
             h_seq, r, z, n, hnb = K2.gru_fused_layer_fwd(*layer, with_residuals=True)
             bwd = (g, layer[0], r, z, n, hnb, K2.hprev_of(h_seq, layer[5]), layer[1], layer[3])
             show(f"K2 bwd {shape}", lambda: K2.gru_fused_layer_bwd(*bwd))
@@ -179,10 +184,11 @@ def main(argv=None):
                 bwd = (g, r, z, n, hnb, K2.hprev_of(h_seq, stack[5]), stack[3], dtype)
                 show(f"K3 bwd {tag}", lambda: K3.gru_stack_bwd(*bwd))
     if "K6" in args.only:
-        H = 350
-        seq = (randn(256, 34, 3 * H), randn(3 * H, H, scale=H ** -0.5),
-               randn(3 * H, scale=H ** -0.5), randn(256, H, scale=0.5))
-        show("K6 B=256, one direction", lambda: K6.gru_seq_layer(*seq, reverse=True))
+        for B, T, H in K6_SHAPES:
+            seq = (randn(B, T, 3 * H), randn(3 * H, H, scale=H ** -0.5),
+                   randn(3 * H, scale=H ** -0.5), randn(B, H, scale=0.5))
+            show(f"K6 (B={B}, T={T}, H={H}), one direction",
+                 lambda: K6.gru_seq_layer(*seq, reverse=True))
     if "K1" in args.only:
         B, L, H, E, S = K1_SHAPE
         q, do = (randn(B, L, H, E).to(torch.bfloat16) for _ in range(2))

@@ -2,14 +2,13 @@
 // recurrence behind one entry), K3 (gru_stack.cu, the recurrence alone from gate
 // streams) and K6 (gru_seq.cu, one batch-major direction, forward only).
 //
-//   * gru_recurrence_tile: the forward recurrence of one (batch tile,
-//     direction) from precomputed gate streams, T looped inside the block
-//     with h in shared memory and scalar f32 FMAs; W_hh from a copy in shared
-//     memory where it fits a block (gru_streams_fwd_kernel: K2's second phase
-//     and K3's forwards at a narrow H), or from L2 at every step (K6);
-//   * gru_fwd_cluster_kernel: the same recurrence for a wide layer (the
-//     head's H = 350): a cluster of 8 blocks holds W_hh in shared memory for
-//     the whole time loop, the per-step product on the tensor cores;
+//   * gru_fwd_block_kernel / gru_fwd_cluster_kernel: the forward recurrence
+//     from precomputed gate streams, T looped inside the kernel with W_hh
+//     resident in shared memory for the whole loop and the per-step product
+//     h W_hh on the tensor cores (3xTF32 mma.sync), one body in two
+//     instances: one block for a narrow layer (H <= 64: the discriminator's),
+//     a cluster of 8 blocks for a wide one (the head's H = 350); K2's second
+//     phase, K3's forwards and K6 all launch them (launch_fwd_recurrence);
 //   * gru_bwd_resident_kernel: the serial part of a GRU layer's backward, the
 //     dh carry walked in the reverse of the forward's order (K2 and K3
 //     backward), W_hh resident in one block (narrow) or a cluster (wide), the
@@ -20,9 +19,11 @@
 //     (K2's dx, dW_ih, dW_hh; K3's dW_hh); its pieces (cp.async, split_tf32,
 //     mma_tf32) also serve K2's forward projection;
 //   * gru_colsum_kernel: ordered column sums (the bias gradients).
-// None uses atomics; every sum has one order for a given shape, so results
-// repeat bit for bit. Everything is in an unnamed namespace: each .cu that
-// includes this header gets its own copy.
+// Which recurrence kernel runs is a function of H alone, one rule for the
+// forward and the backward: one block up to RC_NARROW_H, a cluster up to
+// RC_MAX_H. None uses atomics; every sum has one order for a given shape, so
+// results repeat bit for bit. Everything is in an unnamed namespace: each .cu
+// that includes this header gets its own copy.
 
 #pragma once
 
@@ -35,22 +36,23 @@
 
 namespace {
 
-constexpr int BT = 8;  // batch rows per block of the L2 recurrence tile (K6)
 constexpr int SM_COUNT = 132;       // an H100's
 
-// Unroll depth of a recurrence's loop over weight rows: the rows come from
-// L2 (the weights fit no SM), and 16 rows of loads in flight per thread hide
-// its latency better than 4 (K3's forward at the head: 1.14 against 1.36 ms
-// on an H100); deeper gains nothing.
-constexpr int KU = 16;
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+// The forward's gate functions from one fast exponential: __expf is
+// ex2.approx of x log2(e) (2 ulp, plus the product's rounding: 1e-6 relative
+// at |x| = 20), __fdividef one reciprocal (0 for a denominator past 2^126,
+// where the sigmoid is 0 to f32 anyway); tanh(x) = 2 sigmoid(2x) - 1 is off
+// by about 2e-7 absolute near 0. expf, a division and tanhf took 1400 of a
+// 3700-clock step of the one-block forward on an H100, these ~800; the layer
+// stays within 1e-6 of the plain version's f32 torch.sigmoid and torch.tanh.
+__device__ __forceinline__ float sigmoid_g(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_g(float x) { return 2.f * sigmoid_g(2.f * x) - 1.f; }
 
 // gate streams are f32 or bf16; all arithmetic is f32
-__device__ __forceinline__ float ld_stream(const float* p) { return *p; }
-__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void st_stream(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -105,181 +107,11 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The forward recurrence of batch rows b0..b0+RT-1 of one direction:
-//   hr, hz, hnb = h W[g] + bias[g];  r = sigmoid(xr + hr);  z = sigmoid(xz + hz)
-//   n = tanh(xn + r * hnb);  h' = (1 - z) n + z h
-// Thread threadIdx.x = j owns hidden unit j (blockDim.x >= H) of RT rows; the
-// threads of one threadIdx.y share `hs`. Element (t, b, j) of a gate stream
-// lies at t * sxt + b * sxb + j, of an output at t * sot + b * sob + j; the
-// pointers are already offset to the direction. W is (3, H, H) laid out
-// [gate][k][j], bias (3, H), h0 (B, H). Without WS, W is read from L2 at
-// every step, coalesced along j (a direction's 1.47 MB at H=350 fit no SM);
-// with WS, `w_s` is the block's copy of W in shared memory, staged by the
-// caller before the call, and W is not read. `reverse` walks t from T-1 down
-// to 0; outputs land at their natural time index. With RES the gates r, z, n
-// and hnb (with its bias) are written too. hs is shared memory of H * RT
-// floats, laid out [k][row] so that one k's rows are one (RT = 2) or two
-// (RT = 8) vector loads. Every thread of the block must make the call: it
-// holds block barriers.
-template <bool RES, typename TX, bool WS, int RT>
-__device__ __forceinline__ void gru_recurrence_tile(
-    const TX* __restrict__ xr, const TX* __restrict__ xz, const TX* __restrict__ xn,
-    long long sxt, long long sxb, const float* __restrict__ W,
-    const float* __restrict__ bias, const float* __restrict__ h0,
-    float* __restrict__ out, float* __restrict__ r_out, float* __restrict__ z_out,
-    float* __restrict__ n_out, float* __restrict__ hnb_out, long long sot,
-    long long sob, int T, int B, int H, int b0, bool reverse, float* hs,
-    const float* w_s) {
-  static_assert(RT == 2 || RT % 4 == 0, "rows of a k are float2 or float4 loads");
-  const int j = threadIdx.x;
-  const bool active = j < H;
-  float bh[3] = {0.f, 0.f, 0.f};
-  if (active) {
-#pragma unroll
-    for (int g = 0; g < 3; ++g) bh[g] = bias[g * H + j];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-      hs[j * RT + r] = b0 + r < B ? h0[size_t(b0 + r) * H + j] : 0.f;
-  }
-  __syncthreads();
-
-  const float* u0 = (WS ? w_s : W) + j;
-  const float* u1 = u0 + size_t(H) * H;
-  const float* u2 = u0 + size_t(2) * H * H;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    float hn[RT];
-    if (active) {
-      // the step's stream values do not depend on h: load them first
-      float vr[RT], vz[RT], vn[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const bool ok = b0 + r < B;
-        const long long o = t * sxt + (long long)(b0 + r) * sxb + j;
-        vr[r] = ok ? ld_stream(xr + o) : 0.f;
-        vz[r] = ok ? ld_stream(xz + o) : 0.f;
-        vn[r] = ok ? ld_stream(xn + o) : 0.f;
-      }
-      float gr[RT], gz[RT], gn[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        gr[r] = bh[0]; gz[r] = bh[1]; gn[r] = bh[2];
-      }
-#pragma unroll KU
-      for (int k = 0; k < H; ++k) {
-        const float c0 = WS ? u0[size_t(k) * H] : __ldg(u0 + size_t(k) * H);
-        const float c1 = WS ? u1[size_t(k) * H] : __ldg(u1 + size_t(k) * H);
-        const float c2 = WS ? u2[size_t(k) * H] : __ldg(u2 + size_t(k) * H);
-        float hv[RT];
-        if constexpr (RT == 2) {
-          const float2 ha = *reinterpret_cast<const float2*>(hs + k * RT);
-          hv[0] = ha.x; hv[1] = ha.y;
-        } else {
-#pragma unroll
-          for (int q = 0; q < RT / 4; ++q) {
-            const float4 ha = *reinterpret_cast<const float4*>(hs + k * RT + 4 * q);
-            hv[4 * q] = ha.x; hv[4 * q + 1] = ha.y; hv[4 * q + 2] = ha.z;
-            hv[4 * q + 3] = ha.w;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          gr[r] += hv[r] * c0;
-          gz[r] += hv[r] * c1;
-          gn[r] += hv[r] * c2;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float rg = sigmoidf(vr[r] + gr[r]);
-        const float zg = sigmoidf(vz[r] + gz[r]);
-        const float ng = tanhf(vn[r] + rg * gn[r]);
-        hn[r] = (1.f - zg) * ng + zg * hs[j * RT + r];
-        if (b0 + r < B) {
-          const long long o = t * sot + (long long)(b0 + r) * sob + j;
-          out[o] = hn[r];
-          if (RES) {
-            r_out[o] = rg;
-            z_out[o] = zg;
-            n_out[o] = ng;
-            hnb_out[o] = gn[r];
-          }
-        }
-      }
-    }
-    __syncthreads();  // every thread has read h_{t-1}
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r) hs[j * RT + r] = hn[r];
-    }
-    __syncthreads();  // h_t in place
-  }
-}
-
-// The shared-memory variant of the tile above, over a grid: W of a direction
-// staged once per block, RT = 2 rows a thread and blockDim.y row groups that
-// share the copy, so that a narrow layer (the discriminator's H = 64) is not
-// left with two warps a block and a long serial chain a step.
-constexpr int WS_RT = 2;
-constexpr int WS_THREADS = 256;
-constexpr size_t SMEM_BLOCK_MAX = 232448;   // 227 KB, a block's most on sm_90
-
-inline int ws_row_groups(int H) { return std::max(1, WS_THREADS / ((H + 31) / 32 * 32)); }
-inline size_t ws_h_floats(int H) {
-  return (size_t(ws_row_groups(H)) * WS_RT * H + 3) / 4 * 4;
-}
-inline size_t ws_smem_bytes(int H) {
-  return (ws_h_floats(H) + size_t(3) * H * H) * sizeof(float);
-}
-// does a direction's W_hh with the block's h tiles fit a block's shared memory
-inline bool whh_in_shared(int H) { return ws_smem_bytes(H) <= SMEM_BLOCK_MAX; }
-
-// The forward recurrence over a grid of (batch tiles, direction) from gate
-// streams whose element (d, t, b, j) lies at d * sxd + t * sxt + b * sxb + j;
-// w (D, 3, H, H), b (D, 3, H), h0 (B, H); outputs (D, T, B, H). blockDim.y
-// tiles of WS_RT rows share the block's copy of W; blockDim.x is whole warps,
-// so threadIdx.y is one value a warp, and the shuffle tells the compiler
-// (with the row index derived from threadIdx.y alone K3's forward at the
-// head's shape took 1.30 ms for 1.12 on an H100).
-template <bool RES, typename TX>
-__global__ void gru_streams_fwd_kernel(const TX* __restrict__ xr,
-                                       const TX* __restrict__ xz,
-                                       const TX* __restrict__ xn, long long sxd,
-                                       long long sxt, long long sxb,
-                                       const float* __restrict__ w,
-                                       const float* __restrict__ b,
-                                       const float* __restrict__ h0,
-                                       float* __restrict__ out,
-                                       float* __restrict__ r_out,
-                                       float* __restrict__ z_out,
-                                       float* __restrict__ n_out,
-                                       float* __restrict__ hnb_out, int T, int B,
-                                       int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int d = blockIdx.y;
-  const long long xo = d * sxd;
-  const long long oo = (long long)d * T * B * H;
-  const float* wd = w + size_t(d) * 3 * H * H;
-  const int group = __shfl_sync(0xffffffffu, int(threadIdx.y), 0);
-  const int b0 = (blockIdx.x * blockDim.y + group) * WS_RT;
-  float* hs = smem + size_t(group) * WS_RT * H;
-  float* stage = smem + (size_t(blockDim.y) * WS_RT * H + 3) / 4 * 4;
-  const int n_threads = blockDim.x * blockDim.y;
-  for (int idx = threadIdx.y * blockDim.x + threadIdx.x; idx < 3 * H * H;
-       idx += n_threads)
-    stage[idx] = wd[idx];   // visible after the tile's first barrier
-  gru_recurrence_tile<RES, TX, true, WS_RT>(
-      xr + xo, xz + xo, xn + xo, sxt, sxb, wd, b + size_t(d) * 3 * H, h0, out + oo,
-      RES ? r_out + oo : nullptr, RES ? z_out + oo : nullptr,
-      RES ? n_out + oo : nullptr, RES ? hnb_out + oo : nullptr, (long long)B * H, H, T,
-      B, H, b0, d == 1, hs, stage);
-}
-
-// --- the recurrences of a wide layer: W_hh resident across a cluster ---
+// --- the recurrences: W_hh resident in one block or across a cluster ---
 //
 // A direction's W_hh at the head's H = 350 is 1.47 MB: it fits no block, and
-// the first kernels re-read it from L2 at every step in every block (3.2 GB
-// of L2 traffic a launch). Here a thread-block cluster of RC_CL = 8 blocks
+// a kernel that re-reads it from L2 at every step in every block moves 3.2 GB
+// of L2 traffic a launch. Here a thread-block cluster of RC_CL = 8 blocks
 // owns (direction, RC_ROWS = 40 batch rows) and splits the hidden units: block
 // c holds units [c SL, c SL + SL), SL = ceil(H / 8) (44 at H = 350), and with
 // them its eighth of W_hh (185 KB) in shared memory, read from device memory
@@ -459,15 +291,41 @@ cudaError_t active_clusters(void (*kernel)(Params...), int threads, size_t smem,
   return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }
 
-// The forward recurrence of a wide layer. Warp (mi, ni) owns units mi x rows
-// ni of all three gates, so the gate math runs on the accumulators where
-// they lie, and carries its h in registers. Shared memory: As (3, SL, LDA),
-// As[gate][u][k] = w[gate][k][c SL + u] (the A operand, read transposed from
-// device memory once); hb (2, 40, LDH), the block's slice of h,
-// double-buffered so that one cluster barrier a step is enough (step s reads
-// every peer's hb[s & 1] and writes its own hb[(s + 1) & 1]); stage (40, LDH),
-// the peer's slice being multiplied. Three accumulator chains over K (8 x 6 k
-// steps at H = 350), one per 3xTF32 term; the bias is added after.
+constexpr int RC_NARROW_H = 64;   // the widest layer of the one-block instances
+
+// The forward recurrence:
+//   hr, hz, hnb = h W[g] + bias[g];  r = sigmoid(xr + hr);  z = sigmoid(xz + hz)
+//   n = tanh(xn + r * hnb);  h' = (1 - z) n + z h
+// Element (d, t, b, j) of a gate stream lies at d * sxd + t * sxt + b * sxb + j,
+// of an output at d * sod + t * sot + b * sob + j; w (D, 3, H, H) laid out
+// [gate][k][j], bias (D, 3, H), h0 (B, H). Direction d walks t from T-1 down
+// to 0 where d ^ flip is odd (K2 and K3: flip 0, direction 1 reversed; K6: one
+// direction, flip = reverse); outputs land at their natural time index. With
+// RES the gates r, z, n and hnb (with its bias) are written too. Two kernels,
+// by H alone (launch_fwd_recurrence): the cluster for a wide layer, one block
+// for a narrow one.
+#define HOP_FWD_PARAMS                                                                \
+  const TX *__restrict__ xr, const TX *__restrict__ xz, const TX *__restrict__ xn,  \
+      long long sxd, long long sxt, long long sxb, const float *__restrict__ w,      \
+      const float *__restrict__ bias, const float *__restrict__ h0,                 \
+      float *__restrict__ out, float *__restrict__ r_out, float *__restrict__ z_out, \
+      float *__restrict__ n_out, float *__restrict__ hnb_out, long long sod,        \
+      long long sot, long long sob, int T, int B, int H, int flip
+#define HOP_FWD_ARGS                                                                   \
+  xr, xz, xn, sxd, sxt, sxb, w, bias, h0, out, r_out, z_out, n_out, hnb_out, sod, sot, \
+      sob, T, B, H, flip
+
+// The wide layer (RC_NARROW_H < H <= RC_MAX_H), one cluster of RC_CL blocks
+// per (direction, 8 NT rows). Warp (mi, ni) of 3 x NT owns units mi x rows ni
+// of all three gates, so the gate math runs on the accumulators where they
+// lie, and carries its h in registers. Shared memory: As (3, SL, LDA),
+// As[gate][u][k] = w[gate][k][c SL + u] (the A operand, staged transposed once
+// by 4-byte cp.async that all stay in flight); hb (2, ROWS, LDH), the block's
+// slice of h, double-buffered so that one cluster barrier a step is enough
+// (step s reads every peer's hb[s & 1] and writes its own hb[(s + 1) & 1]);
+// stage (ROWS, LDH), the peer's slice being multiplied. Three accumulator
+// chains over K (8 x 6 k steps at H = 350), one per 3xTF32 term; the bias is
+// added after.
 inline size_t fwd_cluster_smem(int H, int nt) {
   const int SL = (H + RC_CL - 1) / RC_CL;
   const int LDA = pad4mod8(RC_CL * SL + (8 - SL % 8) % 8);
@@ -476,13 +334,7 @@ inline size_t fwd_cluster_smem(int H, int nt) {
 
 template <bool RES, typename TX, int NT>
 __global__ void __launch_bounds__(rc_threads(NT), 1)
-gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
-                       const TX* __restrict__ xn, long long sxd, long long sxt,
-                       long long sxb, const float* __restrict__ w,
-                       const float* __restrict__ bias, const float* __restrict__ h0,
-                       float* __restrict__ out, float* __restrict__ r_out,
-                       float* __restrict__ z_out, float* __restrict__ n_out,
-                       float* __restrict__ hnb_out, int T, int B, int H) {
+gru_fwd_cluster_kernel(HOP_FWD_PARAMS) {
   constexpr int ROWS = 8 * NT, THREADS = rc_threads(NT);
   constexpr int NV = (ROWS * slice_ld(RC_MAX_SL) / 4 + THREADS - 1) / THREADS;
   extern __shared__ __align__(16) float smem[];
@@ -495,6 +347,7 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
   const int n_vec = ROWS * LDH / 4;
   const int c = int(cluster_rank());
   const int d = blockIdx.y, b0 = (blockIdx.x / RC_CL) * ROWS;
+  const bool back = ((d ^ flip) & 1) != 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, t4 = lane % 4;
   const int mi = warp / NT, ni = warp % NT;
@@ -504,12 +357,14 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
   for (int idx = tid; idx < 3 * SL * LDA + 3 * ROWS * LDH; idx += THREADS)
     smem[idx] = 0.f;
   __syncthreads();
-  for (int idx = tid; idx < 3 * H * SL; idx += THREADS) {
-    const int gate = idx / (H * SL), rem = idx - gate * (H * SL);
-    const int k = rem / SL, u = rem - k * SL;
-    if (c * SL + u < H)
-      As[(gate * SL + u) * LDA + k] = wd[(size_t(gate) * H + k) * H + c * SL + u];
+  // W's rows (gate, k) by warps, a row's units by lanes: coalesced reads
+  for (int row = warp; row < 3 * H; row += THREADS / 32) {
+    const int gate = row / H, k = row - gate * H;
+    for (int u = lane; u < SL && c * SL + u < H; u += 32)
+      cp_async_floats<1>(As + (gate * SL + u) * LDA + k,
+                         wd + size_t(row) * H + c * SL + u, true);
   }
+  cp_async_commit();
 
   // the thread's four elements: accumulator q is unit ue[q / 2], row re[q % 2]
   const int ue[2] = {mi * 16 + gq, mi * 16 + gq + 8};
@@ -534,13 +389,13 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
   // the A fragment's two rows (clamped: rows past SL are computed and dropped)
   const int ra = min(ue[0], SL - 1) * LDA, rb = min(ue[1], SL - 1) * LDA;
   const float* srow = stage + (ni * 8 + gq) * LDH + t4;
-  const long long xo = d * sxd;
-  const size_t oo = size_t(d) * T * B * H;
+  const long long xo = d * sxd, oo = d * sod;
+  cp_async_wait<0>();
   cluster_arrive();
   cluster_wait();   // every block's W and h0 slice are in place
 
   for (int s = 0; s < T; ++s) {
-    const int t = d == 1 ? T - 1 - s : s;
+    const int t = back ? T - 1 - s : s;
     const uint32_t hcur = smem_addr(hb + (s & 1) * ROWS * LDH);
     float* hnext = hb + ((s + 1) & 1) * ROWS * LDH;
     float4 regs[NV];
@@ -551,9 +406,9 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
     for (int q = 0; q < 4; ++q) {
       const long long o =
           xo + t * sxt + (long long)(b0 + re[q % 2]) * sxb + c * SL + ue[q / 2];
-      vr[q] = ok[q] ? ld_stream(xr + o) : 0.f;
-      vz[q] = ok[q] ? ld_stream(xz + o) : 0.f;
-      vn[q] = ok[q] ? ld_stream(xn + o) : 0.f;
+      vr[q] = ok[q] ? to_f32(xr[o]) : 0.f;
+      vz[q] = ok[q] ? to_f32(xz[o]) : 0.f;
+      vn[q] = ok[q] ? to_f32(xn[o]) : 0.f;
     }
     float acc[3][3][4];
 #pragma unroll
@@ -576,9 +431,9 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
     for (int q = 0; q < 4; ++q) {
       const int v = q / 2;
       hnb[q] = mma_sum(acc[2], q) + bh[2][v];
-      rg[q] = sigmoidf(vr[q] + mma_sum(acc[0], q) + bh[0][v]);
-      zg[q] = sigmoidf(vz[q] + mma_sum(acc[1], q) + bh[1][v]);
-      ng[q] = tanhf(vn[q] + rg[q] * hnb[q]);
+      rg[q] = sigmoid_g(vr[q] + mma_sum(acc[0], q) + bh[0][v]);
+      zg[q] = sigmoid_g(vz[q] + mma_sum(acc[1], q) + bh[1][v]);
+      ng[q] = tanh_g(vn[q] + rg[q] * hnb[q]);
       hreg[q] = ok[q] ? (1.f - zg[q]) * ng[q] + zg[q] * hreg[q] : 0.f;
       if (worker && ue[v] < SL) hnext[re[q % 2] * LDH + ue[v]] = hreg[q];
     }
@@ -586,7 +441,8 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       if (ok[q]) {
-        const size_t o = oo + (size_t(t) * B + b0 + re[q % 2]) * H + c * SL + ue[q / 2];
+        const long long o =
+            oo + t * sot + (long long)(b0 + re[q % 2]) * sob + c * SL + ue[q / 2];
         out[o] = hreg[q];
         if (RES) {
           r_out[o] = rg[q];
@@ -600,50 +456,231 @@ gru_fwd_cluster_kernel(const TX* __restrict__ xr, const TX* __restrict__ xz,
   }
 }
 
-// Which forward runs is a function of the shape alone: where a direction's
-// W_hh fits one block (H <= 138: the discriminator's 64) the shared-memory
-// tile, else the cluster (H <= RC_MAX_H: the head's 350), with one row tile
-// for a batch of at most RC_SMALL_B rows and five otherwise.
+// The narrow layer (H <= RC_NARROW_H: the discriminator's 64), one block per
+// (direction, 8 rows), no cluster. The whole W_hh of a direction is 48 KB at
+// H = 64, and its A fragments are spread over the registers of 8 warps: warp
+// (mi, kh) of 4 x 2 holds units mi (16) x half kh of K (32), 48 floats a
+// thread, read from device memory once, straight into registers (staging it
+// through shared memory by 4-byte copies took 17k clocks a block; holding all
+// of K in 4 warps spilled at 255 registers). A step: each warp multiplies
+// its half on the tensor cores (3xTF32: 4 dependent k steps of 9 MMAs, two
+// warps a scheduler), the pair (mi, 0), (mi, 1) swaps half of its sums
+// through shared memory under a barrier of its own, and each warp of the pair
+// finishes one of the two units of its accumulator rows (the sum over K is
+// half 0 + half 1 in that order): the gate math on 2 elements a thread, h
+// carried in registers, h_t into the double-buffered tile hb that is the next
+// step's B operand, one block barrier a step. The streams do not depend on h:
+// each step loads the next step's while it multiplies. On an H100 at 700 W:
+// 0.027 ms at (D=2, T=28, B=256), a step ~1700 clocks (by clock64(): the
+// product 620, the swap 200, the gate math and h 300-400, the stores
+// 170-280, the next streams' loads 230), the prologue ~4000; bound 0.005.
+constexpr int NB_MT = RC_NARROW_H / 16;      // unit tiles
+constexpr int NB_WARPS = 2 * NB_MT;          // x two halves of K
+constexpr int NB_KS = RC_NARROW_H / 16;      // 8-deep k steps of a half
+constexpr int NB_LDH = slice_ld(RC_NARROW_H);
+
+__device__ __forceinline__ void pair_barrier(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
 template <bool RES, typename TX>
-cudaError_t launch_streams_fwd(const void* xr, const void* xz, const void* xn,
-                               long long sxd, long long sxt, long long sxb,
-                               const void* w, const void* b, const void* h0, void* out,
-                               void* r, void* z, void* n, void* hnb, int T, int B,
-                               int H, int D, cudaStream_t st) {
-  const auto* xrp = static_cast<const TX*>(xr);
-  const auto* xzp = static_cast<const TX*>(xz);
-  const auto* xnp = static_cast<const TX*>(xn);
-  const auto* wp = static_cast<const float*>(w);
-  const auto* bp = static_cast<const float*>(b);
-  const auto* hp = static_cast<const float*>(h0);
-  auto* op = static_cast<float*>(out);
-  auto* rp = static_cast<float*>(r);
-  auto* zp = static_cast<float*>(z);
-  auto* np = static_cast<float*>(n);
-  auto* hnbp = static_cast<float*>(hnb);
-  if (whh_in_shared(H)) {
-    auto* kernel = gru_streams_fwd_kernel<RES, TX>;
-    const size_t smem = ws_smem_bytes(H);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    const int groups = ws_row_groups(H), rows = groups * WS_RT;
-    kernel<<<dim3((B + rows - 1) / rows, D), dim3((H + 31) / 32 * 32, groups), smem, st>>>(
-        xrp, xzp, xnp, sxd, sxt, sxb, wp, bp, hp, op, rp, zp, np, hnbp, T, B, H);
+__global__ void __launch_bounds__(32 * NB_WARPS, 1)
+gru_fwd_block_kernel(HOP_FWD_PARAMS) {
+  __shared__ __align__(16) float hb[2][8][NB_LDH];
+  __shared__ float xb[NB_MT][2][3][2][32];   // [mi][to half][gate][row][lane]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int mi = warp % NB_MT, kh = warp / NB_MT;
+  const int d = blockIdx.y, b0 = blockIdx.x * 8;
+  const bool back = ((d ^ flip) & 1) != 0;
+  const float* wd = w + size_t(d) * 3 * H * H;
+
+  for (int idx = tid; idx < 2 * 8 * NB_LDH; idx += 32 * NB_WARPS)
+    (&hb[0][0][0])[idx] = 0.f;
+  // the A fragments: element q of k step ks is unit ue[q % 2], k = (kh NB_KS +
+  // ks) 8 + t4 + 4 (q / 2); zero past H
+  const int ue[2] = {mi * 16 + gq, mi * 16 + gq + 8};
+  float wa[3][NB_KS][4];
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+    for (int ks = 0; ks < NB_KS; ++ks)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int u = ue[q % 2], k = (kh * NB_KS + ks) * 8 + t4 + 4 * (q / 2);
+        wa[gate][ks][q] = u < H && k < H ? wd[(size_t(gate) * H + k) * H + u] : 0.f;
+      }
+  // the thread's two elements: unit uo of rows re[i] (kh is no index into a
+  // register array: a runtime index puts the array in local memory)
+  const int uo = mi * 16 + gq + 8 * kh;
+  const int re[2] = {2 * t4, 2 * t4 + 1};
+  bool ok[2];
+  float hreg[2], bh[3];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ok[i] = uo < H && b0 + re[i] < B;
+    hreg[i] = ok[i] ? h0[size_t(b0 + re[i]) * H + uo] : 0.f;
+  }
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate)
+    bh[gate] = uo < H ? bias[(size_t(d) * 3 + gate) * H + uo] : 0.f;
+  const long long xo = d * sxd, oo = d * sod;
+  TX pr[2], pz[2], pn[2];   // the stream values of the step ahead, as they lie
+  auto load_streams = [&](int tt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (ok[i]) {
+        const long long o = xo + tt * sxt + (long long)(b0 + re[i]) * sxb + uo;
+        pr[i] = xr[o];
+        pz[i] = xz[o];
+        pn[i] = xn[o];
+      }
+    }
+  };
+  load_streams(back ? T - 1 : 0);
+  __syncthreads();   // the tiles' zeros are in place
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (uo < H) hb[0][re[i]][uo] = hreg[i];
+  __syncthreads();   // h0 is in place
+
+  for (int s = 0; s < T; ++s) {
+    const int t = back ? T - 1 - s : s;
+    float vr[2], vz[2], vn[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      vr[i] = ok[i] ? to_f32(pr[i]) : 0.f;
+      vz[i] = ok[i] ? to_f32(pz[i]) : 0.f;
+      vn[i] = ok[i] ? to_f32(pn[i]) : 0.f;
+    }
+    if (s + 1 < T) load_streams(back ? T - 2 - s : s + 1);
+
+    // the B fragment: row gq of h, k = t4 (+ 4) of each k step of the half
+    const float* sb = &hb[s & 1][gq][kh * NB_KS * 8 + t4];
+    float acc[3][3][4];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[gate][term][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NB_KS; ++ks) {
+      uint32_t b_hi[2], b_lo[2];
+      split_tf32(sb[ks * 8], b_hi[0], b_lo[0]);
+      split_tf32(sb[ks * 8 + 4], b_hi[1], b_lo[1]);
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(wa[gate][ks][q], a_hi[q], a_lo[q]);
+        mma_tf32(acc[gate][0], a_lo, b_hi[0], b_hi[1]);
+        mma_tf32(acc[gate][1], a_hi, b_lo[0], b_lo[1]);
+        mma_tf32(acc[gate][2], a_hi, b_hi[0], b_hi[1]);
+      }
+    }
+    // accumulator q is unit ue[q / 2], row re[q % 2]: this warp keeps unit
+    // ue[kh] and gives its partner its sums of the other
+    float keep[3][2];
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float lo = mma_sum(acc[gate], i), hi = mma_sum(acc[gate], 2 + i);
+        keep[gate][i] = kh == 0 ? lo : hi;
+        xb[mi][1 - kh][gate][i][lane] = kh == 0 ? hi : lo;
+      }
+    pair_barrier(1 + mi);
+    float hs[3][2];   // the sums over K of the thread's elements: half 0 + half 1
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float other = xb[mi][kh][gate][i][lane];
+        hs[gate][i] = kh == 0 ? keep[gate][i] + other : other + keep[gate][i];
+      }
+
+    float rg[2], zg[2], ng[2], hnb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      hnb[i] = hs[2][i] + bh[2];
+      rg[i] = sigmoid_g(vr[i] + hs[0][i] + bh[0]);
+      zg[i] = sigmoid_g(vz[i] + hs[1][i] + bh[1]);
+      ng[i] = tanh_g(vn[i] + rg[i] * hnb[i]);
+      hreg[i] = ok[i] ? (1.f - zg[i]) * ng[i] + zg[i] * hreg[i] : 0.f;
+      if (uo < H) hb[(s + 1) & 1][re[i]][uo] = hreg[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (ok[i]) {
+        const long long o = oo + t * sot + (long long)(b0 + re[i]) * sob + uo;
+        out[o] = hreg[i];
+        if (RES) {
+          r_out[o] = rg[i];
+          z_out[o] = zg[i];
+          n_out[o] = ng[i];
+          hnb_out[o] = hnb[i];
+        }
+      }
+    }
+    __syncthreads();   // h_t is written and h_{t-1} and xb read by every warp
+  }
+}
+
+// Row tiles of 8 a forward cluster owns, from (B, D) alone: one for a batch
+// of at most RC_SMALL_B rows; FWD_ONE_DIR_NT at one direction (K6, and K3 at
+// D = 1), where five would leave B = 256 in 7 clusters on 56 of 132 SMs
+// (0.75 against 0.53 ms for K6 at B = 256, H = 350 on an H100); else RC_NT
+// (both directions of B = 256 in 14 clusters, one wave).
+constexpr int FWD_ONE_DIR_NT = 3;
+__host__ __device__ constexpr int fwd_row_tiles(int B, int D) {
+  return B <= RC_SMALL_B ? 1 : D == 1 ? FWD_ONE_DIR_NT : RC_NT;
+}
+
+template <bool RES, typename TX, int NT>
+cudaError_t launch_fwd_cluster(HOP_FWD_PARAMS, int D, cudaStream_t st) {
+  const int tiles = (B + 8 * NT - 1) / (8 * NT);
+  return launch_in_clusters(gru_fwd_cluster_kernel<RES, TX, NT>, dim3(RC_CL * tiles, D),
+                            rc_threads(NT), fwd_cluster_smem(H, NT), RC_CL, st,
+                            HOP_FWD_ARGS);
+}
+
+// Which forward runs is a function of H alone, as for the backward: H <=
+// RC_NARROW_H one block of 8 rows, else (H <= RC_MAX_H) the cluster, its rows
+// by fwd_row_tiles. The pointers' element types are TX (streams) and float.
+template <bool RES, typename TX>
+cudaError_t launch_fwd_recurrence(const void* xr_, const void* xz_, const void* xn_,
+                                  long long sxd, long long sxt, long long sxb,
+                                  const void* w_, const void* b_, const void* h0_,
+                                  void* out_, void* r_, void* z_, void* n_, void* hnb_,
+                                  long long sod, long long sot, long long sob, int T,
+                                  int B, int H, int D, int flip, cudaStream_t st) {
+  const auto* xr = static_cast<const TX*>(xr_);
+  const auto* xz = static_cast<const TX*>(xz_);
+  const auto* xn = static_cast<const TX*>(xn_);
+  const auto* w = static_cast<const float*>(w_);
+  const auto* bias = static_cast<const float*>(b_);
+  const auto* h0 = static_cast<const float*>(h0_);
+  auto* out = static_cast<float*>(out_);
+  auto* r_out = static_cast<float*>(r_);
+  auto* z_out = static_cast<float*>(z_);
+  auto* n_out = static_cast<float*>(n_);
+  auto* hnb_out = static_cast<float*>(hnb_);
+  if (H <= RC_NARROW_H) {
+    gru_fwd_block_kernel<RES, TX><<<dim3((B + 7) / 8, D), 32 * NB_WARPS, 0, st>>>(
+        HOP_FWD_ARGS);
     return cudaGetLastError();
   }
   if (H > RC_MAX_H) return cudaErrorInvalidValue;
-  if (B <= RC_SMALL_B)
-    return launch_in_clusters(gru_fwd_cluster_kernel<RES, TX, 1>, dim3(RC_CL, D),
-                              rc_threads(1), fwd_cluster_smem(H, 1), RC_CL, st, xrp, xzp,
-                              xnp, sxd, sxt, sxb, wp, bp, hp, op, rp, zp, np, hnbp, T, B,
-                              H);
-  const int tiles = (B + RC_ROWS - 1) / RC_ROWS;
-  return launch_in_clusters(gru_fwd_cluster_kernel<RES, TX, RC_NT>,
-                            dim3(RC_CL * tiles, D), rc_threads(RC_NT),
-                            fwd_cluster_smem(H, RC_NT), RC_CL, st, xrp, xzp, xnp, sxd, sxt,
-                            sxb, wp, bp, hp, op, rp, zp, np, hnbp, T, B, H);
+  switch (fwd_row_tiles(B, D)) {
+    case 1: return launch_fwd_cluster<RES, TX, 1>(HOP_FWD_ARGS, D, st);
+    case FWD_ONE_DIR_NT:
+      return launch_fwd_cluster<RES, TX, FWD_ONE_DIR_NT>(HOP_FWD_ARGS, D, st);
+    default: return launch_fwd_cluster<RES, TX, RC_NT>(HOP_FWD_ARGS, D, st);
+  }
 }
+#undef HOP_FWD_PARAMS
+#undef HOP_FWD_ARGS
 
 // The serial part of a GRU layer's backward: walks t in the reverse of the
 // forward's order with the dh carry in registers; per step forms the gate
@@ -671,8 +708,6 @@ cudaError_t launch_streams_fwd(const void* xr, const void* xz, const void* xn,
 // upwards. Barriers of a step (CL > 1): "buf is written"
 // (arrive + wait) before the pulls, "buf is read" (arrive after the last
 // pull has landed, wait before the next step writes buf).
-constexpr int RC_NARROW_H = 64;   // the widest layer of the one-block instance
-
 template <int CL, int NT>
 inline size_t bwd_resident_smem(int H) {
   const int SL = (H + CL - 1) / CL, K3 = 3 * SL, R = 8 * NT;

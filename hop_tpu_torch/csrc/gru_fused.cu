@@ -26,23 +26,24 @@
 //      is ragged: masked), 32-deep operand tiles copied as they lie by
 //      cp.async three stages deep, the bias added in the epilogue;
 //   B. the recurrence from xp by its strides (gru_common.cuh, the kernels K3
-//      runs), T looped inside the kernel with W_hh resident on the chip; the
-//      backward direction walks t from T-1 down and writes at the natural
-//      time index; with residuals it also writes r, z, n and hnb
-//      (D, T, B, H). Where a direction's W_hh fits a block's shared memory
-//      (H <= 138: the discriminator's H = 64, 49 KB) gru_streams_fwd_kernel
-//      stages it there once and each thread carries 2 rows, 4 row groups a
-//      block, scalar f32 FMAs; else (the head's H = 350, 1.47 MB)
-//      gru_fwd_cluster_kernel: a cluster of 8 blocks owns 40 batch rows (8 for
-//      a batch of at most 8), each block holds an eighth of W_hh for the whole
-//      loop and computes its 44 hidden units' products on the tensor cores
-//      (3xTF32), the slices of h exchanged through distributed shared memory.
+//      and K6 run), T looped inside the kernel with W_hh resident on the chip
+//      and the per-step product on the tensor cores (3xTF32); the backward
+//      direction walks t from T-1 down and writes at the natural time index;
+//      with residuals it also writes r, z, n and hnb (D, T, B, H). At a
+//      narrow layer (H <= 64: the discriminator's) gru_fwd_block_kernel: one
+//      block of 8 warps owns 8 batch rows and holds W_hh in registers, each
+//      warp a 16-unit tile and one half of K; else (the head's H = 350,
+//      1.47 MB) gru_fwd_cluster_kernel: a cluster of 8 blocks owns 40 batch
+//      rows (8 for a batch of at most 8), each block holds an eighth of W_hh
+//      in shared memory for the whole loop and computes its 44 hidden units'
+//      products, the slices of h exchanged through distributed shared memory.
 // What bounds it: operations, 49.1 GFLOP of f32 work at (T=34, B=256, I=992,
 // H=350, D=2); phase A runs three times its 36.3 GFLOP as TF32 MMAs (0.73
 // ms on an H100, 30% of the TF32 peak: mma.sync with the operand split on the
 // same warps), phase B three times its 12.8 GFLOP on 112 of the 132 SMs
-// (0.79 ms: mma.sync starts one TF32 m16n8k8 per ~14 clocks a tensor core,
-// and a step's 48 x 9 MMAs a warp are 70% of it). The tensor cores' f32
+// (0.74-0.77 ms on an H100 at 700 W: mma.sync starts one TF32 m16n8k8 per
+// ~14 clocks a tensor core, and a step's 48 x 9 MMAs a warp are 70% of it;
+// at the discriminator's H = 64 the one-block kernel, 0.027 ms). The tensor cores' f32
 // accumulation truncates, so xp agrees with an f64 product to 7e-5 where a
 // cuBLAS f32 product agrees to 1.4e-5 (|xp| up to 8); the layer's outputs
 // stay within 4e-5 of the plain version's.
@@ -296,20 +297,18 @@ extern "C" int hop_gru_fused_fwd(const void* x, const void* wih, const void* bih
                                 static_cast<const float*>(bih), static_cast<float*>(xp),
                                 T * B, I, H, 3 * D, st);
   if (err != cudaSuccess) return int(err);
-  // element (d, t, b, gate, j) of xp: three gate pointers, strides of d, t, b
+  // element (d, t, b, gate, j) of xp: three gate pointers, strides of d, t, b;
+  // out and the residuals (D, T, B, H)
   const long long sxd = 3LL * H, sxb = sxd * D, sxt = sxb * B;
-#define HOP_REC(RES)                                                                   \
-  launch_streams_fwd<RES, float>(gates, gates + H, gates + 2 * H, sxd, sxt, sxb, whh, \
-                                 bhh, h0, out, r_out, z_out, n_out, hnb_out, T, B, H, \
-                                 D, st)
+  const long long sot = (long long)B * H, sod = sot * T;
+#define HOP_REC(RES)                                                                  \
+  launch_fwd_recurrence<RES, float>(gates, gates + H, gates + 2 * H, sxd, sxt, sxb,  \
+                                    whh, bhh, h0, out, r_out, z_out, n_out, hnb_out, \
+                                    sod, sot, H, T, B, H, D, 0, st)
   err = res ? HOP_REC(true) : HOP_REC(false);
 #undef HOP_REC
   return int(err);
 }
-
-// whether phase B keeps W_hh in one block's shared memory at this H (1) or
-// across a cluster (0)
-extern "C" int hop_gru_fused_whh_in_shared(int H) { return whh_in_shared(H) ? 1 : 0; }
 
 // floats of workspace hop_gru_fused_bwd needs for these shapes (0: none)
 extern "C" long long hop_gru_fused_bwd_workspace(int T, int B, int I, int H, int D) {

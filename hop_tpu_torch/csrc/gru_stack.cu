@@ -20,18 +20,21 @@
 // Forward. The TPU put T on a sequential grid with the whole batch per step
 // and carried h in VMEM scratch. Here batch rows are independent and T is a
 // loop inside the kernel, W resident on the chip for all of it
-// (launch_streams_fwd in gru_common.cuh chooses by the shape alone, for this
-// entry as for K2's second phase): where a direction's W fits a block's
-// shared memory (H <= 138: the discriminator's 64) a block owns 8 rows in 4
-// groups of 2 and runs scalar f32 FMAs from its copy; else (the head's H =
-// 350, 1.47 MB) a cluster of 8 blocks owns 40 rows (8 for a batch of at most
-// 8), each block keeps an eighth of W and computes its 44 hidden units on the
-// tensor cores (3xTF32 mma.sync), and the blocks exchange their slices of h
-// through distributed shared memory. Any B: the ragged last tile is masked.
+// (launch_fwd_recurrence in gru_common.cuh chooses by H alone, for this
+// entry as for K2's second phase and K6), the per-step product on the tensor
+// cores (3xTF32 mma.sync): at a narrow layer (H <= 64: the discriminator's)
+// one block of 8 warps owns 8 rows and holds W in registers, a warp a 16-unit
+// tile and a half of K; else (the head's H = 350, 1.47 MB) a cluster of 8
+// blocks owns 40 rows (24 at one direction, 8 for a batch of at most 8), each
+// block keeps an eighth of W in shared memory and computes its 44 hidden
+// units, and the blocks exchange their slices of h through distributed
+// shared memory. Any B: the ragged last tile is masked.
 // What bounds it: operations. 12.8 GFLOP of f32 work at the head's shape
 // (D=2, T=34, B=256, H=350) against 100 MB (lean) or 198 MB (residuals) of
 // traffic; as three TF32 MMAs a product on 112 SMs at mma.sync's rate it
-// takes 0.79 ms on an H100, 4x that bound.
+// takes 0.72-0.77 ms on an H100 at 700 W, 4x that bound. At the
+// discriminator's (T=28, H=64) the one-block kernel takes 0.027 ms, a chain
+// of 28 steps of ~1700 clocks against a bound of 0.005 ms.
 //
 // Backward. The TPU ran one reversed pass that also added dW and db into a
 // resident block over its sequential grid. Here: gru_bwd_resident_kernel
@@ -70,9 +73,11 @@ extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
   const bool res = r != nullptr;
   if (res && (z == nullptr || n == nullptr || hnb == nullptr))
     return int(cudaErrorInvalidValue);
-#define HOP_FWD(RES, TX)                                                            \
-  launch_streams_fwd<RES, TX>(xr, xz, xn, sxd, sxt, sxb, w, b, h0, out, r, z, n, hnb, T, \
-                              B, H, D, st)
+  // outputs (D, T, B, H)
+  const long long sot = (long long)B * H, sod = sot * T;
+#define HOP_FWD(RES, TX)                                                                \
+  launch_fwd_recurrence<RES, TX>(xr, xz, xn, sxd, sxt, sxb, w, b, h0, out, r, z, n, hnb, \
+                                 sod, sot, H, T, B, H, D, 0, st)
   cudaError_t err;
   if (bf16)
     err = res ? HOP_FWD(true, __nv_bfloat16) : HOP_FWD(false, __nv_bfloat16);
@@ -82,23 +87,36 @@ extern "C" int hop_gru_stack_fwd(const void* xr, const void* xz, const void* xn,
   return int(err);
 }
 
-// Clusters of the wide layer's recurrence (forward: backward == 0) that the
-// card holds at once at this H, or minus the CUDA error; 0 where the layer is
-// narrow enough to run without clusters.
+// Which recurrence kernel runs at this H, forward and backward alike, as
+// launch_fwd_recurrence and launch_bwd_recurrence choose it: 0 one block, 1
+// a cluster, or minus the CUDA error where no kernel takes H.
+extern "C" int hop_gru_recurrence_variant(int H) {
+  if (H < 1 || H > RC_MAX_H) return -int(cudaErrorInvalidValue);
+  return H <= RC_NARROW_H ? 0 : 1;
+}
+
+// Batch rows of a forward cluster at (B, D) (fwd_row_tiles), or minus the
+// CUDA error for a shape no forward takes.
+extern "C" int hop_gru_fwd_cluster_rows(int B, int D) {
+  if (B < 1 || D < 1 || D > 2) return -int(cudaErrorInvalidValue);
+  return 8 * fwd_row_tiles(B, D);
+}
+
+// Clusters of the wide layer's recurrence (forward: backward == 0, its
+// instance of RC_NT row tiles) that the card holds at once at this H, or
+// minus the CUDA error; 0 where the layer is narrow enough to run without
+// clusters.
 extern "C" int hop_gru_active_clusters(int H, int backward) {
   if (H < 1 || H > RC_MAX_H) return -int(cudaErrorInvalidValue);
+  if (H <= RC_NARROW_H) return 0;
   int count = 0;
-  cudaError_t err = cudaSuccess;
-  if (backward) {
-    if (H <= RC_NARROW_H) return 0;
-    err = active_clusters(gru_bwd_resident_kernel<RC_CL, RC_MT, RC_NT, float>,
-                          rc_threads(RC_NT), bwd_resident_smem<RC_CL, RC_NT>(H), RC_CL,
-                          &count);
-  } else {
-    if (whh_in_shared(H)) return 0;
-    err = active_clusters(gru_fwd_cluster_kernel<true, float, RC_NT>, rc_threads(RC_NT),
-                          fwd_cluster_smem(H, RC_NT), RC_CL, &count);
-  }
+  const cudaError_t err =
+      backward ? active_clusters(gru_bwd_resident_kernel<RC_CL, RC_MT, RC_NT, float>,
+                                 rc_threads(RC_NT), bwd_resident_smem<RC_CL, RC_NT>(H),
+                                 RC_CL, &count)
+               : active_clusters(gru_fwd_cluster_kernel<true, float, RC_NT>,
+                                 rc_threads(RC_NT), fwd_cluster_smem(H, RC_NT),
+                                 RC_CL, &count);
   return err == cudaSuccess ? count : -int(err);
 }
 

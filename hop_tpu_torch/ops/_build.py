@@ -45,8 +45,11 @@ SIGNATURES = {
     # x, wih, bih, whh, bhh, h0, xp (workspace), out, r, z, n, hnb (residuals
     # or NULL), T, B, I, H, D, stream
     "hop_gru_fused_fwd": [_P] * 12 + [_I] * 5 + [_P],
-    # H -> 1 when the forward recurrence keeps W_hh in one block
-    "hop_gru_fused_whh_in_shared": [_I],
+    # H -> the recurrence kernel at this H, forward and backward: 0 one
+    # block, 1 a cluster (negative: minus a CUDA error)
+    "hop_gru_recurrence_variant": [_I],
+    # B, D -> batch rows of a forward cluster
+    "hop_gru_fwd_cluster_rows": [_I, _I],
     # H, backward flag -> clusters of the wide recurrence the card holds at
     # once (0: a narrow layer, no clusters; negative: minus a CUDA error)
     "hop_gru_active_clusters": [_I, _I],

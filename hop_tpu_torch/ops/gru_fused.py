@@ -17,12 +17,13 @@ stream: (A) a hand-written tensor-core product xp = x · W_ih + b_ih over
 all T * B rows at f32 accuracy (each operand split into TF32 hi + lo, three
 `mma.sync` a product, f32 accumulators) into a workspace (T, B, D, 3, H),
 and (B) the recurrence h · W_hh over T inside one kernel, W_hh resident on
-the chip for the whole loop (the kernels the stack route runs): where a
-direction's W_hh fits a block's shared memory (`whh_in_shared`: the
-discriminator's H=64) one block stages it once and runs scalar f32 products;
-else (H=350) a thread-block cluster of eight blocks shares it, each block
-computing its 44 hidden units on the tensor cores (3×TF32) and exchanging
-slices of h through distributed shared memory (`recurrence_variant`). In
+the chip for the whole loop (the kernels the stack route runs), the
+per-step product h · W_hh on the tensor cores (3×TF32): at a narrow layer
+(the discriminator's H=64) one block holds the direction's W_hh and 8 batch
+rows; at a wide one (H=350) a thread-block cluster of eight blocks shares
+it, each block computing its 44 hidden units and exchanging slices of h
+through distributed shared memory (`recurrence_variant`, a function of H
+alone, the same for the backward). In
 training the forward also writes the gates r, z, n and
 hnb = h W_hh[n] + b_hh[n]. The
 backward runs the serial dh recurrence in one kernel of the same kind (W_hh
@@ -45,7 +46,8 @@ is the backward in the kernels' split (gate grads by a reversed loop, then
 products and sums); `two_phase_gru_fused_layer` and
 `sliced_gru_fused_layer_bwd` repeat the forward and backward kernels'
 arithmetic in torch for the CPU tests, the recurrences' through
-`resident_hidden_product` and `resident_carry_product`. The wrappers take the plain
+`resident_hidden_product` and `resident_carry_product` (3×TF32 chains,
+in one block or over a cluster's slices). The wrappers take the plain
 versions only for a tensor on the CPU; for a CUDA tensor they launch the
 kernels or raise.
 """
@@ -89,43 +91,43 @@ def plain_gru_fused_layer(x, wih, bih, whh, bhh, h0,
     return out, r, z, n, hnb
 
 
-#: a block's most shared memory on the card, the rows a thread carries and
-#: the threads of a block in the recurrence's one-block forward
-#: (SMEM_BLOCK_MAX, WS_RT, WS_THREADS in csrc/gru_common.cuh)
+#: a block's most shared memory on the card
 SMEM_BLOCK_MAX = 232448
-WS_ROWS = 2
-WS_THREADS = 256
-#: the wide layer's recurrences (RC_CL, RC_ROWS, RC_MAX_SL, RC_NARROW_H in
-#: csrc/gru_common.cuh): blocks of a cluster, batch rows of a cluster, most
-#: hidden units of a block, the widest layer of the backward's one-block
-#: instance
+#: the recurrences (RC_CL, RC_ROWS, RC_MAX_SL, RC_NARROW_H, RC_SMALL_B,
+#: FWD_ONE_DIR_NT in csrc/gru_common.cuh): blocks of a cluster, batch rows of
+#: a cluster of the backward (and of the forward at two directions), most
+#: hidden units of a block, the widest layer of the one-block instances, the
+#: largest batch of one row tile, the forward's row tiles at one direction
 CLUSTER_BLOCKS = 8
 CLUSTER_ROWS = 40
 CLUSTER_MAX_UNITS = 44
 MAX_H = CLUSTER_BLOCKS * CLUSTER_MAX_UNITS
-NARROW_BWD_H = 64
+NARROW_H = 64
+SMALL_B = 8
+ONE_DIR_ROW_TILES = 3
 
 
-def whh_in_shared(H: int) -> bool:
-    """Whether the forward's recurrence keeps a direction's W_hh (3, H, H)
-    in one block's shared memory (it fits a block's 227 KB with the block's
-    h tiles) or across a cluster of blocks."""
-    groups = max(1, WS_THREADS // (-(-H // 32) * 32))
-    h_floats = -(-groups * WS_ROWS * H // 4) * 4
-    return (h_floats + 3 * H * H) * 4 <= SMEM_BLOCK_MAX
-
-
-def recurrence_variant(H: int, backward: bool = False) -> str:
-    """Which recurrence kernel runs at hidden width H, as the host side
-    chooses it (`launch_streams_fwd`, `launch_bwd_recurrence` in
-    csrc/gru_common.cuh), from H alone: "block" where one block holds the
-    direction's W_hh (the forward with scalar f32 products up to H = 138, the
-    backward on the tensor cores up to NARROW_BWD_H), "cluster" where eight
-    blocks share it (up to MAX_H, on the tensor cores)."""
+def recurrence_variant(H: int) -> str:
+    """Which recurrence kernel runs at hidden width H, forward and backward
+    alike, as the host side chooses it (`launch_fwd_recurrence`,
+    `launch_bwd_recurrence` in csrc/gru_common.cuh), from H alone: "block"
+    where one block holds the direction's W_hh (up to NARROW_H: the
+    discriminator's 64), "cluster" where eight blocks share it (up to MAX_H:
+    the head's 350). Both run the per-step product on the tensor cores."""
     if H < 1 or H > MAX_H:
         raise ValueError(f"the GRU kernels take 1 <= H <= {MAX_H}, got H={H}")
-    narrow = H <= NARROW_BWD_H if backward else whh_in_shared(H)
-    return "block" if narrow else "cluster"
+    return "block" if H <= NARROW_H else "cluster"
+
+
+def forward_cluster_rows(B: int, D: int) -> int:
+    """Batch rows of one cluster of the forward recurrence at a wide layer,
+    from (B, D) alone (`fwd_row_tiles` in csrc/gru_common.cuh): one 8-row tile
+    for a batch of at most SMALL_B rows, ONE_DIR_ROW_TILES tiles at one
+    direction (B = 256: 11 clusters where 40 rows would leave 7 on 56 SMs),
+    five at two (B = 256: 14 clusters, one wave)."""
+    if B <= SMALL_B:
+        return 8
+    return 8 * (ONE_DIR_ROW_TILES if D == 1 else CLUSTER_ROWS // 8)
 
 
 def _pad4mod8(x: int) -> int:
@@ -137,18 +139,19 @@ def _slice_ld(k: int) -> int:
 
 
 def recurrence_smem_bytes(H: int, backward: bool = False) -> int:
-    """Dynamic shared memory of a block of the kernel `recurrence_variant`
-    names, the wrapper's copy of the host side's sizes."""
-    variant = recurrence_variant(H, backward)
-    if not backward:
-        if variant == "block":
-            groups = max(1, WS_THREADS // (-(-H // 32) * 32))
-            return (-(-groups * WS_ROWS * H // 4) * 4 + 3 * H * H) * 4
-        sl = -(-H // CLUSTER_BLOCKS)
-        lda = _pad4mod8(CLUSTER_BLOCKS * sl + (8 - sl % 8) % 8)
-        return (3 * sl * lda + 3 * CLUSTER_ROWS * _slice_ld(sl)) * 4
-    blocks, rows = (1, 8) if variant == "block" else (CLUSTER_BLOCKS, CLUSTER_ROWS)
+    """Shared memory of a block of the kernel `recurrence_variant` names (the
+    forward's cluster at CLUSTER_ROWS rows), the wrapper's copy of the host
+    side's sizes."""
+    blocks = 1 if recurrence_variant(H) == "block" else CLUSTER_BLOCKS
+    rows = 8 if blocks == 1 else CLUSTER_ROWS
     sl = -(-H // blocks)
+    if not backward:
+        if blocks == 1:
+            # W_hh in registers; two h tiles NARROW_H deep and the halves'
+            # exchange (static, whatever H is)
+            return (2 * 8 * _slice_ld(NARROW_H) + (NARROW_H // 16) * 2 * 3 * 2 * 32) * 4
+        lda = _pad4mod8(blocks * sl + (8 - sl % 8) % 8)
+        return (3 * sl * lda + 3 * rows * _slice_ld(sl)) * 4
     k3 = 3 * sl
     lda = _pad4mod8(blocks * k3 + (8 - k3 % 8) % 8)
     return (sl * lda + (1 if blocks == 1 else 2) * rows * _slice_ld(k3)) * 4
@@ -198,12 +201,18 @@ def _own_and_peers(H: int):
 
 def resident_hidden_product(h, w, bias):
     """h (B, H) . w (3, H, H) + bias (3, 1, H) -> (3, B, H) in the forward
-    recurrence kernel's arithmetic at this H: the one-block kernel's plain
-    f32 sums, or the cluster's: each block's units from 3xTF32 products over
-    the peers' slices of h, the bias added last."""
+    recurrence kernel's arithmetic at this H: 3xTF32 products, each term
+    summed over K in a chain of its own, the bias added last; in the
+    one-block kernel over each half of K (NARROW_H / 2 deep), half 0 + half
+    1, and in the cluster for each block's units over the peers' slices of h
+    in the block's order."""
     H = h.shape[-1]
     if recurrence_variant(H) == "block":
-        return torch.einsum("bk,gkh->gbh", h, w) + bias
+        half = NARROW_H // 2
+        out = _tf32x3([(h[:, :half], w[:, :half])])
+        if H > half:
+            out = out + _tf32x3([(h[:, half:], w[:, half:])])
+        return out + bias
     out = h.new_zeros((3, h.shape[0], H))
     for own, peers in _own_and_peers(H):
         out[:, :, own] = _tf32x3((h[:, p], w[:, p, own]) for p in peers)
@@ -244,7 +253,7 @@ def resident_carry_product(d_hid, whh):
     over the peers' slices of the units (a slice's three gates side by
     side)."""
     B, _, H = d_hid.shape
-    if recurrence_variant(H, backward=True) == "block":
+    if recurrence_variant(H) == "block":
         return _tf32x3([(d_hid.reshape(B, 3 * H),
                          whh.permute(0, 2, 1).reshape(3 * H, H))])
     out = d_hid.new_zeros((B, H))

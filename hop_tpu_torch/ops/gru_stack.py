@@ -10,7 +10,7 @@ run the recurrence from its three per-gate streams.
 
 On the card a block (a narrow layer) or a cluster of eight blocks (the
 head's H = 350: `gru_fused.recurrence_variant`) owns a batch tile and a
-direction and loops over T with W resident in shared memory; direction 1 is a
+direction and loops over T with W resident on the chip; direction 1 is a
 reversed time index, not a flipped copy. The streams are taken by their strides (unit stride on H), so the
 three of them may be views of one (T, B, D, 3, H) product, and the backward
 writes dxr, dxz, dxn into one such buffer and returns views of it. Streams

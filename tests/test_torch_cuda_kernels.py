@@ -253,17 +253,66 @@ def test_gru_stack_kernels(device, D, T, B, H, dtype):
 
 @pytest.mark.parametrize("H", [10, 64, 65, 138, 139, 203, 350, 352])
 def test_recurrence_variant_is_the_kernels_choice(device, H):
-    """The wrappers' copy of the host side's rule: clusters only where the
-    rule says "cluster", and then enough of them at once for a bs-256 launch
-    of both directions to be one wave."""
+    """The wrappers' copy of the host side's rule, one for the forward and
+    the backward: clusters only where the rule says "cluster", and then
+    enough of them at once for a bs-256 launch of both directions to be one
+    wave."""
     lib = _build.load()
-    assert K2.whh_in_shared(H) == bool(lib.hop_gru_fused_whh_in_shared(H))
+    variant = lib.hop_gru_recurrence_variant(H)
+    assert ("block", "cluster")[variant] == K2.recurrence_variant(H)
     for backward in (False, True):
         held = lib.hop_gru_active_clusters(H, int(backward))
-        if K2.recurrence_variant(H, backward) == "block":
+        if K2.recurrence_variant(H) == "block":
             assert held == 0
         else:
             assert held >= 2 * -(-256 // K2.CLUSTER_ROWS), held
+
+
+@pytest.mark.parametrize("B", [1, 8, 9, 250, 256])
+def test_forward_cluster_rows_are_the_kernels_choice(device, B):
+    """Rows of a forward cluster, a function of (B, D) alone: the wrapper's
+    copy against the C entry, and a bs-256 launch at one direction fits the
+    clusters the card holds at once."""
+    lib = _build.load()
+    for D in (1, 2):
+        assert lib.hop_gru_fwd_cluster_rows(B, D) == K2.forward_cluster_rows(B, D)
+    rows = K2.forward_cluster_rows(256, 1)
+    assert -(-256 // rows) <= lib.hop_gru_active_clusters(350, 0)
+
+
+def _kernel_names(fn):
+    """The names of the kernels one call of fn() launches (torch.profiler)."""
+    from hop_tpu_torch.cli.time_kernels import kernel_ms_by_name
+    names = kernel_ms_by_name(fn, n=4)
+    assert names, "torch.profiler recorded no whole window"
+    return " ".join(names)
+
+
+@pytest.mark.parametrize("D", [1, 2])
+def test_narrow_forward_runs_the_one_block_kernel(device, D):
+    """At the discriminator's shape (T=28, H=64) K2's second phase and K3's
+    forwards launch the one-block tensor-core forward; at the head's width
+    the cluster. K6 likewise at H=64 and H=350."""
+    T, B, I, H = 28, 256, 8, 64
+    gen = torch.Generator(device=device).manual_seed(D)
+
+    def arr(*shape, scale=0.3):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+    layer = (arr(T, B, I), arr(D, 3, I, H), arr(D, 3, 1, H), arr(D, 3, H, H),
+             arr(D, 3, 1, H), arr(B, H))
+    for with_res in (False, True):
+        names = _kernel_names(lambda: K2.gru_fused_layer_fwd(*layer,
+                                                             with_residuals=with_res))
+        assert "gru_fwd_block_kernel" in names and "cluster" not in names, names
+    stack, _ = _k3_args(device, D, T, B, H, torch.float32, seed=D)
+    for with_res in (False, True):
+        names = _kernel_names(lambda: K3.gru_stack_fwd(*stack, with_residuals=with_res))
+        assert "gru_fwd_block_kernel" in names and "cluster" not in names, names
+    for H, kernel in ((64, "gru_fwd_block_kernel"), (350, "gru_fwd_cluster_kernel")):
+        seq = (arr(B, 34, 3 * H), arr(3 * H, H, scale=H ** -0.5), arr(3 * H),
+               arr(B, H))
+        names = _kernel_names(lambda: K6.gru_seq_layer(*seq, reverse=D == 2))
+        assert kernel in names, names
 
 
 def test_gru_kernels_refuse_a_layer_too_wide(device):
@@ -277,7 +326,14 @@ def test_gru_kernels_refuse_a_layer_too_wide(device):
         K3.gru_stack_fwd(*(z(1, 2, 1, H, device=device) for _ in range(3)),
                          z(1, 3, H, H, device=device), z(1, 3, 1, H, device=device),
                          z(1, H, device=device))
-    assert _build.load().hop_gru_active_clusters(H, 0) < 0
+    before = K6.launches
+    with pytest.raises(ValueError, match="H <= 352"):
+        K6.gru_seq_layer(z(2, 3, 3 * H, device=device), z(3 * H, H, device=device),
+                         z(3 * H, device=device), z(2, H, device=device))
+    assert K6.launches == before
+    lib = _build.load()
+    assert lib.hop_gru_active_clusters(H, 0) < 0
+    assert lib.hop_gru_recurrence_variant(H) < 0
 
 
 def test_gru_stack_trains_through_the_kernels(device):
@@ -292,7 +348,17 @@ def test_gru_stack_trains_through_the_kernels(device):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("B,T,H", [(11, 5, 40), (1, 34, 350), (256, 34, 350)])
+@pytest.mark.parametrize("B,T,H", [
+    (11, 5, 40),            # one block, a ragged tile
+    (256, 28, 64),          # the widest one-block layer
+    (1, 34, 64),
+    (1, 34, 350),           # one window of a clip: one row tile a cluster
+    (8, 34, 350),           # the widest batch of that instance
+    (9, 34, 350),           # just above it
+    (250, 34, 350),         # a ragged last row tile
+    (256, 34, 350),         # the head's layer
+    (9, 7, 352),            # the widest layer: 8 blocks of 44 units
+])
 def test_gru_seq_kernel(device, B, T, H, reverse):
     gen = torch.Generator(device=device).manual_seed(B + H)
 
@@ -303,10 +369,15 @@ def test_gru_seq_kernel(device, B, T, H, reverse):
             arr(3 * H, scale=s), arr(B, H, scale=0.5))
     before = K6.launches
     got = K6.gru_seq_layer(*args, reverse=reverse)
+    again = K6.gru_seq_layer(*args, reverse=reverse)
     torch.cuda.synchronize()
-    assert K6.launches == before + 1
+    assert K6.launches == before + 2
+    assert torch.equal(got, again)
     want = K6.plain_gru_seq_layer(*args, reverse=reverse)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    # and the CPU emulation of the kernel's arithmetic, on the card's tensors
+    torch.testing.assert_close(got, K6.resident_gru_seq_layer(*args, reverse=reverse),
+                               rtol=0, atol=1e-4)
 
 
 def _attention_args(device, B, T, H, seed):

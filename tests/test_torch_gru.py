@@ -29,6 +29,7 @@ from hop_tpu.ops.gru import GRU as JaxGRU
 from hop_tpu.ops.pallas_gru_fused import gru_fused_layer as jax_gru_fused_layer
 
 from hop_tpu_torch.ops import gru_fused as K2
+from hop_tpu_torch.ops import gru_seq as K6
 from hop_tpu_torch.ops.gru import GRU
 
 TOL = 1e-5
@@ -119,35 +120,63 @@ def test_tf32_split_keeps_f32_accuracy():
     assert not torch.equal(hi, x)
 
 
-@pytest.mark.parametrize("H,want", [
-    (64, True),       # the discriminator: 49 KB a direction
-    (10, True),
-    (138, True),      # the widest that fits 227 KB with the block's h tiles
-    (139, False),
-    (350, False),     # the head: 1.47 MB a direction
-    (1024, False),
+@pytest.mark.parametrize("H,variant", [
+    (1, "block"),
+    (37, "block"),
+    (64, "block"),       # the discriminator: the widest one-block layer
+    (65, "cluster"),
+    (350, "cluster"),    # the head
+    (352, "cluster"),    # the widest
+    (353, None),         # refused, K6 too
 ])
-def test_whh_in_shared_is_pinned(H, want):
-    assert K2.whh_in_shared(H) is want
+def test_one_rule_for_both_directions_and_k6(H, variant):
+    """The forward and the backward recurrence take one rule of H alone, and
+    K6's wrapper takes what they take: up to MAX_H, refused above it on every
+    device."""
+    x = torch.zeros(1, 2, 3 * H)
+    args = (x, torch.zeros(3 * H, H), torch.zeros(3 * H), torch.zeros(1, H))
+    if variant is None:
+        with pytest.raises(ValueError):
+            K2.recurrence_variant(H)
+        with pytest.raises(ValueError, match=f"H <= {K2.MAX_H}"):
+            K6.gru_seq_layer(*args)
+        return
+    assert K2.recurrence_variant(H) == variant
+    narrow = variant == "block"
+    assert (H <= K2.NARROW_H) is narrow
+    # the one-block backward holds a direction's whole W_hh (3, H, H) in
+    # shared memory, a cluster block an eighth; the one-block forward holds
+    # it in registers, its shared memory the same at every H
+    assert (K2.recurrence_smem_bytes(H, True) >= 3 * H * H * 4) is narrow
+    assert (K2.recurrence_smem_bytes(H) == K2.recurrence_smem_bytes(1)) is narrow
+    assert K6.gru_seq_layer(*args).shape == (1, 2, H)
+
+
+@pytest.mark.parametrize("B,D,rows", [
+    (1, 1, 8), (8, 2, 8),            # one row tile: one window of a clip
+    (9, 1, 24), (256, 1, 24),        # one direction (K6): 11 clusters at bs 256
+    (9, 2, 40), (256, 2, 40),        # two: 14 clusters at bs 256, one wave
+])
+def test_forward_cluster_rows_are_pinned(B, D, rows):
+    assert K2.forward_cluster_rows(B, D) == rows
 
 
 @pytest.mark.parametrize("H,forward,backward", [
     (10, "block", "block"),
     (64, "block", "block"),        # the discriminator: no cluster either way
-    (65, "block", "cluster"),      # the backward's one-block instance ends at 64
-    (100, "block", "cluster"),
-    (138, "block", "cluster"),
-    (139, "cluster", "cluster"),   # W_hh no longer fits one block
+    (65, "cluster", "cluster"),    # the one-block instances end at 64
+    (100, "cluster", "cluster"),
+    (138, "cluster", "cluster"),
+    (139, "cluster", "cluster"),
     (203, "cluster", "cluster"),
     (350, "cluster", "cluster"),   # the head
     (352, "cluster", "cluster"),   # the widest: 8 blocks of 44 units
 ])
 def test_recurrence_variant_is_pinned(H, forward, backward):
-    """Which recurrence kernel runs is a function of H alone, and what it
-    keeps in shared memory fits a block's 227 KB."""
-    assert K2.recurrence_variant(H) == forward
-    assert K2.recurrence_variant(H, backward=True) == backward
-    assert (K2.recurrence_variant(H) == "block") is K2.whh_in_shared(H)
+    """Which recurrence kernel runs is a function of H alone, the same for
+    the forward and the backward, and what it keeps in shared memory fits a
+    block's 227 KB."""
+    assert K2.recurrence_variant(H) == forward == backward
     for bwd in (False, True):
         assert 0 < K2.recurrence_smem_bytes(H, bwd) <= K2.SMEM_BLOCK_MAX
 

@@ -5,6 +5,10 @@ JAX package's batch-tiled Pallas GRU kernel.
 tests/test_pallas_gru.py runs them; the port takes its plain version on the
 CPU. Same numpy inputs from a seed on both sides; f32 throughout, so the
 tolerance is round-off carried through T recurrent steps, 1e-5.
+`resident_gru_seq_layer` repeats the card's kernel's arithmetic (each
+product as three TF32 hi/lo terms, hi + lo each operand to 2^-21; over the
+whole of K in one block at H <= 64, over the cluster's slices above): held
+to the plain version and to the Pallas kernel at the same 1e-5.
 """
 
 import numpy as np
@@ -40,6 +44,25 @@ def test_layer_matches_pallas_kernel(B, T, H, reverse):
     got = K6.gru_seq_layer(*map(torch.from_numpy, args), reverse=reverse)
     assert got.shape == (B, T, H)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
+
+
+# (B, T, H): one block (one sample; a ragged batch at the widest one-block
+# layer), a cluster (one sample; a ragged batch, slices of 26 units)
+RESIDENT_SHAPES = [(1, 6, 37), (7, 5, 64), (1, 4, 100), (9, 3, 203)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,T,H", RESIDENT_SHAPES)
+def test_resident_layer_matches_plain_and_pallas(B, T, H, reverse):
+    args = _layer_inputs(B, T, H, seed=B * T + H)
+    targs = [torch.from_numpy(a) for a in args]
+    got = K6.resident_gru_seq_layer(*targs, reverse=reverse)
+    assert got.shape == (B, T, H) and got.dtype == torch.float32
+    want = K6.plain_gru_seq_layer(*targs, reverse=reverse)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=TOL)
+    pallas = pallas_gru_layer(*map(jnp.asarray, args), reverse=reverse,
+                              batch_tile=4, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("bidirectional", [False, True])

@@ -15,11 +15,13 @@ on the CPU. The same numpy inputs from a seed go through both. Tolerances:
     1e-2 of the largest element, since f32 values that differ in round-off
     may round to neighbouring bf16 values (2^-8 relative).
 `resident_gru_stack` and `resident_gru_stack_bwd` repeat the card's
-recurrence kernels' arithmetic in torch (hidden units in the cluster's eight
-slices, each product as three TF32 hi/lo terms in chains of their own, the
-peers in each block's order): held to the plain versions and to the Pallas
-kernels at the same tolerances, at widths that are no multiple of 8 or of
-the cluster's blocks.
+recurrence kernels' arithmetic in torch (each product as three TF32 hi/lo
+terms in chains of their own, over the whole of K in the one-block kernels,
+over the peers' slices in each block's order in the cluster's): held to the
+plain versions and to the Pallas kernels at the same tolerances (hi + lo is
+each operand to 2^-21, well inside 1e-5 through T steps), at the
+discriminator's shape and at widths that are no multiple of 8 or of the
+cluster's blocks.
 """
 
 import numpy as np
@@ -153,10 +155,10 @@ def test_bf16_streams_match_pallas_and_track_f32():
                                    atol=BF16_TOL)
 
 
-# (T, B, H): the forward in one block (plain f32 sums) and the backward in
-# one block (H <= 64); the forward in one block and the backward in a cluster;
-# both in a cluster, one sample and a ragged batch
-RESIDENT_SHAPES = [(5, 1, 37), (4, 3, 100), (3, 1, 203), (3, 9, 203)]
+# (T, B, H): both recurrences in one block (H <= 64), at the discriminator's
+# T and H and at a width that is no multiple of 8; both in a cluster (H >
+# 64), one sample and a ragged batch
+RESIDENT_SHAPES = [(5, 1, 37), (28, 5, 64), (4, 3, 100), (3, 1, 203), (3, 9, 203)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
