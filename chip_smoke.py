@@ -88,7 +88,23 @@ imports nothing of JAX. Phases, each ending in one line of output:
              TED width, bs 256, with "fused" and with "block": phase 9's checks
              and measurements; then phase 10 on the block route; then phase
              15's 3-forward step with "fused" and with "block"
- 21. the kernels' JSON line, then the device JSON as the last line
+ 21. eval    the validation pass at full TED width: 20 seeded 20 s synthetic
+             source clips through the preprocessor into a record store
+             (>= 513 windows), the native gather held bitwise to the numpy
+             gather, `SpeechMotionDataset` batches of 256 (the last ragged)
+             through `device_batch`, the HOPModel forward and
+             `evaluate_testset` (L1, joint MAE, FGD, feature distance, BC,
+             diversity) at epoch bc_start_epoch + 1, on the fused and the
+             stack GRU route with plain attention and on the stack route
+             with fused (K4) and block (K5) attention: finite results,
+             diversity > 0, launches as derived; the same metric functions
+             on the CPU fed the card's generated poses, targets, audio and
+             speaker ids agree; the onset masks are equal; seconds to
+             preprocess, ms per make_batch, device_batch, forward and
+             metrics pass, the onset detector beside its FFT bound and
+             torch.stft's power spectrogram, FGD on the pass's features,
+             seconds per pass
+ 22. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -102,10 +118,13 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # K1 reads bf16 operands; the plain version gets the same bf16-rounded
@@ -245,11 +264,16 @@ def bound(operands, results, flops: float, peak: float) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def phase_device():
-    import torch
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def phase_device():
+    import torch
+    smi = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(smi)
@@ -1648,6 +1672,261 @@ def phase_library(dev, seed):
     return lib
 
 
+# the validation pass: seeded 20 s source clips (26 windows each: >= 513,
+# two batches of 256 and a ragged third) and the routes it runs on
+EVAL_VIDEOS = 20
+EVAL_BS = 256
+EVAL_ROUTES = (("fused", "plain"), ("stack", "plain"), ("stack", "fused"),
+               ("stack", "block"))
+# Card against CPU, the same metric functions fed the card's generated
+# poses, targets, audio and speaker ids: f32 reductions over 256 x 34 x 27
+# elements and the feature net's convolutions in another order (TF32 off):
+# 1e-4 relative. FGD from LAPACK's and cuSOLVER's eigh on 32 x 32
+# covariances of >= 513 samples: 1e-3 relative. The onset masks and the
+# motion-beat masks are thresholds of those values: held equal.
+EVAL_REL_TOL = 1e-4
+EVAL_FGD_REL_TOL = 1e-3
+
+
+def phase_eval(dev, seed):
+    """Returns {path name: launches} of the validation pass on each route."""
+    import numpy as np
+    import torch
+    from hop_tpu_torch.cli import common as C
+    from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
+    from hop_tpu_torch.data.dataset import SpeechMotionDataset
+    from hop_tpu_torch.data.preprocessor import DataPreprocessor
+    from hop_tpu_torch.data.records import RecordReader
+    from hop_tpu_torch.data.synthetic import make_source_clips
+    from hop_tpu_torch.data.vocab import build_vocab
+    from hop_tpu_torch.eval import beat, metrics
+    from hop_tpu_torch.eval.evaluate import evaluate_testset
+    from hop_tpu_torch.models.hop import build_hop_model
+    from hop_tpu_torch.ops import mel, onset
+    cfg = ted_route_config()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="hop_eval_")
+    try:
+        path = os.path.join(tmp, "val")
+        t0 = time.perf_counter()
+        videos = make_source_clips(cfg, n_videos=EVAL_VIDEOS, clip_seconds=20.0,
+                                   seed=seed)
+        clips_s = time.perf_counter() - t0
+        n = DataPreprocessor(cfg.data, path).run(videos)
+        pre_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path + ".bin") + os.path.getsize(path + ".idx")
+        check(n >= 2 * EVAL_BS + 1, f"eval: {n} windows, want >= {2 * EVAL_BS + 1}")
+        ds = SpeechMotionDataset(path, cfg.data)
+        check(ds.reader.native, "eval: the record reader fell back to the numpy gather")
+        ds.set_lang_model(build_vocab(
+            "words", [[w for aux in ds._aux_cache for w in aux["words"]]],
+            None, None, cfg.data.wordembed_dim))
+        idx = np.random.default_rng(seed).permutation(n)[:EVAL_BS]
+        got = ds.reader.gather(idx)
+        want = RecordReader(path, ds.schema, use_native=False).gather(idx)
+        check(all(np.array_equal(got[k], want[k]) for k in want),
+              "eval: the native gather differs from the numpy gather")
+        print(f"eval: {EVAL_VIDEOS} x 20 s clips -> {n} windows, record store "
+              f"{nbytes / 2**20:.1f} MiB; native gather (bitwise the numpy gather "
+              f"on {EVAL_BS} shuffled records); clips {clips_s:.2f} s, clips + "
+              f"preprocess {pre_s:.2f} s (host clock) on {smi}")
+
+        t0 = time.perf_counter()
+        model = build_hop_model(cfg, N_SPEAKERS, seed, device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        ev_card = C.make_fgd_evaluator(cfg, ds.lang_model.n_words, None, dev)
+        ev_cpu = C.make_fgd_evaluator(cfg, ds.lang_model.n_words, None, "cpu")
+        setup_s = time.perf_counter() - t0
+        n_seed = cfg.data.n_seed_frames
+        epoch = cfg.loss.bc_start_epoch + 1
+        paths = {}
+        for gru, attn in EVAL_ROUTES:
+            rcfg = ted_route_config(gru, attention=attn)
+            model.gru.kernel = gru
+            model.llm_model.set_attention(attn)
+            record = []     # (device batch, speaker ids, generated poses)
+
+            def gen(batch, vids, generator):
+                with torch.inference_mode():
+                    out = model(batch["in_audio"], batch["log_mel"],
+                                batch["text_padded"], batch["target_vec"][:, :n_seed],
+                                vids, generator=generator)[0]
+                record.append((batch, vids, out))
+                return out
+            batches = (C.device_batch(b, rcfg, device=dev)
+                       for b in ds.batches(EVAL_BS, shuffle=False, drop_last=False))
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = evaluate_testset(batches, gen, ev_card, epoch, rcfg, N_SPEAKERS,
+                                   generator=torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            pass_s = time.perf_counter() - t0
+            launches = _launch_counts()
+            name = f"eval_{gru}_{attn}"
+            paths[name] = launches
+            n_batches = len(record)
+            check(n_batches == -(-n // EVAL_BS) >= 3, f"{name}: {n_batches} batches")
+            check(launches == forward_launches(rcfg, n_batches),
+                  f"{name}: launches {launches}, want {forward_launches(rcfg, n_batches)}")
+            fields = ("loss", "mae", "frechet_dist", "feat_dist", "bc", "diversity")
+            check(all(np.isfinite(getattr(res, f)) for f in fields), f"{name}: {res}")
+            check(res.diversity > 0, f"{name}: diversity {res.diversity}")
+            check(not res.eval_net_trained, f"{name}: untrained net not marked")
+
+            # the same functions on the CPU, fed the card's poses and inputs
+            outs = iter([o.float().cpu() for _, _, o in record])
+            ref = evaluate_testset(
+                iter([{k: v.cpu() for k, v in b.items()} for b, _, _ in record]),
+                lambda b, v, g: next(outs), ev_cpu, epoch, rcfg, N_SPEAKERS,
+                speaker_ids=iter([v.cpu() for _, v, _ in record]))
+            errs = {f: abs(getattr(res, f) - getattr(ref, f)) / max(abs(getattr(ref, f)), 1e-12)
+                    for f in fields}
+            for f, e in errs.items():
+                tol = EVAL_FGD_REL_TOL if f == "frechet_dist" else EVAL_REL_TOL
+                check(e <= tol, f"{name}: {f} card {getattr(res, f)} vs CPU "
+                                f"{getattr(ref, f)}: {e:.3e} relative > {tol:g}")
+            masks = [(onset.onset_detect_mask(b["in_audio"]).cpu(),
+                      onset.onset_detect_mask(b["in_audio"].cpu())) for b, _, _ in record]
+            check(all(torch.equal(a, c) for a, c in masks), f"{name}: onset masks differ")
+            beats = [(beat.motion_beat_mask(beat.angle_diff_signal(o, cfg.data.skeleton)).cpu(),
+                      beat.motion_beat_mask(beat.angle_diff_signal(o.cpu(), cfg.data.skeleton)))
+                     for _, _, o in record]
+            check(all(torch.equal(a, c) for a, c in beats), f"{name}: motion beats differ")
+            print(f"eval [{gru} route, {attn} attention]: {n} windows in {n_batches} "
+                  f"batches of {EVAL_BS} at epoch {epoch}: {res}; launches "
+                  f"{_nonzero(launches)}; card vs CPU on the card's poses, relative: "
+                  + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+                  + f" (tol {EVAL_REL_TOL:g}, FGD {EVAL_FGD_REL_TOL:g}); onset masks "
+                  f"({sum(int(a.sum()) for a, _ in masks)} onsets) and motion beats "
+                  f"equal; {pass_s:.3f} s per pass (host clock, batches made and "
+                  f"moved inside) on {smi}")
+            if (gru, attn) == EVAL_ROUTES[0]:
+                first = record[0]
+            del record
+
+        # the pass's parts on the fused route, one batch of 256 each
+        model.gru.kernel = "fused"
+        model.llm_model.set_attention("plain")
+        host, make = [], []
+        for i in range(0, n, EVAL_BS):
+            t0 = time.perf_counter()
+            host.append(ds.make_batch(np.arange(i, min(n, i + EVAL_BS))))
+            make.append((time.perf_counter() - t0) * 1e3)
+        make_ms = statistics.median(make)
+        put = []
+        for h in host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            C.device_batch(h, cfg, device=dev)
+            torch.cuda.synchronize()
+            put.append((time.perf_counter() - t0) * 1e3)
+        batch, vids, out = first
+        gen_gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def forward():
+            with torch.inference_mode():
+                return model(batch["in_audio"], batch["log_mel"], batch["text_padded"],
+                             batch["target_vec"][:, :n_seed], vids, generator=gen_gen)[0]
+        skel, target = cfg.data.skeleton, batch["target_vec"]
+
+        def fk():
+            return metrics.l1_loss(out, target), metrics.joint_mae(out, target, skel)
+
+        def bc():
+            return beat.beat_consistency(out, batch["in_audio"], skel)
+
+        def features():
+            ev_card.push_samples(out, target)
+        forward_ms, fk_ms, bc_ms, feat_ms = (cuda_ms(f, reps=10, warmup=2)
+                                             for f in (forward, fk, bc, features))
+        ev_card.reset()
+        audio = batch["in_audio"]
+        mask = onset.onset_detect_mask(audio)
+        n_fft, hop = 2048, 512
+        window = torch.hann_window(n_fft, periodic=True, device=dev)
+
+        def stft_power():
+            spec = torch.stft(audio, n_fft, hop, window=window, center=True,
+                              pad_mode="reflect", return_complex=True)
+            return spec.real ** 2 + spec.imag ** 2
+        onset_ms, power_ms, stft_ms = (cuda_ms(f, reps=10, warmup=2) for f in (
+            lambda: onset.onset_detect_mask(audio),
+            lambda: mel.power_spectrogram(audio, n_fft=n_fft, hop=hop), stft_power))
+        ours = mel.power_spectrogram(audio, n_fft=n_fft, hop=hop)
+        stft_err = float((stft_power().transpose(-1, -2) - ours).abs().max()
+                         / ours.abs().max())
+        # the onset detector's least time: a real FFT of each frame
+        # (2.5 n log2 n operations), its power (3 a bin) and the mel
+        # triangles' nonzeros (2 each), in f32 outside the tensor cores, or
+        # its audio read once and its mask written once
+        n_frames, n_bins = mask.shape[-1], n_fft // 2 + 1
+        fb_nnz = int(np.count_nonzero(mel.mel_filterbank(
+            16000, n_fft, 128, fmax=onset.ONSET_FMAX)))
+        onset_flops = audio.shape[0] * n_frames * (
+            2.5 * n_fft * math.log2(n_fft) + 3 * n_bins + 2 * fb_nnz)
+        onset_bound = bound([audio], [mask], onset_flops, F32_FLOPS)
+        wait_ms = cuda_ms(lambda: onset._wait_suppress(mask, 1), reps=10, warmup=2)
+
+        def one_pass():
+            evaluate_testset(
+                (C.device_batch(b, cfg, device=dev)
+                 for b in ds.batches(EVAL_BS, shuffle=False, drop_last=False)),
+                lambda b, v, g: forward_on(b, v), ev_card, epoch, cfg, N_SPEAKERS,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+
+        def forward_on(b, v):
+            with torch.inference_mode():
+                return model(b["in_audio"], b["log_mel"], b["text_padded"],
+                             b["target_vec"][:, :n_seed], v)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        busy, device_ms, top = _busy_share(one_pass, 1, warm_s * 1e3)
+        # FGD + feature distance from the pass's own pushed features, warm
+        check(ev_card.n_samples == n, f"eval: {ev_card.n_samples} features pushed, not {n}")
+        scores = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev_card.get_scores()
+            scores.append((time.perf_counter() - t0) * 1e3)
+        scores_ms = statistics.median(scores)
+        # where the metrics' device time goes: the onset detector's kernels and
+        # copies, and those of FGD from the pass's 520 pushed features
+
+        def top_of(fn):
+            names = kernel_ms_by_name(fn, n=5)
+            return "; ".join(f"{k[:48]} {t:.3f}" for k, t in
+                             sorted(names.items(), key=lambda kv: -kv[1])[:4]) or "not recorded"
+        onset_top = top_of(lambda: onset.onset_detect_mask(audio))
+        scores_top = top_of(ev_card.get_scores)
+        print(f"eval parts [fused route, plain attention], bs {EVAL_BS}: TED HOPModel "
+              f"({n_params / 1e6:.1f} M params) and feature net set up in {setup_s:.1f} s; "
+              f"make_batch {make_ms:.2f} ms (host clock, median of {len(host)}); "
+              f"device_batch {statistics.median(put):.2f} ms (host clock to a "
+              f"synchronize); forward {forward_ms:.2f} ms; metrics pass "
+              f"{fk_ms + bc_ms + feat_ms:.2f} ms (L1 + FK MAE {fk_ms:.3f}, onsets + BC "
+              f"{bc_ms:.2f}, feature net {feat_ms:.3f}; CUDA-event medians of 10); "
+              f"FGD + feature distance from the pass's {n} features (eigh) {scores_ms:.2f} ms "
+              f"(host clock, median of {len(scores)} warm calls); the onset detector alone "
+              f"{onset_ms:.2f} ms (its matrix-product power spectrogram {power_ms:.2f}, "
+              f"torch.stft's (cuFFT) {stft_ms:.3f} ms, max relative difference "
+              f"{stft_err:.1e}; bound {onset_bound['bound_ms']:.4f} ms by "
+              f"{onset_bound['bound_by']}, FFT operations); the onset wait loop at wait=1 "
+              f"({n_frames} frames: a no-op at sr 16000, hop 512, where wait=0) "
+              f"{wait_ms:.3f} ms; a warm pass {warm_s:.3f} s, its kernels "
+              f"{device_ms:.2f} ms (torch.profiler), busy share {busy:.3f}; top "
+              + ", ".join(f"{k} {t:.2f}" for k, t in top[:5])
+              + f"; the onset detector's kernels, ms a call: {onset_top}; FGD's: "
+              f"{scores_top}; on {smi}")
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1700,6 +1979,7 @@ def main():
     _, _, paths["parity_step_stack_block_attn"] = phase_train(
         dev, SEED, gru_kernel="stack", fused_step=False, attention="block")
     lib = phase_library(dev, SEED)
+    paths.update(phase_eval(dev, SEED))
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention

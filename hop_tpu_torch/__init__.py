@@ -5,16 +5,21 @@ A port of `hop_tpu` (JAX/Pallas) that keeps its module layout, so each
 module's counterpart sits at the same path:
 
   config       — jax-free copy of the data / LLM / HOP / loss / train presets
-  ops          — log-mel frontend, dropout bits, reprogramming attention
-                 (K1) and the fused GRU layer (K2): each kernel a
-                 hand-written CUDA forward and backward with its plain
-                 PyTorch versions beside it
+  geometry     — skeleton tables, forward kinematics, pose <-> dir-vec
+  ops          — log-mel frontend, dropout bits, onset detection, the
+                 eigh-based matrix square root, and the kernels K1-K6:
+                 each a hand-written CUDA kernel with its plain PyTorch
+                 versions beside it
   models       — BERT backbone, reprogramming, graph wavenet, HOPModel,
-                 ConvDiscriminator
-  train        — the fused HOP GAN train step and its optimizers
-  data         — seeded synthetic clips, training batches, the word index
-  convert      — flax variable trees (numpy leaves) -> this port's
-                 state_dicts
+                 ConvDiscriminator, the FGD feature nets (EmbeddingNet in
+                 pose mode, MotionAE)
+  train        — the HOP GAN train steps and their optimizers
+  data         — record store, preprocessor, SpeechMotionDataset,
+                 vocabulary, WordPiece, seeded synthetic clips and batches
+  native       — the record store's C++ batch gatherer (g++ at first use)
+  eval         — the validation pass: L1, joint MAE, FGD, BC, diversity
+  convert      — flax variable trees (numpy leaves, or hop_tpu's flat
+                 .npz) -> this port's state_dicts
   infer        — long-form sliding-window generation
   cli          — `python -m hop_tpu_torch.cli.test_checkpoint`
 

@@ -1,17 +1,16 @@
-"""Typed configuration for the port: the presets of the serving forward
-and the train steps.
+"""Typed configuration for the port: the presets of the serving forward,
+the train steps and the validation pass.
 
 A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
-HOPConfig, LossConfig, TrainConfig and presets (`hop_tpu.config` imports
-`hop_tpu.geometry`, which imports jax), holding the fields the port
-reads. Each has the JAX field's name and value; tests/test_torch_config.py
+HOPConfig, BaselineConfig, LossConfig, TrainConfig and presets
+(`hop_tpu.config` imports `hop_tpu.geometry`, which imports jax), holding
+the fields the port reads. Each has the JAX field's name and value; tests/test_torch_config.py
 holds them field by field against the JAX presets. `HOPConfig.gru_kernel`,
 `gru_bf16_streams` and `LLMConfig.attention` are the port's own: the JAX
 package reads those choices from environment variables. The port builds the default HOP architecture only (BERT
 backbone + reprogramming + gwnet): `hop_tpu`'s switches for the other
-variants have no counterpart yet. The skeleton tables stay in
-`hop_tpu.geometry`: the forward needs only the dir-vec width and the
-gwnet node count, given here as constants.
+variants have no counterpart yet. The dir-vec width and the gwnet node
+count come from the port's skeletons (`hop_tpu_torch.geometry`).
 """
 
 from __future__ import annotations
@@ -19,10 +18,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 
-# dir-vec width = 3 * n_bones and gwnet graph nodes, per dataset
-# (hop_tpu/geometry.py TED_SKELETON / EXPRESSIVE_SKELETON; HOP.py:136-139)
-_POSE_DIM = {"TED": 27, "TED_expressive": 126}
-_N_JOINTS_GRAPH = {"TED": 9, "TED_expressive": 42}
+from hop_tpu_torch import geometry
 
 
 @dataclass(frozen=True)
@@ -32,12 +28,15 @@ class DataConfig:
     n_pre_poses: int = 4                 # cross-fade frames between windows
     n_seed_frames: int = 16              # HOP seed frames
     pose_resampling_fps: int = 15
+    subdivision_stride: int = 10         # preprocessor window stride
     sample_rate: int = 16000
     expected_audio_length: int = 36267   # 34 / 15 * 16000 rounded
     mel_bins: int = 128
     mel_n_fft: int = 1024
     mel_hop: int = 1096                  # => exactly 34 frames
+    wordembed_dim: int = 300
     max_text_tokens: int = 2048
+    remove_word_timing: bool = True      # evenly spaced words (run_ted.py)
     use_hf_token_stream: bool = False
     # wire dtype of the raw-audio transfer to the device (cli.common):
     # "int16" quantizes on the host to the PCM grid and dequantizes there
@@ -45,12 +44,18 @@ class DataConfig:
 
     @property
     def pose_dim(self) -> int:
-        return _POSE_DIM[self.dataset]
+        return self.skeleton.pose_dim
+
+    @property
+    def skeleton(self) -> geometry.Skeleton:
+        return (geometry.TED_SKELETON if self.dataset == "TED"
+                else geometry.EXPRESSIVE_SKELETON)
 
     @property
     def n_joints_graph(self) -> int:
-        """Graph nodes for gwnet: 9 (TED) / 42 (expressive)."""
-        return _N_JOINTS_GRAPH[self.dataset]
+        """Graph nodes for gwnet: 9 (TED) / 42 (expressive): one per bone
+        (HOP.py:136-139)."""
+        return self.skeleton.n_bones
 
 
 @dataclass(frozen=True)
@@ -105,6 +110,13 @@ class HOPConfig:
 
 
 @dataclass(frozen=True)
+class BaselineConfig:
+    """The one baseline setting the validation pass reads: the expressive
+    feature net's latent width (hop_tpu/config.py:145)."""
+    motion_ae_latent_dim: int = 128
+
+
+@dataclass(frozen=True)
 class LossConfig:
     """Loss weights of the HOP train step (reference run_ted.py:89-92 /
     run_expressive.py:86-89)."""
@@ -112,6 +124,7 @@ class LossConfig:
     gan_weight: float = 5.0
     kld_weight: float = 0.6
     reg_weight: float = 0.4              # diversity regulariser
+    bc_start_epoch: int = 35             # BC gate: epoch > 35 (Evaluate.py:175)
     huber_beta: float = 0.1
     div_beta: float = 0.05
     div_clamp: float = -1000.0
@@ -130,6 +143,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     llm: LLMConfig = field(default_factory=LLMConfig)
     hop: HOPConfig = field(default_factory=HOPConfig)
+    baseline: BaselineConfig = field(default_factory=BaselineConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 

@@ -6,13 +6,18 @@ included (the inverse of `hop_tpu.models.bert.convert_hf_bert_params`); it
 covers what `hop_tpu.eval.torch_export_hop.export_hop_state_dict` exports
 plus the `llm_model.*` weights. `discriminator_state_dict_from_jax` is
 the inverse of `hop_tpu.eval.torch_import_generator.
-convert_conv_discriminator`. No jax here: the caller hands over the
-variable tree `{"params": ..., "batch_stats": ...}` with numpy leaves
-(unboxed).
+convert_conv_discriminator`. `embedding_net_state_dict_from_jax` and
+`motion_ae_state_dict_from_jax` are the inverses of
+`hop_tpu.eval.torch_import.convert_embedding_net_pose` and
+`convert_motion_ae` (the FGD feature nets). No jax here: the caller hands
+over the variable tree `{"params": ..., "batch_stats": ...}` with numpy
+leaves (unboxed); `load_npz_variables` reads that tree from the flat .npz
+that `hop_tpu.utils.checkpoint.save_arrays` writes.
 
 Layout rules: Dense (in, out) -> Linear weight (out, in); Dense as 1x1
 conv -> Conv2d (out, in, 1, 1); gwnet temporal conv (k, 1, in, out) ->
 Conv2d (out, in, 1, k); Conv (k, in, out) -> Conv1d (out, in, k);
+ConvTranspose (k, in, out) -> ConvTranspose1d (in, out, k), k flipped;
 LayerNorm/BatchNorm scale -> weight; the GRU and the mapping layer
 already keep torch's layout. The GRU's parameters have the same names and
 shapes on both of its routes (`ops.gru.GRU(kernel="fused" | "stack")`), so
@@ -145,4 +150,83 @@ def discriminator_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tens
     _gru(sd, "gru.", params["GRU_0"])
     _lin(sd, "out", params["Dense_0"])
     _lin(sd, "out2", params["Dense_1"])
+    return sd
+
+
+def load_npz_variables(path: str) -> dict:
+    """The flat .npz of `hop_tpu.utils.checkpoint.save_arrays` (keys are
+    the tree's path joined by "/", e.g. "params/pose_encoder/Conv_0/kernel")
+    -> the nested tree of numpy arrays."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def _conv1d(sd, name, p):
+    sd[name + ".weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+    sd[name + ".bias"] = _t(p["bias"])
+
+
+def _conv_transpose1d(sd, name, p):
+    # flax ConvTranspose(padding="VALID") applies the kernel flipped
+    # against torch's (hop_tpu/eval/torch_import.py `_convT`)
+    sd[name + ".weight"] = _t(np.asarray(p["kernel"])[::-1].transpose(1, 2, 0))
+    sd[name + ".bias"] = _t(p["bias"])
+
+
+def _conv_encoder(sd, prefix, p, s):
+    """The three ConvNormRelu blocks, the last conv and out_net's dense and
+    BatchNorm layers shared by PoseEncoderConv and MotionPoseEncoder."""
+    for i in range(3):
+        block = f"ConvNormRelu_{i}"
+        _conv1d(sd, f"{prefix}.net.{i}.0", p[block]["Conv_0"])
+        _bn(sd, f"{prefix}.net.{i}.1", p[block]["BatchNorm_0"]["BatchNorm_0"],
+            s[block]["BatchNorm_0"]["BatchNorm_0"])
+    _conv1d(sd, f"{prefix}.net.3", p["Conv_0"])
+    for j, (dense, norm) in enumerate(((0, 1), (3, 4))):
+        _lin(sd, f"{prefix}.out_net.{dense}", p[f"Dense_{j}"])
+        _bn(sd, f"{prefix}.out_net.{norm}", p[f"BatchNorm_{j}"]["BatchNorm_0"],
+            s[f"BatchNorm_{j}"]["BatchNorm_0"])
+    _lin(sd, f"{prefix}.out_net.6", p["Dense_2"])
+
+
+def _conv_decoder(sd, p, s):
+    """PoseDecoderConv / MotionPoseDecoder at `decoder.`."""
+    _lin(sd, "decoder.pre_net.0", p["Dense_0"])
+    _bn(sd, "decoder.pre_net.1", p["BatchNorm_0"]["BatchNorm_0"],
+        s["BatchNorm_0"]["BatchNorm_0"])
+    _lin(sd, "decoder.pre_net.3", p["Dense_1"])
+    for j, (conv, norm) in enumerate(((0, 1), (3, 4))):
+        _conv_transpose1d(sd, f"decoder.net.{conv}", p[f"ConvTranspose_{j}"])
+        _bn(sd, f"decoder.net.{norm}", p[f"BatchNorm_{j + 1}"]["BatchNorm_0"],
+            s[f"BatchNorm_{j + 1}"]["BatchNorm_0"])
+    _conv1d(sd, "decoder.net.6", p["Conv_0"])
+    _conv1d(sd, "decoder.net.7", p["Conv_1"])
+
+
+def embedding_net_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """EmbeddingNet(mode="pose") variables (numpy leaves) -> the port's
+    EmbeddingNet state_dict (the reference checkpoint's names)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    pe, pe_s = p["pose_encoder"], s["pose_encoder"]
+    _conv_encoder(sd, "pose_encoder", pe, pe_s)
+    _lin(sd, "pose_encoder.fc_mu", pe["Dense_3"])
+    _lin(sd, "pose_encoder.fc_logvar", pe["Dense_4"])
+    _conv_decoder(sd, p["decoder"], s["decoder"])
+    return sd
+
+
+def motion_ae_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """MotionAE variables (numpy leaves) -> the port's MotionAE state_dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _conv_encoder(sd, "encoder", p["encoder"], s["encoder"])
+    _conv_decoder(sd, p["decoder"], s["decoder"])
     return sd

@@ -1,8 +1,7 @@
 """Seeded synthetic data: a training batch for the train step, a speech
-clip for the long-form path, and the word helpers it needs (jax-free
-counterparts of hop_tpu.data.synthetic's batches and source clips,
-hop_tpu.data.preprocessor.get_words_in_time_range and the index order of
-hop_tpu.data.vocab.Vocab).
+clip for the long-form path, and source clips for the offline
+preprocessor (jax-free counterparts of hop_tpu.data.synthetic's batches
+and source clips).
 
 The clip is numpy: tones over noise for the audio, timed words, and seed
 dir-vecs (unit bone directions from a smooth random walk, as the
@@ -12,6 +11,12 @@ preprocessed dataset holds them). No real data ships with the repo.
 (:32-90) that the HOP train step reads; `make_train_batch` is the same
 batch on the device with log-mel computed there; its ids stay below the backbone's vocabulary, and its dir-vecs are
 unit bone directions, not centred on the dataset's mean pose.
+
+`make_source_clips` draws from one `np.random.default_rng(seed)` in
+hop_tpu's order, so every field of its clips but the spectrogram (the
+port's log-mel frontend, ~1e-3 dB from hop_tpu's) is bitwise hop_tpu's.
+`WordIndex` and `get_words_in_time_range` keep their import path here for
+the long-form callers; they live in `data.vocab` and `data.preprocessor`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 
 from hop_tpu_torch.config import Config
+from hop_tpu_torch.data.preprocessor import SourceClip, get_words_in_time_range  # noqa: F401
+from hop_tpu_torch.data.vocab import Vocab
 from hop_tpu_torch.ops import mel as mel_ops
 
 _WORDS = ("the quick brown fox jumps over a lazy dog while people "
@@ -110,31 +117,62 @@ def make_train_batch(cfg: Config, batch_size: int, seed: int = 0,
     return batch
 
 
-class WordIndex:
-    """Word -> id with the reference vocabulary's order: <PAD> 0, <SOS> 1,
-    <EOS> 2, <UNK> 3, then words in order of first appearance."""
+def make_source_clips(cfg: Config, n_videos: int = 2, clips_per_video: int = 1,
+                      clip_seconds: float = 12.0, seed: int = 0):
+    """[(vid, [SourceClip, ...]), ...] for the offline preprocessor:
+    skeleton walks anchored near the dataset's mean pose (so the motion
+    filters pass), a tone over noise for the audio, its cached spectrogram,
+    and timed words (hop_tpu/data/synthetic.py:93)."""
+    rng = np.random.default_rng(seed)
+    skel = cfg.data.skeleton
+    sr = cfg.data.sample_rate
+    native_fps = 25
+    videos = []
+    mean_pose = (skel.mean_pose.reshape(-1, 3)
+                 if skel.mean_pose is not None
+                 else np.zeros((skel.n_joints, 3), np.float32))
+    for v in range(n_videos):
+        clips = []
+        for _ in range(clips_per_video):
+            n_frames = int(clip_seconds * native_fps)
+            # mean-reverting wander so the spine stays upright (the motion
+            # filters must pass): x_{t+1} = 0.95 x_t + noise
+            walk = np.zeros((n_frames, skel.n_joints, 3))
+            x = np.zeros((skel.n_joints, 3))
+            for tt in range(n_frames):
+                x = 0.95 * x + rng.standard_normal((skel.n_joints, 3)) * 0.02
+                walk[tt] = x
+            walk[:, :2] *= 0.05  # keep root + neck nearly still
+            skeletons = mean_pose[None] + walk
+            audio = 0.01 * rng.standard_normal(int(clip_seconds * sr))
+            t = np.arange(audio.size) / sr
+            audio += 0.2 * np.sin(2 * np.pi * rng.uniform(100, 500) * t)
+            spec = mel_ops.extract_melspectrogram(
+                torch.from_numpy(audio.astype(np.float32)), sr=sr).numpy()
+            words = []
+            wt = 0.2
+            while wt < clip_seconds - 0.4:
+                dur = rng.uniform(0.15, 0.5)
+                words.append((_WORDS[rng.integers(len(_WORDS))], wt, wt + dur))
+                wt += dur + rng.uniform(0.02, 0.2)
+            clips.append(SourceClip(
+                vid=f"vid{v}",
+                skeletons_3d=skeletons.astype(np.float32),
+                audio_raw=audio.astype(np.float32),
+                audio_spectrogram=spec.astype(np.float32),
+                words=words,
+                start_frame_no=0,
+                end_frame_no=n_frames,
+                start_time=0.0,
+                end_time=clip_seconds))
+        videos.append((f"vid{v}", clips))
+    return videos
 
-    UNK_token = 3
+
+class WordIndex(Vocab):
+    """A `Vocab` over one clip's words: <PAD> 0, <SOS> 1, <EOS> 2, <UNK> 3,
+    then words in order of first appearance."""
 
     def __init__(self, words):
-        self.word2index = {}
-        for w in words:
-            token = w[0] if isinstance(w, (tuple, list)) else w
-            self.word2index.setdefault(token, 4 + len(self.word2index))
-        self.n_words = 4 + len(self.word2index)
-
-    def get_word_index(self, word: str) -> int:
-        return self.word2index.get(word, self.UNK_token)
-
-
-def get_words_in_time_range(word_list, start_time, end_time):
-    """(word, start, end) entries overlapping [start, end), as lists."""
-    out = []
-    for word in word_list:
-        ws, we = word[1], word[2]
-        if ws >= end_time:
-            break
-        if we <= start_time:
-            continue
-        out.append(list(word))
-    return out
+        super().__init__("words")
+        self.add_vocab(w[0] if isinstance(w, (tuple, list)) else w for w in words)

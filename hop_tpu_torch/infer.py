@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from hop_tpu_torch.config import Config
-from hop_tpu_torch.data.synthetic import get_words_in_time_range
+from hop_tpu_torch.data.preprocessor import get_words_in_time_range
 from hop_tpu_torch.ops import mel as mel_ops
 
 

@@ -8,6 +8,7 @@ here. Semantics match librosa 0.8.1:
   * mel filterbank: slaney scale, slaney area normalisation, fmin=0,
     fmax=sr/2
   * power_to_db: ref = per-sample max, amin=1e-10, top_db=80
+`extract_melspectrogram` is the record store's cached spectrogram (hop 512).
 
 The numpy table builders are copies of hop_tpu/ops/mel.py:26-84 (that
 module imports jax).
@@ -126,3 +127,9 @@ def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000,
     fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(power.device)
     mel = power @ fb.T
     return power_to_db(mel, ref_axes=(-2, -1))
+
+
+def extract_melspectrogram(y: torch.Tensor, sr: int = 16000) -> torch.Tensor:
+    """The record store's cached spectrogram, (..., mels, frames) at n_fft
+    1024 and hop 512 (reference data_utils.py:34-38)."""
+    return log_mel_spectrogram(y, sr=sr, n_fft=1024, hop=512).transpose(-1, -2)

@@ -28,7 +28,7 @@ PRESETS = [
 
 
 @pytest.mark.parametrize("name,make", PRESETS, ids=[p[0] for p in PRESETS])
-@pytest.mark.parametrize("section", ["data", "llm", "hop", "loss", "train"])
+@pytest.mark.parametrize("section", ["data", "llm", "hop", "baseline", "loss", "train"])
 def test_preset_fields_match(name, make, section):
     port = getattr(make(tcfg), section)
     ref = getattr(make(jcfg), section)

@@ -1,7 +1,8 @@
 """hop_tpu_torch imports neither jax nor flax nor hop_tpu: a fresh process
 imports every module of the port and runs, on the CPU at the tiny size, its
 long-form entry point for one window on both GRU routes and on the
-backbone's block-attention route, `device_batch`, one 3-forward GAN step on
+backbone's block-attention route, the validation pass (`--evaluate`: records,
+dataset, metrics) over 2 batches, `device_batch`, one 3-forward GAN step on
 the stack route and the sequence-kernel stack forward."""
 
 import os
@@ -25,6 +26,10 @@ out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
 assert out.shape == (34, 27), out.shape
 out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
                             "--bert-attention", "block"])
+assert out.shape == (34, 27), out.shape
+out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
+                            "--evaluate", "--eval-videos", "1",
+                            "--eval-batch-size", "16"])
 assert out.shape == (34, 27), out.shape
 
 import dataclasses, torch
@@ -50,7 +55,8 @@ print("PARITY STEP OK", sorted(metrics))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu"))
 for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
-            "ops.block_attention"):
+            "ops.block_attention", "geometry", "data.records", "data.dataset",
+            "eval.evaluate", "eval.fgd"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -66,5 +72,7 @@ def test_port_imports_no_jax():
     assert "FOREIGN []" in proc.stdout, proc.stdout
     assert "PARITY STEP OK" in proc.stdout and "'dis'" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
-    assert proc.stdout.count("generated 34 frames") == 3
+    assert proc.stdout.count("generated 34 frames") == 4
+    assert "evaluate: 26 windows in batches of 16" in proc.stdout
+    assert "[VAL] loss:" in proc.stdout
     assert n_modules >= 20
