@@ -104,7 +104,26 @@ imports nothing of JAX. Phases, each ending in one line of output:
              metrics pass, the onset detector beside its FFT bound and
              torch.stft's power spectrogram, FGD on the pass's features,
              seconds per pass
- 22. the kernels' JSON line, then the device JSON as the last line
+ 22. run     the training entry point as a user runs it, `python -m
+             hop_tpu_torch.cli.run_ted` (its `main`), at full TED width, bs
+             256, the default routes, on 20 seeded 20 s synthetic clips (2
+             steps an epoch, one validation batch), the GAN gate open from
+             epoch 1: run A trains 4 epochs with prefetch 0; run B trains 2
+             with prefetch 2 and `--transfer-guard disallow` (no hidden wait
+             for the card in the hot loop), then resumes to 4: their last
+             checkpoints are equal in every tensor, their metrics.jsonl and
+             best_metrics.json files are equal, the frozen backbone is the
+             seed's init, and A's launches are those derived from its steps
+             and validation batches; s per epoch, steps per second at
+             prefetch 0 and 2, s per validation pass, the checkpoint's size,
+             save and restore s, and the busy share over one epoch; then
+             cuDNN held to its deterministic algorithms (as the training
+             entry point sets it on the card) against cuDNN free to pick:
+             whether one epoch from the same state repeats bit for bit,
+             with TF32 off (as this script runs) and as torch sets it, and
+             the ms of a GAN step under each, in turns (host clock, and
+             its kernels' device time)
+ 23. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -116,7 +135,9 @@ bytes over 3.35 TB/s and its operations over the peak for their type
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -1927,6 +1948,317 @@ def phase_eval(dev, seed):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the training run: `python -m hop_tpu_torch.cli.run_ted` at full TED width on
+# 20 seeded 20 s synthetic clips (520 training windows: 2 steps of 256 an
+# epoch, the last 8 dropped; the validation split is the first clip's 26
+# windows, one batch), the GAN gate open from epoch 1
+RUN_ARGS = ("--data", "synthetic", "--synthetic-videos", "20", "--warmup-epochs", "0",
+            "--log-every", "1")
+RUN_EPOCHS = 4
+RUN_STOP = 2
+RUN_PREFETCH = 2
+RUN_TURNS = 2          # of (prefetch 0, 2, 2, 0) epochs for steps per second
+DET_STEPS = 10         # GAN steps a timed block, in turns (held, free, free, held)
+DET_TURNS = 3
+
+
+class _Tee:
+    """Writes to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.text = stream, []
+
+    def write(self, s):
+        self.stream.write(s)
+        self.text.append(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def _run_ted(argv):
+    """run_ted.main(argv) as `python -m` runs it: ((state, best FGD), its
+    output)."""
+    from hop_tpu_torch.cli import run_ted
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = run_ted.main(list(argv))
+    return result, "".join(tee.text)
+
+
+def _epoch_seconds(out: str) -> list:
+    import re
+    return [float(x) for x in re.findall(r"Epoch: \d+ cost time: ([\d.]+)s", out)]
+
+
+def _validation_seconds(out: str) -> list:
+    import re
+    return [float(x) for x in re.findall(r"Validation: ([\d.]+)s", out)]
+
+
+def run_launches(cfg, epochs: int, steps: int, eval_batches: int, disc_layers: int) -> dict:
+    """Kernel launches of a training run, from its structure: per epoch
+    `steps` warmup steps (epochs up to cfg.loss.warmup_epochs) or GAN steps
+    (after), then one validation pass of `eval_batches` no-grad forwards."""
+    total = dict(ZERO_COUNTS)
+    for epoch in range(epochs):
+        use_gan = epoch > cfg.loss.warmup_epochs
+        for counts, n in ((step_launches(cfg, disc_layers, use_gan), steps),
+                          (forward_launches(cfg, eval_batches), 1)):
+            for k, v in counts.items():
+                total[k] += v * n
+    return total
+
+
+def _cudnn_determinism(state, gan, batches, rng, smi):
+    """cuDNN held to its deterministic algorithms against free to pick them
+    (`cudnn.benchmark` off in both, as the training entry point leaves it):
+    one epoch of GAN steps run twice from the same state, the differing
+    tensors counted, with TF32 off and as torch sets it (matmul off, cuDNN
+    on); then the ms of a GAN step under each, in turns, on the host clock
+    and as its kernels' device time. Leaves cuDNN held and TF32 off."""
+    import torch
+    from hop_tpu_torch.utils.checkpoint import differing_entries, flat_entries
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    step = gan.for_epoch(RUN_EPOCHS)
+    snapshot = copy.deepcopy(state.state_dict())
+
+    def restore():
+        # a copy: torch's Adam.load_state_dict keeps the given moment
+        # tensors and updates them in place
+        state.load_state_dict(copy.deepcopy(snapshot))
+
+    def epoch():
+        restore()
+        for i, batch in enumerate(batches):
+            step(state, batch, rng(RUN_EPOCHS, i))
+        return copy.deepcopy(state.state_dict())
+
+    count = iter(range(10 ** 9))
+
+    def one_step():
+        i = next(count) % len(batches)
+        step(state, batches[i], rng(RUN_EPOCHS, i))
+
+    def steps_ms(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    try:
+        repeats = {}
+        for tf32 in ("off", "as torch sets it"):
+            cudnn.allow_tf32 = tf32 != "off"
+            for held in (True, False):
+                cudnn.deterministic = held
+                diff = differing_entries(epoch(), epoch())
+                repeats[(tf32, held)] = len(diff)
+        n_entries = len(flat_entries(snapshot))
+        cudnn.allow_tf32 = False
+        ms, device_ms = {True: [], False: []}, {True: [], False: []}
+        for held in (True, False):          # each setting's first steps, untimed
+            cudnn.deterministic = held
+            steps_ms(2)
+        for held in (True, False, False, True) * DET_TURNS:
+            cudnn.deterministic = held
+            ms[held].append(steps_ms(DET_STEPS))
+        for held in (True, False, False, True):
+            cudnn.deterministic = held
+            device_ms[held].append(_busy_share(one_step, DET_STEPS, 1.0)[1])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        restore()
+    check(repeats[("off", True)] == 0 and repeats[("as torch sets it", True)] == 0,
+          f"run: with cuDNN held deterministic an epoch did not repeat: {repeats}")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    dev = {k: statistics.median(v) for k, v in device_ms.items()}
+    print(f"run, cuDNN deterministic (held) vs free to pick (benchmark off in both): one "
+          f"epoch ({len(batches)} GAN steps) twice from the same state, checkpoint "
+          f"entries that differ of {n_entries}: "
+          + "; ".join(f"TF32 {tf32}, {'held' if held else 'free'} {n}"
+                      for (tf32, held), n in repeats.items())
+          + f"; ms a GAN step (the step alone, batches made beforehand, TF32 off, host "
+          f"clock over {DET_STEPS} steps, {DET_TURNS} turns of held, free, free, held): held "
+          + ", ".join(f"{t:.2f}" for t in ms[True]) + "; free "
+          + ", ".join(f"{t:.2f}" for t in ms[False])
+          + f"; median held {med[True]:.2f}, free {med[False]:.2f}, cost "
+          f"{med[True] - med[False]:+.2f} ms a step; the step's kernels, ms a step "
+          f"(torch.profiler over {DET_STEPS} steps, held, free, free, held): held "
+          + ", ".join(f"{t:.2f}" for t in device_ms[True]) + "; free "
+          + ", ".join(f"{t:.2f}" for t in device_ms[False])
+          + f"; cost {dev[True] - dev[False]:+.2f} ms; on {smi}")
+
+
+def phase_run(dev, seed):
+    """Returns the launches of run A, the uninterrupted run."""
+    import functools
+    import torch
+    from hop_tpu_torch.cli import common as C
+    from hop_tpu_torch.cli.train_main import generate_from_state
+    from hop_tpu_torch.config import ted_config
+    from hop_tpu_torch.models.hop import build_hop_model
+    from hop_tpu_torch.train.llm import make_hop_train_steps
+    from hop_tpu_torch.train.loops import run_training
+    from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
+    from hop_tpu_torch.utils.prng import step_generator
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="hop_run_")
+    tempdir, tempfile.tempdir = tempfile.tempdir, tmp   # the runs' synthetic records
+    try:
+        def argv(name, epochs, prefetch, *extra):
+            d = os.path.join(tmp, name)
+            return (*RUN_ARGS, "--seed", str(seed), "--epochs", str(epochs),
+                    "--prefetch", str(prefetch), "--checkpoint-dir", d,
+                    "--metrics", os.path.join(d, "metrics.jsonl"), *extra)
+        _reset_counts()
+        t0 = time.perf_counter()
+        (state_a, best_a), out_a = _run_ted(argv("A", RUN_EPOCHS, 0))
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        t0 = time.perf_counter()
+        _, out_b1 = _run_ted(argv("B", RUN_STOP, RUN_PREFETCH, "--transfer-guard", "disallow"))
+        (state_b, best_b), out_b2 = _run_ted(argv("B", RUN_EPOCHS, RUN_PREFETCH, "--resume",
+                                                  "--transfer-guard", "disallow"))
+        torch.cuda.synchronize()
+        run_b_s = time.perf_counter() - t0
+        check(f"resumed from checkpoint epoch {RUN_STOP - 1}" in out_b2,
+              "run: B did not resume")
+
+        # A and B end equal, bit for bit: the last checkpoints, the metric
+        # streams, the best-FGD records
+        a_dir, b_dir = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+        ck_a, ck_b = CheckpointManager(a_dir), CheckpointManager(b_dir)
+        check(ck_a.latest_step() == ck_b.latest_step() == RUN_EPOCHS - 1,
+              f"run: latest steps {ck_a.latest_step()}, {ck_b.latest_step()}")
+        diff = differing_entries(ck_a.restore(), ck_b.restore())
+        check(not diff, f"run: 4 epochs and 2 + resume to 4 differ at {diff[:6]}")
+        files = {}
+        for f in ("metrics.jsonl", "best_metrics.json"):
+            a, b = (open(os.path.join(d, f)).read() for d in (a_dir, b_dir))
+            check(a == b, f"run: {f} differs between A and B:\n{a}\n{b}")
+            files[f] = a
+        n_lines = len(files["metrics.jsonl"].splitlines())
+        check(n_lines == 4 * RUN_EPOCHS, f"run: {n_lines} metric lines")
+        check(best_a == best_b, f"run: best FGD {best_a} vs {best_b}")
+
+        # the frozen backbone is the seed's init, untouched by training
+        cfg = ted_config()
+        meta = ck_a.run_metadata()
+        n_speakers = int(meta["n_speakers"])
+        fresh = build_hop_model(cfg, n_speakers, seed, "cpu").state_dict()
+        for state in (state_a, state_b):
+            got = state.model.state_dict()
+            frozen = [k for k in fresh if k.startswith("llm_model.")]
+            check(frozen and all(torch.equal(got[k].cpu(), fresh[k]) for k in frozen),
+                  "run: the frozen backbone changed")
+        del fresh, state_b
+
+        # launches of run A, as derived from its steps and eval batches
+        n_train = int(out_a.split("train samples: ")[1].split(",")[0])
+        n_val = int(out_a.split("val: ")[1].split(",")[0])
+        steps = n_train // cfg.train.batch_size
+        eval_batches = -(-n_val // cfg.train.batch_size)
+        want = run_launches(cfg.replace(loss=dataclasses.replace(cfg.loss, warmup_epochs=0)),
+                            RUN_EPOCHS, steps, eval_batches, state_a.disc.gru.num_layers)
+        check(launches == want, f"run: launches {launches}, want {want}")
+
+        # the run's own epoch times: A at prefetch 0, B at prefetch 2 (its
+        # first epoch after the resume pays a new model's first steps)
+        times = {0: _epoch_seconds(out_a), RUN_PREFETCH: _epoch_seconds(out_b1)
+                 + _epoch_seconds(out_b2)}
+        check(all(len(t) == RUN_EPOCHS for t in times.values()), f"run: epochs {times}")
+
+        # the checkpoint: size, save and restore
+        ck = CheckpointManager(os.path.join(tmp, "io"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(0, state_a.state_dict())
+        save_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(ck.path(0)) / 1e9
+        t0 = time.perf_counter()
+        state_a.load_state_dict(ck.restore())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+
+        # more epochs of run A through run_training, the metrics fetched once
+        # an epoch: prefetch 0 and 2 in turns (0, 2, 2, 0, ...) for steps per
+        # second; then one epoch (its steps and its validation pass) timed
+        # and profiled for the device's busy share
+        args = C.base_parser("phase 22").parse_args(argv("C", RUN_EPOCHS, RUN_PREFETCH))
+        rcfg = C.apply_overrides(cfg, args)
+        train_ds, val_ds, lang = C.load_datasets(rcfg, args)
+        warmup, gan, _ = make_hop_train_steps(rcfg, state_a.model, state_a.disc)
+        eval_fn = C.make_eval_fn(rcfg, val_ds, C.make_fgd_evaluator(rcfg, lang.n_words, None, dev),
+                                 functools.partial(generate_from_state, rcfg), n_speakers,
+                                 dev, prefetch=RUN_PREFETCH)
+
+        def batches(epoch):
+            for hb in train_ds.batches(rcfg.train.batch_size, shuffle=True, seed=seed + epoch):
+                yield C.device_batch(hb, rcfg, keys=C.MODEL_BATCH_KEYS["AD_LLM"], device=dev)
+        epoch_no = iter(range(RUN_EPOCHS, 10 ** 6))
+
+        def one_epoch(prefetch=RUN_PREFETCH):
+            e = next(epoch_no)
+            tee = _Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                run_training(rcfg, batches, warmup, gan, state_a,
+                             rng=functools.partial(step_generator, seed), eval_fn=eval_fn,
+                             epochs=e + 1, start_epoch=e, prefetch=prefetch)
+            out = "".join(tee.text)
+            return _epoch_seconds(out)[0], _validation_seconds(out)[0]
+        turns = {0: [], RUN_PREFETCH: []}
+        val_s = []
+        for p in (0, RUN_PREFETCH, RUN_PREFETCH, 0) * RUN_TURNS:
+            train_s, v = one_epoch(p)
+            turns[p].append(train_s)
+            val_s.append(v)
+        rate = {p: steps / statistics.median(t) for p, t in turns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_epoch()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        busy, device_ms, top = _busy_share(one_epoch, 1, epoch_s * 1e3)
+        print(f"run [python -m hop_tpu_torch.cli.run_ted, TED full width, bs "
+              f"{cfg.train.batch_size}, {n_train} training windows ({steps} steps an "
+              f"epoch), {n_val} validation windows ({eval_batches} batch(es))]: A ({RUN_EPOCHS} "
+              f"epochs, prefetch 0) and B ({RUN_STOP} epochs, prefetch {RUN_PREFETCH}, "
+              f"then --resume to {RUN_EPOCHS}) end bit-identical (every tensor of the last "
+              f"checkpoint: both nets, BatchNorm statistics, both Adam states, the step "
+              f"count; metrics.jsonl, {n_lines} lines; best_metrics.json; best FGD "
+              f"{best_a:.6g}); the frozen backbone is the seed's init; launches of A "
+              f"{_nonzero(launches)} as derived; on {smi}")
+        print(f"run times: A {run_a_s:.1f} s, B {run_b_s:.1f} s (host clock, model "
+              f"builds and data included); s of train steps an epoch (--log-every 1: "
+              f"the metrics fetched every step) A, prefetch 0: "
+              + ", ".join(f"{t:.3f}" for t in times[0])
+              + f"; B, prefetch {RUN_PREFETCH}, --transfer-guard disallow: "
+              + ", ".join(f"{t:.3f}" for t in times[RUN_PREFETCH])
+              + f"; then {len(val_s)} epochs more of A, prefetch 0 and {RUN_PREFETCH} in "
+              f"turns, the metrics fetched once an epoch: s of train steps prefetch 0: "
+              + ", ".join(f"{t:.3f}" for t in turns[0]) + f"; prefetch {RUN_PREFETCH}: "
+              + ", ".join(f"{t:.3f}" for t in turns[RUN_PREFETCH])
+              + f"; steps per second (median) prefetch 0 {rate[0]:.3f}, prefetch "
+              f"{RUN_PREFETCH} {rate[RUN_PREFETCH]:.3f}; validation pass s (median of "
+              f"{len(val_s)}) {statistics.median(val_s):.4f}, range {min(val_s):.4f}-"
+              f"{max(val_s):.4f}; checkpoint {size_gb:.3f} GB, save {save_s:.2f} s, "
+              f"restore {restore_s:.2f} s (host clock); one epoch more ({steps} steps + "
+              f"validation, prefetch {RUN_PREFETCH}) {epoch_s:.3f} s, its kernels "
+              f"{device_ms:.2f} ms (torch.profiler), busy share {busy:.3f}; top "
+              + ", ".join(f"{k} {t:.2f}" for k, t in top[:5]) + f"; on {smi}")
+        _cudnn_determinism(state_a, gan, list(batches(RUN_EPOCHS)),
+                           functools.partial(step_generator, seed), smi)
+        return launches
+    finally:
+        tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1980,6 +2312,8 @@ def main():
         dev, SEED, gru_kernel="stack", fused_step=False, attention="block")
     lib = phase_library(dev, SEED)
     paths.update(phase_eval(dev, SEED))
+    # last: the training entry point sets cuDNN's deterministic algorithms
+    paths["train_run"] = phase_run(dev, SEED)
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention

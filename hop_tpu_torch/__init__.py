@@ -13,7 +13,9 @@ module's counterpart sits at the same path:
   models       — BERT backbone, reprogramming, graph wavenet, HOPModel,
                  ConvDiscriminator, the FGD feature nets (EmbeddingNet in
                  pose mode, MotionAE)
-  train        — the HOP GAN train steps and their optimizers
+  train        — the HOP GAN train steps, their optimizers and the epoch
+                 loop (prefetch, validation, save-on-best-FGD)
+  utils        — checkpoints, the per-step random generator, meters
   data         — record store, preprocessor, SpeechMotionDataset,
                  vocabulary, WordPiece, seeded synthetic clips and batches
   native       — the record store's C++ batch gatherer (g++ at first use)
@@ -21,7 +23,8 @@ module's counterpart sits at the same path:
   convert      — flax variable trees (numpy leaves, or hop_tpu's flat
                  .npz) -> this port's state_dicts
   infer        — long-form sliding-window generation
-  cli          — `python -m hop_tpu_torch.cli.test_checkpoint`
+  cli          — `python -m hop_tpu_torch.cli.run_ted` / `run_expressive`
+                 (training) and `python -m hop_tpu_torch.cli.test_checkpoint`
 
 The package imports torch and never jax, flax or `hop_tpu`.
 """

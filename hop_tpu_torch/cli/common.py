@@ -1,7 +1,14 @@
-"""What the entry points share (port of hop_tpu/cli/common.py): the host
-batch -> device batch path (:318-396), the WordPiece tokenizer, the
-datasets, the frozen FGD feature net and the validation pass's closure
-(:265-467).
+"""What the entry points share (port of hop_tpu/cli/common.py): the
+training entry points' parser and config overrides (:41-156, :233-262),
+the restore of a trained generator (:159-230), the host batch -> device
+batch path (:318-396), the WordPiece tokenizer, the datasets, the frozen
+FGD feature net and the validation pass's closure (:265-467).
+
+`base_parser` has every flag of hop_tpu's; the flags of features the port
+has not yet (`UNPORTED`) are refused by `refuse_unported` with the name of
+the ROADMAP.md item that brings them. The port adds `--device` (default
+cuda: the card, never a silent move to the CPU), `--gru-kernel`,
+`--bert-attention` and `--tiny`.
 
 `device_batch` takes a batch of numpy arrays as the data loader makes it,
 moves the fields a model reads to the device and derives there what the
@@ -13,12 +20,15 @@ memory in one explicit asynchronous copy.
 
 `load_datasets` has hop_tpu's synthetic and record-path branches; its
 fastText `.bin` word-vector source comes with the dataset importers.
-`make_eval_fn` assembles and moves each validation batch in turn (hop_tpu
-can overlap them in a background thread: the training loop's prefetch).
+`make_eval_fn` assembles and moves the validation batches in turn, or on a
+background thread ahead of the forwards (`prefetch`, the training loop's
+`prefetch_iter`).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import tempfile
 from pathlib import Path
 from typing import Optional
@@ -36,8 +46,184 @@ from hop_tpu_torch.eval.evaluate import evaluate_testset
 from hop_tpu_torch.eval.fgd import (EmbeddingSpaceEvaluator, make_expressive_feature_fn,
                                     make_ted_feature_fn)
 from hop_tpu_torch.models.embedding_net import EmbeddingNet
+from hop_tpu_torch.models.hop import build_hop_model
 from hop_tpu_torch.models.motion_ae import MotionAE
 from hop_tpu_torch.ops import mel as mel_ops
+from hop_tpu_torch.train.loops import prefetch_iter
+from hop_tpu_torch.utils.checkpoint import (CheckpointManager, reattach_frozen,
+                                            strip_frozen)
+
+MODEL_CHOICES = ("AD_LLM", "multimodal_context", "seq2seq", "speech2gesture",
+                 "joint_embedding", "gesture_autoencoder", "hierarchy")
+
+#: flags of hop_tpu's base_parser whose feature the port has not yet:
+#: (dest, test of the parsed value, the ROADMAP.md item that brings it)
+UNPORTED = (
+    ("model", lambda v: v != "AD_LLM", "M13 (baseline zoo): only AD_LLM is ported"),
+    ("llm_model", lambda v: v == "LLAMA", "M14 (LLaMA backbone)"),
+    ("llm_weights", lambda v: v is not None, "M14 (backbone weight loader)"),
+    ("data_parallel", lambda v: v > 1, "M15 (parallel)"),
+    ("model_parallel", lambda v: v > 1, "M15 (parallel)"),
+    ("dcn_slices", lambda v: v > 1, "M15 (parallel)"),
+    ("no_zero2", bool, "M15 (parallel): there is no sharded optimizer state to keep"),
+    ("tensorboard_dir", lambda v: v is not None, "M17 (metrics export)"),
+)
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    """hop_tpu's training flags (cli/common.py:45-156) and the port's own."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--model", default="AD_LLM", choices=MODEL_CHOICES)
+    p.add_argument("--data", default="synthetic",
+                   help="record-store path prefix (train split), or "
+                        "'synthetic' to fabricate one")
+    p.add_argument("--val-data", default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--checkpoint-dir", default="./checkpoints")
+    p.add_argument("--metrics", default="./metrics.jsonl")
+    p.add_argument("--tensorboard-dir", default=None,
+                   help="not ported (ROADMAP M17); the scalars go to --metrics")
+    p.add_argument("--eval-net", default=None,
+                   help=".npz of the frozen FGD feature net's flax variables "
+                        "(hop_tpu's save_arrays format); random init, said so, "
+                        "when absent")
+    p.add_argument("--seed", type=int, default=2021,
+                   help="seeds the weights, the synthetic data, the batch order "
+                        "and every step's draws")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="0 or 1: one card (more is ROADMAP M15)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="1 (more is ROADMAP M15)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of train steps 2-5 of "
+                        "the first epoch to <dir>/trace.json")
+    p.add_argument("--dcn-slices", type=int, default=1,
+                   help="1 (more is ROADMAP M15)")
+    p.add_argument("--parity-step", action="store_true",
+                   help="train HOP with the reference's 3-forward sequential "
+                        "D/G step instead of the default fused step")
+    p.add_argument("--no-zero2", action="store_true",
+                   help="not ported (ROADMAP M15)")
+    p.add_argument("--synthetic-videos", type=int, default=3)
+    p.add_argument("--wordembed-path", default=None,
+                   help="pretrained word vectors for the vocabulary: a .npy "
+                        "matrix or a .txt/.vec file (a fastText .bin comes "
+                        "with the dataset importers)")
+    p.add_argument("--use-hf-token-stream", action="store_true",
+                   help="feed WordPiece token ids to the LLM instead of the "
+                        "reference's vocabulary ids; requires --hf-vocab")
+    p.add_argument("--hf-vocab", default=None,
+                   help="WordPiece vocab.txt for the HF token stream")
+    p.add_argument("--llm-model", default=None, choices=("BERT", "LLAMA"),
+                   help="frozen backbone for AD_LLM; LLAMA is ROADMAP M14")
+    p.add_argument("--llm-layers", type=int, default=None,
+                   help="backbone depth (reference --llm_layers, default 6)")
+    p.add_argument("--llm-weights", default=None,
+                   help="not ported (ROADMAP M14): the backbone is a seeded "
+                        "random init, said so")
+    p.add_argument("--warmup-epochs", type=int, default=None,
+                   help="generator-only epochs before the GAN phase starts "
+                        "(the reference's gate `epoch > 10`, train_llm.py:15)")
+    p.add_argument("--transfer-guard", default="off",
+                   choices=("off", "log", "disallow"),
+                   help="torch.cuda.set_sync_debug_mode warn / error around "
+                        "the training hot loop: an operation there that makes "
+                        "the host wait for the card warns or raises")
+    p.add_argument("--audio-wire", default=None, choices=("f32", "int16"),
+                   help="host->device wire dtype for raw audio, the batch's "
+                        "largest field (DataConfig.audio_wire)")
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="make up to N batches (host assembly and the copy to "
+                        "the card) ahead on a background thread, for training "
+                        "and for the validation pass (0 = in turn)")
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="save the latest-for-resume checkpoint every N epochs "
+                        "(best-FGD epochs always save)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint from --checkpoint-dir "
+                        "before training (params, optimizer state, stats)")
+    # the port's own
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' runs the CUDA kernels, 'cpu' "
+                        "their plain versions")
+    p.add_argument("--tiny", action="store_true",
+                   help="thin layers (tiny_test_config) for a quick CPU run")
+    p.add_argument("--gru-kernel", default="fused", choices=("fused", "stack"),
+                   help="GRU route of the head and the discriminator: the "
+                        "fused kernel (K2), or a projection product + K3")
+    p.add_argument("--bert-attention", default="plain",
+                   choices=("plain", "fused", "block"),
+                   help="self-attention route of the backbone: matmul + "
+                        "softmax, kernel K4, or kernel K5")
+    return p
+
+
+def refuse_unported(args) -> None:
+    """Exit, naming its ROADMAP.md item, on a flag whose feature the port
+    has not yet."""
+    for dest, given, item in UNPORTED:
+        value = getattr(args, dest, None)
+        if value is not None and given(value):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} {value}: not ported yet, ROADMAP.md {item}")
+
+
+def apply_overrides(cfg: Config, args) -> Config:
+    """hop_tpu's overrides (cli/common.py:233-262) and the port's routes, from
+    `base_parser`'s arguments."""
+    train = cfg.train
+    if args.epochs is not None:
+        train = dataclasses.replace(train, epochs=args.epochs)
+    if args.batch_size is not None:
+        train = dataclasses.replace(train, batch_size=args.batch_size)
+    if args.learning_rate is not None:
+        train = dataclasses.replace(train, learning_rate=args.learning_rate)
+    loss, data, hop, llm = cfg.loss, cfg.data, cfg.hop, cfg.llm
+    if args.warmup_epochs is not None:
+        loss = dataclasses.replace(loss, warmup_epochs=args.warmup_epochs)
+    if args.use_hf_token_stream:
+        data = dataclasses.replace(data, use_hf_token_stream=True)
+    if args.audio_wire:
+        data = dataclasses.replace(data, audio_wire=args.audio_wire)
+    if args.parity_step:
+        hop = dataclasses.replace(hop, fused_step=False)
+    if args.llm_layers:
+        llm = dataclasses.replace(llm, n_layers=args.llm_layers)
+    hop = dataclasses.replace(hop, gru_kernel=args.gru_kernel)
+    llm = dataclasses.replace(llm, attention=args.bert_attention)
+    return cfg.replace(train=train, loss=loss, data=data, hop=hop, llm=llm)
+
+
+def restore_hop_model(cfg: Config, checkpoint_dir: str, allow_random_init: bool = False,
+                      device: torch.device | str = "cuda", seed: int = 2021):
+    """Rebuild a HOPModel from a train_main checkpoint directory.
+
+    Returns (cfg, model, n_speakers), the model in eval mode on `device`.
+    The frozen backbone is stripped from checkpoints; it is rebuilt from the
+    seed and depth in `run_metadata.json`, the same init the run trained
+    with. With `allow_random_init` and no checkpoint, the model is a random
+    init from `seed` with 10 speakers, said so; without, it raises
+    SystemExit.
+    """
+    ckpt = CheckpointManager(checkpoint_dir)
+    meta = ckpt.run_metadata()
+    if meta.get("llm_layers"):
+        cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, n_layers=int(meta["llm_layers"])))
+    if ckpt.latest_step() is None:
+        if not allow_random_init:
+            raise SystemExit(f"no checkpoint found in {checkpoint_dir}")
+        print(f"no checkpoint found — using random init (seed {seed})")
+        return cfg, build_hop_model(cfg, 10, seed, device), 10
+    n_speakers = int(meta["n_speakers"])
+    model = build_hop_model(cfg, n_speakers, int(meta["seed"]), device)
+    saved = ckpt.restore()
+    frozen = strip_frozen(model.state_dict())[1]
+    model.load_state_dict(reattach_frozen(saved["gen"], frozen), strict=True)
+    print(f"restored checkpoint step {ckpt.latest_step()}")
+    return cfg, model.eval(), n_speakers
 
 #: host fields each model family reads; transferring only these cuts the
 #: per-batch host-to-device volume (AD_LLM skips the spectrogram and the
@@ -141,7 +327,8 @@ def load_datasets(cfg: Config, args):
     source = getattr(args, "wordembed_path", None)
     if source and source.endswith(".bin"):
         raise SystemExit("--wordembed-path: a fastText .bin needs the dataset "
-                         "importers, not ported yet; give a .npy or .txt/.vec")
+                         "importers, not ported yet, ROADMAP.md M16 (its "
+                         "importers); give a .npy or .txt/.vec")
     if args.data == "synthetic":
         tmp = Path(tempfile.mkdtemp(prefix="hop_synth_"))
         videos = synthetic.make_source_clips(
@@ -209,16 +396,22 @@ def _warn_untrained_eval_net():
 
 
 def make_eval_fn(cfg: Config, val_ds, evaluator, generate_from_state,
-                 n_speakers: int, device: torch.device | str = "cuda"):
+                 n_speakers: int, device: torch.device | str = "cuda",
+                 prefetch: int = 0):
     """eval_fn(state, epoch) -> EvalResult over `val_ds` in order at
     cfg.train.batch_size, the last batch ragged;
     generate_from_state(state, batch, vids, generator) -> outputs. The
-    speaker ids of epoch e come from a generator seeded 1234 + e."""
+    speaker ids of epoch e come from a generator seeded 1234 + e.
+
+    prefetch: make and move up to N validation batches ahead of the
+    forwards on a background thread (`prefetch_iter`)."""
 
     def eval_fn(state, epoch):
-        batches = (device_batch(b, cfg, device=device)
-                   for b in val_ds.batches(cfg.train.batch_size, shuffle=False,
-                                           drop_last=False))
+        batches = prefetch_iter(
+            (device_batch(b, cfg, device=device)
+             for b in val_ds.batches(cfg.train.batch_size, shuffle=False,
+                                     drop_last=False)),
+            prefetch)
 
         def gen(batch, vids, generator):
             return generate_from_state(state, batch, vids, generator)

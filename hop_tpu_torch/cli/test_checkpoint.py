@@ -9,10 +9,13 @@ batches through `device_batch`, the generator's forward, and L1, joint
 MAE, FGD, feature distance, BC and diversity (`eval.evaluate_testset`),
 printed as hop_tpu's "[VAL] ..." line. The FGD feature net is read from
 --eval-net (hop_tpu's `save_arrays` .npz) or randomly initialised, and
-said so. The generator is built from a seeded random initialisation;
-restoring a trained checkpoint comes with the training slice.
+said so. With --checkpoint-dir the generator is the latest checkpoint
+that `cli.train_main` saved there (`cli.common.restore_hop_model`: the
+frozen backbone rebuilt from the run's seed); without one, or where the
+directory holds none, it is a seeded random initialisation, said so.
 
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda
+  python -m hop_tpu_torch.cli.test_checkpoint --device cuda --checkpoint-dir ./checkpoints
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --gru-kernel stack
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --bert-attention block
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --evaluate
@@ -63,6 +66,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("HOP (PyTorch) inference demo")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' runs the CUDA kernels")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="restore the generator from the latest checkpoint of a "
+                        "training run (cli.run_ted); default a seeded random "
+                        "init")
     p.add_argument("--dataset", default="TED",
                    choices=("TED", "TED_expressive"))
     p.add_argument("--tiny", action="store_true",
@@ -105,7 +112,7 @@ def parse_args(argv=None):
 
 
 def evaluate(cfg, args, model: HOPModel, lang, tokenizer,
-             device: torch.device) -> EvalResult:
+             device: torch.device, n_speakers: int = N_SPEAKERS) -> EvalResult:
     """The validation pass: records written from --eval-videos seeded 20 s
     source clips (seed --seed), batches of --eval-batch-size in order
     through `device_batch`, the model's forward seeded with each batch's
@@ -133,7 +140,7 @@ def evaluate(cfg, args, model: HOPModel, lang, tokenizer,
             (C.device_batch(b, cfg, device=device)
              for b in val_ds.batches(batch_size, shuffle=False, drop_last=False)),
             gen, evaluator, epoch=cfg.loss.bc_start_epoch + 1, cfg=cfg,
-            n_speakers=N_SPEAKERS,
+            n_speakers=n_speakers,
             generator=torch.Generator(device=device).manual_seed(7))
     return result
 
@@ -147,10 +154,17 @@ def main(argv=None, model: HOPModel | None = None) -> np.ndarray:
     device = torch.device(args.device)
     clip = make_clip(cfg, seconds=args.clip_seconds, seed=args.seed)
     lang = build_vocab("words", [clip.words], None, None, cfg.data.wordembed_dim)
-    if model is None:
+    n_speakers = N_SPEAKERS
+    if model is None and args.checkpoint_dir:
+        cfg, model, n_speakers = C.restore_hop_model(
+            cfg, args.checkpoint_dir, allow_random_init=True, device=device,
+            seed=args.seed)
+    elif model is None:
+        print(f"no --checkpoint-dir — using random init (seed {args.seed})")
         model = build_hop_model(cfg, N_SPEAKERS, args.seed, device)
+    model.eval()
     vid_index = (args.vid if args.vid is not None
-                 else random.Random(args.seed).randrange(N_SPEAKERS))
+                 else random.Random(args.seed).randrange(n_speakers))
     print(f"vid: {vid_index}")
     generator = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
@@ -166,7 +180,7 @@ def main(argv=None, model: HOPModel | None = None) -> np.ndarray:
     if args.out:
         np.save(f"{args.out}_dir_vec.npy", out_dir_vec)
     if args.evaluate:
-        print(str(evaluate(cfg, args, model, lang, tokenizer, device)))
+        print(str(evaluate(cfg, args, model, lang, tokenizer, device, n_speakers)))
     return out_dir_vec
 
 

@@ -1,0 +1,133 @@
+"""Model build and training main, shared by run_ted and run_expressive (port
+of hop_tpu/cli/train_main.py for AD_LLM, the HOP generator).
+
+`train_main` builds the datasets, the generator and the discriminator from
+the seed, their train steps, the validation pass and the checkpoint
+manager, restores the latest checkpoint on `--resume`, and runs
+`train.loops.run_training`. A step's draws come from
+`utils.prng.step_generator(seed, epoch, i)` and the batch order of epoch e
+from seed + e, so a run stopped after epoch k and resumed ends as the
+uninterrupted run does, bit for bit.
+
+On the card the run sets `torch.backends.cudnn.deterministic`: cuDNN may
+otherwise pick convolution backward algorithms that sum in a varying order
+(gwnet's and the discriminator's convolutions), and a resumed run would
+then drift from the uninterrupted one. The port's own kernels repeat bit
+for bit (no atomics, ordered split-K).
+
+A resume refuses a checkpoint whose seed or backbone differs from the
+run's: the frozen backbone is rebuilt from the seed, not saved, so another
+seed would silently train on from another backbone (hop_tpu's train_main.py
+:306 reattaches whatever the new arguments build).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from hop_tpu_torch.cli import common as C
+from hop_tpu_torch.config import Config
+from hop_tpu_torch.models.hop import build_hop_model
+from hop_tpu_torch.models.multimodal_context import build_discriminator
+from hop_tpu_torch.train.llm import make_hop_train_steps
+from hop_tpu_torch.train.loops import run_training
+from hop_tpu_torch.utils.checkpoint import CheckpointManager
+from hop_tpu_torch.utils.prng import step_generator
+
+# run_metadata keys that must match on a resume: what rebuilds the frozen
+# backbone (the optimizers' state follows the parameter order besides)
+RESUME_KEYS = ("seed", "llm_layers", "llm_dim")
+
+
+def deterministic_cudnn(device: torch.device) -> None:
+    """cuDNN's deterministic algorithms, chosen without benchmarking, for a
+    run on the card."""
+    if device.type == "cuda":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+
+def generate_from_state(cfg: Config, state, batch, vids, generator):
+    """The validation pass's forward: the state's generator in eval mode,
+    seeded with the batch's first n_seed_frames target frames."""
+    state.model.eval()
+    with torch.inference_mode():
+        out, *_ = state.model(batch["in_audio"], batch["log_mel"], batch["text_padded"],
+                              batch["target_vec"][:, :cfg.data.n_seed_frames], vids,
+                              generator=generator)
+    return out
+
+
+def build_model_and_steps(cfg: Config, args, n_speakers: int, device):
+    """Returns (state, warmup_step, gan_step, generate_from_state) for
+    AD_LLM: the generator from `args.seed`, the discriminator from
+    `args.seed + 1`, both on `device`."""
+    model = build_hop_model(cfg, n_speakers, args.seed, device)
+    disc = build_discriminator(cfg, args.seed + 1, device)
+    n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"Total parameters: {n_trainable}")
+    warmup, gan, init_state = make_hop_train_steps(cfg, model, disc)
+    return init_state(), warmup, gan, functools.partial(generate_from_state, cfg)
+
+
+def train_main(cfg: Config, args):
+    """Returns (state, best_fgd)."""
+    C.refuse_unported(args)
+    cfg = C.apply_overrides(cfg, args)
+    device = torch.device(args.device)
+    deterministic_cudnn(device)
+    train_ds, val_ds, lang = C.load_datasets(cfg, args)
+    n_speakers = max(train_ds.speaker_model.n_words, 1)
+    bs = min(cfg.train.batch_size, len(train_ds))
+    print(f"train samples: {len(train_ds)}, val: {len(val_ds)}, "
+          f"speakers: {n_speakers}, batch: {bs}, device: {device}")
+
+    state, warmup, gan, generate = build_model_and_steps(cfg, args, n_speakers, device)
+    evaluator = C.make_fgd_evaluator(cfg, lang.n_words, args.eval_net, device)
+    eval_fn = C.make_eval_fn(cfg, val_ds, evaluator, generate, n_speakers, device,
+                             prefetch=args.prefetch)
+    ckpt = CheckpointManager(args.checkpoint_dir)
+    batch_keys = C.MODEL_BATCH_KEYS[args.model]
+
+    def train_batches(epoch):
+        for hb in train_ds.batches(bs, shuffle=True, seed=args.seed + epoch):
+            yield C.device_batch(hb, cfg, keys=batch_keys, device=device)
+
+    ckpt.metadata = {"model": args.model, "dataset": cfg.data.dataset,
+                     "n_speakers": n_speakers, "n_words": lang.n_words,
+                     "seed": args.seed, "llm_model": cfg.llm.model,
+                     "llm_layers": cfg.llm.n_layers, "llm_dim": cfg.llm.dim}
+
+    start_epoch, best_fgd, div_history = 0, float("inf"), []
+    if args.resume and ckpt.latest_step() is not None:
+        meta = ckpt.run_metadata()
+        differ = {k: (meta.get(k), ckpt.metadata[k]) for k in RESUME_KEYS
+                  if meta.get(k) != ckpt.metadata[k]}
+        if differ:
+            raise SystemExit(
+                f"--resume: {args.checkpoint_dir} was trained with "
+                + ", ".join(f"{k}={was!r}" for k, (was, _) in differ.items())
+                + "; this run has "
+                + ", ".join(f"{k}={now!r}" for k, (_, now) in differ.items())
+                + ". The frozen backbone is rebuilt from the seed and the "
+                  "optimizer state follows the parameter order: resume with "
+                  "the checkpoint's settings")
+        state.load_state_dict(ckpt.restore())
+        start_epoch = int(meta["epoch"]) + 1
+        best_fgd = float(meta.get("best_fgd", float("inf")))
+        div_history = list(meta.get("div_history", []))
+        print(f"resumed from checkpoint epoch {start_epoch - 1} "
+              f"(best FGD {best_fgd:.4f})")
+
+    state, best_fgd = run_training(
+        cfg, train_batches, warmup, gan, state,
+        rng=functools.partial(step_generator, args.seed),
+        eval_fn=eval_fn, checkpoint_manager=ckpt,
+        metric_path=args.metrics, log_every=args.log_every,
+        start_epoch=start_epoch, best_fgd=best_fgd,
+        checkpoint_every=args.checkpoint_every,
+        profile_dir=args.profile_dir, transfer_guard=args.transfer_guard,
+        prefetch=args.prefetch, div_history=div_history)
+    return state, best_fgd

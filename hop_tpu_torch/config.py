@@ -1,5 +1,5 @@
 """Typed configuration for the port: the presets of the serving forward,
-the train steps and the validation pass.
+the train steps, the training run and the validation pass.
 
 A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
 HOPConfig, BaselineConfig, LossConfig, TrainConfig and presets
@@ -118,12 +118,13 @@ class BaselineConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
-    """Loss weights of the HOP train step (reference run_ted.py:89-92 /
-    run_expressive.py:86-89)."""
+    """Loss weights of the HOP train step and the epoch of its GAN gate
+    (reference run_ted.py:89-92 / run_expressive.py:86-89)."""
     regression_weight: float = 600.0
     gan_weight: float = 5.0
     kld_weight: float = 0.6
     reg_weight: float = 0.4              # diversity regulariser
+    warmup_epochs: int = 10              # GAN gate: epoch > 10 (train_llm.py:15)
     bc_start_epoch: int = 35             # BC gate: epoch > 35 (Evaluate.py:175)
     huber_beta: float = 0.1
     div_beta: float = 0.05
@@ -133,9 +134,11 @@ class LossConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 256
+    epochs: int = 75
     learning_rate: float = 0.01          # generator Adam lr (run_ted.py:338)
     dis_lr_scale: float = 0.1            # D lr = G lr * 0.1 (run_ted.py:344-346)
     betas: tuple = (0.5, 0.999)
+    seed: int = 2021
 
 
 @dataclass(frozen=True)

@@ -11,7 +11,9 @@ here. Semantics match librosa 0.8.1:
 `extract_melspectrogram` is the record store's cached spectrogram (hop 512).
 
 The numpy table builders are copies of hop_tpu/ops/mel.py:26-84 (that
-module imports jax).
+module imports jax). Each table goes to a device once, from pinned memory
+and asynchronously (`_on_device`): a copy per call from pageable memory
+made the host wait for the card inside the training loop's batch path.
 """
 
 from __future__ import annotations
@@ -81,6 +83,18 @@ def _dft_window_matrices(n_fft: int):
     return cos_m, sin_m
 
 
+@functools.lru_cache(maxsize=None)
+def _on_device(table: str, device: torch.device, *args) -> tuple:
+    """The numpy tables `table` ("dft": cos and sin, or "mel": the
+    filterbank) of `args` as tensors on `device`, made once."""
+    arrays = (_dft_window_matrices(*args) if table == "dft"
+              else (mel_filterbank(*args),))
+    out = tuple(torch.from_numpy(a) for a in arrays)
+    if device.type == "cuda":
+        out = tuple(t.pin_memory().to(device, non_blocking=True) for t in out)
+    return out
+
+
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int,
                  center: bool = True) -> torch.Tensor:
     """(..., n_samples) -> (..., n_frames, n_fft), librosa centering."""
@@ -96,9 +110,9 @@ def power_spectrogram(y: torch.Tensor, n_fft: int = 1024, hop: int = 512,
                       center: bool = True) -> torch.Tensor:
     """|STFT|^2 as (..., n_frames, n_bins) via matmul DFT."""
     frames = frame_signal(y.float(), n_fft, hop, center)
-    cos_m, sin_m = _dft_window_matrices(n_fft)
-    re = frames @ torch.from_numpy(cos_m).to(frames.device)
-    im = frames @ torch.from_numpy(sin_m).to(frames.device)
+    cos_m, sin_m = _on_device("dft", frames.device, n_fft)
+    re = frames @ cos_m
+    im = frames @ sin_m
     return re * re + im * im
 
 
@@ -124,7 +138,7 @@ def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000,
     """(..., n_samples) -> (..., n_frames, n_mels) log-mel, frames-first.
     A 36267-sample window at hop 1096 yields exactly 34 frames."""
     power = power_spectrogram(audio, n_fft=n_fft, hop=hop)
-    fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(power.device)
+    fb, = _on_device("mel", power.device, sr, n_fft, n_mels)
     mel = power @ fb.T
     return power_to_db(mel, ref_axes=(-2, -1))
 

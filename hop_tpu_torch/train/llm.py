@@ -93,7 +93,13 @@ class StepNoise:
             attn_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
 
     def to(self, device) -> "StepNoise":
-        return replace(self, **{k: getattr(self, k).to(device) for k in
+        """The draws on `device`; to a card from pinned memory, without
+        making the host wait for it."""
+        def put(t):
+            if torch.device(device).type == "cuda" and t.device.type == "cpu":
+                return t.pin_memory().to(device, non_blocking=True)
+            return t.to(device)
+        return replace(self, **{k: put(getattr(self, k)) for k in
                                 ("eps", "eps_rand", "perm", "target_noise",
                                  "fake_noise", "eps_dis")
                                 if getattr(self, k) is not None})

@@ -7,6 +7,12 @@ train/llm.py:107-114). The reference's OneCycleLR is never stepped, so the
 rate is constant. The frozen LLM backbone does not require grad and is
 left out of the generator's optimizer (JAX masks it with set_to_zero):
 gradients still flow through it into the layers that feed it.
+
+`GANTrainState.state_dict()` is what a checkpoint holds: both nets'
+state_dicts (the generator's without the frozen backbone), both
+optimizers' (Adam's moments and per-parameter step counts) and the step
+count. `load_state_dict` puts it back into a state built by `init_state()`
+for the same config and seed, bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+
+from hop_tpu_torch.utils.checkpoint import reattach_frozen, strip_frozen
 
 
 def adam(module: nn.Module, lr: float, betas=(0.5, 0.999)) -> torch.optim.Adam:
@@ -32,3 +40,22 @@ class GANTrainState:
     gen_opt: torch.optim.Optimizer
     dis_opt: torch.optim.Optimizer
     step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"gen": strip_frozen(self.model.state_dict())[0],
+                "dis": self.disc.state_dict(),
+                "gen_opt": self.gen_opt.state_dict(),
+                "dis_opt": self.dis_opt.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, saved: dict) -> None:
+        """Restore `saved` (from `state_dict`, tensors on any device) into
+        this state; the frozen backbone stays as built. The optimizers map
+        their state by parameter order, so the nets must be built from the
+        same config."""
+        frozen = strip_frozen(self.model.state_dict())[1]
+        self.model.load_state_dict(reattach_frozen(saved["gen"], frozen), strict=True)
+        self.disc.load_state_dict(saved["dis"], strict=True)
+        self.gen_opt.load_state_dict(saved["gen_opt"])
+        self.dis_opt.load_state_dict(saved["dis_opt"])
+        self.step = int(saved["step"])

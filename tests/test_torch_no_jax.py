@@ -3,7 +3,9 @@ imports every module of the port and runs, on the CPU at the tiny size, its
 long-form entry point for one window on both GRU routes and on the
 backbone's block-attention route, the validation pass (`--evaluate`: records,
 dataset, metrics) over 2 batches, `device_batch`, one 3-forward GAN step on
-the stack route and the sequence-kernel stack forward."""
+the stack route, the sequence-kernel stack forward, and the training entry
+point (`run_ted`: the epoch loop, a checkpoint, a resume) with the long-form
+entry restoring what it saved."""
 
 import os
 import subprocess
@@ -52,11 +54,27 @@ assert all(torch.isfinite(v) for v in metrics.values()), metrics
 y = gru_forward_seq(torch.zeros(2, 5, 8), disc.gru.state_dict(), 64, 4, True)
 assert y.shape == (2, 5, 128), y.shape
 print("PARITY STEP OK", sorted(metrics))
+
+import tempfile
+from hop_tpu_torch.cli import run_ted
+with tempfile.TemporaryDirectory() as tmp:
+    tempfile.tempdir = tmp
+    run = ["--device", "cpu", "--tiny", "--synthetic-videos", "1", "--batch-size", "13",
+           "--warmup-epochs", "0", "--checkpoint-dir", tmp + "/ck", "--metrics",
+           tmp + "/m.jsonl"]
+    run_ted.main(run + ["--epochs", "1"])
+    run_ted.main(run + ["--epochs", "2", "--resume", "--prefetch", "1"])
+    out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
+                                "--vid", "0", "--checkpoint-dir", tmp + "/ck"])
+    assert out.shape == (34, 27), out.shape
+    tempfile.tempdir = None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu"))
 for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
             "ops.block_attention", "geometry", "data.records", "data.dataset",
-            "eval.evaluate", "eval.fgd"):
+            "eval.evaluate", "eval.fgd", "train.loops", "utils.checkpoint",
+            "utils.prng", "utils.meters", "cli.train_main", "cli.run_ted",
+            "cli.run_expressive"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -72,7 +90,9 @@ def test_port_imports_no_jax():
     assert "FOREIGN []" in proc.stdout, proc.stdout
     assert "PARITY STEP OK" in proc.stdout and "'dis'" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
-    assert proc.stdout.count("generated 34 frames") == 4
+    assert proc.stdout.count("generated 34 frames") == 5
+    assert "resumed from checkpoint epoch 0" in proc.stdout
+    assert "restored checkpoint step 1" in proc.stdout
     assert "evaluate: 26 windows in batches of 16" in proc.stdout
     assert "[VAL] loss:" in proc.stdout
     assert n_modules >= 20
