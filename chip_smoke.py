@@ -123,7 +123,24 @@ imports nothing of JAX. Phases, each ending in one line of output:
              with TF32 off (as this script runs) and as torch sets it, and
              the ms of a GAN step under each, in turns (host clock, and
              its kernels' device time)
- 23. the kernels' JSON line, then the device JSON as the last line
+ 23. import  the same 20 seeded 20 s clips as the reference's LMDBs: a source
+             LMDB (one video dict a value, `data.arrow_legacy.serialize`,
+             `data.lmdbfile.write_lmdb`) and a cache LMDB of its windows;
+             `python -m hop_tpu_torch.data.import_ted` (its `main`) on the
+             source, on it with --verify (the log-mel recomputed on the card
+             with TF32 off against the stored spectrograms), on the cache
+             (--src-kind cache) and with --dry-import: every import byte-equal
+             to the records the preprocessor writes from the clips; the
+             decode rate, the import seconds, the verify's max |Δ| dB; then
+             `run_ted` at full TED width, bs 256, 2 epochs on the imported
+             records with a fabricated fastText .bin as --wordembed-path:
+             launches as derived, finite metrics, the vocabulary's vectors
+             the .bin's, s per epoch and the busy share over one epoch more;
+             then `test_checkpoint --data <source LMDB> --clip-index 3
+             --checkpoint-dir <that run>` on both GRU routes, bitwise the
+             output of `generate_long_form` called with the same clip, seed
+             pose, weights and generator, launches as derived
+ 24. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -138,11 +155,13 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
 import statistics
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2093,16 +2112,48 @@ def _cudnn_determinism(state, gan, batches, rng, smi):
           + f"; cost {dev[True] - dev[False]:+.2f} ms; on {smi}")
 
 
+def _epoch_runner(args, state, n_speakers: int, seed: int, dev, start_epoch: int):
+    """More epochs of a `run_ted` run (its parsed `args`) from `state`,
+    through `run_training` on the run's own datasets, epoch `start_epoch`
+    first. Returns (one_epoch(prefetch) -> (s of train steps, s of the
+    validation pass), the GAN step, batches(epoch), the vocabulary)."""
+    from hop_tpu_torch.cli import common as C
+    from hop_tpu_torch.cli.train_main import generate_from_state
+    from hop_tpu_torch.config import ted_config
+    from hop_tpu_torch.train.llm import make_hop_train_steps
+    from hop_tpu_torch.train.loops import run_training
+    from hop_tpu_torch.utils.prng import step_generator
+    rcfg = C.apply_overrides(ted_config(), args)
+    train_ds, val_ds, lang = C.load_datasets(rcfg, args)
+    warmup, gan, _ = make_hop_train_steps(rcfg, state.model, state.disc)
+    eval_fn = C.make_eval_fn(rcfg, val_ds, C.make_fgd_evaluator(rcfg, lang.n_words, None, dev),
+                             functools.partial(generate_from_state, rcfg), n_speakers,
+                             dev, prefetch=RUN_PREFETCH)
+
+    def batches(epoch):
+        for hb in train_ds.batches(rcfg.train.batch_size, shuffle=True, seed=seed + epoch):
+            yield C.device_batch(hb, rcfg, keys=C.MODEL_BATCH_KEYS["AD_LLM"], device=dev)
+    epoch_no = iter(range(start_epoch, 10 ** 6))
+
+    def one_epoch(prefetch=RUN_PREFETCH):
+        e = next(epoch_no)
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            run_training(rcfg, batches, warmup, gan, state,
+                         rng=functools.partial(step_generator, seed), eval_fn=eval_fn,
+                         epochs=e + 1, start_epoch=e, prefetch=prefetch)
+        out = "".join(tee.text)
+        return _epoch_seconds(out)[0], _validation_seconds(out)[0]
+    return one_epoch, gan, batches, lang
+
+
 def phase_run(dev, seed):
     """Returns the launches of run A, the uninterrupted run."""
     import functools
     import torch
     from hop_tpu_torch.cli import common as C
-    from hop_tpu_torch.cli.train_main import generate_from_state
     from hop_tpu_torch.config import ted_config
     from hop_tpu_torch.models.hop import build_hop_model
-    from hop_tpu_torch.train.llm import make_hop_train_steps
-    from hop_tpu_torch.train.loops import run_training
     from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
     from hop_tpu_torch.utils.prng import step_generator
     smi = _smi()
@@ -2190,27 +2241,8 @@ def phase_run(dev, seed):
         # second; then one epoch (its steps and its validation pass) timed
         # and profiled for the device's busy share
         args = C.base_parser("phase 22").parse_args(argv("C", RUN_EPOCHS, RUN_PREFETCH))
-        rcfg = C.apply_overrides(cfg, args)
-        train_ds, val_ds, lang = C.load_datasets(rcfg, args)
-        warmup, gan, _ = make_hop_train_steps(rcfg, state_a.model, state_a.disc)
-        eval_fn = C.make_eval_fn(rcfg, val_ds, C.make_fgd_evaluator(rcfg, lang.n_words, None, dev),
-                                 functools.partial(generate_from_state, rcfg), n_speakers,
-                                 dev, prefetch=RUN_PREFETCH)
-
-        def batches(epoch):
-            for hb in train_ds.batches(rcfg.train.batch_size, shuffle=True, seed=seed + epoch):
-                yield C.device_batch(hb, rcfg, keys=C.MODEL_BATCH_KEYS["AD_LLM"], device=dev)
-        epoch_no = iter(range(RUN_EPOCHS, 10 ** 6))
-
-        def one_epoch(prefetch=RUN_PREFETCH):
-            e = next(epoch_no)
-            tee = _Tee(sys.stdout)
-            with contextlib.redirect_stdout(tee):
-                run_training(rcfg, batches, warmup, gan, state_a,
-                             rng=functools.partial(step_generator, seed), eval_fn=eval_fn,
-                             epochs=e + 1, start_epoch=e, prefetch=prefetch)
-            out = "".join(tee.text)
-            return _epoch_seconds(out)[0], _validation_seconds(out)[0]
+        one_epoch, gan, batches, _ = _epoch_runner(args, state_a, n_speakers, seed, dev,
+                                                   RUN_EPOCHS)
         turns = {0: [], RUN_PREFETCH: []}
         val_s = []
         for p in (0, RUN_PREFETCH, RUN_PREFETCH, 0) * RUN_TURNS:
@@ -2256,6 +2288,242 @@ def phase_run(dev, seed):
         return launches
     finally:
         tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# imported data: the 20 seeded 20 s clips of phases 21-22 as the reference's
+# LMDBs (a source LMDB, one video a value; a cache LMDB, one window a value)
+# imported into records; `run_ted` trains on them with a fastText .bin as
+# the word vectors; `test_checkpoint --data` serves a clip of the source LMDB
+IMPORT_EPOCHS = 2
+IMPORT_CLIP = 3          # the clip test_checkpoint --data serves
+FASTTEXT_BUCKET = 2000   # n-gram rows of the fabricated .bin
+
+
+def write_fasttext_bin(path: str, words, dim: int, bucket: int, seed: int) -> None:
+    """A fastText model in the .bin file format (v12: magic, version, args,
+    dictionary, no prune map, dense input and output matrices; the layout
+    of tests/test_fasttext_export.py), seeded input matrix."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mat = rng.standard_normal((len(words) + bucket, dim)).astype(np.float32)
+    out = bytearray(struct.pack("<ii", 793712314, 12))
+    out += struct.pack("<12i", dim, 5, 5, 5, 5, 1, 1, 2, bucket, 3, 6, 100)
+    out += struct.pack("<d", 1e-4)
+    out += struct.pack("<iii", len(words), len(words), 0)
+    out += struct.pack("<qq", 12345, -1)
+    for w in words:
+        out += w.encode("utf-8") + b"\0" + struct.pack("<qb", 7, 0)
+    out += struct.pack("<b", 0) + struct.pack("<qq", *mat.shape) + mat.tobytes()
+    out += struct.pack("<b", 0) + struct.pack("<qq", len(words), dim)
+    out += bytes(4 * len(words) * dim)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def _same_files(a: str, b: str) -> bool:
+    return all(open(a + ext, "rb").read() == open(b + ext, "rb").read()
+               for ext in (".bin", ".idx"))
+
+
+def phase_import(dev, seed):
+    """Returns {path name: launches} of the training run on the imported
+    records and of `test_checkpoint --data` on each GRU route."""
+    import random
+    import re
+    import numpy as np
+    import torch
+    from hop_tpu_torch.cli import common as C
+    from hop_tpu_torch.cli import test_checkpoint
+    from hop_tpu_torch.config import ted_config
+    from hop_tpu_torch.data import arrow_legacy, import_ted
+    from hop_tpu_torch.data.fasttext_export import FastTextModel
+    from hop_tpu_torch.data.lmdbfile import LmdbReader, write_lmdb
+    from hop_tpu_torch.data.preprocessor import DataPreprocessor
+    from hop_tpu_torch.data.records import RecordReader, schema_for
+    from hop_tpu_torch.data.synthetic import make_source_clips
+    from hop_tpu_torch.data.vocab import build_vocab
+    from hop_tpu_torch.infer import generate_long_form, make_forward
+    from hop_tpu_torch.utils.checkpoint import CheckpointManager
+    cfg = ted_config()
+    smi = _smi()
+    tmp = tempfile.mkdtemp(prefix="hop_import_")
+    path = functools.partial(os.path.join, tmp)
+    try:
+        # 1. the source: the clips of phases 21-22, as the reference's LMDBs
+        videos = make_source_clips(cfg, n_videos=EVAL_VIDEOS, clip_seconds=20.0, seed=seed)
+        for name, vids in (("train", videos), ("val", videos[:1])):
+            DataPreprocessor(cfg.data, path("direct_" + name)).run(vids)
+        t0 = time.perf_counter()
+        for name, vids in (("train", videos), ("val", videos[:1])):
+            write_lmdb(path("lmdb_" + name), {
+                b"%010d" % i: arrow_legacy.serialize({"vid": vid, "clips": [{
+                    "skeletons_3d": c.skeletons_3d, "audio_raw": c.audio_raw,
+                    "audio_feat": c.audio_spectrogram, "words": [list(w) for w in c.words],
+                    "start_frame_no": c.start_frame_no, "end_frame_no": c.end_frame_no,
+                    "start_time": c.start_time, "end_time": c.end_time} for c in clips]})
+                for i, (vid, clips) in enumerate(vids)})
+        write_s = time.perf_counter() - t0
+        d, skel = cfg.data, cfg.data.skeleton
+        schema = schema_for(d.n_poses, d.pose_resampling_fps, skel.n_joints, skel.n_bones,
+                            d.mel_bins)
+        direct = RecordReader(path("direct_train"), schema, use_native=False)
+        items = {}
+        for i in range(len(direct)):
+            rec, aux = direct[i]
+            items[b"%010d" % i] = arrow_legacy.serialize([
+                [list(w) for w in aux["words"]], np.asarray(rec["pose_seq"]),
+                np.asarray(rec["vec_seq"]).reshape(schema.n_frames_ext, -1),
+                np.asarray(rec["audio"]), np.asarray(rec["spectrogram"]),
+                {k: aux[k] for k in ("vid", "start_frame_no", "end_frame_no",
+                                     "start_time", "end_time")}])
+        write_lmdb(path("lmdb_cache"), items)
+        del direct, items
+
+        # 2. import: the decode rate, the imports (source, source with the
+        # log-mel verified on the card, cache), --dry-import; each import
+        # byte-equal to the records the preprocessor wrote from the clips
+        rates = {}
+        for name in ("train", "cache"):
+            with LmdbReader(path("lmdb_" + name)) as reader:
+                values = [v for _, v in reader.items()]
+            t0 = time.perf_counter()
+            for v in values:
+                import_ted.load_value(v)
+            rates[name] = (sum(map(len, values)) / 2 ** 20, time.perf_counter() - t0, len(values))
+            del values
+
+        def imported(name, *argv):
+            tee = _Tee(sys.stdout)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                check(import_ted.main(list(argv)) == 0, f"import: {name} failed")
+            return time.perf_counter() - t0, "".join(tee.text)
+        import_s, _ = imported("source", "--src", path("lmdb_train"), "--out", path("imp_plain"))
+        verify_s, out = imported("source --verify", "--src", path("lmdb_train"), "--out",
+                                 path("imp_train"), "--verify", "--device", str(dev))
+        mel_db = float(re.search(r"mel: \d+ clips, max\|Δ\| (\S+) dB", out).group(1))
+        imported("val", "--src", path("lmdb_val"), "--out", path("imp_val"))
+        cache_s, _ = imported("cache", "--src", path("lmdb_cache"), "--out", path("imp_cache"),
+                              "--src-kind", "cache")
+        dry_s, out = imported("dry-import", "--src", path("lmdb_train"), "--dry-import")
+        check(f"dry-import ok: path={path('lmdb_train')} entries={EVAL_VIDEOS}" in out,
+              f"import: --dry-import said {out!r}")
+        for got, want in (("imp_plain", "direct_train"), ("imp_train", "direct_train"),
+                          ("imp_val", "direct_val"), ("imp_cache", "direct_train")):
+            check(_same_files(path(got), path(want)),
+                  f"import: {got} differs from the preprocessor's records {want}")
+        print(f"import [{EVAL_VIDEOS} x 20 s clips as a source LMDB ({rates['train'][0]:.1f} "
+              f"MiB of values, written in {write_s:.2f} s) and a cache LMDB of "
+              f"{rates['cache'][2]} windows ({rates['cache'][0]:.1f} MiB)]: records "
+              f"byte-equal to the preprocessor's from the clips (source, source --verify, "
+              f"val, cache); decode (arrow_legacy, no pyarrow) "
+              + ", ".join(f"{k} {mib / t:.1f} MiB/s ({n} values in {t:.3f} s)"
+                          for k, (mib, t, n) in rates.items())
+              + f"; import s (host clock): source {import_s:.2f}, source --verify on the "
+              f"card {verify_s:.2f} (verify {verify_s - import_s:+.2f}), cache {cache_s:.2f}, "
+              f"--dry-import {dry_s:.2f}; the log-mel recomputed on the card (TF32 off) vs "
+              f"the clips' stored spectrograms: max |Δ| {mel_db:.3e} dB (tol 0.25); on {smi}")
+
+        # 3. train: run_ted on the imported records, a fastText .bin as the
+        # word vectors; launches as derived from its steps and eval batches
+        words = sorted({w[0] for _, clips in videos for c in clips for w in c.words})
+        write_fasttext_bin(path("words.bin"), words + ["</s>"], cfg.data.wordembed_dim,
+                           FASTTEXT_BUCKET, seed)
+        run_dir = path("run")
+        argv = ["--data", path("imp_train"), "--val-data", path("imp_val"),
+                "--wordembed-path", path("words.bin"), "--warmup-epochs", "0",
+                "--log-every", "1", "--seed", str(seed), "--epochs", str(IMPORT_EPOCHS),
+                "--checkpoint-dir", run_dir, "--metrics", os.path.join(run_dir, "m.jsonl")]
+        paths = {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        (state, best), out = _run_ted(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        paths["import_train_run"] = launches = _launch_counts()
+        n_train = int(out.split("train samples: ")[1].split(",")[0])
+        n_val = int(out.split("val: ")[1].split(",")[0])
+        steps = n_train // cfg.train.batch_size
+        eval_batches = -(-n_val // cfg.train.batch_size)
+        want = run_launches(cfg.replace(loss=dataclasses.replace(cfg.loss, warmup_epochs=0)),
+                            IMPORT_EPOCHS, steps, eval_batches, state.disc.gru.num_layers)
+        check(launches == want, f"import run: launches {launches}, want {want}")
+        lines = [json.loads(x) for x in open(os.path.join(run_dir, "m.jsonl"))]
+        check(lines and all(math.isfinite(v) for x in lines for v in x.values()
+                            if isinstance(v, float)), "import run: a metric is not finite")
+        epoch_s = _epoch_seconds(out)
+        check(len(epoch_s) == IMPORT_EPOCHS, f"import run: epochs {epoch_s}")
+        n_speakers = int(CheckpointManager(run_dir).run_metadata()["n_speakers"])
+        args = C.base_parser("phase 23").parse_args(argv)
+        one_epoch, _, _, lang = _epoch_runner(args, state, n_speakers, seed, dev, IMPORT_EPOCHS)
+        vectors = FastTextModel(path("words.bin"))
+        check(all(np.array_equal(lang.word_embedding_weights[lang.word2index[w]],
+                                 vectors.get_word_vector(w)) for w in words),
+              "import run: the vocabulary's vectors are not the .bin's")
+        one_epoch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_epoch()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        busy, device_ms, top = _busy_share(one_epoch, 1, wall_s * 1e3)
+        del state, one_epoch
+        print(f"import run [python -m hop_tpu_torch.cli.run_ted --data <imported> "
+              f"--val-data <imported> --wordembed-path <.bin>, TED full width, bs "
+              f"{cfg.train.batch_size}, {n_train} training windows ({steps} steps an epoch), "
+              f"{n_val} validation windows]: {IMPORT_EPOCHS} epochs in {run_s:.1f} s (model "
+              f"builds and data included), s of train steps an epoch "
+              + ", ".join(f"{t:.3f}" for t in epoch_s)
+              + f"; finite metrics, best FGD {best:.6g}; the vocabulary's vectors those of "
+              f"the .bin ({len(words)} words); launches {_nonzero(launches)} as derived; one "
+              f"epoch more ({steps} steps + validation, prefetch {RUN_PREFETCH}) "
+              f"{wall_s:.3f} s, its kernels {device_ms:.2f} ms (torch.profiler), busy share "
+              f"{busy:.3f}; top " + ", ".join(f"{k} {t:.2f}" for k, t in top[:4])
+              + f"; on {smi}")
+
+        # 4. serve: test_checkpoint --data <source LMDB> from the run's
+        # checkpoint on each GRU route, against generate_long_form called
+        # directly with the same clip, seed pose, weights and generator
+        for route in ("fused", "stack"):
+            argv = ["--device", str(dev), "--data", path("lmdb_train"), "--clip-index",
+                    str(IMPORT_CLIP), "--checkpoint-dir", run_dir, "--gru-kernel", route,
+                    "--seed", str(seed)]
+            _reset_counts()
+            t0 = time.perf_counter()
+            got = test_checkpoint.main(argv)
+            torch.cuda.synchronize()
+            clip_s = time.perf_counter() - t0
+            paths[f"import_clip_{route}"] = launches = _launch_counts()
+            rcfg, model, n_speakers = C.restore_hop_model(
+                test_checkpoint.config_from_args(test_checkpoint.parse_args(argv)), run_dir,
+                device=dev, seed=seed)
+            clip, _ = test_checkpoint.read_source_clip(path("lmdb_train"), IMPORT_CLIP)
+            want = generate_long_form(
+                rcfg, make_forward(model), clip.audio_raw, clip.words,
+                test_checkpoint.clip_seed_dir_vec(rcfg, clip),
+                build_vocab("words", [clip.words], None, None, d.wordembed_dim),
+                vid_index=random.Random(seed).randrange(n_speakers),
+                generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+            del model
+            seconds = len(clip.audio_raw) / d.sample_rate
+            windows = math.ceil((seconds - d.n_poses / d.pose_resampling_fps)
+                                / ((d.n_poses - d.n_pre_poses) / d.pose_resampling_fps)) + 1
+            frames = windows * d.n_poses - (windows - 1) * d.n_pre_poses
+            check(got.shape == (frames, d.pose_dim) and np.isfinite(got).all(),
+                  f"import clip [{route}]: {got.shape}")
+            check(np.array_equal(got, want),
+                  f"import clip [{route}]: test_checkpoint --data differs from "
+                  f"generate_long_form by {np.abs(got - want).max()}")
+            check(launches == forward_launches(rcfg, windows),
+                  f"import clip [{route}]: launches {launches}")
+            print(f"import clip [{route} route]: test_checkpoint --data <source LMDB> "
+                  f"--clip-index {IMPORT_CLIP} --checkpoint-dir <the run> -> {got.shape} "
+                  f"finite, bitwise generate_long_form's on the same clip, seed pose, "
+                  f"weights and generator; launches {_nonzero(launches)} ({windows} windows); "
+                  f"{clip_s:.2f} s (host clock, the model's restore included) on {smi}")
+        return paths
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2312,8 +2580,9 @@ def main():
         dev, SEED, gru_kernel="stack", fused_step=False, attention="block")
     lib = phase_library(dev, SEED)
     paths.update(phase_eval(dev, SEED))
-    # last: the training entry point sets cuDNN's deterministic algorithms
+    # the training entry point sets cuDNN's deterministic algorithms: last
     paths["train_run"] = phase_run(dev, SEED)
+    paths.update(phase_import(dev, SEED))
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention

@@ -18,8 +18,10 @@ audio, the batch's largest field, can cross at 16 bits
 (`DataConfig.audio_wire="int16"`). Every host array goes through pinned
 memory in one explicit asynchronous copy.
 
-`load_datasets` has hop_tpu's synthetic and record-path branches; its
-fastText `.bin` word-vector source comes with the dataset importers.
+`load_datasets` has hop_tpu's synthetic and record-path branches and its
+word-vector sources: a .npy matrix, a .txt/.vec file or a fastText .bin
+(`data.fasttext_export.FastTextModel`). Records of the reference's LMDBs
+come from `data.import_ted`.
 `make_eval_fn` assembles and moves the validation batches in turn, or on a
 background thread ahead of the forwards (`prefetch`, the training loop's
 `prefetch_iter`).
@@ -40,6 +42,7 @@ from hop_tpu_torch import convert
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.data import synthetic
 from hop_tpu_torch.data.dataset import SpeechMotionDataset
+from hop_tpu_torch.data.fasttext_export import FastTextModel
 from hop_tpu_torch.data.preprocessor import DataPreprocessor
 from hop_tpu_torch.data.vocab import build_vocab
 from hop_tpu_torch.eval.evaluate import evaluate_testset
@@ -109,8 +112,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--synthetic-videos", type=int, default=3)
     p.add_argument("--wordembed-path", default=None,
                    help="pretrained word vectors for the vocabulary: a .npy "
-                        "matrix or a .txt/.vec file (a fastText .bin comes "
-                        "with the dataset importers)")
+                        "matrix, a .txt/.vec file or a fastText .bin model")
     p.add_argument("--use-hf-token-stream", action="store_true",
                    help="feed WordPiece token ids to the LLM instead of the "
                         "reference's vocabulary ids; requires --hf-vocab")
@@ -322,13 +324,11 @@ def load_datasets(cfg: Config, args):
     """(train_ds, val_ds, lang_model). `args.data` is "synthetic" (records
     written to a temporary directory from `args.synthetic_videos` seeded
     20 s source clips; the first video is the validation split) or the
-    path of a record store (`args.val_data` for another validation one)."""
+    path of a record store (`args.val_data` for another validation one),
+    such as `data.import_ted` writes from the reference's LMDBs. The
+    vocabulary's vectors come from `args.wordembed_path`: a .npy, a
+    .txt/.vec or a fastText .bin."""
     tokenizer = make_tokenizer(args)
-    source = getattr(args, "wordembed_path", None)
-    if source and source.endswith(".bin"):
-        raise SystemExit("--wordembed-path: a fastText .bin needs the dataset "
-                         "importers, not ported yet, ROADMAP.md M16 (its "
-                         "importers); give a .npy or .txt/.vec")
     if args.data == "synthetic":
         tmp = Path(tempfile.mkdtemp(prefix="hop_synth_"))
         videos = synthetic.make_source_clips(
@@ -345,6 +345,9 @@ def load_datasets(cfg: Config, args):
     val_ds = SpeechMotionDataset(val_path, cfg.data,
                                  speaker_model=train_ds.speaker_model,
                                  tokenizer=tokenizer)
+    source = getattr(args, "wordembed_path", None)
+    if source and source.endswith(".bin"):
+        source = FastTextModel(source).get_word_vector
     lang = build_vocab(
         "words",
         [[w for aux in ds._aux_cache for w in aux["words"]]

@@ -1,9 +1,14 @@
 """Inference entry point (port of hop_tpu/cli/test_checkpoint.py).
 
-Synthesises long-form gestures for a seeded synthetic clip by sliding
-34-frame windows with 16-frame feedback and a 4-frame cross-fade, and
-prints "generated N frames". With --evaluate it then runs the validation
-pass (hop_tpu's test_checkpoint.py:133-158): seeded synthetic source clips
+Synthesises long-form gestures for a clip by sliding 34-frame windows with
+16-frame feedback and a 4-frame cross-fade, and prints "generated N
+frames". The clip is a seeded synthetic one (--data synthetic), or clip
+--clip-index of a source LMDB of the reference's (--data <LMDB>, read by
+`data.import_ted.iter_source_videos`, decoded only up to that clip): its
+raw audio and words, the vocabulary over its words, and as the seed pose
+its own resampled ground truth as dir-vecs minus the mean. With --evaluate
+it then runs the validation pass (hop_tpu's test_checkpoint.py:133-158):
+the source clips (seeded synthetic ones, or the LMDB's videos read)
 through the preprocessor into a record store, `SpeechMotionDataset`
 batches through `device_batch`, the generator's forward, and L1, joint
 MAE, FGD, feature distance, BC and diversity (`eval.evaluate_testset`),
@@ -19,6 +24,8 @@ directory holds none, it is a seeded random initialisation, said so.
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --gru-kernel stack
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --bert-attention block
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda --evaluate
+  python -m hop_tpu_torch.cli.test_checkpoint --device cuda \
+      --data data/ted_dataset/lmdb_test --clip-index 3 --checkpoint-dir ./checkpoints
   python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --clip-seconds 3
   python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --clip-seconds 2 \
       --evaluate --eval-videos 1
@@ -35,10 +42,12 @@ import time
 import numpy as np
 import torch
 
+from hop_tpu_torch import geometry
 from hop_tpu_torch.cli import common as C
 from hop_tpu_torch.config import expressive_config, ted_config, tiny_test_config
 from hop_tpu_torch.data.dataset import SpeechMotionDataset
-from hop_tpu_torch.data.preprocessor import DataPreprocessor
+from hop_tpu_torch.data.import_ted import iter_source_videos
+from hop_tpu_torch.data.preprocessor import DataPreprocessor, SourceClip
 from hop_tpu_torch.data.synthetic import make_clip, make_source_clips
 from hop_tpu_torch.data.vocab import build_vocab
 from hop_tpu_torch.eval.evaluate import EvalResult, evaluate_testset
@@ -82,7 +91,15 @@ def parse_args(argv=None):
                    help="self-attention route of the backbone: matmul + softmax, "
                         "the per-(sample, head) kernel (K4), or the stacked "
                         "block-diagonal kernel (K5)")
-    p.add_argument("--clip-seconds", type=float, default=20.0)
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic' or a source-LMDB path (the reference "
+                        "pulls a raw clip from the test LMDB, "
+                        "test_checkpoint.py:325-349)")
+    p.add_argument("--clip-index", type=int, default=0,
+                   help="which clip of --data to synthesise, counted over "
+                        "the LMDB's videos in key order")
+    p.add_argument("--clip-seconds", type=float, default=20.0,
+                   help="length of the synthetic clip (--data synthetic)")
     p.add_argument("--vid", type=int, default=None,
                    help="speaker id; default drawn from --seed")
     p.add_argument("--seed", type=int, default=2021,
@@ -107,19 +124,53 @@ def parse_args(argv=None):
                         "train.batch_size, 256 at TED)")
     p.add_argument("--eval-videos", type=int, default=20,
                    help="seeded 20 s synthetic source videos of the validation "
-                        "records (26 windows each: 20 give 520)")
+                        "records (26 windows each: 20 give 520), with "
+                        "--data synthetic")
     return p.parse_args(argv)
 
 
+def read_source_clip(path: str, clip_index: int):
+    """(clip, videos): clip `clip_index` of the source LMDB at `path`,
+    counted over its videos' clips in key order, and the videos read up to
+    and including its own. Decoding stops there: a real LMDB is several GB.
+    An index past the last clip exits with the count of clips seen."""
+    videos, n_seen = [], 0
+    for vid, clips in iter_source_videos(path):
+        videos.append((vid, clips))
+        if clip_index < n_seen + len(clips):
+            return clips[clip_index - n_seen], videos
+        n_seen += len(clips)
+    raise SystemExit(f"--clip-index {clip_index} out of range ({n_seen} clips in {path})")
+
+
+def clip_seed_dir_vec(cfg, clip: SourceClip) -> np.ndarray:
+    """The seed pose of a source clip (hop_tpu's test_checkpoint.py:
+    100-110): its skeletons resampled to the config's fps, the first
+    n_seed_frames as dir-vecs, minus the dataset's mean dir-vec,
+    (n_seed_frames, pose_dim)."""
+    d, skel = cfg.data, cfg.data.skeleton
+    skeletons = geometry.resample_pose_seq(
+        clip.skeletons_3d, clip.end_time - clip.start_time, d.pose_resampling_fps)
+    seed = geometry.convert_pose_seq_to_dir_vec(
+        torch.from_numpy(np.asarray(skeletons[:d.n_seed_frames], np.float32)),
+        skel).numpy().reshape(d.n_seed_frames, -1)
+    if skel.mean_dir_vec is not None:
+        seed = seed - skel.mean_dir_vec
+    return seed
+
+
 def evaluate(cfg, args, model: HOPModel, lang, tokenizer,
-             device: torch.device, n_speakers: int = N_SPEAKERS) -> EvalResult:
-    """The validation pass: records written from --eval-videos seeded 20 s
-    source clips (seed --seed), batches of --eval-batch-size in order
-    through `device_batch`, the model's forward seeded with each batch's
-    first 16 target frames, speaker ids drawn from a generator seeded 7,
-    the metrics at epoch bc_start_epoch + 1 (so BC is computed)."""
-    videos = make_source_clips(cfg, n_videos=args.eval_videos,
-                               clip_seconds=20.0, seed=args.seed)
+             device: torch.device, n_speakers: int = N_SPEAKERS,
+             videos=None) -> EvalResult:
+    """The validation pass: records written from `videos` ((vid, [SourceClip,
+    ...]) pairs; by default --eval-videos seeded 20 s synthetic source
+    clips, seed --seed), batches of --eval-batch-size in order through
+    `device_batch`, the model's forward seeded with each batch's first 16
+    target frames, speaker ids drawn from a generator seeded 7, the metrics
+    at epoch bc_start_epoch + 1 (so BC is computed)."""
+    if videos is None:
+        videos = make_source_clips(cfg, n_videos=args.eval_videos,
+                                   clip_seconds=20.0, seed=args.seed)
     evaluator = C.make_fgd_evaluator(cfg, lang.n_words, args.eval_net, device)
     n_seed = cfg.data.n_seed_frames
 
@@ -152,8 +203,15 @@ def main(argv=None, model: HOPModel | None = None) -> np.ndarray:
     tokenizer = C.make_tokenizer(args)
     cfg = config_from_args(args)
     device = torch.device(args.device)
-    clip = make_clip(cfg, seconds=args.clip_seconds, seed=args.seed)
-    lang = build_vocab("words", [clip.words], None, None, cfg.data.wordembed_dim)
+    if args.data == "synthetic":
+        clip = make_clip(cfg, seconds=args.clip_seconds, seed=args.seed)
+        audio, words, seed_vec, videos = clip.audio, clip.words, clip.seed_dir_vec, None
+    else:
+        clip, videos = read_source_clip(args.data, args.clip_index)
+        audio, words, seed_vec = clip.audio_raw, clip.words, clip_seed_dir_vec(cfg, clip)
+        print(f"clip {args.clip_index} vid={clip.vid} "
+              f"({clip.end_time - clip.start_time:.1f}s, {len(words)} words)")
+    lang = build_vocab("words", [words], None, None, cfg.data.wordembed_dim)
     n_speakers = N_SPEAKERS
     if model is None and args.checkpoint_dir:
         cfg, model, n_speakers = C.restore_hop_model(
@@ -169,7 +227,7 @@ def main(argv=None, model: HOPModel | None = None) -> np.ndarray:
     generator = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
     out_dir_vec = generate_long_form(
-        cfg, make_forward(model), clip.audio, clip.words, clip.seed_dir_vec,
+        cfg, make_forward(model), audio, words, seed_vec,
         lang, vid_index=vid_index, tokenizer=tokenizer, generator=generator,
         device=device)
     seconds = time.perf_counter() - t0
@@ -180,7 +238,8 @@ def main(argv=None, model: HOPModel | None = None) -> np.ndarray:
     if args.out:
         np.save(f"{args.out}_dir_vec.npy", out_dir_vec)
     if args.evaluate:
-        print(str(evaluate(cfg, args, model, lang, tokenizer, device, n_speakers)))
+        print(str(evaluate(cfg, args, model, lang, tokenizer, device, n_speakers,
+                           videos)))
     return out_dir_vec
 
 

@@ -38,6 +38,9 @@ class DataConfig:
     max_text_tokens: int = 2048
     remove_word_timing: bool = True      # evenly spaced words (run_ted.py)
     use_hf_token_stream: bool = False
+    # the reference's DataPreprocessor ingests only the first 50% of videos
+    # (data_preprocessor.py:56-57): 0.5 reproduces it (data.import_ted)
+    truncate_videos_frac: float = 1.0
     # wire dtype of the raw-audio transfer to the device (cli.common):
     # "int16" quantizes on the host to the PCM grid and dequantizes there
     audio_wire: str = "f32"              # "f32" | "int16"

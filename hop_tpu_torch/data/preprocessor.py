@@ -8,9 +8,9 @@ resample skeletons to 15 fps, slide extended windows
 (n_poses_extended = round(n_poses * 1.25), stride 10), slice the raw audio /
 cached spectrogram with symmetric end-padding, reject bad-motion windows,
 convert poses to unit direction vectors and subtract the dataset mean, and
-write the record store. Every video is processed: hop_tpu's
-truncate_videos_frac (the reference's 50%-of-videos quirk) is set only by
-its importers, which the port does not carry yet.
+write the record store. `DataConfig.truncate_videos_frac` < 1 stops after
+that share of the videos (the reference's 50%-of-videos quirk at 0.5; set
+by data.import_ted).
 """
 
 from __future__ import annotations
@@ -115,11 +115,29 @@ class DataPreprocessor:
         self.n_out = 0
         self.n_filtered = defaultdict(int)
 
-    def run(self, videos: Iterable[tuple]) -> int:
-        """videos: iterable of (vid, [SourceClip, ...])."""
+    def run(self, videos: Iterable[tuple], n_videos: Optional[int] = None) -> int:
+        """videos: iterable of (vid, [SourceClip, ...]), consumed lazily.
+
+        Respects cfg.truncate_videos_frac (the reference's 50%-of-videos
+        quirk when set to 0.5) of `n_videos` videos; where that count is
+        not given, `videos` is first listed to count them.
+        """
+        limit = math.inf
+        if self.cfg.truncate_videos_frac < 1.0:
+            if n_videos is None:
+                videos = list(videos)
+                n_videos = len(videos)
+            limit = n_videos * self.cfg.truncate_videos_frac
+        n_seen = 0
         for _vid, clips in videos:
+            # the reference's loop (data_preprocessor.py:50-57): the video's
+            # clips first, then the count and the check, so the video that
+            # crosses the limit is still processed whole
             for clip in clips:
                 self._sample_from_clip(clip)
+            n_seen += 1
+            if n_seen > limit:
+                break
         self.writer.close()
         logging.info("preprocessor: %d samples, filtered %s",
                      self.n_out, dict(self.n_filtered))

@@ -32,6 +32,8 @@ from hop_tpu_torch import config as tcfg
 from hop_tpu_torch.cli import common as C
 from hop_tpu_torch.cli import test_checkpoint
 
+from test_torch_fasttext import write_fasttext_bin
+
 FGD_REL_TOL = 1e-3
 REL_TOL = 1e-5
 EVAL_ARGS = ["--device", "cpu", "--tiny", "--clip-seconds", "2", "--evaluate",
@@ -139,7 +141,8 @@ def _dataset_args(data="synthetic", **kw):
 
 def test_load_datasets_matches_jax(monkeypatch, tmp_path):
     """The synthetic branch (2 videos of 20 s: train both, validate on the
-    first) and the record-path branch, against hop_tpu's load_datasets."""
+    first) and the record-path branch, against hop_tpu's load_datasets;
+    the record-path branch also with a fastText .bin as the word vectors."""
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     port = C.load_datasets(tcfg.tiny_test_config(), _dataset_args())
     ref = JC.load_datasets(jcfg.tiny_test_config(), _dataset_args())
@@ -154,9 +157,13 @@ def test_load_datasets_matches_jax(monkeypatch, tmp_path):
     again = C.load_datasets(tcfg.tiny_test_config(), _dataset_args(train_path))
     assert len(again[0]) == len(again[1]) == len(port[0])
     args = _dataset_args(train_path)
-    args.wordembed_path = "crawl-300d-2M-subword.bin"   # needs the importers
-    with pytest.raises(SystemExit):
-        C.load_datasets(tcfg.tiny_test_config(), args)
+    args.wordembed_path = str(tmp_path / "words.bin")
+    write_fasttext_bin(args.wordembed_path, ["the", "fox", "people", "a", "</s>"],
+                       dim=tcfg.tiny_test_config().data.wordembed_dim, bucket=100)
+    port = C.load_datasets(tcfg.tiny_test_config(), args)[2]
+    ref = JC.load_datasets(jcfg.tiny_test_config(), args)[2]
+    assert port.word2index == ref.word2index
+    np.testing.assert_array_equal(port.word_embedding_weights, ref.word_embedding_weights)
 
 
 def test_make_eval_fn_runs_the_pass_per_epoch(monkeypatch, tmp_path):

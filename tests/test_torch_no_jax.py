@@ -1,11 +1,13 @@
-"""hop_tpu_torch imports neither jax nor flax nor hop_tpu: a fresh process
-imports every module of the port and runs, on the CPU at the tiny size, its
-long-form entry point for one window on both GRU routes and on the
-backbone's block-attention route, the validation pass (`--evaluate`: records,
-dataset, metrics) over 2 batches, `device_batch`, one 3-forward GAN step on
-the stack route, the sequence-kernel stack forward, and the training entry
-point (`run_ted`: the epoch loop, a checkpoint, a resume) with the long-form
-entry restoring what it saved."""
+"""hop_tpu_torch imports neither jax nor flax nor hop_tpu, nor pyarrow, lmdb
+or fasttext: a fresh process imports every module of the port and runs, on
+the CPU at the tiny size, its long-form entry point for one window on both
+GRU routes and on the backbone's block-attention route, the validation pass
+(`--evaluate`: records, dataset, metrics) over 2 batches, `device_batch`,
+one 3-forward GAN step on the stack route, the sequence-kernel stack
+forward, the training entry point (`run_ted`: the epoch loop, a checkpoint,
+a resume) with the long-form entry restoring what it saved, and the
+importer (`data.import_ted --verify`) and the long-form entry
+(`--data <LMDB>`) on a source LMDB the port's own codec wrote."""
 
 import os
 import subprocess
@@ -68,13 +70,30 @@ with tempfile.TemporaryDirectory() as tmp:
                                 "--vid", "0", "--checkpoint-dir", tmp + "/ck"])
     assert out.shape == (34, 27), out.shape
     tempfile.tempdir = None
+
+from hop_tpu_torch.data import arrow_legacy, import_ted
+from hop_tpu_torch.data.lmdbfile import write_lmdb
+from hop_tpu_torch.data.synthetic import make_source_clips
+with tempfile.TemporaryDirectory() as tmp:
+    (vid, clips), = make_source_clips(tiny_test_config(), n_videos=1, clip_seconds=4.0)
+    write_lmdb(tmp + "/src", {b"0": arrow_legacy.serialize({"vid": vid, "clips": [{
+        "skeletons_3d": c.skeletons_3d, "audio_raw": c.audio_raw,
+        "audio_feat": c.audio_spectrogram, "words": [list(w) for w in c.words],
+        "start_frame_no": c.start_frame_no, "end_frame_no": c.end_frame_no,
+        "start_time": c.start_time, "end_time": c.end_time} for c in clips]})})
+    import_ted.main(["--src", tmp + "/src", "--out", tmp + "/rec", "--verify",
+                     "--device", "cpu"])
+    out = test_checkpoint.main(["--device", "cpu", "--tiny", "--data", tmp + "/src"])
+    assert out.shape == (64, 27), out.shape
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu", "pyarrow",
+                                    "lmdb", "fasttext"))
 for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
             "ops.block_attention", "geometry", "data.records", "data.dataset",
             "eval.evaluate", "eval.fgd", "train.loops", "utils.checkpoint",
             "utils.prng", "utils.meters", "cli.train_main", "cli.run_ted",
-            "cli.run_expressive"):
+            "cli.run_expressive", "data.lmdbfile", "data.arrow_legacy",
+            "data.import_ted", "data.fasttext_export"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -95,4 +114,7 @@ def test_port_imports_no_jax():
     assert "restored checkpoint step 1" in proc.stdout
     assert "evaluate: 26 windows in batches of 16" in proc.stdout
     assert "[VAL] loss:" in proc.stdout
+    assert "verify ok — mel: 1 clips" in proc.stdout
+    assert "clip 0 vid=vid0 (4.0s," in proc.stdout
+    assert "generated 64 frames" in proc.stdout
     assert n_modules >= 20

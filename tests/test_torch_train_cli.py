@@ -89,7 +89,6 @@ UNPORTED = [
     (["--dcn-slices", "2"], "M15"),
     (["--no-zero2"], "M15"),
     (["--tensorboard-dir", "/tmp/tb"], "M17"),
-    (["--wordembed-path", "crawl-300d-2M-subword.bin"], "M16"),
 ]
 
 
