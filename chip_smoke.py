@@ -15,7 +15,8 @@ imports nothing of JAX. Phases, each ending in one line of output:
              kernels between the wrapper's entry and exit
   4. K2      fused GRU layer forward vs its plain version, lean and with
              residuals, a non-zero h0, at the head's (T=34, B=256, H=350; I=992
-             and 700) and the discriminator's (T=28, H=64; I=8 and 128) shapes,
+             and 700, and 4320 on the LLaMA backbone) and the discriminator's
+             (T=28, H=64; I=8 and 128) shapes,
              B=250, B=1 and one direction; bitwise repeat; the projection
              kernel's and the recurrence kernel's ms (torch.profiler) beside
              the whole
@@ -30,7 +31,7 @@ imports nothing of JAX. Phases, each ending in one line of output:
              row tile) and B=1; two backward calls bitwise equal; the dq
              kernel's, the dk/dv kernel's and the run combine's ms
   8. K2 bwd  the forward with residuals and the backward kernels vs their
-             plain versions at the head's (I=992, I=700; H=350) and the
+             plain versions at the head's (I=992, I=700, I=4320; H=350) and the
              discriminator's (I=8, I=128; H=64) shapes; bitwise repeat; the
              forward's recurrence kernel's ms; the backward's recurrence's,
              each GEMM's, the slice reduce's and the column sums' ms; the
@@ -67,8 +68,9 @@ imports nothing of JAX. Phases, each ending in one line of output:
  16. warmup, 3-forward, stack route   phase 10 for that step and route
  17. library yardsticks (timed here, never called by the port): one
              bidirectional torch.nn.GRU layer on cuDNN beside both routes'
-             layer, forward and forward + backward, at the head's and the
-             discriminator's shapes; F.scaled_dot_product_attention on K1's
+             layer, forward and forward + backward, at the head's (I = 992,
+             700 and, on LLaMA, 4320) and the discriminator's shapes;
+             F.scaled_dot_product_attention on K1's
              shape at rate 0, forward and backward (held to K1's backward),
              and on K4's and K5's, forward and backward, each also by its
              kernels' own time (torch.profiler) and over 50 calls a pair of
@@ -140,7 +142,24 @@ imports nothing of JAX. Phases, each ending in one line of output:
              --checkpoint-dir <that run>` on both GRU routes, bitwise the
              output of `generate_long_form` called with the same clip, seed
              pose, weights and generator, launches as derived
- 24. the kernels' JSON line, then the device JSON as the last line
+ 24. llama  the TED config on LLaMA-7B's backbone (dim 4096, 32 heads, MLP
+             11008, vocab 32000, 6 layers; the head's first GRU layer I =
+             4320), built once on the host from the seed: the bs-256 forward
+             on both GRU routes (shape, finite, launches, route vs route), its
+             first 2 samples against the same weights on the CPU, ms per
+             forward, the backbone's share of its kernels (torch.profiler) and
+             its bf16 rate; a 20 s clip at bs 1 through generate_long_form; a
+             fabricated HF checkpoint at the full width (bf16, two safetensors
+             shards + index, and a pytorch_model.bin, the port's writer)
+             installed by `install_llm_weights`, each bitwise the forward with
+             the same weights copied in directly, MiB/s; the fused GAN step at
+             bs 256 (phase 9's checks and measurements, the backbone
+             bit-unchanged); then `run_ted --llm-model LLAMA --llm-layers 2
+             --llm-weights <the shards>` (4096 wide; one shard of two opened)
+             2 epochs against 1 + `--resume` to 2, bit for bit, a resume
+             without --llm-weights refused, and `test_checkpoint
+             --checkpoint-dir` on the run's checkpoint
+ 25. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -457,11 +476,13 @@ def phase_k1(dev, seed):
 
 
 # (T, B, I, H, D) of K2's forward: the head's two layers' shapes and the
-# discriminator's two (the main path's), then a ragged batch tile, one window
+# discriminator's two (the main path's), the head's first layer on the LLaMA
+# backbone (I = 28 + 180 + 4096 + 16), then a ragged batch tile, one window
 # of a clip (the cluster's one-row-tile instance), one direction, and the
 # discriminator's at a ragged tile and B=1
+K2_LLAMA = (34, 256, 4320, 350, 2)
 K2_MAIN = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
-           (28, 256, 8, 64, 2), (28, 256, 128, 64, 2))
+           (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), K2_LLAMA)
 K2_SHAPES = K2_MAIN + ((34, 250, 992, 350, 2), (34, 1, 992, 350, 2),
                        (34, 256, 700, 350, 1), (28, 250, 8, 64, 1),
                        (28, 1, 128, 64, 2),
@@ -803,7 +824,7 @@ def phase_k2_bwd(dev, seed):
     lib = _build.load()
     res = {}
     for T, B, I, H in ((34, 256, 992, 350), (34, 256, 700, 350),
-                       (28, 256, 8, 64), (28, 256, 128, 64)):
+                       (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4]):
         D = 2
         check(K2.bwd_workspace_floats(T, B, I, H, D)
               == lib.hop_gru_fused_bwd_workspace(T, B, I, H, D),
@@ -963,6 +984,58 @@ def step_launches(cfg, disc_layers: int, use_gan: bool) -> dict:
     return want
 
 
+def _first_gan_step(cfg, model, disc, state, gan, batch, noise_gen, before, name):
+    """One GAN step, held to its launches as `step_launches` derives them,
+    finite losses, every trainable parameter of both nets with a gradient
+    moved (from `before`: the state_dicts, the discriminator's keys with
+    "D."), the frozen backbone bit-unchanged. Returns (state, metrics,
+    launches, the parameters without a gradient)."""
+    import torch
+    _reset_counts()
+    state, metrics = gan(state, batch, noise_gen)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = step_launches(cfg, disc.gru.num_layers, use_gan=True)
+    check(launches == want, f"kernel launches in one GAN step ({name}): "
+                            f"{launches}, want {want}")
+    for k, v in metrics.items():
+        check(bool(torch.isfinite(v)), f"train metric {k} = {v.item()}")
+    # gwnet's last layer feeds only the residual path that its output does
+    # not read (as in the reference): its GCN and BatchNorm get no gradient
+    last = f"{len(model.gwnet.bn) - 1}."
+    unused = {f"gwnet.{m}.{last}{w}" for m in ("gconv", "bn") for w in
+              ("weight", "bias", "mlp.mlp.weight", "mlp.mlp.bias")}
+    no_grad = []
+    for net, module, prefix in (("generator", model, ""), ("discriminator", disc, "D.")):
+        for k, p in _trainable(module).items():
+            if p.grad is None:
+                no_grad.append(prefix + k)
+                continue
+            check(not torch.equal(p.detach(), before[prefix + k]),
+                  f"{net} parameter {k} did not move")
+    check(set(no_grad) <= unused, f"parameters without a gradient: {no_grad}")
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(frozen and all(k.startswith("llm_model.") for k in frozen),
+          f"frozen parameters: {frozen[:3]}...")
+    for k in frozen:
+        check(torch.equal(model.state_dict()[k], before[k]), f"frozen {k} changed")
+    return state, metrics, launches, no_grad
+
+
+def _step_times(gan, state, batch, noise_gen):
+    """(ms per GAN step, CUDA-event median of 10; its kernels' ms and the
+    busy share over 3 profiled steps; their top kernels; peak GiB)."""
+    import torch
+
+    def step():
+        nonlocal state
+        state, _ = gan(state, batch, noise_gen)
+    ms = cuda_ms(step, reps=10, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    busy, device_ms, top = _busy_share(step, 3, ms)
+    return ms, device_ms, busy, top, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
 def phase_train(dev, seed, gru_kernel="fused", fused_step=True, attention="plain"):
     """The GAN step at full TED width, bs 256, on one GRU route and one
     attention route: the fused step on a batch made on the card, or the
@@ -1025,34 +1098,8 @@ def phase_train(dev, seed, gru_kernel="fused", fused_step=True, attention="plain
             for k, v in metrics.items():
                 check(bool(torch.isfinite(v)), f"warmup metric {k} = {v.item()}")
             batch = host_to_card(seed + 1 + i)
-    _reset_counts()
-    state, metrics = gan(state, batch, noise_gen)
-    torch.cuda.synchronize()
-    launches = _launch_counts()
-    want = step_launches(cfg, d_layers, use_gan=True)
-    check(launches == want, f"kernel launches in one GAN step ({name}): "
-                            f"{launches}, want {want}")
-    for k, v in metrics.items():
-        check(bool(torch.isfinite(v)), f"train metric {k} = {v.item()}")
-    # gwnet's last layer feeds only the residual path that its output does
-    # not read (as in the reference): its GCN and BatchNorm get no gradient
-    last = f"{len(model.gwnet.bn) - 1}."
-    unused = {f"gwnet.{m}.{last}{w}" for m in ("gconv", "bn") for w in
-              ("weight", "bias", "mlp.mlp.weight", "mlp.mlp.bias")}
-    no_grad = []
-    for net, module, prefix in (("generator", model, ""), ("discriminator", disc, "D.")):
-        for k, p in _trainable(module).items():
-            if p.grad is None:
-                no_grad.append(prefix + k)
-                continue
-            check(not torch.equal(p.detach(), before[prefix + k]),
-                  f"{net} parameter {k} did not move")
-    check(set(no_grad) <= unused, f"parameters without a gradient: {no_grad}")
-    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
-    check(frozen and all(k.startswith("llm_model.") for k in frozen),
-          f"frozen parameters: {frozen[:3]}...")
-    for k in frozen:
-        check(torch.equal(model.state_dict()[k], before[k]), f"frozen {k} changed")
+    state, metrics, launches, no_grad = _first_gan_step(
+        cfg, model, disc, state, gan, batch, noise_gen, before, name)
     if not fused_step:
         for i in range(2):                      # GAN steps two and three
             batch = host_to_card(seed + 3 + i)
@@ -1060,13 +1107,7 @@ def phase_train(dev, seed, gru_kernel="fused", fused_step=True, attention="plain
             for k, v in metrics.items():
                 check(bool(torch.isfinite(v)), f"train metric {k} = {v.item()}")
 
-    def step():
-        nonlocal state
-        state, _ = gan(state, batch, noise_gen)
-    ms = cuda_ms(step, reps=10, warmup=2)
-    torch.cuda.reset_peak_memory_stats()
-    busy, device_ms, top = _busy_share(step, 3, ms)
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, device_ms, busy, top, peak_gb = _step_times(gan, state, batch, noise_gen)
     n_train = sum(p.numel() for p in _trainable(model).values())
     wire = "" if fused_step else (
         f"; host batches over the int16 wire, device_batch {put_ms:.2f} ms (host "
@@ -1659,7 +1700,7 @@ def phase_library(dev, seed):
 
     # one bidirectional GRU layer: cuDNN's, and the port's on both routes
     for T, Bt, I, Hh in ((34, 256, 992, 350), (34, 256, 700, 350),
-                         (28, 256, 8, 64), (28, 256, 128, 64)):
+                         (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4]):
         torch.manual_seed(seed + I)
         ref = torch.nn.GRU(I, Hh, num_layers=1, bidirectional=True).to(dev)
         ours = GRU(I, Hh, num_layers=1, bidirectional=True).to(dev)
@@ -2527,6 +2568,346 @@ def phase_import(dev, seed):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the LLaMA backbone (`--llm-model LLAMA`): the TED config with LLaMA-7B's
+# geometry (dim 4096, 32 heads, MLP 11008, vocab 32000) at the reference's
+# default depth of 6 layers; the run part at LLAMA_RUN_LAYERS, 4096 wide, to
+# stay in time
+LLAMA_LAYERS = 6
+LLAMA_RUN_LAYERS = 2
+LLAMA_RUN_EPOCHS = 2
+LLAMA_CPU_SAMPLES = 2
+LLAMA_CLIP_SECONDS = 20.0
+# the fabricated checkpoint's first shard: the embeddings, the final norm
+# and the layers below this one; the second shard the rest
+LLAMA_SHARD_SPLIT = 3
+
+
+def llama_route_config(gru_kernel: str = "fused", n_layers: int = LLAMA_LAYERS):
+    from hop_tpu_torch.config import llama7b_llm_config
+    return ted_route_config(gru_kernel).replace(llm=llama7b_llm_config(n_layers))
+
+
+def backbone_flops(cfg, tokens: int) -> float:
+    """Operations of the LLaMA backbone's forward over `tokens` tokens of
+    T = n_poses: its seven projections a layer, and QK^T and PV."""
+    llm, T = cfg.llm, cfg.data.n_poses
+    kv = (llm.n_kv_heads or llm.n_heads) * (llm.dim // llm.n_heads)
+    per_token = 2 * (2 * llm.dim * llm.dim + 2 * llm.dim * kv
+                     + 3 * llm.dim * llm.intermediate_dim) + 2 * 2 * T * llm.dim
+    return float(per_token * tokens * llm.n_layers)
+
+
+def write_llama_checkpoint(directory: str, state_dict: dict, cfg) -> dict:
+    """`state_dict` (the port's LlamaEncoder names, bf16 on the host) as HF
+    publishes LLaMA-7B, under LlamaForCausalLM's `model.` prefix: in
+    `directory`/st two safetensors shards (the first with the embeddings,
+    the final norm and layers < LLAMA_SHARD_SPLIT), their
+    `model.safetensors.index.json` and a `config.json`; in `directory`/bin
+    one `pytorch_model.bin` of the same arrays. Returns the two paths and
+    the seconds and bytes written."""
+    import torch
+    from hop_tpu_torch.utils import safetensors_io
+    st, binary = os.path.join(directory, "st"), os.path.join(directory, "bin")
+    config = json.dumps({"model_type": "llama", "hidden_size": cfg.dim,
+                         "num_hidden_layers": cfg.n_layers, "vocab_size": cfg.vocab_size,
+                         "intermediate_size": cfg.intermediate_dim,
+                         "num_attention_heads": cfg.n_heads, "torch_dtype": "bfloat16"})
+
+    def first(k):
+        return not k.startswith("layers.") or int(k.split(".")[1]) < LLAMA_SHARD_SPLIT
+    shards = {"model-00001-of-00002.safetensors": [k for k in state_dict if first(k)],
+              "model-00002-of-00002.safetensors": [k for k in state_dict if not first(k)]}
+    t0 = time.perf_counter()
+    for d in (st, binary):
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            f.write(config)
+    for name, keys in shards.items():
+        safetensors_io.write({"model." + k: state_dict[k] for k in keys},
+                             os.path.join(st, name))
+    with open(os.path.join(st, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": {"model." + k: name for name, keys
+                                                  in shards.items() for k in keys}}, f)
+    torch.save({"model." + k: v for k, v in state_dict.items()},
+               os.path.join(binary, "pytorch_model.bin"))
+    return {"st": st, "bin": binary, "seconds": time.perf_counter() - t0,
+            "bytes": 2 * sum(v.numel() * v.element_size() for v in state_dict.values())}
+
+
+def phase_llama(dev, seed):
+    """Returns {path name: launches} of the LLaMA paths."""
+    import numpy as np
+    import torch
+    from hop_tpu_torch.cli import test_checkpoint
+    from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
+    from hop_tpu_torch.data.synthetic import make_clip, make_train_batch
+    from hop_tpu_torch.data.vocab import build_vocab
+    from hop_tpu_torch.infer import generate_long_form, make_forward
+    from hop_tpu_torch.models.hop import build_hop_model, gru_input_size
+    from hop_tpu_torch.models.llm_weights import install_llm_weights
+    from hop_tpu_torch.models.multimodal_context import build_discriminator
+    from hop_tpu_torch.train.llm import make_hop_train_steps
+    from hop_tpu_torch.utils import safetensors_io
+    from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
+    smi = _smi()
+    cfg = llama_route_config()
+    d = cfg.data
+    paths = {}
+    B = 256
+    t0 = time.perf_counter()
+    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed, device="cpu")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = copy.deepcopy(model_cpu).to(dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    n_backbone = sum(p.numel() for p in model.llm_model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    check(gru_input_size(cfg) == K2_LLAMA[2] == model.gru.weight_ih_l0.shape[1],
+          f"the head's input is {gru_input_size(cfg)} wide")
+    print(f"llama: TED HOPModel on the LLaMA-7B backbone at {cfg.llm.n_layers} layers "
+          f"(dim {cfg.llm.dim}, {cfg.llm.n_heads} heads, MLP {cfg.llm.intermediate_dim}, "
+          f"vocab {cfg.llm.vocab_size}): {n_params / 1e9:.3f} B params, {n_backbone / 1e9:.3f} "
+          f"B frozen; built on the host from seed {seed} in {build_s:.1f} s, copied to the "
+          f"card in {copy_s:.1f} s; the head's input {gru_input_size(cfg)} wide")
+
+    # serving: the bs-256 forward on both GRU routes, the first samples
+    # against the CPU, ms per forward and the backbone's share
+    batch = serving_batch(cfg, B, seed, dev)
+
+    def forward(b, m=model):
+        with torch.inference_mode():
+            return m(b["in_audio"], b["x_enc"], b["text"], b["pre_seq"],
+                     b["vid_indices"], eps=b["eps"])[0]
+    outs, ms = {}, {}
+    for route in ("fused", "stack"):
+        model.gru.kernel = route
+        rcfg = llama_route_config(route)
+        _reset_counts()
+        outs[route] = forward(batch)
+        torch.cuda.synchronize()
+        paths[f"llama_serve_{route}"] = launches = _launch_counts()
+        check(tuple(outs[route].shape) == (B, d.n_poses, d.pose_dim)
+              and bool(torch.isfinite(outs[route]).all()),
+              f"llama forward [{route}]: {tuple(outs[route].shape)}, or not finite")
+        check(launches == forward_launches(rcfg),
+              f"llama forward [{route}]: launches {launches}, want {forward_launches(rcfg)}")
+        ms[route] = cuda_ms(lambda: forward(batch), reps=10, warmup=2)
+    model.gru.kernel = "fused"
+    gap = (outs["fused"] - outs["stack"]).abs().max().item()
+    check(gap <= ROUTE_TOL, f"llama: the GRU routes differ by {gap} > {ROUTE_TOL}")
+    n = LLAMA_CPU_SAMPLES
+    small = {k: v[:n].cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    ref = forward(small, model_cpu)
+    cpu_s = time.perf_counter() - t0
+    diff = (outs["fused"][:n].cpu() - ref).abs().max().item()
+    check(diff <= SERVE_TOL, f"llama: card vs CPU forward differ by {diff} > {SERVE_TOL}")
+    del model_cpu, ref
+    x = torch.randn(B, d.n_poses, cfg.llm.dim, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+
+    def backbone():
+        with torch.inference_mode():
+            return model.llm_model(x)
+    backbone_ms = cuda_ms(backbone, reps=10, warmup=2)
+    own_fwd, _ = own_ms(lambda: forward(batch), "llama forward", n=3)
+    own_backbone, _ = own_ms(backbone, "llama backbone", n=3)
+    flops = backbone_flops(cfg, B * d.n_poses)
+    share = (None if None in (own_fwd, own_backbone) else own_backbone / own_fwd)
+    print(f"llama serve: bs {B} -> {tuple(outs['fused'].shape)} finite on both GRU routes "
+          f"(launches fused {_nonzero(paths['llama_serve_fused'])}, stack "
+          f"{_nonzero(paths['llama_serve_stack'])}); route vs route max_abs_diff {gap:.3e} "
+          f"(tol {ROUTE_TOL:g}); card vs CPU (first {n}, plain versions, {cpu_s:.1f} s) "
+          f"max_abs_diff {diff:.3e} (tol {SERVE_TOL:g}); ms per forward (CUDA-event median of "
+          f"10): fused {ms['fused']:.2f}, stack {ms['stack']:.2f}; kernels of a forward "
+          f"{fmt_ms(own_fwd)} ms, of the backbone alone {fmt_ms(own_backbone)} ms "
+          f"(torch.profiler), its share {'not recorded' if share is None else f'{share:.3f}'}; "
+          f"the backbone alone {backbone_ms:.2f} ms (events): {flops / 1e12:.2f} TFLOP of "
+          f"bf16 products at {flops / backbone_ms / 1e9:.1f} TFLOP/s, "
+          f"{flops / backbone_ms / 1e9 / (BF16_FLOPS / 1e12):.3f} of the dense peak; on {smi}")
+
+    # one 20 s clip at bs 1 through generate_long_form
+    clip = make_clip(cfg, seconds=LLAMA_CLIP_SECONDS, seed=1)
+    lang = build_vocab("words", [clip.words], None, None, d.wordembed_dim)
+    unit = d.n_poses / d.pose_resampling_fps
+    stride = (d.n_poses - d.n_pre_poses) / d.pose_resampling_fps
+    windows = math.ceil((LLAMA_CLIP_SECONDS - unit) / stride) + 1
+    frames = windows * d.n_poses - (windows - 1) * d.n_pre_poses
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = generate_long_form(cfg, make_forward(model), clip.audio, clip.words,
+                             clip.seed_dir_vec, lang, vid_index=0,
+                             generator=torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+    clip_s = time.perf_counter() - t0
+    paths["llama_clip"] = launches = _launch_counts()
+    check(out.shape == (frames, d.pose_dim) and np.isfinite(out).all(),
+          f"llama clip: {out.shape}")
+    check(launches == forward_launches(cfg, windows), f"llama clip: launches {launches}")
+    print(f"llama clip: a {LLAMA_CLIP_SECONDS:.0f} s synthetic clip at bs 1 through "
+          f"generate_long_form -> {frames} frames ({windows} windows, launches "
+          f"{_nonzero(launches)}) in {clip_s:.3f} s (host clock)")
+
+    # the loader: a fabricated HF checkpoint at the full width, bf16, in two
+    # safetensors shards and as one pytorch_model.bin, installed into the
+    # model, each bitwise the forward with the same weights copied in directly
+    tmp = tempfile.mkdtemp(prefix="hop_llama_")
+    tempdir, tempfile.tempdir = tempfile.tempdir, tmp
+    try:
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        sd = {}
+        for k, v in model.llm_model.state_dict().items():
+            noise = torch.randn(v.shape, device=dev, generator=g)
+            sd[k] = (1 + 0.1 * noise if k.endswith("norm.weight")
+                     else 0.02 * noise).to(torch.bfloat16).cpu()
+        written = write_llama_checkpoint(tmp, sd, cfg.llm)
+        small = {k: v[:16] for k, v in batch.items()}
+        with torch.no_grad():
+            for k, p in model.llm_model.state_dict().items():
+                p.copy_(sd[k])
+        direct = forward(small)
+        loads = {}
+        for fmt in ("st", "bin"):
+            with torch.no_grad():
+                for p in model.llm_model.parameters():
+                    p.zero_()
+            torch.cuda.synchronize()
+            info = install_llm_weights(model, written[fmt], cfg.llm)
+            torch.cuda.synchronize()
+            got = forward(small)
+            check(torch.equal(got, direct), f"llama loader [{fmt}]: the forward differs "
+                                            f"from the direct copy's by "
+                                            f"{(got - direct).abs().max().item()}")
+            loads[fmt] = info["bytes"] / 2 ** 20 / info["seconds"]
+        print(f"llama loader: an HF LLaMA checkpoint at {cfg.llm.n_layers} layers, bf16, "
+              f"written by the port's writer in {written['seconds']:.1f} s "
+              f"({written['bytes'] / 2 ** 30:.2f} GiB: two safetensors shards + index, and a "
+              f"pytorch_model.bin); install_llm_weights then a forward bitwise the forward "
+              f"with the same weights copied in directly, from the shards "
+              f"{loads['st']:.0f} MiB/s, from the .bin {loads['bin']:.0f} MiB/s (read, cast "
+              f"and copied to the card, host clock)")
+
+        # training: the fused GAN step at bs 256 on the fused GRU route
+        disc = build_discriminator(cfg, seed + 1, dev)
+        warmup, gan, init_state = make_hop_train_steps(cfg, model, disc)
+        state = init_state()
+        train_batch = make_train_batch(cfg, B, seed, N_SPEAKERS, dev)
+        before = {k: v.detach().clone() for k, v in
+                  list(model.state_dict().items()) + [("D." + k, v) for k, v in
+                                                      disc.state_dict().items()]}
+        noise_gen = torch.Generator().manual_seed(seed)
+        name = "fused GAN step on the LLaMA backbone, fused route"
+        state, metrics, launches, no_grad = _first_gan_step(
+            cfg, model, disc, state, gan, train_batch, noise_gen, before, name)
+        paths["llama_fused_step"] = launches
+        del before
+        step_ms, device_ms, busy, top, peak_gb = _step_times(gan, state, train_batch,
+                                                             noise_gen)
+        n_train = sum(p.numel() for p in _trainable(model).values())
+        print(f"llama train [{name}]: bs {B}, {n_train / 1e6:.1f} M trainable generator "
+              f"params: losses finite (" + ", ".join(
+                  f"{k} {metrics[k].item():.4g}" for k in ("loss", "KLD", "DIV_REG", "gen", "dis"))
+              + f"); every trainable param of both nets with a gradient moved "
+              f"({len(no_grad)} without one), the backbone bit-unchanged; launches "
+              f"{_nonzero(launches)}; {step_ms:.2f} ms per step (CUDA-event median of 10); "
+              f"kernels {device_ms:.2f} ms per step, busy share {busy:.3f} (torch.profiler, "
+              f"3 steps); peak memory {peak_gb:.2f} GiB; top kernels "
+              + "; ".join(f"{k} {t:.2f} ms" for k, t in top))
+        del state, gan, warmup, init_state, disc, model, train_batch, batch, x, outs
+        torch.cuda.empty_cache()
+
+        # the run: run_ted --llm-model LLAMA --llm-weights <the shards>, 2
+        # epochs against 1 + --resume to 2, bit for bit; a resume without
+        # --llm-weights refused; test_checkpoint on the run's checkpoint
+        def argv(name, epochs, *extra):
+            d_ = os.path.join(tmp, name)
+            return (*RUN_ARGS, "--seed", str(seed), "--epochs", str(epochs),
+                    "--llm-model", "LLAMA", "--llm-layers", str(LLAMA_RUN_LAYERS),
+                    "--checkpoint-dir", d_, "--metrics", os.path.join(d_, "metrics.jsonl"),
+                    *extra)
+        weights = ("--llm-weights", written["st"])
+        opened, read = [], safetensors_io.read
+        safetensors_io.read = lambda f, names=None: opened.append(f) or read(f, names)
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            (state_a, best_a), out_a = _run_ted(argv("A", LLAMA_RUN_EPOCHS, *weights))
+        finally:
+            safetensors_io.read = read
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+        paths["llama_run"] = launches = _launch_counts()
+        check([os.path.basename(f) for f in opened] == ["model-00001-of-00002.safetensors"],
+              f"llama run: at {LLAMA_RUN_LAYERS} layers it opened {opened}")
+        t0 = time.perf_counter()
+        _run_ted(argv("B", LLAMA_RUN_EPOCHS - 1, *weights))
+        (state_b, best_b), out_b = _run_ted(argv("B", LLAMA_RUN_EPOCHS, "--resume", *weights))
+        run_b_s = time.perf_counter() - t0
+        check(f"resumed from checkpoint epoch {LLAMA_RUN_EPOCHS - 2}" in out_b,
+              "llama run: B did not resume")
+        check("loaded pretrained LLAMA backbone from" in out_a, "llama run: no backbone loaded")
+        a_dir, b_dir = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+        diff = differing_entries(CheckpointManager(a_dir).restore(),
+                                 CheckpointManager(b_dir).restore())
+        check(not diff, f"llama run: 2 epochs and 1 + resume to 2 differ at {diff[:6]}")
+        for f in ("metrics.jsonl", "best_metrics.json"):
+            a, b = (open(os.path.join(x_, f)).read() for x_ in (a_dir, b_dir))
+            check(a == b, f"llama run: {f} differs between A and B")
+        check(best_a == best_b, f"llama run: best FGD {best_a} vs {best_b}")
+        for st_ in (state_a, state_b):
+            got = st_.model.llm_model.state_dict()
+            check(all(torch.equal(got[k].cpu(), sd[k].float()) for k in got),
+                  "llama run: the backbone is not the checkpoint's")
+        rcfg = llama_route_config(n_layers=LLAMA_RUN_LAYERS)
+        n_train = int(out_a.split("train samples: ")[1].split(",")[0])
+        n_val = int(out_a.split("val: ")[1].split(",")[0])
+        steps = n_train // B
+        want = run_launches(rcfg.replace(loss=dataclasses.replace(rcfg.loss, warmup_epochs=0)),
+                            LLAMA_RUN_EPOCHS, steps, -(-n_val // B),
+                            state_a.disc.gru.num_layers)
+        check(launches == want, f"llama run: launches {launches}, want {want}")
+        meta = CheckpointManager(a_dir).run_metadata()
+        check(meta["llm_weights"] == os.path.abspath(written["st"]), "llama run: metadata")
+        del state_a, state_b
+        try:
+            _run_ted(argv("B", LLAMA_RUN_EPOCHS + 1, "--resume"))
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        check("llm_weights=None" in refused,
+              f"llama run: a resume without --llm-weights was not refused ({refused!r})")
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        served = test_checkpoint.main(["--device", str(dev), "--checkpoint-dir", a_dir,
+                                       "--seed", str(seed), "--clip-seconds",
+                                       str(LLAMA_CLIP_SECONDS)])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        paths["llama_test_checkpoint"] = launches = _launch_counts()
+        check(served.shape == (frames, d.pose_dim) and np.isfinite(served).all(),
+              f"llama test_checkpoint: {served.shape}")
+        check(launches == forward_launches(rcfg, windows),
+              f"llama test_checkpoint: launches {launches}")
+        print(f"llama run [python -m hop_tpu_torch.cli.run_ted --llm-model LLAMA --llm-layers "
+              f"{LLAMA_RUN_LAYERS} --llm-weights <the shards>, 4096 wide, bs {B}, {n_train} "
+              f"training windows ({steps} steps an epoch), {n_val} validation windows]: A "
+              f"({LLAMA_RUN_EPOCHS} epochs, {run_a_s:.1f} s) and B ({LLAMA_RUN_EPOCHS - 1} + "
+              f"--resume to {LLAMA_RUN_EPOCHS}, {run_b_s:.1f} s; host clock, builds, loads and "
+              f"data included) end bit-identical (every checkpoint tensor, metrics.jsonl, "
+              f"best_metrics.json); s of train steps an epoch "
+              + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out_a))
+              + f"; the backbone the checkpoint's (one shard of two opened); launches "
+              f"{_nonzero(paths['llama_run'])} as derived; a resume without --llm-weights "
+              f"refused; test_checkpoint --checkpoint-dir <A> -> {served.shape} finite in "
+              f"{serve_s:.1f} s (restore and reload included), launches {_nonzero(launches)}")
+        return paths
+    finally:
+        tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2583,6 +2964,7 @@ def main():
     # the training entry point sets cuDNN's deterministic algorithms: last
     paths["train_run"] = phase_run(dev, SEED)
     paths.update(phase_import(dev, SEED))
+    paths.update(phase_llama(dev, SEED))
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention
@@ -2598,6 +2980,13 @@ def main():
                 "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
                 "library_ms": library_ms, **own}
     k3_head = k3["head"]
+
+    def _at_i4320(r, library_ms):
+        """K2 at the LLaMA head's first layer (I = 4320): its error, time,
+        bound and cuDNN's time, under keys of their own."""
+        return {f"i4320_{k}": r[k] for k in
+                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")} | {
+                    "i4320_library_ms": library_ms}
     kernels = [
         entry("reprogramming_attention_fwd", K1_SOURCE, K1_REPLACES, "K1",
               max(k1["max_abs_err"], k1_bwd["out_err"]), k1, lib["K1"]),
@@ -2608,10 +2997,12 @@ def main():
               max([r["max_abs_err"] for r in k2.values()]
                   + [r["fwd_err"] for r in k2_bwd.values()]),
               k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)],
-              disc_rec_kernel_ms=k2[K2_MAIN[2]]["rec_ms"]),
+              disc_rec_kernel_ms=k2[K2_MAIN[2]]["rec_ms"],
+              **_at_i4320(k2[K2_LLAMA], lib[("gru_fwd", 4320, 350)])),
         entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
               max(r["max_abs_err"] for r in k2_bwd.values()), k2_bwd[(992, 350)],
-              lib[("gru_bwd", 992, 350)]),
+              lib[("gru_bwd", 992, 350)],
+              **_at_i4320(k2_bwd[(4320, 350)], lib[("gru_bwd", 4320, 350)])),
         # K3 is the recurrence without its projection: no one call computes it
         entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3", k3["max_abs_err"],
               {**k3_head, **k3_head["bound"]}, None,

@@ -1,6 +1,7 @@
 """What the entry points share (port of hop_tpu/cli/common.py): the
 training entry points' parser and config overrides (:41-156, :233-262),
-the restore of a trained generator (:159-230), the host batch -> device
+the restore of a trained generator (:159-230) with its frozen backbone,
+BERT or LLaMA, random or pretrained (`--llm-weights`), the host batch -> device
 batch path (:318-396), the WordPiece tokenizer, the datasets, the frozen
 FGD feature net and the validation pass's closure (:265-467).
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import tempfile
 from pathlib import Path
 from typing import Optional
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from hop_tpu_torch import convert
-from hop_tpu_torch.config import Config
+from hop_tpu_torch.config import Config, LLMConfig, llama7b_llm_config, tiny_llama_llm_config
 from hop_tpu_torch.data import synthetic
 from hop_tpu_torch.data.dataset import SpeechMotionDataset
 from hop_tpu_torch.data.fasttext_export import FastTextModel
@@ -50,6 +52,7 @@ from hop_tpu_torch.eval.fgd import (EmbeddingSpaceEvaluator, make_expressive_fea
                                     make_ted_feature_fn)
 from hop_tpu_torch.models.embedding_net import EmbeddingNet
 from hop_tpu_torch.models.hop import build_hop_model
+from hop_tpu_torch.models.llm_weights import install_llm_weights
 from hop_tpu_torch.models.motion_ae import MotionAE
 from hop_tpu_torch.ops import mel as mel_ops
 from hop_tpu_torch.train.loops import prefetch_iter
@@ -63,8 +66,6 @@ MODEL_CHOICES = ("AD_LLM", "multimodal_context", "seq2seq", "speech2gesture",
 #: (dest, test of the parsed value, the ROADMAP.md item that brings it)
 UNPORTED = (
     ("model", lambda v: v != "AD_LLM", "M13 (baseline zoo): only AD_LLM is ported"),
-    ("llm_model", lambda v: v == "LLAMA", "M14 (LLaMA backbone)"),
-    ("llm_weights", lambda v: v is not None, "M14 (backbone weight loader)"),
     ("data_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("model_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("dcn_slices", lambda v: v > 1, "M15 (parallel)"),
@@ -119,12 +120,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--hf-vocab", default=None,
                    help="WordPiece vocab.txt for the HF token stream")
     p.add_argument("--llm-model", default=None, choices=("BERT", "LLAMA"),
-                   help="frozen backbone for AD_LLM; LLAMA is ROADMAP M14")
+                   help="frozen backbone for AD_LLM: BERT (default) or LLAMA, "
+                        "LLaMA-7B's geometry (with --tiny a thin LLaMA)")
     p.add_argument("--llm-layers", type=int, default=None,
                    help="backbone depth (reference --llm_layers, default 6)")
     p.add_argument("--llm-weights", default=None,
-                   help="not ported (ROADMAP M14): the backbone is a seeded "
-                        "random init, said so")
+                   help="pretrained backbone: an HF checkpoint directory "
+                        "(config.json + model.safetensors, pytorch_model.bin "
+                        "or a sharded *.index.json) or a state-dict file; "
+                        "default a seeded random init")
     p.add_argument("--warmup-epochs", type=int, default=None,
                    help="generator-only epochs before the GAN phase starts "
                         "(the reference's gate `epoch > 10`, train_llm.py:15)")
@@ -158,8 +162,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "fused kernel (K2), or a projection product + K3")
     p.add_argument("--bert-attention", default="plain",
                    choices=("plain", "fused", "block"),
-                   help="self-attention route of the backbone: matmul + "
-                        "softmax, kernel K4, or kernel K5")
+                   help="self-attention route of the BERT backbone: matmul + "
+                        "softmax, kernel K4, or kernel K5 (LLaMA: plain only)")
     return p
 
 
@@ -192,11 +196,32 @@ def apply_overrides(cfg: Config, args) -> Config:
         data = dataclasses.replace(data, audio_wire=args.audio_wire)
     if args.parity_step:
         hop = dataclasses.replace(hop, fused_step=False)
-    if args.llm_layers:
+    if args.llm_model == "LLAMA":
+        llm = llama_config(args.llm_layers or llm.n_layers, args.tiny)
+        if args.bert_attention != "plain":
+            raise SystemExit(
+                f"--bert-attention {args.bert_attention} with --llm-model LLAMA: "
+                "the kernel attention routes (K4, K5) are BERT's (no mask, head "
+                "dim 64); LLaMA's attention is causal, head dim "
+                f"{llm.dim // llm.n_heads}, and runs plain products")
+    elif args.llm_layers:
         llm = dataclasses.replace(llm, n_layers=args.llm_layers)
     hop = dataclasses.replace(hop, gru_kernel=args.gru_kernel)
     llm = dataclasses.replace(llm, attention=args.bert_attention)
     return cfg.replace(train=train, loss=loss, data=data, hop=hop, llm=llm)
+
+
+def llama_config(n_layers: int, tiny: bool) -> LLMConfig:
+    """`--llm-model LLAMA`: LLaMA-7B's geometry, or with `--tiny` the thin
+    LLaMA, at `n_layers` (hop_tpu/cli/common.py:256-261)."""
+    return (tiny_llama_llm_config if tiny else llama7b_llm_config)(n_layers)
+
+
+def install_backbone(model, path: str, llm: LLMConfig, hf_vocab: Optional[str] = None):
+    """--llm-weights into `model.llm_model` (`models.llm_weights`), said so."""
+    info = install_llm_weights(model, path, llm, hf_vocab)
+    print(f"loaded pretrained {llm.model} backbone from {path} "
+          f"({info['bytes'] / 2**20:.1f} MiB in {info['seconds']:.2f} s)")
 
 
 def restore_hop_model(cfg: Config, checkpoint_dir: str, allow_random_init: bool = False,
@@ -204,15 +229,24 @@ def restore_hop_model(cfg: Config, checkpoint_dir: str, allow_random_init: bool 
     """Rebuild a HOPModel from a train_main checkpoint directory.
 
     Returns (cfg, model, n_speakers), the model in eval mode on `device`.
-    The frozen backbone is stripped from checkpoints; it is rebuilt from the
-    seed and depth in `run_metadata.json`, the same init the run trained
-    with. With `allow_random_init` and no checkpoint, the model is a random
-    init from `seed` with 10 speakers, said so; without, it raises
-    SystemExit.
+    The frozen backbone is stripped from checkpoints; it is rebuilt as
+    `run_metadata.json` records it (`llm_model`, `llm_layers`, `llm_dim`:
+    BERT at the caller's widths, or LLaMA, 7B or thin by the recorded
+    width; the attention route of the caller's `cfg`) from the run's seed, the
+    same init the run trained with, and, when the run was trained with
+    --llm-weights, reloaded from that path (hop_tpu/cli/common.py:216-225):
+    a random backbone would silently change every generated gesture. A path
+    that no longer exists raises SystemExit. With `allow_random_init` and
+    no checkpoint, the model is a random init from `seed` with 10 speakers,
+    said so; without, it raises SystemExit.
     """
     ckpt = CheckpointManager(checkpoint_dir)
     meta = ckpt.run_metadata()
-    if meta.get("llm_layers"):
+    if meta.get("llm_model") == "LLAMA":
+        llm = llama_config(int(meta["llm_layers"]),
+                           tiny=meta.get("llm_dim") == tiny_llama_llm_config().dim)
+        cfg = cfg.replace(llm=dataclasses.replace(llm, attention=cfg.llm.attention))
+    elif meta.get("llm_layers"):
         cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, n_layers=int(meta["llm_layers"])))
     if ckpt.latest_step() is None:
         if not allow_random_init:
@@ -221,6 +255,14 @@ def restore_hop_model(cfg: Config, checkpoint_dir: str, allow_random_init: bool 
         return cfg, build_hop_model(cfg, 10, seed, device), 10
     n_speakers = int(meta["n_speakers"])
     model = build_hop_model(cfg, n_speakers, int(meta["seed"]), device)
+    llm_weights = meta.get("llm_weights")
+    if llm_weights:
+        if not os.path.exists(llm_weights):
+            raise SystemExit(
+                f"checkpoint was trained with --llm-weights {llm_weights}, "
+                "which no longer exists; restore it (or copy the HF "
+                "checkpoint back to that path) before inference")
+        install_backbone(model, llm_weights, cfg.llm)
     saved = ckpt.restore()
     frozen = strip_frozen(model.state_dict())[1]
     model.load_state_dict(reattach_frozen(saved["gen"], frozen), strict=True)

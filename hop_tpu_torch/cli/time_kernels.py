@@ -35,9 +35,11 @@ import sys
 import time
 
 # (T, B, I, H, D) of the fused GRU layer: the head's two, the discriminator's
-# two, the head's first at one window of a clip (bs 1)
+# two, the head's first at one window of a clip (bs 1), the head's first on
+# the LLaMA backbone
 K2_SHAPES = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
-             (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), (34, 1, 992, 350, 2))
+             (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), (34, 1, 992, 350, 2),
+             (34, 256, 4320, 350, 2))
 # (D, T, B, H) of the time-grid recurrence: the head at bs 256 and bs 1, the
 # discriminator. The recurrence kernels' own lines are `gru_fwd_cluster_kernel`
 # / `gru_fwd_block_kernel` (forward: a cluster at H = 350, one block at

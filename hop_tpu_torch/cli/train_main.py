@@ -15,15 +15,20 @@ otherwise pick convolution backward algorithms that sum in a varying order
 then drift from the uninterrupted one. The port's own kernels repeat bit
 for bit (no atomics, ordered split-K).
 
-A resume refuses a checkpoint whose seed or backbone differs from the
-run's: the frozen backbone is rebuilt from the seed, not saved, so another
-seed would silently train on from another backbone (hop_tpu's train_main.py
-:306 reattaches whatever the new arguments build).
+The frozen backbone, BERT or LLaMA (`--llm-model`), is built from the seed
+and, with `--llm-weights`, loaded from an HF checkpoint before the
+optimizers are made (hop_tpu's train_main.py:55-61). A resume refuses a
+checkpoint whose seed or backbone differs from the run's: the backbone is
+not saved but rebuilt, from the seed or from `--llm-weights`, so another
+seed or another (or a missing) weights path would silently train on from
+another backbone (hop_tpu's train_main.py:306 reattaches whatever the new
+arguments build, a random backbone when `--llm-weights` is left out).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -38,7 +43,7 @@ from hop_tpu_torch.utils.prng import step_generator
 
 # run_metadata keys that must match on a resume: what rebuilds the frozen
 # backbone (the optimizers' state follows the parameter order besides)
-RESUME_KEYS = ("seed", "llm_layers", "llm_dim")
+RESUME_KEYS = ("seed", "llm_model", "llm_layers", "llm_dim", "llm_weights")
 
 
 def deterministic_cudnn(device: torch.device) -> None:
@@ -62,9 +67,12 @@ def generate_from_state(cfg: Config, state, batch, vids, generator):
 
 def build_model_and_steps(cfg: Config, args, n_speakers: int, device):
     """Returns (state, warmup_step, gan_step, generate_from_state) for
-    AD_LLM: the generator from `args.seed`, the discriminator from
-    `args.seed + 1`, both on `device`."""
+    AD_LLM: the generator from `args.seed` (its backbone from
+    `args.llm_weights` when given), the discriminator from `args.seed + 1`,
+    both on `device`."""
     model = build_hop_model(cfg, n_speakers, args.seed, device)
+    if args.llm_weights:
+        C.install_backbone(model, args.llm_weights, cfg.llm, args.hf_vocab)
     disc = build_discriminator(cfg, args.seed + 1, device)
     n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
     print(f"Total parameters: {n_trainable}")
@@ -78,6 +86,26 @@ def train_main(cfg: Config, args):
     cfg = C.apply_overrides(cfg, args)
     device = torch.device(args.device)
     deterministic_cudnn(device)
+    ckpt = CheckpointManager(args.checkpoint_dir)
+    # what rebuilds the frozen backbone; the weights path absolute, so that a
+    # restore from another directory finds it
+    run_keys = {"seed": args.seed, "llm_model": cfg.llm.model,
+                "llm_layers": cfg.llm.n_layers, "llm_dim": cfg.llm.dim,
+                "llm_weights": args.llm_weights and os.path.abspath(args.llm_weights)}
+    resume = args.resume and ckpt.latest_step() is not None
+    if resume:      # before anything is built: what rebuilds the backbone must match
+        meta = ckpt.run_metadata()
+        differ = {k: (meta.get(k), run_keys[k]) for k in RESUME_KEYS
+                  if meta.get(k) != run_keys[k]}
+        if differ:
+            raise SystemExit(
+                f"--resume: {args.checkpoint_dir} was trained with "
+                + ", ".join(f"{k}={was!r}" for k, (was, _) in differ.items())
+                + "; this run has "
+                + ", ".join(f"{k}={now!r}" for k, (_, now) in differ.items())
+                + ". The frozen backbone is rebuilt from the seed or read "
+                  "from --llm-weights, and the optimizer state follows the "
+                  "parameter order: resume with the checkpoint's settings")
     train_ds, val_ds, lang = C.load_datasets(cfg, args)
     n_speakers = max(train_ds.speaker_model.n_words, 1)
     bs = min(cfg.train.batch_size, len(train_ds))
@@ -88,7 +116,6 @@ def train_main(cfg: Config, args):
     evaluator = C.make_fgd_evaluator(cfg, lang.n_words, args.eval_net, device)
     eval_fn = C.make_eval_fn(cfg, val_ds, evaluator, generate, n_speakers, device,
                              prefetch=args.prefetch)
-    ckpt = CheckpointManager(args.checkpoint_dir)
     batch_keys = C.MODEL_BATCH_KEYS[args.model]
 
     def train_batches(epoch):
@@ -96,24 +123,10 @@ def train_main(cfg: Config, args):
             yield C.device_batch(hb, cfg, keys=batch_keys, device=device)
 
     ckpt.metadata = {"model": args.model, "dataset": cfg.data.dataset,
-                     "n_speakers": n_speakers, "n_words": lang.n_words,
-                     "seed": args.seed, "llm_model": cfg.llm.model,
-                     "llm_layers": cfg.llm.n_layers, "llm_dim": cfg.llm.dim}
+                     "n_speakers": n_speakers, "n_words": lang.n_words, **run_keys}
 
     start_epoch, best_fgd, div_history = 0, float("inf"), []
-    if args.resume and ckpt.latest_step() is not None:
-        meta = ckpt.run_metadata()
-        differ = {k: (meta.get(k), ckpt.metadata[k]) for k in RESUME_KEYS
-                  if meta.get(k) != ckpt.metadata[k]}
-        if differ:
-            raise SystemExit(
-                f"--resume: {args.checkpoint_dir} was trained with "
-                + ", ".join(f"{k}={was!r}" for k, (was, _) in differ.items())
-                + "; this run has "
-                + ", ".join(f"{k}={now!r}" for k, (_, now) in differ.items())
-                + ". The frozen backbone is rebuilt from the seed and the "
-                  "optimizer state follows the parameter order: resume with "
-                  "the checkpoint's settings")
+    if resume:
         state.load_state_dict(ckpt.restore())
         start_epoch = int(meta["epoch"]) + 1
         best_fgd = float(meta.get("best_fgd", float("inf")))

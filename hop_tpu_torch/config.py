@@ -63,7 +63,9 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class LLMConfig:
-    """Frozen language-model backbone. Only "BERT" is ported."""
+    """Frozen language-model backbone (reference run_ted.py:133-212):
+    "BERT" (models.bert) or "LLAMA" (models.llama); anything else is
+    rejected like the reference's 'LLM model is not defined'."""
     model: str = "BERT"                  # "BERT" | "LLAMA"
     dim: int = 768
     n_layers: int = 6
@@ -77,8 +79,29 @@ class LLMConfig:
     # self-attention route of the backbone (models.bert.BertLayer): "plain"
     # (matmul + softmax outside any kernel), "fused" (kernel K4) or "block"
     # (kernel K5); the port's counterpart of HOP_TPU_PALLAS_ATTN /
-    # HOP_TPU_PALLAS_BLOCK_ATTN
+    # HOP_TPU_PALLAS_BLOCK_ATTN; LLaMA takes "plain" only
     attention: str = "plain"
+    # LLaMA-specific (run_ted.py:133-175; ignored by the BERT path)
+    n_kv_heads: int | None = None        # grouped-query attention
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+
+
+def llama7b_llm_config(n_layers: int = 6) -> LLMConfig:
+    """LLaMA-7B geometry truncated to n_layers, the reference's LLAMA
+    option (run_ted.py:133-140 sets num_hidden_layers=args.llm_layers)."""
+    return LLMConfig(model="LLAMA", dim=4096, n_layers=n_layers, n_heads=32,
+                     intermediate_dim=11008, vocab_size=32000,
+                     max_position=2048, rms_norm_eps=1e-6)
+
+
+def tiny_llama_llm_config(n_layers: int = 2) -> LLMConfig:
+    """A thin LLaMA for the CPU tests and `--tiny` runs: the 7B's topology
+    (RMSNorm, RoPE, SwiGLU, causal, grouped-query with 2 kv heads) at
+    tiny_test_config's backbone widths."""
+    return LLMConfig(model="LLAMA", dim=64, n_layers=n_layers, n_heads=4,
+                     n_kv_heads=2, intermediate_dim=128, vocab_size=128,
+                     max_position=64)
 
 
 @dataclass(frozen=True)

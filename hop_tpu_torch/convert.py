@@ -1,8 +1,10 @@
 """flax HOPModel and ConvDiscriminator variables -> this port's state_dicts.
 
 `state_dict_from_jax` is the inverse of
-`hop_tpu.eval.torch_import_hop.convert_hop_model`, frozen BERT backbone
-included (the inverse of `hop_tpu.models.bert.convert_hf_bert_params`); it
+`hop_tpu.eval.torch_import_hop.convert_hop_model`, frozen backbone
+included (the inverse of `hop_tpu.models.bert.convert_hf_bert_params` or,
+with `cfg.llm.model == "LLAMA"`, of `hop_tpu.models.llama.
+convert_hf_llama_params`); it
 covers what `hop_tpu.eval.torch_export_hop.export_hop_state_dict` exports
 plus the `llm_model.*` weights. `discriminator_state_dict_from_jax` is
 the inverse of `hop_tpu.eval.torch_import_generator.
@@ -90,6 +92,23 @@ def _bert(sd, prefix, p, n_layers):
         _norm(sd, n + "output.LayerNorm", lp["output_ln"])
 
 
+def _llama(sd, prefix, p, n_layers):
+    """The inverse of `hop_tpu.models.llama.convert_hf_llama_params`: Dense
+    kernels transposed, RMSNorm scale -> weight, HF LlamaModel's names."""
+    sd[prefix + "embed_tokens.weight"] = _t(p["word_embeddings"]["embedding"])
+    for i in range(n_layers):
+        lp = p[f"layer_{i}"]
+        n = f"{prefix}layers.{i}."
+        sd[n + "input_layernorm.weight"] = _t(lp["input_ln"]["scale"])
+        sd[n + "post_attention_layernorm.weight"] = _t(lp["post_attention_ln"]["scale"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[f"{n}self_attn.{name}.weight"] = _t(
+                np.asarray(lp["self_attn"][name]["kernel"]).T)
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            sd[f"{n}mlp.{name}.weight"] = _t(np.asarray(lp["mlp"][name]["kernel"]).T)
+    sd[prefix + "norm.weight"] = _t(p["final_norm"]["scale"])
+
+
 def state_dict_from_jax(variables, cfg: Config) -> "OrderedDict[str, torch.Tensor]":
     """HOPModel variables (numpy leaves) -> HOPModel state_dict for this port."""
     params = variables["params"]
@@ -102,7 +121,8 @@ def state_dict_from_jax(variables, cfg: Config) -> "OrderedDict[str, torch.Tenso
     _lin(sd, "speaker_mu", sp["Dense_1"])
     _lin(sd, "speaker_logvar", sp["Dense_2"])
 
-    _bert(sd, "llm_model.", params["llm"], cfg.llm.n_layers)
+    backbone = _llama if cfg.llm.model == "LLAMA" else _bert
+    backbone(sd, "llm_model.", params["llm"], cfg.llm.n_layers)
 
     sd["mapping_layer.weight"] = _t(params["mapping_layer"]["kernel"])
     sd["mapping_layer.bias"] = _t(params["mapping_layer"]["bias"])

@@ -44,9 +44,12 @@
 // (0.74-0.77 ms on an H100 at 700 W: mma.sync starts one TF32 m16n8k8 per
 // ~14 clocks a tensor core, and a step's 48 x 9 MMAs a warp are 70% of it;
 // at the discriminator's H = 64 the one-block kernel, 0.027 ms). The tensor cores' f32
-// accumulation truncates, so xp agrees with an f64 product to 7e-5 where a
-// cuBLAS f32 product agrees to 1.4e-5 (|xp| up to 8); the layer's outputs
-// stay within 4e-5 of the plain version's.
+// accumulation truncates: with one accumulator chain over K, xp agreed with
+// an f64 product to 7e-5 where a cuBLAS f32 product agrees to 1.4e-5 (|xp|
+// up to 8, I = 992), and the layer's outputs with the plain version's to
+// 3e-5 at I = 992 but 2.7e-4 at I = 4320 (|xp| up to 20): so above
+// I = 1024 each 8-deep step of K is a chain of its own, added to the tile's
+// sum in f32 (2.6e-5 at I = 4320).
 //
 // Backward. The TPU did everything in one reversed traversal and summed the
 // weight gradients over its sequential batch tiles in VMEM; GPU tiles run in
@@ -105,6 +108,18 @@ constexpr int P_LDA = PK + 4;    // A rows [m][k]: fragment reads hit 32 banks
 constexpr int P_LDB = PN + 8;    // B rows [k][n]: likewise
 constexpr int P_STAGE_FLOATS = PM * P_LDA + PK * P_LDB;
 constexpr size_t P_SMEM_BYTES = size_t(P_STAGES) * P_STAGE_FLOATS * sizeof(float);
+// the deepest K summed in one accumulator chain (below)
+constexpr int P_MAX_CHAIN = 1024;
+
+// d = a . b + 0: mma_tf32 into a fresh accumulator
+__device__ __forceinline__ void mma_tf32_from_zero(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
 
 // xp[m, z, n] = sum_i x[m, i] wih[z, i, n] + bih[z, n] for m < M = T * B,
 // z < G = D * 3 (direction, gate), n < H: block (x, y, z) owns the 128 x 128
@@ -114,8 +129,16 @@ constexpr size_t P_SMEM_BYTES = size_t(P_STAGES) * P_STAGE_FLOATS * sizeof(float
 // allows), three stages deep; tiles past M, I or H are zero-filled. Each f32
 // operand is split into TF32 hi + lo in registers and a product is three
 // MMAs, a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first, summed in
-// f32: f32 accuracy from the tensor cores ("3xTF32").
-template <int VA, int VB>
+// f32: f32 accuracy from the tensor cores ("3xTF32"). The tensor cores
+// truncate where an f32 add rounds, and the loss grows with the length of one
+// accumulator chain: one chain over all of K lost 3e-5 on the layer's outputs
+// at I = 992 but 2.7e-4 at I = 4320 (the LLaMA backbone's head). With FOLD
+// (I > P_MAX_CHAIN) the three MMAs of each 8-deep step of K start from zero
+// and their sum is added to the tile's accumulators in ordinary f32 adds:
+// 2.6e-5 at I = 4320 (8e-6 from an f64 product), for ~19% more time in the
+// kernel (64 more f32 adds a thread a step); without, one chain, as at TED's
+// widths.
+template <int VA, int VB, bool FOLD>
 __global__ void __launch_bounds__(P_THREADS, 2)
 gru_proj_kernel(const float* __restrict__ x, const float* __restrict__ wih,
                 const float* __restrict__ bih, float* __restrict__ xp, int M, int I,
@@ -194,9 +217,20 @@ gru_proj_kernel(const float* __restrict__ x, const float* __restrict__ wih,
         split_tf32(br[4 * P_LDB], b_hi[1], b_lo[1]);
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi) {
-          mma_tf32(acc[mi][ni], a_lo[mi], b_hi[0], b_hi[1]);
-          mma_tf32(acc[mi][ni], a_hi[mi], b_lo[0], b_lo[1]);
-          mma_tf32(acc[mi][ni], a_hi[mi], b_hi[0], b_hi[1]);
+          if (FOLD) {
+            // this 8-deep step of K in a chain of its own, added to the
+            // tile's sum in f32 (rounded to nearest)
+            float part[4];
+            mma_tf32_from_zero(part, a_lo[mi], b_hi[0], b_hi[1]);
+            mma_tf32(part, a_hi[mi], b_lo[0], b_lo[1]);
+            mma_tf32(part, a_hi[mi], b_hi[0], b_hi[1]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[c];
+          } else {
+            mma_tf32(acc[mi][ni], a_lo[mi], b_hi[0], b_hi[1]);
+            mma_tf32(acc[mi][ni], a_hi[mi], b_lo[0], b_lo[1]);
+            mma_tf32(acc[mi][ni], a_hi[mi], b_hi[0], b_hi[1]);
+          }
         }
       }
     }
@@ -229,18 +263,18 @@ int piece_floats(const void* p, size_t row_floats, size_t matrix_floats) {
   return a % 16 == 0 ? 4 : a % 8 == 0 ? 2 : 1;
 }
 
-template <int VA>
+template <int VA, bool FOLD>
 cudaError_t launch_proj_vb(int vb, dim3 grid, cudaStream_t st, const float* x,
                            const float* wih, const float* bih, float* xp, int M, int I,
                            int H, int G) {
 #define HOP_PROJ(VB)                                                                  \
   {                                                                                   \
-    cudaError_t err = cudaFuncSetAttribute(gru_proj_kernel<VA, VB>,                   \
+    cudaError_t err = cudaFuncSetAttribute(gru_proj_kernel<VA, VB, FOLD>,             \
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                            int(P_SMEM_BYTES));                        \
     if (err != cudaSuccess) return err;                                               \
-    gru_proj_kernel<VA, VB><<<grid, P_THREADS, P_SMEM_BYTES, st>>>(x, wih, bih, xp, M, \
-                                                                   I, H, G);          \
+    gru_proj_kernel<VA, VB, FOLD><<<grid, P_THREADS, P_SMEM_BYTES, st>>>(x, wih, bih, \
+                                                                         xp, M, I, H, G); \
     return cudaGetLastError();                                                        \
   }
   if (vb == 4) HOP_PROJ(4)
@@ -254,9 +288,14 @@ cudaError_t launch_proj(const float* x, const float* wih, const float* bih, floa
   const dim3 grid((H + PN - 1) / PN, (M + PM - 1) / PM, G);
   const int va = piece_floats(x, I, 0);
   const int vb = piece_floats(wih, H, size_t(I) * H);
-  if (va == 4) return launch_proj_vb<4>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
-  if (va == 2) return launch_proj_vb<2>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
-  return launch_proj_vb<1>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+  if (I > P_MAX_CHAIN) {
+    if (va == 4) return launch_proj_vb<4, true>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+    if (va == 2) return launch_proj_vb<2, true>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+    return launch_proj_vb<1, true>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+  }
+  if (va == 4) return launch_proj_vb<4, false>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+  if (va == 2) return launch_proj_vb<2, false>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
+  return launch_proj_vb<1, false>(vb, grid, st, x, wih, bih, xp, M, I, H, G);
 }
 
 // dx (T*B, I) = sum over (direction, gate) z of d_in[:, z] (T*B, H) . W_ih[z]^T

@@ -52,7 +52,8 @@ def _compute_dtype(cfg: LLMConfig) -> torch.dtype:
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     """Dense in the compute dtype: operands and result in `dt`."""
-    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
 class BertEmbeddings(nn.Module):
@@ -182,15 +183,3 @@ class BertEncoder(nn.Module):
         for layer in self.encoder.layer:
             layer.route = route
 
-
-def make_llm_encoder(cfg: LLMConfig) -> nn.Module:
-    """Backbone factory for HOPModel (port of hop_tpu.models.llama's
-    dispatch). Unknown values raise like the reference's 'LLM model is not
-    defined' (run_ted.py:211)."""
-    if cfg.model == "BERT":
-        return BertEncoder(cfg)
-    if cfg.model == "LLAMA":
-        raise NotImplementedError(
-            "the LLaMA backbone is not ported yet (ROADMAP M14)")
-    raise ValueError(f"LLM model is not defined: {cfg.model!r} "
-                     "(supported: BERT, LLAMA)")

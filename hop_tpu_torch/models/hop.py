@@ -1,5 +1,6 @@
-"""HOP generator: frozen BERT + reprogramming + graph wavenet + BiGRU head
-(port of hop_tpu/models/hop.py; reference model/HOP.py:72-252).
+"""HOP generator: frozen LLM backbone (BERT, or LLaMA with
+`cfg.llm.model="LLAMA"`) + reprogramming + graph wavenet + BiGRU head (port
+of hop_tpu/models/hop.py; reference model/HOP.py:72-252).
 
 Inputs for the TED config:
   in_audio (B, 36267) raw waveform
@@ -13,14 +14,16 @@ The module is built in eval mode, for serving (gwnet's BatchNorm reads its
 running statistics, no dropout); `.train()` switches on what the JAX
 model's `train=True` does: gwnet's BatchNorm on batch statistics
 (flax's rule, `common.batch_norm`) and the reprogramming attention's
-dropout. Dropout in the frozen BERT is gated separately, by `llm_train`
+dropout. Dropout in the frozen BERT (LLaMA has none) is gated separately, by `llm_train`
 (default: follows the train mode), as in the JAX trunk
 (hop_tpu/models/hop.py:137-152). The backbone's weights do not require
 grad; gradients still flow through it into `align_layer` and what feeds
 it. The speaker latent draws noise (as in the JAX model) from `generator`
 or a given `eps`. Kernels on this path: K1 in the reprogramming layer,
 once per GRU layer K2 or, with `cfg.hop.gru_kernel="stack"`, K3, and once
-per backbone layer K4 or K5 with `cfg.llm.attention="fused"` or `"block"`.
+per backbone layer K4 or K5 with `cfg.llm.attention="fused"` or `"block"`
+(BERT only). The head's first GRU layer is `gru_input_size` wide: 992 on
+BERT, 4320 on LLaMA-7B's 4096-wide backbone.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from torch import nn
 
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.models import common
-from hop_tpu_torch.models.bert import make_llm_encoder
+from hop_tpu_torch.models.llama import make_llm_encoder
 from hop_tpu_torch.models.gwnet import GraphWaveNet, receptive_field
 from hop_tpu_torch.models.reprogramming import PrototypeMapper, ReprogrammingLayer
 from hop_tpu_torch.ops.gru import GRU
@@ -40,7 +43,7 @@ from hop_tpu_torch.ops.gru import GRU
 
 def gru_input_size(cfg: Config) -> int:
     """Width of the head's input: seed graph + flag, beat features, LLM
-    output and speaker latent (992 for TED)."""
+    output and speaker latent (992 for TED on BERT, 4320 on LLaMA-7B)."""
     hop, d = cfg.hop, cfg.data
     N = d.n_joints_graph
     n_win = (d.expected_audio_length - hop.beat_window) // hop.beat_stride + 1

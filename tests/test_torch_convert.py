@@ -22,7 +22,8 @@ from hop_tpu.models.multimodal_context import ConvDiscriminator as JaxDisc
 from hop_tpu_torch import config as tcfg
 from hop_tpu_torch.convert import (discriminator_state_dict_from_jax,
                                    state_dict_from_jax)
-from hop_tpu_torch.models.bert import BertEncoder, make_llm_encoder
+from hop_tpu_torch.models.bert import BertEncoder
+from hop_tpu_torch.models.llama import LlamaEncoder, make_llm_encoder
 from hop_tpu_torch.models.hop import HOPModel
 from hop_tpu_torch.models.multimodal_context import ConvDiscriminator
 
@@ -123,11 +124,11 @@ def test_bert_matches_huggingface():
 
 
 def test_llm_dispatch():
-    """The backbone factory ports only BERT; LLaMA is queued, anything else
-    is rejected as in the reference."""
+    """The backbone factory builds BERT and LLaMA; anything else is rejected
+    as in the reference."""
     cfg = tcfg.tiny_test_config().llm
     assert isinstance(make_llm_encoder(cfg), BertEncoder)
-    with pytest.raises(NotImplementedError, match="M14"):
-        make_llm_encoder(dataclasses.replace(cfg, model="LLAMA"))
+    assert isinstance(make_llm_encoder(dataclasses.replace(cfg, model="LLAMA")),
+                      LlamaEncoder)
     with pytest.raises(ValueError, match="not defined"):
         make_llm_encoder(dataclasses.replace(cfg, model="GPT2"))

@@ -1,5 +1,6 @@
-"""hop_tpu_torch imports neither jax nor flax nor hop_tpu, nor pyarrow, lmdb
-or fasttext: a fresh process imports every module of the port and runs, on
+"""hop_tpu_torch imports neither jax nor flax nor hop_tpu, nor pyarrow, lmdb,
+fasttext, safetensors or transformers: a fresh process imports every module
+of the port and runs, on
 the CPU at the tiny size, its long-form entry point for one window on both
 GRU routes and on the backbone's block-attention route, the validation pass
 (`--evaluate`: records, dataset, metrics) over 2 batches, `device_batch`,
@@ -7,7 +8,10 @@ one 3-forward GAN step on the stack route, the sequence-kernel stack
 forward, the training entry point (`run_ted`: the epoch loop, a checkpoint,
 a resume) with the long-form entry restoring what it saved, and the
 importer (`data.import_ted --verify`) and the long-form entry
-(`--data <LMDB>`) on a source LMDB the port's own codec wrote."""
+(`--data <LMDB>`) on a source LMDB the port's own codec wrote, and the
+training entry point on the LLaMA backbone with its weights read from a
+bf16 safetensors file the port's own writer wrote (`--llm-weights`), the
+long-form entry restoring it."""
 
 import os
 import subprocess
@@ -85,15 +89,36 @@ with tempfile.TemporaryDirectory() as tmp:
                      "--device", "cpu"])
     out = test_checkpoint.main(["--device", "cpu", "--tiny", "--data", tmp + "/src"])
     assert out.shape == (64, 27), out.shape
+
+import os
+from hop_tpu_torch.config import tiny_llama_llm_config
+from hop_tpu_torch.models.llama import LlamaEncoder
+from hop_tpu_torch.utils import safetensors_io
+with tempfile.TemporaryDirectory() as tmp:
+    tempfile.tempdir = tmp
+    os.makedirs(tmp + "/llama")
+    sd = LlamaEncoder(tiny_llama_llm_config()).state_dict()
+    safetensors_io.write({k: v.bfloat16() for k, v in sd.items()},
+                         tmp + "/llama/model.safetensors")
+    run_ted.main(["--device", "cpu", "--tiny", "--llm-model", "LLAMA", "--llm-weights",
+                  tmp + "/llama", "--synthetic-videos", "1", "--batch-size", "13",
+                  "--warmup-epochs", "0", "--epochs", "1", "--checkpoint-dir", tmp + "/ck",
+                  "--metrics", tmp + "/m.jsonl"])
+    out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "3",
+                                "--checkpoint-dir", tmp + "/ck"])
+    assert out.shape == (64, 27), out.shape
+    tempfile.tempdir = None
+print("LLAMA OK")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu", "pyarrow",
-                                    "lmdb", "fasttext"))
+                                    "lmdb", "fasttext", "safetensors", "transformers"))
 for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
             "ops.block_attention", "geometry", "data.records", "data.dataset",
             "eval.evaluate", "eval.fgd", "train.loops", "utils.checkpoint",
             "utils.prng", "utils.meters", "cli.train_main", "cli.run_ted",
             "cli.run_expressive", "data.lmdbfile", "data.arrow_legacy",
-            "data.import_ted", "data.fasttext_export"):
+            "data.import_ted", "data.fasttext_export", "models.llama",
+            "models.llm_weights", "utils.safetensors_io"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -117,4 +142,6 @@ def test_port_imports_no_jax():
     assert "verify ok — mel: 1 clips" in proc.stdout
     assert "clip 0 vid=vid0 (4.0s," in proc.stdout
     assert "generated 64 frames" in proc.stdout
+    assert "loaded pretrained LLAMA backbone from" in proc.stdout
+    assert "LLAMA OK" in proc.stdout
     assert n_modules >= 20

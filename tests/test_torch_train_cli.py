@@ -5,7 +5,8 @@ For the same argv both packages' `base_parser` give the same value for
 every flag they share, and `apply_overrides` gives configs equal field by
 field (the port's own fields: its routes). The port's parser has every
 flag of hop_tpu's; each whose feature is not ported exits with the name of
-the ROADMAP.md item that brings it. A resume whose seed differs from the
+the ROADMAP.md item that brings it; `--llm-model LLAMA` and `--llm-weights`
+reach the model on both entries. A resume whose seed differs from the
 checkpoint's is refused: the frozen backbone is rebuilt from the seed
 (ADVICE r5, hop_tpu/cli/train_main.py:306).
 """
@@ -16,6 +17,7 @@ import io
 import tempfile
 
 import pytest
+import torch
 
 from hop_tpu import config as jcfg
 from hop_tpu.cli import common as JC
@@ -23,6 +25,9 @@ from hop_tpu.cli import common as JC
 from hop_tpu_torch import config as tcfg
 from hop_tpu_torch.cli import common as C
 from hop_tpu_torch.cli import run_expressive, run_ted, test_checkpoint, train_main
+from hop_tpu_torch.models.bert import BertEncoder
+from hop_tpu_torch.models.llama import LlamaEncoder
+from hop_tpu_torch.utils import safetensors_io
 from hop_tpu_torch.utils.checkpoint import CheckpointManager
 
 # the port's own flags and config fields
@@ -82,8 +87,6 @@ def test_routes_reach_the_config():
 
 UNPORTED = [
     (["--model", "seq2seq"], "M13"),
-    (["--llm-model", "LLAMA"], "M14"),
-    (["--llm-weights", "/nonexistent/bert"], "M14"),
     (["--data-parallel", "2"], "M15"),
     (["--model-parallel", "2"], "M15"),
     (["--dcn-slices", "2"], "M15"),
@@ -101,6 +104,45 @@ def test_unported_flags_exit_naming_their_roadmap_item(monkeypatch, tmp_path, en
         _quiet(entry.main, TINY_RUN + ["--checkpoint-dir", str(tmp_path / "ck"),
                                        "--metrics", str(tmp_path / "m.jsonl"),
                                        "--epochs", "1"] + argv)
+
+
+def _tiny_bert_checkpoint(path):
+    """An HF-named state dict of the tiny config's BERT, seeded, as
+    model.safetensors in the directory `path`."""
+    path.mkdir()
+    llm = tcfg.tiny_test_config("TED").llm
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        sd = BertEncoder(llm).state_dict()
+    safetensors_io.write(sd, str(path / "model.safetensors"))
+    return sd
+
+
+@pytest.mark.parametrize("flag", ["llm_model", "llm_weights"])
+@pytest.mark.parametrize("entry", [run_ted, run_expressive], ids=["ted", "expressive"])
+def test_backbone_flags_are_accepted(monkeypatch, tmp_path, entry, flag):
+    """--llm-model LLAMA and --llm-weights (once refused as not ported)
+    reach the model both entries train: a LLaMA backbone, or the
+    checkpoint's arrays in the backbone; the run's metadata records them."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    seen = {}
+
+    def run_training(cfg, batches, warmup, gan, state, **kw):
+        seen["state"] = state
+        return state, 0.0
+    monkeypatch.setattr(train_main, "run_training", run_training)
+    ck = tmp_path / "ck"
+    argv = TINY_RUN + ["--checkpoint-dir", str(ck), "--metrics", str(tmp_path / "m.jsonl"),
+                       "--epochs", "1"]
+    if flag == "llm_model":
+        _quiet(entry.main, argv + ["--llm-model", "LLAMA"])
+        assert isinstance(seen["state"].model.llm_model, LlamaEncoder)
+    else:
+        want = _tiny_bert_checkpoint(tmp_path / "bert")
+        _, log = _quiet(entry.main, argv + ["--llm-weights", str(tmp_path / "bert")])
+        assert "loaded pretrained BERT backbone from" in log
+        for k, v in seen["state"].model.llm_model.state_dict().items():
+            assert torch.equal(v, want[k]), k
 
 
 def test_every_unported_flag_is_a_flag_of_hop_tpu():
