@@ -159,7 +159,28 @@ imports nothing of JAX. Phases, each ending in one line of output:
              2 epochs against 1 + `--resume` to 2, bit for bit, a resume
              without --llm-weights refused, and `test_checkpoint
              --checkpoint-dir` on the run's checkpoint
- 25. the kernels' JSON line, then the device JSON as the last line
+ 25. zoo    the baseline zoo (ROADMAP M13a) at its published widths (hidden
+             300, 4 layers, bs 256): K2 forward and backward at each of its
+             layer shapes (PoseGenerator's I = 108 / 207 / 600 at H = 300, the
+             seq2seq encoder's T = 36, PoseDecoderGRU's I = 64, ContextEncoder's
+             GRU(256) in one direction) and K3 at its recurrences, against
+             their plain versions at K2_TOL / K3_TOL (backward BWD_REL_TOL),
+             bitwise repeat, ms, their kernels' own ms, the plain version's,
+             the bound and cuDNN's torch.nn.GRU at the same shape; records of
+             20 seeded 20 s clips (TED and Expressive); the trimodal GAN
+             (multimodal_context) on both GRU routes: a warmup and a GAN step
+             at bs 8 on the card against the same steps on the CPU from the
+             same state (losses, gradients; a planted fault must fail the
+             limits), and at bs 256 with launches as derived from the nets;
+             one bs-256 step of seq2seq, speech2gesture, joint_embedding and
+             gesture_autoencoder (TED's EmbeddingNet, Expressive's MotionAE),
+             and seq2seq's with torch's embedding backward (a yardstick);
+             each with ms a step (CUDA events), its kernels' ms and the busy
+             share (torch.profiler); `run_ted --model multimodal_context` and
+             `--model seq2seq`, 2 epochs against 1 + `--resume` to 2 under
+             `--transfer-guard disallow`, bit for bit, launches as derived;
+             `run_expressive --model multimodal_context`, 1 epoch
+ 26. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -175,6 +196,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -1601,13 +1623,70 @@ def phase_serve_attention(model, dev, seed):
     return paths
 
 
+def gru_layer_yardstick(dev, seed, T, Bt, I, Hh, D=2):
+    """One GRU layer (both directions, or one), T steps of Bt rows: cuDNN's
+    torch.nn.GRU against the port's `ops.gru.GRU` on both routes with its
+    weights (K2_TOL), and their ms, forward / forward + backward (CUDA-event
+    medians), cuDNN's backward alone besides. The yardstick is timed here
+    and used nowhere in the port."""
+    import torch
+    from hop_tpu_torch.ops.gru import GRU
+    bi = D == 2
+    torch.manual_seed(seed + I)
+    ref = torch.nn.GRU(I, Hh, num_layers=1, bidirectional=bi).to(dev)
+    ours = GRU(I, Hh, num_layers=1, bidirectional=bi).to(dev)
+    ours.load_state_dict(ref.state_dict(), strict=True)
+    x_tm = torch.randn(T, Bt, I, device=dev)
+    x_bm = x_tm.transpose(0, 1).contiguous()
+    gout = torch.randn(T, Bt, D * Hh, device=dev)
+    with torch.no_grad():
+        want = ref(x_tm)[0]
+    row = {}
+    for kernel in ("fused", "stack"):
+        ours.kernel = kernel
+        with torch.no_grad():
+            gap = (ours(x_bm)[0].transpose(0, 1) - want).abs().max().item()
+        check(gap <= K2_TOL, f"GRU layer on the {kernel} route vs cuDNN at T={T}, I={I}, "
+                             f"H={Hh}, D={D}: {gap} > {K2_TOL}")
+
+        def fwd():
+            with torch.no_grad():
+                return ours(x_bm)
+
+        def fwd_bwd():
+            xg = x_bm.clone().requires_grad_()
+            out = ours(xg)[0]
+            torch.autograd.grad(out, [xg, *ours.parameters()], gout.transpose(0, 1))
+        row[kernel] = (cuda_ms(fwd, reps=10), cuda_ms(fwd_bwd, reps=10))
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return ref(x_tm)
+
+    def cudnn_graph():
+        xg = x_tm.clone().requires_grad_()
+        return xg, ref(xg)[0]
+
+    def cudnn_bwd(made):
+        xg, out = made
+        torch.autograd.grad(out, [xg, *ref.parameters()], gout)
+    row["cudnn"] = (cuda_ms(cudnn_fwd, reps=10),
+                    cuda_ms(lambda: cudnn_bwd(cudnn_graph()), reps=10))
+    row["cudnn_bwd"] = cuda_ms(cudnn_bwd, reps=10, setup=cudnn_graph)
+    print(f"library: one {'Bi' if bi else ''}GRU layer (T={T}, B={Bt}, I={I}, H={Hh}), "
+          f"forward / forward + backward ms: cuDNN torch.nn.GRU {row['cudnn'][0]:.3f} / "
+          f"{row['cudnn'][1]:.3f} (backward alone {row['cudnn_bwd']:.3f}); fused route "
+          f"(K2) {row['fused'][0]:.3f} / {row['fused'][1]:.3f}; stack route (matmul + "
+          f"K3) {row['stack'][0]:.3f} / {row['stack'][1]:.3f}")
+    return row
+
+
 def phase_library(dev, seed):
     """Yardsticks: PyTorch calls that compute a kernel's function. They are
     timed here and used nowhere in the port."""
     import torch
     import torch.nn.functional as F
     from hop_tpu_torch.ops import reprogramming_attention as K1
-    from hop_tpu_torch.ops.gru import GRU
     lib = {}
     # K1 at rate 0: every query row of every sample attends to the same S
     # prototypes, so the batch folds into the query axis
@@ -1701,55 +1780,9 @@ def phase_library(dev, seed):
     # one bidirectional GRU layer: cuDNN's, and the port's on both routes
     for T, Bt, I, Hh in ((34, 256, 992, 350), (34, 256, 700, 350),
                          (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4]):
-        torch.manual_seed(seed + I)
-        ref = torch.nn.GRU(I, Hh, num_layers=1, bidirectional=True).to(dev)
-        ours = GRU(I, Hh, num_layers=1, bidirectional=True).to(dev)
-        ours.load_state_dict(ref.state_dict(), strict=True)
-        x_tm = torch.randn(T, Bt, I, device=dev)
-        x_bm = x_tm.transpose(0, 1).contiguous()
-        gout = torch.randn(T, Bt, 2 * Hh, device=dev)
-        with torch.no_grad():
-            want = ref(x_tm)[0]
-        row = {}
-        for kernel in ("fused", "stack"):
-            ours.kernel = kernel
-            with torch.no_grad():
-                gap = (ours(x_bm)[0].transpose(0, 1) - want).abs().max().item()
-            check(gap <= K2_TOL, f"GRU layer on the {kernel} route vs cuDNN at I={I}, "
-                                 f"H={Hh}: {gap} > {K2_TOL}")
-
-            def fwd():
-                with torch.no_grad():
-                    return ours(x_bm)
-
-            def fwd_bwd():
-                xg = x_bm.clone().requires_grad_()
-                out = ours(xg)[0]
-                torch.autograd.grad(out, [xg, *ours.parameters()],
-                                    gout.transpose(0, 1))
-            row[kernel] = (cuda_ms(fwd, reps=10), cuda_ms(fwd_bwd, reps=10))
-
-        def cudnn_fwd():
-            with torch.no_grad():
-                return ref(x_tm)
-
-        def cudnn_graph():
-            xg = x_tm.clone().requires_grad_()
-            return xg, ref(xg)[0]
-
-        def cudnn_bwd(made):
-            xg, out = made
-            torch.autograd.grad(out, [xg, *ref.parameters()], gout)
-        row["cudnn"] = (cuda_ms(cudnn_fwd, reps=10),
-                        cuda_ms(lambda: cudnn_bwd(cudnn_graph()), reps=10))
+        row = gru_layer_yardstick(dev, seed, T, Bt, I, Hh)
         lib[("gru_fwd", I, Hh)] = row["cudnn"][0]
-        lib[("gru_bwd", I, Hh)] = cuda_ms(cudnn_bwd, reps=10, setup=cudnn_graph)
-        print(f"library: one BiGRU layer (T={T}, B={Bt}, I={I}, H={Hh}), forward / "
-              f"forward + backward ms: cuDNN torch.nn.GRU {row['cudnn'][0]:.3f} / "
-              f"{row['cudnn'][1]:.3f} (backward alone "
-              f"{lib[('gru_bwd', I, Hh)]:.3f}); fused route (K2) "
-              f"{row['fused'][0]:.3f} / {row['fused'][1]:.3f}; stack route "
-              f"(matmul + K3) {row['stack'][0]:.3f} / {row['stack'][1]:.3f}")
+        lib[("gru_bwd", I, Hh)] = row["cudnn_bwd"]
     return lib
 
 
@@ -2036,14 +2069,18 @@ class _Tee:
         self.stream.flush()
 
 
-def _run_ted(argv):
-    """run_ted.main(argv) as `python -m` runs it: ((state, best FGD), its
-    output)."""
-    from hop_tpu_torch.cli import run_ted
+def _run_entry(entry, argv):
+    """entry.main(argv) as `python -m` runs it: (its result, its output)."""
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        result = run_ted.main(list(argv))
+        result = entry.main(list(argv))
     return result, "".join(tee.text)
+
+
+def _run_ted(argv):
+    """run_ted.main(argv): ((state, best FGD), its output)."""
+    from hop_tpu_torch.cli import run_ted
+    return _run_entry(run_ted, argv)
 
 
 def _epoch_seconds(out: str) -> list:
@@ -2908,6 +2945,477 @@ def phase_llama(dev, seed):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 25: the baseline zoo (ROADMAP M13a) -------------------------------
+# K2's and K3's shapes on the zoo's paths, (T, B, I, H, D) and (D, T, B, H)
+ZOO_K2 = ((34, 256, 108, 300, 2),   # PoseGenerator's first layer, TED
+          (34, 256, 207, 300, 2),   # the same, Expressive
+          (34, 256, 600, 300, 2),   # the upper layers of every BiGRU(300)
+          (36, 256, 300, 300, 2),   # the seq2seq encoder's first layer (36 words)
+          (34, 256, 64, 300, 2),    # PoseDecoderGRU's first layer
+          (34, 256, 64, 256, 1),    # ContextEncoder's GRU(256), one direction
+          (34, 256, 256, 256, 1))   # its second layer
+ZOO_K3 = ((2, 34, 256, 300), (2, 36, 256, 300), (1, 34, 256, 256))
+ZOO_OTHERS = ("seq2seq", "speech2gesture", "joint_embedding", "gesture_autoencoder")
+ZOO_VIDEOS = 20           # seeded 20 s clips: 520 windows, 2 steps an epoch at bs 256
+ZOO_CPU_B = 8             # the card-vs-CPU steps
+ZOO_RUN_EPOCHS = 2
+# Card vs CPU, the same weights, batch and draws: f32 on both sides (TF32 off,
+# K2's and K3's products 3xTF32), sums in other orders. Losses agree to
+# ZOO_LOSS_TOL relative; each gradient tensor to ZOO_GRAD_TOL of its largest
+# element (the CPU tests' rule), the warmup and the GAN step alike. A tensor
+# below ZOO_ZERO_REL of its net's largest gradient is round-off of an exactly
+# zero gradient (a convolution's bias in front of a BatchNorm; the
+# WavEncoder's first sums B * 7891 positions) and is left out. The limits
+# lie between the readings (losses at most 1.6e-5, gradients 2.2e-5, on
+# both routes) and a planted fault, the generator GRU's output scaled by
+# 1 + ZOO_FAULT (losses 1.5e-3, gradients 1.3e-3), which must fail both
+# (NVIDIA H100 80GB HBM3, 700 W).
+ZOO_LOSS_TOL = 1e-4
+ZOO_GRAD_TOL = 1e-4
+ZOO_FAULT = 1e-3
+ZOO_ZERO_REL = 1e-4
+
+
+def zoo_launches(model: str, net, kind: str, gru_kernel: str, disc=None) -> dict:
+    """Kernel launches of one train step ("warmup" or "gan") or one
+    validation forward ("eval") of a baseline family, from its nets.
+
+    multimodal_context: the step's generator forward for the batch's
+    speakers runs with a graph (its GRU layers forward with residuals, and
+    backward), the one for shuffled speakers without (lean); the GAN step
+    adds the D phase's generator forward (lean) and the discriminator's
+    three forwards (real, fake, the G term), each with a graph and a
+    backward. seq2seq: the encoder's layers with a graph. joint_embedding:
+    the ContextEncoder's layers run with a graph that no loss reads (no
+    backward), PoseDecoderGRU's with one; its validation decodes the poses'
+    latent alone. speech2gesture and gesture_autoencoder run no GRU. On the
+    fused route every forward is a K2 launch; on the stack route K3 (with
+    residuals) or K3 lean."""
+    res = lean = bwd = 0
+    if model == "multimodal_context":
+        L = net.gru.num_layers
+        if kind == "eval":
+            lean = L
+        else:
+            res, lean, bwd = L, L, L
+            if kind == "gan":
+                D = disc.gru.num_layers
+                res, lean, bwd = res + 3 * D, lean + L, bwd + 3 * D
+    elif model == "seq2seq":
+        L = net.encoder.gru.num_layers
+        lean, res, bwd = (L, 0, 0) if kind == "eval" else (0, L, L)
+    elif model == "joint_embedding":
+        L = net.decoder.gru.num_layers
+        if kind == "eval":
+            lean = L
+        else:
+            res, bwd = net.context_encoder.gru.num_layers + L, L
+    want = dict(ZERO_COUNTS)
+    if gru_kernel == "stack":
+        want.update(K3=res, K3_lean=lean, K3_bwd=bwd)
+    else:
+        want.update(K2=res + lean, K2_bwd=bwd)
+    return want
+
+
+def phase_zoo_kernels(dev, seed):
+    """K2 forward and backward at each layer shape of the zoo, and K3's
+    forwards and backward at its BiGRU(300) and GRU(256) recurrences, against
+    their plain versions; each call's ms, the backwards' kernels' own ms
+    (torch.profiler; the forwards' short windows are seldom kept whole, and
+    each retry costs a second), the plain version's ms, the bound and
+    cuDNN's torch.nn.GRU at the same shape."""
+    import torch
+    from hop_tpu_torch.ops import gru_fused as K2
+    from hop_tpu_torch.ops import gru_stack as K3
+
+    def own(fn, what):
+        names = kernel_ms_by_name(fn)
+        if not names:
+            print(f"{what}: torch.profiler recorded no window whole in six")
+        return (sum(names.values()) if names else None), names
+    res = {k: {} for k in ("K2", "K2_bwd", "K3", "K3_lean", "K3_bwd")}
+    for shape in ZOO_K2:
+        T, B, I, H, D = shape
+        args = _k2_inputs(dev, seed, *shape)
+        got = K2.gru_fused_layer_fwd(*args, with_residuals=True)
+        again = K2.gru_fused_layer_fwd(*args, with_residuals=True)
+        lean = K2.gru_fused_layer(*args)
+        want = K2.plain_gru_fused_layer(*args, with_residuals=True)
+        dout = torch.randn(D, T, B, H, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed + I))
+        h_seq, r, z, n, hnb = got
+        bwd_args = (dout, args[0], r, z, n, hnb, K2.hprev_of(h_seq, args[5]),
+                    args[1], args[3])
+        grads = K2.gru_fused_layer_bwd(*bwd_args)
+        grads_again = K2.gru_fused_layer_bwd(*bwd_args)
+        want_grads = K2.plain_gru_fused_layer_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again))
+              and torch.equal(lean, got[0])
+              and all(torch.equal(a, b) for a, b in zip(grads, grads_again)),
+              f"K2 at the zoo's {shape}: two calls differ")
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        check(err <= K2_TOL, f"K2 at the zoo's {shape}: {err} > {K2_TOL}")
+        rels = [rel_err(a, b) for a, b in zip(grads, want_grads)]
+        rel = max(e[1] for e in rels)
+        check(rel <= BWD_REL_TOL, f"K2 bwd at the zoo's {shape}: {rel} > {BWD_REL_TOL} "
+                                  f"relative")
+        bwd_own, _ = own(lambda: K2.gru_fused_layer_bwd(*bwd_args), f"K2 bwd at {shape}")
+        lib = gru_layer_yardstick(dev, seed, T, B, I, H, D)
+        res["K2"][shape] = {
+            "max_abs_err": err, "ms": cuda_ms(lambda: K2.gru_fused_layer(*args)),
+            "plain_ms": cuda_ms(lambda: K2.plain_gru_fused_layer(*args), reps=5),
+            "library_ms": lib["cudnn"][0],
+            **bound(args, lean, 2.0 * T * B * D * 3 * H * (I + H), F32_FLOPS)}
+        res["K2_bwd"][shape] = {
+            "max_abs_err": max(e[0] for e in rels), "rel_err": rel,
+            "ms": cuda_ms(lambda: K2.gru_fused_layer_bwd(*bwd_args), reps=10),
+            "kernel_ms": bwd_own,
+            "plain_ms": cuda_ms(lambda: K2.plain_gru_fused_layer_bwd(*bwd_args), reps=5),
+            "library_ms": lib["cudnn_bwd"],
+            **bound(bwd_args, grads, 2.0 * T * B * D * 3 * H * (2 * H + 2 * I), F32_FLOPS)}
+        f, b = res["K2"][shape], res["K2_bwd"][shape]
+        print(f"zoo K2 at (T, B, I, H, D) {shape} ({K2.recurrence_variant(H)}): forward "
+              f"max_abs_err {err:.3e} (tol {K2_TOL:g}), lean {f['ms']:.3f} ms vs plain "
+              f"{f['plain_ms']:.3f}, bound {f['bound_ms']:.3f} "
+              f"by {f['bound_by']}, cuDNN {f['library_ms']:.3f}; backward rel err "
+              f"{rel:.2e} (tol {BWD_REL_TOL:g}), {b['ms']:.3f} ms (its kernels "
+              f"{fmt_ms(bwd_own)}) vs plain {b['plain_ms']:.3f}, bound {b['bound_ms']:.3f} "
+              f"by {b['bound_by']}, cuDNN's backward alone {b['library_ms']:.3f}; bitwise "
+              f"repeat")
+    for shape in ZOO_K3:
+        D, T, B, H = shape
+        args, g = _k3_inputs(dev, seed, *shape, torch.float32)
+        full = K3.gru_stack_fwd(*args, with_residuals=True)
+        again = K3.gru_stack_fwd(*args, with_residuals=True)
+        lean = K3.gru_stack_fwd(*args)
+        want = K3.plain_gru_stack(*args, with_residuals=True)
+        h_seq, r, z, n, hnb = full
+        bwd_args = (g, r, z, n, hnb, K2.hprev_of(h_seq, args[5]), args[3], torch.float32)
+        grads = K3.gru_stack_bwd(*bwd_args)
+        grads_again = K3.gru_stack_bwd(*bwd_args)
+        want_grads = K3.plain_gru_stack_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(full, again))
+              and torch.equal(lean, full[0])
+              and all(torch.equal(a, b) for a, b in zip(grads, grads_again)),
+              f"K3 at the zoo's {shape}: two calls differ")
+        err = max((a - b).abs().max().item() for a, b in zip(full, want))
+        lean_err = (lean - want[0]).abs().max().item()
+        check(max(err, lean_err) <= K3_TOL, f"K3 at the zoo's {shape}: "
+                                            f"{max(err, lean_err)} > {K3_TOL}")
+        rels = [rel_err(a, b) for a, b in zip(grads, want_grads)]
+        rel = max(e[1] for e in rels)
+        check(rel <= BWD_REL_TOL, f"K3 bwd at the zoo's {shape}: {rel} > {BWD_REL_TOL}")
+        flops = 2.0 * T * B * D * 3 * H * H
+        for key, fn, plain, e, result, ops in (
+                ("K3", lambda: K3.gru_stack_fwd(*args, with_residuals=True),
+                 lambda: K3.plain_gru_stack(*args, with_residuals=True), err, full, flops),
+                ("K3_lean", lambda: K3.gru_stack_fwd(*args),
+                 lambda: K3.plain_gru_stack(*args), lean_err, lean, flops),
+                ("K3_bwd", lambda: K3.gru_stack_bwd(*bwd_args),
+                 lambda: K3.plain_gru_stack_bwd(*bwd_args), max(x[0] for x in rels),
+                 grads, 2 * flops)):
+            res[key][shape] = {"max_abs_err": e, "ms": cuda_ms(fn, reps=10),
+                               "plain_ms": cuda_ms(plain, reps=5), "library_ms": None,
+                               **bound(bwd_args[:7] if key == "K3_bwd" else args, result,
+                                       ops, F32_FLOPS)}
+        res["K3_bwd"][shape]["kernel_ms"] = own(
+            lambda: K3.gru_stack_bwd(*bwd_args), f"K3_bwd at {shape}")[0]
+        print(f"zoo K3 at (D, T, B, H) {shape}: forward max_abs_err {err:.3e}, lean "
+              f"{lean_err:.3e} (tol {K3_TOL:g}); backward rel err {rel:.2e}; bitwise "
+              f"repeat; ms (its kernels) / plain / bound: " + "; ".join(
+                  f"{k} {res[k][shape]['ms']:.3f} "
+                  + (f"({fmt_ms(res[k][shape]['kernel_ms'])}) " if k == "K3_bwd" else "")
+                  + f"/ {res[k][shape]['plain_ms']:.3f} / {res[k][shape]['bound_ms']:.3f} by "
+                  f"{res[k][shape]['bound_by']}" for k in ("K3", "K3_lean", "K3_bwd")))
+    return res
+
+
+def _zoo_records(cfg, root: str, seed: int) -> tuple:
+    """ZOO_VIDEOS seeded 20 s clips as records, the first video also the
+    validation split (as `load_datasets` writes them for `--data
+    synthetic`), once for every run and step of the phase: the flags that
+    point a run at them."""
+    from hop_tpu_torch.data import synthetic
+    from hop_tpu_torch.data.preprocessor import DataPreprocessor
+    videos = synthetic.make_source_clips(cfg, n_videos=ZOO_VIDEOS, clip_seconds=20.0,
+                                         seed=seed)
+    os.makedirs(root)
+    for split, vids in (("train", videos), ("val", videos[:1])):
+        DataPreprocessor(cfg.data, os.path.join(root, split)).run(vids)
+    return ("--data", os.path.join(root, "train"), "--val-data", os.path.join(root, "val"))
+
+
+class _Zoo:
+    """A config's datasets, once, and the nets and steps of a family on a GRU
+    route built from them as `train_main` builds them."""
+
+    def __init__(self, cfg, data: tuple, seed: int, dev):
+        import numpy as np
+        from hop_tpu_torch.cli import common as C
+        self.cfg, self.data, self.seed, self.dev = cfg, data, seed, dev
+        args = C.base_parser("phase 25").parse_args(list(data))
+        with contextlib.redirect_stdout(io.StringIO()):
+            self.train_ds, _, self.lang = C.load_datasets(C.apply_overrides(cfg, args), args)
+        self.n_speakers = max(self.train_ds.speaker_model.n_words, 1)
+        self.host = self.train_ds.make_batch(np.arange(cfg.train.batch_size))
+
+    def build(self, model: str, gru_kernel: str = "fused", device=None):
+        """(config, state, warmup step, GAN step or None, bs-256 batch)."""
+        from hop_tpu_torch.cli import common as C
+        from hop_tpu_torch.cli.train_main import build_model_and_steps
+        device = device or self.dev
+        args = C.base_parser("phase 25").parse_args(
+            [*self.data, "--model", model, "--seed", str(self.seed), "--gru-kernel",
+             gru_kernel])
+        cfg = C.apply_overrides(self.cfg, args)
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, warmup, gan, _ = build_model_and_steps(cfg, args, self.lang,
+                                                          self.n_speakers, device)
+        batch = C.device_batch(self.host, cfg, keys=C.MODEL_BATCH_KEYS[model], device=device)
+        return cfg, state, warmup, gan, batch
+
+
+def _zoo_grads(state) -> dict:
+    nets = {"G": state.model}
+    if hasattr(state, "disc"):
+        nets["D"] = state.disc
+    return {f"{n}.{k}": p.grad.detach().cpu() for n, net in nets.items()
+            for k, p in net.named_parameters() if p.grad is not None}
+
+
+def _zoo_errs(card, cpu) -> tuple:
+    """Card vs CPU, each (metrics, gradients): the losses' largest relative
+    error and each gradient tensor's error over its largest element, the
+    tensors below ZOO_ZERO_REL of their net's largest gradient left out."""
+    (m_card, g_card), (m_cpu, g_cpu) = card, cpu
+    check(set(m_card) == set(m_cpu) and set(g_card) == set(g_cpu),
+          "zoo step: card and CPU differ in what they return")
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu)
+    errs = {}
+    for net in ("G.", "D."):
+        mine = {k: g for k, g in g_cpu.items() if k.startswith(net)}
+        if not mine:
+            continue
+        zero = ZOO_ZERO_REL * max(g.abs().max().item() for g in mine.values())
+        errs.update({k: rel_err(g_card[k], g)[1] for k, g in mine.items()
+                     if g.abs().max().item() >= zero})
+    return loss_err, errs
+
+
+def _zoo_step_vs_cpu(zoo, kind: str, gru_kernel: str):
+    """One trimodal warmup or GAN step at bs ZOO_CPU_B on the card and on the
+    CPU from the same fresh state, batch and draws: losses and gradients.
+    Dropout is off on both sides: its masks come from each device's own
+    torch.Generator, whose CUDA and CPU streams differ. On the fused route
+    the card's step runs again with the generator GRU's output scaled by
+    1 + ZOO_FAULT, a planted fault that both limits must catch."""
+    import torch
+    from hop_tpu_torch.train.llm import StepNoise
+
+    def run(device, fault=0.0):
+        _, state, warmup, gan, batch = zoo.build("multimodal_context", gru_kernel, device)
+        for m in (*state.model.modules(), *state.disc.modules()):
+            for rate in ("dropout", "emb_dropout"):
+                if isinstance(getattr(m, rate, None), float):
+                    setattr(m, rate, 0.0)
+        if fault:
+            state.model.gru.register_forward_hook(
+                lambda mod, args, out: (out[0] * (1.0 + fault), out[1]))
+        batch = {k: v[:ZOO_CPU_B] for k, v in batch.items()}
+        noise = StepNoise.draw_speakers(torch.Generator().manual_seed(zoo.seed + 2),
+                                        ZOO_CPU_B, 16)
+        _, metrics = (warmup if kind == "warmup" else gan)(state, batch, noise)
+        return {k: v.item() for k, v in metrics.items()}, _zoo_grads(state)
+    cpu = run(torch.device("cpu"))
+    loss_err, errs = _zoo_errs(run(zoo.dev), cpu)
+    worst = max(errs, key=errs.get)
+    check(loss_err <= ZOO_LOSS_TOL, f"zoo {kind} step ({gru_kernel}) card vs CPU losses: "
+                                    f"{loss_err} > {ZOO_LOSS_TOL} relative")
+    check(errs[worst] <= ZOO_GRAD_TOL, f"zoo {kind} step ({gru_kernel}) card vs CPU "
+                                       f"gradients: {worst} {errs[worst]} > {ZOO_GRAD_TOL}")
+    planted = ""
+    if gru_kernel == "fused":
+        f_loss, f_errs = _zoo_errs(run(zoo.dev, ZOO_FAULT), cpu)
+        f_worst = max(f_errs, key=f_errs.get)
+        check(f_loss > ZOO_LOSS_TOL and f_errs[f_worst] > ZOO_GRAD_TOL,
+              f"zoo {kind} step: the planted fault (the GRU's output times 1 + "
+              f"{ZOO_FAULT:g}) passes the limits: losses {f_loss}, gradients {f_worst} "
+              f"{f_errs[f_worst]}")
+        planted = (f"; the planted fault (the GRU's output times 1 + {ZOO_FAULT:g}): losses "
+                   f"{f_loss:.2e}, gradients {f_worst} {f_errs[f_worst]:.2e}, caught")
+    print(f"zoo multimodal_context {kind} step, {gru_kernel} route, bs {ZOO_CPU_B}, card vs "
+          f"CPU from one state: losses rel err {loss_err:.2e} (tol {ZOO_LOSS_TOL:g}); "
+          f"gradients of {len(errs)}/{len(cpu[1])} tensors (the rest round-off of exact "
+          f"zeros), worst {worst} {errs[worst]:.2e} (tol {ZOO_GRAD_TOL:g}){planted}")
+
+
+def _zoo_step(zoo, model: str, gru_kernel: str, kind: str, label: str):
+    """One bs-256 step on the card: launches as `zoo_launches` derives them,
+    finite losses, every parameter with a gradient moved; then ms a step
+    (CUDA events), its kernels' ms and the busy share (torch.profiler).
+    Returns the launches."""
+    import torch
+    cfg, state, warmup, gan, batch = zoo.build(model, gru_kernel)
+    step = warmup if kind == "warmup" else gan
+    disc = getattr(state, "disc", None)
+    nets = [state.model] + ([disc] if disc is not None else [])
+    before = [{k: p.detach().clone() for k, p in net.named_parameters()} for net in nets]
+    rng = torch.Generator().manual_seed(zoo.seed)
+    _reset_counts()
+    state, metrics = step(state, batch, rng)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = zoo_launches(model, state.model, kind, gru_kernel, disc)
+    check(launches == want, f"zoo {label}: launches {launches}, want {want}")
+    for k, v in metrics.items():
+        check(bool(torch.isfinite(v)), f"zoo {label}: {k} = {v.item()}")
+    moved = 0
+    for net, was in zip(nets, before):
+        for k, p in net.named_parameters():
+            # Adam leaves a weight whose gradient is exactly zero where it was
+            if p.grad is not None and bool(p.grad.any()):
+                check(not torch.equal(p.detach(), was[k]), f"zoo {label}: {k} did not move")
+                moved += 1
+
+    def one():
+        step(state, batch, rng)
+    ms = cuda_ms(one, reps=5, warmup=1)
+    busy, device_ms, top = _busy_share(one, 2, ms)
+    print(f"zoo {label} [{cfg.data.dataset}, bs {cfg.train.batch_size}]: losses "
+          + ", ".join(f"{k} {v.item():.4g}" for k, v in metrics.items())
+          + f"; {moved} parameters with a non-zero gradient, each moved; launches "
+          f"{_nonzero(launches)} as derived; {ms:.2f} ms a step (CUDA-event median of 5), "
+          f"kernels {device_ms:.2f} ms, busy share {busy:.3f} (torch.profiler, 2 steps); "
+          f"top: " + ", ".join(f"{k} {t:.2f}" for k, t in top[:4]))
+    return launches
+
+
+def _zoo_run_launches(model: str, state, out: str, epochs: int, gru_kernel="fused") -> dict:
+    """A run's launches from its steps (warmup in epoch 0, GAN after where the
+    family has one) and its validation batches."""
+    n_train = int(out.split("train samples: ")[1].split(",")[0])
+    n_val = int(out.split("val: ")[1].split(",")[0])
+    bs = int(out.split("batch: ")[1].split(",")[0])
+    steps, val_batches = n_train // bs, -(-n_val // bs)
+    disc = getattr(state, "disc", None)
+    total = dict(ZERO_COUNTS)
+    for epoch in range(epochs):
+        kind = "gan" if model == "multimodal_context" and epoch > 0 else "warmup"
+        for counts, n in ((zoo_launches(model, state.model, kind, gru_kernel, disc), steps),
+                          (zoo_launches(model, state.model, "eval", gru_kernel), val_batches)):
+            for k, v in counts.items():
+                total[k] += v * n
+    return total
+
+
+def phase_zoo(dev, seed):
+    """Phase 25. Returns the launches of each driven path."""
+    import torch
+    from hop_tpu_torch.cli import run_expressive, run_ted
+    from hop_tpu_torch.config import expressive_config, ted_config
+    from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
+    smi = _smi()
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="hop_zoo_")
+    t0 = time.perf_counter()
+    try:
+        ted = _Zoo(ted_config(), _zoo_records(ted_config(), os.path.join(tmp, "ted"), seed),
+                   seed, dev)
+        expr = _Zoo(expressive_config(),
+                    _zoo_records(expressive_config(), os.path.join(tmp, "expr"), seed),
+                    seed, dev)
+        print(f"zoo: records of {ZOO_VIDEOS} seeded 20 s clips, TED and Expressive, in "
+              f"{time.perf_counter() - t0:.1f} s; {len(ted.train_ds)} training windows, "
+              f"vocabulary {ted.lang.n_words} words, {ted.n_speakers} speakers")
+        # the trimodal GAN on both GRU routes: card vs CPU, then at bs 256
+        for gru_kernel in ("fused", "stack"):
+            for kind in ("warmup", "gan"):
+                _zoo_step_vs_cpu(ted, kind, gru_kernel)
+                paths[f"zoo_mm_{kind}_{gru_kernel}"] = _zoo_step(
+                    ted, "multimodal_context", gru_kernel, kind,
+                    f"multimodal_context {kind} step, {gru_kernel} route")
+        # one step of each other family on the fused route
+        for model in ZOO_OTHERS:
+            paths[f"zoo_{model}_step"] = _zoo_step(ted, model, "fused", "warmup",
+                                                   f"{model} step")
+        paths["zoo_motion_ae_step"] = _zoo_step(expr, "gesture_autoencoder", "fused",
+                                                "warmup", "gesture_autoencoder (MotionAE) step")
+        # yardstick: seq2seq's step with torch's embedding backward (atomics,
+        # no repeat) in place of WordEmbedding's ordered one
+        from unittest import mock
+        from hop_tpu_torch.models.common import WordEmbedding
+        with mock.patch.object(WordEmbedding, "forward", torch.nn.Embedding.forward):
+            _zoo_step(ted, "seq2seq", "fused", "warmup",
+                      "seq2seq step, torch's embedding backward (yardstick)")
+
+        # run_ted: 2 epochs against 1 + --resume to 2, bit for bit
+        def argv(zoo, model, name, epochs, prefetch, *extra):
+            d = os.path.join(tmp, name)
+            return (*zoo.data, "--model", model, "--device", str(dev), "--seed", str(seed),
+                    "--warmup-epochs", "0",
+                    "--log-every", "1", "--epochs", str(epochs), "--prefetch", str(prefetch),
+                    "--checkpoint-dir", d, "--metrics", os.path.join(d, "metrics.jsonl"),
+                    *extra)
+        for model in ("multimodal_context", "seq2seq"):
+            _reset_counts()
+            t1 = time.perf_counter()
+            (state_a, best_a), out_a = _run_entry(run_ted, argv(ted, model, model + "_A",
+                                                              ZOO_RUN_EPOCHS, 0))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            launches = paths[f"zoo_run_{model}"] = _launch_counts()
+            # B under the transfer guard: no step waits for the card
+            guard = ("--transfer-guard", "disallow")
+            _run_entry(run_ted, argv(ted, model, model + "_B", 1, 2, *guard))
+            (state_b, best_b), out_b = _run_entry(run_ted, argv(
+                ted, model, model + "_B", ZOO_RUN_EPOCHS, 2, "--resume", *guard))
+            check("resumed from checkpoint epoch 0" in out_b, f"zoo run {model}: no resume")
+            a_dir, b_dir = (os.path.join(tmp, model + x) for x in ("_A", "_B"))
+            ck_a, ck_b = CheckpointManager(a_dir), CheckpointManager(b_dir)
+            check(ck_a.latest_step() == ck_b.latest_step() == ZOO_RUN_EPOCHS - 1,
+                  f"zoo run {model}: latest steps {ck_a.latest_step()}, {ck_b.latest_step()}")
+            diff = differing_entries(ck_a.restore(), ck_b.restore())
+            check(not diff, f"zoo run {model}: 2 epochs and 1 + resume differ at {diff[:6]}")
+            for f in ("metrics.jsonl", "best_metrics.json"):
+                a, b = (open(os.path.join(d, f)).read() for d in (a_dir, b_dir))
+                check(a == b, f"zoo run {model}: {f} differs:\n{a}\n{b}")
+            check(best_a == best_b, f"zoo run {model}: best FGD {best_a} vs {best_b}")
+            want = _zoo_run_launches(model, state_a, out_a, ZOO_RUN_EPOCHS)
+            check(launches == want, f"zoo run {model}: launches {launches}, want {want}")
+            print(f"zoo run [python -m hop_tpu_torch.cli.run_ted --model {model}, TED full "
+                  f"width, bs {ted.cfg.train.batch_size}]: {ZOO_RUN_EPOCHS} epochs and 1 + "
+                  f"--resume to {ZOO_RUN_EPOCHS} (prefetch 2, --transfer-guard disallow) end "
+                  f"bit-identical (the last "
+                  f"checkpoint, metrics.jsonl, best_metrics.json; best FGD {best_a:.6g}); "
+                  f"launches {_nonzero(launches)} as derived; {run_s:.1f} s (host clock, "
+                  f"build and data included); s of train steps an epoch "
+                  + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out_a))
+                  + "; s a validation pass "
+                  + ", ".join(f"{t:.3f}" for t in _validation_seconds(out_a)) + f"; on {smi}")
+            del state_a, state_b
+        _reset_counts()
+        (state, best), out = _run_entry(run_expressive, argv(
+            expr, "multimodal_context", "expressive", 1, 0))
+        torch.cuda.synchronize()
+        launches = paths["zoo_run_expressive"] = _launch_counts()
+        want = _zoo_run_launches("multimodal_context", state, out, 1)
+        check(launches == want, f"zoo run_expressive: launches {launches}, want {want}")
+        check("[VAL] loss:" in out and math.isfinite(best),
+              f"zoo run_expressive: best FGD {best}")
+        print(f"zoo run [python -m hop_tpu_torch.cli.run_expressive --model "
+              f"multimodal_context, pose_dim {expr.cfg.data.pose_dim}, bs "
+              f"{expr.cfg.train.batch_size}]: 1 epoch, FGD {best:.6g}, launches "
+              f"{_nonzero(launches)} as derived; s of train steps "
+              + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"zoo: phase 25 in {time.perf_counter() - t0:.1f} s on {smi}")
+    return paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2965,6 +3473,11 @@ def main():
     paths["train_run"] = phase_run(dev, SEED)
     paths.update(phase_import(dev, SEED))
     paths.update(phase_llama(dev, SEED))
+    t_zoo = time.perf_counter()
+    print(f"chip_smoke: phases 1-24 in {t_zoo - t_start:.1f} s")
+    zoo = phase_zoo_kernels(dev, SEED)
+    print(f"zoo: the kernels at the zoo's shapes in {time.perf_counter() - t_zoo:.1f} s")
+    paths.update(phase_zoo(dev, SEED))
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention
@@ -2981,6 +3494,13 @@ def main():
                 "library_ms": library_ms, **own}
     k3_head = k3["head"]
 
+    def zoo_err(key):
+        return max(r["max_abs_err"] for r in zoo[key].values())
+
+    def zoo_rows(key):
+        """The zoo's shapes of a kernel (phase 25), under keys of their own."""
+        return {"zoo": {",".join(map(str, shape)): r for shape, r in zoo[key].items()}}
+
     def _at_i4320(r, library_ms):
         """K2 at the LLaMA head's first layer (I = 4320): its error, time,
         bound and cuDNN's time, under keys of their own."""
@@ -2995,26 +3515,30 @@ def main():
               k1_bwd["max_abs_err"], k1_bwd, lib["K1_bwd"]),
         entry("gru_fused_fwd", K2_SOURCE, K2_REPLACES, "K2",
               max([r["max_abs_err"] for r in k2.values()]
-                  + [r["fwd_err"] for r in k2_bwd.values()]),
+                  + [r["fwd_err"] for r in k2_bwd.values()] + [zoo_err("K2")]),
               k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)],
               disc_rec_kernel_ms=k2[K2_MAIN[2]]["rec_ms"],
-              **_at_i4320(k2[K2_LLAMA], lib[("gru_fwd", 4320, 350)])),
+              **_at_i4320(k2[K2_LLAMA], lib[("gru_fwd", 4320, 350)]), **zoo_rows("K2")),
         entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
-              max(r["max_abs_err"] for r in k2_bwd.values()), k2_bwd[(992, 350)],
-              lib[("gru_bwd", 992, 350)],
-              **_at_i4320(k2_bwd[(4320, 350)], lib[("gru_bwd", 4320, 350)])),
+              max([r["max_abs_err"] for r in k2_bwd.values()] + [zoo_err("K2_bwd")]),
+              k2_bwd[(992, 350)], lib[("gru_bwd", 992, 350)],
+              **_at_i4320(k2_bwd[(4320, 350)], lib[("gru_bwd", 4320, 350)]),
+              **zoo_rows("K2_bwd")),
         # K3 is the recurrence without its projection: no one call computes it
-        entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3", k3["max_abs_err"],
+        entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3",
+              max(k3["max_abs_err"], zoo_err("K3")),
               {**k3_head, **k3_head["bound"]}, None,
-              disc_kernel_ms=k3["disc_kernel_ms"], disc_bound_ms=k3["disc_bound_ms"]),
+              disc_kernel_ms=k3["disc_kernel_ms"], disc_bound_ms=k3["disc_bound_ms"],
+              **zoo_rows("K3")),
         entry("gru_stack_fwd_lean", K3_SOURCE, K3_LEAN_REPLACES, "K3_lean",
-              k3["lean_max_abs_err"],
+              max(k3["lean_max_abs_err"], zoo_err("K3_lean")),
               {"ms": k3_head["lean_ms"], "plain_ms": k3_head["lean_plain_ms"],
                **k3_head["lean_bound"]}, None,
               disc_kernel_ms=k3["disc_lean_kernel_ms"],
-              disc_bound_ms=k3["disc_lean_bound_ms"]),
+              disc_bound_ms=k3["disc_lean_bound_ms"], **zoo_rows("K3_lean")),
         entry("gru_stack_bwd", K3_SOURCE, K3_BWD_REPLACES, "K3_bwd",
-              k3_bwd["max_abs_err"], k3_bwd["head"], None),
+              max(k3_bwd["max_abs_err"], zoo_err("K3_bwd")), k3_bwd["head"], None,
+              **zoo_rows("K3_bwd")),
         entry("gru_seq_fwd", K6_SOURCE, K6_REPLACES, "K6", k6["max_abs_err"], k6,
               None, kernel_ms=k6["kernel_ms"], b1_kernel_ms=k6["b1_kernel_ms"],
               h64_kernel_ms=k6["h64_kernel_ms"]),

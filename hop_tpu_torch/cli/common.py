@@ -65,7 +65,7 @@ MODEL_CHOICES = ("AD_LLM", "multimodal_context", "seq2seq", "speech2gesture",
 #: flags of hop_tpu's base_parser whose feature the port has not yet:
 #: (dest, test of the parsed value, the ROADMAP.md item that brings it)
 UNPORTED = (
-    ("model", lambda v: v != "AD_LLM", "M13 (baseline zoo): only AD_LLM is ported"),
+    ("model", lambda v: v == "hierarchy", "M13b (hierarchy)"),
     ("data_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("model_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("dcn_slices", lambda v: v > 1, "M15 (parallel)"),
@@ -158,8 +158,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="thin layers (tiny_test_config) for a quick CPU run")
     p.add_argument("--gru-kernel", default="fused", choices=("fused", "stack"),
-                   help="GRU route of the head and the discriminator: the "
-                        "fused kernel (K2), or a projection product + K3")
+                   help="GRU route of every GRU of the model (HOP's head, the "
+                        "discriminator, the baselines'): the fused kernel (K2), "
+                        "or a projection product + K3")
     p.add_argument("--bert-attention", default="plain",
                    choices=("plain", "fused", "block"),
                    help="self-attention route of the BERT backbone: matmul + "
@@ -238,10 +239,14 @@ def restore_hop_model(cfg: Config, checkpoint_dir: str, allow_random_init: bool 
     a random backbone would silently change every generated gesture. A path
     that no longer exists raises SystemExit. With `allow_random_init` and
     no checkpoint, the model is a random init from `seed` with 10 speakers,
-    said so; without, it raises SystemExit.
+    said so; without, it raises SystemExit, as it does for a checkpoint of
+    another model family.
     """
     ckpt = CheckpointManager(checkpoint_dir)
     meta = ckpt.run_metadata()
+    if meta.get("model", "AD_LLM") != "AD_LLM":
+        raise SystemExit(f"{checkpoint_dir} holds a {meta['model']} checkpoint; the "
+                         "long-form generator restores AD_LLM (HOP) checkpoints")
     if meta.get("llm_model") == "LLAMA":
         llm = llama_config(int(meta["llm_layers"]),
                            tiny=meta.get("llm_dim") == tiny_llama_llm_config().dim)
@@ -275,6 +280,12 @@ def restore_hop_model(cfg: Config, checkpoint_dir: str, allow_random_init: bool 
 MODEL_BATCH_KEYS = {
     "AD_LLM": ("in_audio", "target_vec", "vid_indices", "text_padded",
                "text_tokens"),
+    "multimodal_context": ("in_audio", "target_vec", "vid_indices",
+                           "text_padded"),
+    "seq2seq": ("word_seq", "text_lengths", "target_vec"),
+    "speech2gesture": ("spectrogram", "target_vec"),
+    "joint_embedding": ("text_padded", "in_audio", "target_vec"),
+    "gesture_autoencoder": ("target_vec",),
 }
 
 

@@ -1,5 +1,6 @@
 """Typed configuration for the port: the presets of the serving forward,
-the train steps, the training run and the validation pass.
+the train steps, the training run, the validation pass and the baseline
+zoo.
 
 A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
 HOPConfig, BaselineConfig, LossConfig, TrainConfig and presets
@@ -137,8 +138,15 @@ class HOPConfig:
 
 @dataclass(frozen=True)
 class BaselineConfig:
-    """The one baseline setting the validation pass reads: the expressive
-    feature net's latent width (hop_tpu/config.py:145)."""
+    """Hyperparameters of the baseline zoo (hop_tpu/config.py:132-145): the
+    upstream Trimodal defaults its nets assume, and the expressive feature
+    net's latent width. hop_tpu's `freeze_wordembed` and `gan_noise_size`
+    are left out: none of its code reads them. The hierarchy's `pose_level`
+    comes with it (ROADMAP M13b)."""
+    hidden_size: int = 300
+    n_layers: int = 4
+    dropout_prob: float = 0.3
+    input_context: str = "both"          # both | audio | text | none
     motion_ae_latent_dim: int = 128
 
 
@@ -165,6 +173,7 @@ class TrainConfig:
     dis_lr_scale: float = 0.1            # D lr = G lr * 0.1 (run_ted.py:344-346)
     betas: tuple = (0.5, 0.999)
     seed: int = 2021
+    grad_clip_seq2seq: float = 5.0       # global-norm clip (train_seq2seq.py:48)
 
 
 @dataclass(frozen=True)
@@ -204,5 +213,6 @@ def tiny_test_config(dataset: str = "TED") -> Config:
             num_prototype_tokens=32, hidden_size=64, gru_layers=2,
             gwnet_residual=16, gwnet_dilation=16, gwnet_skip=32,
             gwnet_end=32),
+        baseline=dataclasses.replace(base.baseline, hidden_size=32, n_layers=2),
         train=dataclasses.replace(base.train, batch_size=4),
     )

@@ -11,7 +11,14 @@ the inverse of `hop_tpu.eval.torch_import_generator.
 convert_conv_discriminator`. `embedding_net_state_dict_from_jax` and
 `motion_ae_state_dict_from_jax` are the inverses of
 `hop_tpu.eval.torch_import.convert_embedding_net_pose` and
-`convert_motion_ae` (the FGD feature nets). No jax here: the caller hands
+`convert_motion_ae` (the FGD feature nets); the former also converts the
+joint-embedding mode (ContextEncoder, PoseDecoderGRU), for which hop_tpu has
+no importer. The baseline zoo's: `pose_generator_state_dict_from_jax`,
+`seq2seq_state_dict_from_jax`, `s2g_generator_state_dict_from_jax` and
+`s2g_discriminator_state_dict_from_jax` are the inverses of
+`hop_tpu.eval.torch_import_generator`'s `convert_pose_generator`,
+`convert_seq2seq`, `convert_s2g_generator` and
+`convert_s2g_discriminator`. No jax here: the caller hands
 over the variable tree `{"params": ..., "batch_stats": ...}` with numpy
 leaves (unboxed); `load_npz_variables` reads that tree from the flat .npz
 that `hop_tpu.utils.checkpoint.save_arrays` writes.
@@ -20,6 +27,8 @@ Layout rules: Dense (in, out) -> Linear weight (out, in); Dense as 1x1
 conv -> Conv2d (out, in, 1, 1); gwnet temporal conv (k, 1, in, out) ->
 Conv2d (out, in, 1, k); Conv (k, in, out) -> Conv1d (out, in, k);
 ConvTranspose (k, in, out) -> ConvTranspose1d (in, out, k), k flipped;
+Conv (kh, kw, in, out) -> Conv2d (out, in, kh, kw); weight norm v (k, in,
+out) -> weight_v (out, in, k), g (out,) -> weight_g (out, 1, 1);
 LayerNorm/BatchNorm scale -> weight; the GRU and the mapping layer
 already keep torch's layout. The GRU's parameters have the same names and
 shapes on both of its routes (`ops.gru.GRU(kernel="fused" | "stack")`), so
@@ -230,16 +239,162 @@ def _conv_decoder(sd, p, s):
     _conv1d(sd, "decoder.net.7", p["Conv_1"])
 
 
-def embedding_net_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
-    """EmbeddingNet(mode="pose") variables (numpy leaves) -> the port's
-    EmbeddingNet state_dict (the reference checkpoint's names)."""
+def _bn_of(sd, name, p, s, key):
+    """A `models.common.BatchNorm` wrapper `key` ({"BatchNorm_0": ...})."""
+    _bn(sd, name, p[key]["BatchNorm_0"], s[key]["BatchNorm_0"])
+
+
+def _wav_encoder(sd, prefix, p, s):
+    """WavEncoder: Conv_0..3 at feat_extractor.{0,3,6,9}, BatchNorm_0..2 at
+    feat_extractor.{1,4,7}."""
+    for j, ci in enumerate((0, 3, 6, 9)):
+        _conv1d(sd, f"{prefix}feat_extractor.{ci}", p[f"Conv_{j}"])
+    for j, bi in enumerate((1, 4, 7)):
+        _bn_of(sd, f"{prefix}feat_extractor.{bi}", p, s, f"BatchNorm_{j}")
+
+
+def _wn_conv(sd, name, p):
+    sd[name + ".weight_v"] = _t(np.asarray(p["v"]).transpose(2, 1, 0))
+    sd[name + ".weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
+    sd[name + ".bias"] = _t(p["b"])
+
+
+def _text_encoder_tcn(sd, prefix, p):
+    """TextEncoderTCN: embedding, tcn.network.{i}.conv1/conv2/downsample,
+    decoder."""
+    sd[prefix + "embedding.weight"] = _t(p["embedding"])
+    tcn = p["TemporalConvNet_0"]
+    for i in range(len(tcn)):
+        block, base = tcn[f"TemporalBlock_{i}"], f"{prefix}tcn.network.{i}"
+        _wn_conv(sd, base + ".conv1", block["WeightNormConv1d_0"])
+        _wn_conv(sd, base + ".conv2", block["WeightNormConv1d_1"])
+        if "Conv_0" in block:
+            _conv1d(sd, base + ".downsample", block["Conv_0"])
+    _lin(sd, prefix + "decoder", p["Dense_0"])
+
+
+def _speaker(sd, p):
+    sd["speaker_embedding.0.weight"] = _t(p["Embed_0"]["embedding"])
+    _lin(sd, "speaker_embedding.1", p["Dense_0"])
+    _lin(sd, "speaker_mu", p["Dense_1"])
+    _lin(sd, "speaker_logvar", p["Dense_2"])
+
+
+def pose_generator_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """The trimodal PoseGenerator's variables (any `input_context`) -> the
+    port's PoseGenerator state_dict."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _speaker(sd, p["SpeakerLatent_0"])
+    if "WavEncoder_0" in p:
+        _wav_encoder(sd, "audio_encoder.", p["WavEncoder_0"], s["WavEncoder_0"])
+    if "TextEncoderTCN_0" in p:
+        _text_encoder_tcn(sd, "text_encoder.", p["TextEncoderTCN_0"])
+    _gru(sd, "gru.", p["GRU_0"])
+    _lin(sd, "out.0", p["Dense_0"])
+    _lin(sd, "out.2", p["Dense_1"])
+    return sd
+
+
+def seq2seq_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """Seq2SeqNet variables -> the port's Seq2SeqNet state_dict (the
+    decoder's normalisation has a scale and a bias, no running statistics)."""
+    enc, dec = variables["params"]["EncoderRNN_0"], variables["params"]["_DecoderStep_0"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["encoder.embedding.weight"] = _t(enc["embedding"])
+    _gru(sd, "encoder.gru.", enc["GRU_0"])
+    d = "decoder.decoder."
+    _lin(sd, d + "attn.attn", dec["Attn_0"]["Dense_0"])
+    sd[d + "attn.v"] = _t(dec["Attn_0"]["v"])
+    _lin(sd, d + "pre_linear.0", dec["Dense_0"])
+    sd[d + "pre_linear.1.weight"] = _t(dec["bn_scale"])
+    sd[d + "pre_linear.1.bias"] = _t(dec["bn_bias"])
+    n_layers = sum(k.startswith("cell_") for k in dec)
+    for k in range(n_layers):
+        for name, arr in dec[f"cell_{k}"].items():
+            torch_name = name.replace("w_", "weight_", 1).replace("b_", "bias_", 1)
+            sd[f"{d}gru.{torch_name}_l{k}"] = _t(arr)
+    _lin(sd, d + "out", dec["Dense_1"])
+    return sd
+
+
+def _conv_any(sd, name, p):
+    """A 1d (k, in, out) or 2d (kh, kw, in, out) flax Conv -> Conv1d / Conv2d."""
+    kernel = np.asarray(p["kernel"])
+    perm = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
+    sd[name + ".weight"] = _t(kernel.transpose(perm))
+    sd[name + ".bias"] = _t(p["bias"])
+
+
+def _cnr(sd, name, p, s):
+    """speech2gesture's ConvNormRelu: Conv_0 -> .0, BatchNorm_0 -> .1."""
+    _conv_any(sd, name + ".0", p["Conv_0"])
+    _bn_of(sd, name + ".1", p, s, "BatchNorm_0")
+
+
+def s2g_generator_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """speech2gesture Generator variables -> the port's Generator state_dict."""
     p, s = variables["params"], variables["batch_stats"]
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    ep, es = p["AudioEncoder_0"], s["AudioEncoder_0"]
+    bases = ([f"audio_encoder.first_net.{i}" for i in range(8)]
+             + ["audio_encoder.down1.0", "audio_encoder.down1.1"]
+             + [f"audio_encoder.down{i}" for i in range(2, 7)])
+    for j, base in enumerate(bases):
+        _cnr(sd, base, ep[f"ConvNormRelu_{j}"], es[f"ConvNormRelu_{j}"])
+    for j in range(5):
+        _cnr(sd, f"audio_encoder.up{j + 1}.conv", ep[f"UnetUp_{j}"]["ConvNormRelu_0"],
+             es[f"UnetUp_{j}"]["ConvNormRelu_0"])
+    _lin(sd, "pre_pose_encoder.0", p["Dense_0"])
+    _bn_of(sd, "pre_pose_encoder.1", p, s, "BatchNorm_0")
+    _lin(sd, "pre_pose_encoder.3", p["Dense_1"])
+    for j in range(4):
+        _cnr(sd, f"decoder.{j}", p[f"ConvNormRelu_{j}"], s[f"ConvNormRelu_{j}"])
+    _conv1d(sd, "final_out", p["Conv_0"])
+    return sd
+
+
+def s2g_discriminator_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """speech2gesture Discriminator variables -> the port's state_dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _conv1d(sd, "net.0", p["Conv_0"])
+    _cnr(sd, "net.2", p["ConvNormRelu_0"], s["ConvNormRelu_0"])
+    _cnr(sd, "net.3", p["ConvNormRelu_1"], s["ConvNormRelu_1"])
+    _conv1d(sd, "net.4", p["Conv_1"])
+    return sd
+
+
+def embedding_net_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """EmbeddingNet variables (numpy leaves) -> the port's EmbeddingNet
+    state_dict: pose mode under the reference checkpoint's names; the
+    joint-embedding mode adds `context_encoder.*` and decodes with
+    PoseDecoderGRU's `decoder.*`."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    if "context_encoder" in p:
+        cp, cs, c = p["context_encoder"], s["context_encoder"], "context_encoder."
+        _text_encoder_tcn(sd, c + "text_encoder.", cp["TextEncoderTCN_0"])
+        _wav_encoder(sd, c + "audio_encoder.", cp["WavEncoder_0"], cs["WavEncoder_0"])
+        _gru(sd, c + "gru.", cp["GRU_0"])
+        _lin(sd, c + "out.0", cp["Dense_0"])
+        _bn_of(sd, c + "out.1", cp, cs, "BatchNorm_0")
+        _lin(sd, c + "out.3", cp["Dense_1"])
+        _lin(sd, c + "fc_mu", cp["Dense_2"])
+        _lin(sd, c + "fc_logvar", cp["Dense_3"])
+        dp, ds = p["decoder"], s["decoder"]
+        _lin(sd, "decoder.pre_pose_net.0", dp["Dense_0"])
+        _bn_of(sd, "decoder.pre_pose_net.1", dp, ds, "BatchNorm_0")
+        _lin(sd, "decoder.pre_pose_net.3", dp["Dense_1"])
+        _gru(sd, "decoder.gru.", dp["GRU_0"])
+        _lin(sd, "decoder.out.0", dp["Dense_2"])
+        _lin(sd, "decoder.out.2", dp["Dense_3"])
     pe, pe_s = p["pose_encoder"], s["pose_encoder"]
     _conv_encoder(sd, "pose_encoder", pe, pe_s)
     _lin(sd, "pose_encoder.fc_mu", pe["Dense_3"])
     _lin(sd, "pose_encoder.fc_logvar", pe["Dense_4"])
-    _conv_decoder(sd, p["decoder"], s["decoder"])
+    if "context_encoder" not in p:
+        _conv_decoder(sd, p["decoder"], s["decoder"])
     return sd
 
 

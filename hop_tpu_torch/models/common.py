@@ -1,6 +1,8 @@
 """Shared model pieces (port of hop_tpu/models/common.py): the reference's
 identity LeakyReLU slope, reparameterisation, the speaker latent, the
-train step's Huber and KL losses, and BatchNorm with flax's training rule."""
+train step's Huber and KL losses, BatchNorm with flax's training rule, the
+Conv1d + BatchNorm + LeakyReLU element and the raw-waveform encoder of the
+baseline zoo."""
 
 from __future__ import annotations
 
@@ -104,3 +106,71 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(self, x)
+
+
+class _OrderedEmbeddingGrad(torch.autograd.Function):
+    """F.embedding whose weight gradient sums each id's rows in the order of
+    their positions, without atomics: the ids sorted (stably), the rows of
+    each id reduced by `segment_reduce` (a loop over the segment) into its
+    row of the gradient. The segments' offsets are those of every id of the
+    table (`searchsorted`, empty for an id the batch lacks), a fixed size:
+    nothing makes the host wait for the card."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        offsets = torch.searchsorted(
+            flat[order], torch.arange(ctx.n_rows + 1, device=flat.device))
+        rows = grad.reshape(flat.numel(), -1)[order]
+        # unsafe: no check of the offsets, whose `.item()` would wait for
+        # the card; they are sorted and end at len(rows) by construction
+        return None, torch.segment_reduce(rows, "sum", offsets=offsets, unsafe=True)
+
+
+class WordEmbedding(nn.Embedding):
+    """nn.Embedding (its parameter, its init) whose weight gradient repeats
+    bit for bit on the card: torch's CUDA backward of a lookup with many
+    repeated ids (a batch's words: 8704 lookups of a few thousand words)
+    accumulates in a varying order, and a resumed training run would drift
+    from the uninterrupted one."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return _OrderedEmbeddingGrad.apply(ids, self.weight)
+
+
+def conv1d_bn_leaky(in_channels: int, out_channels: int, kernel: int,
+                    stride: int = 1, padding: int = 0, slope: float = 0.2) -> list:
+    """Conv1d + BatchNorm + LeakyReLU, as a list of modules to splice into an
+    nn.Sequential, so that they keep the reference's flat indices (hop_tpu's
+    Conv1dBNLeaky, models/common.py:48-66). (B, C, T) layout."""
+    return [nn.Conv1d(in_channels, out_channels, kernel, stride=stride, padding=padding),
+            BatchNorm1d(out_channels), nn.LeakyReLU(slope)]
+
+
+class WavEncoder(nn.Module):
+    """Raw waveform (B, 36267) -> (B, 34, 32) (hop_tpu models/common.py:68-89;
+    reference model/HOP.py:50-69): Conv1d 1 -> 16 (kernel 15, stride 5,
+    padding 1600), then three convolutions of stride 6 to 32, 64 and 32
+    channels, with BatchNorm and LeakyReLU(0.3) between. The children carry
+    the reference's names (`feat_extractor.{0,3,6,9}` convolutions,
+    `feat_extractor.{1,4,7}` BatchNorm), which hop_tpu's
+    `convert_wav_encoder` reads."""
+
+    def __init__(self):
+        super().__init__()
+        self.feat_extractor = nn.Sequential(
+            *conv1d_bn_leaky(1, 16, 15, stride=5, padding=1600, slope=0.3),
+            *conv1d_bn_leaky(16, 32, 15, stride=6, slope=0.3),
+            *conv1d_bn_leaky(32, 64, 15, stride=6, slope=0.3),
+            nn.Conv1d(64, 32, 15, stride=6))
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        return self.feat_extractor(wav[:, None]).transpose(1, 2)

@@ -1,7 +1,19 @@
-"""The discriminator of the HOP GAN (port of ConvDiscriminator,
-hop_tpu/models/multimodal_context.py:106-130; reference
-model/multimodal_context_net.py:219-268).
+"""The trimodal-context generator and the discriminator of the HOP GAN and
+of the trimodal GAN (port of hop_tpu/models/multimodal_context.py's
+PoseGenerator :21-78 and ConvDiscriminator :106-130; reference
+model/multimodal_context_net.py:66-172, 219-268).
 
+PoseGenerator: the seed poses with their indicator bit (pose_dim + 1), the
+WavEncoder's audio features (32) and the TextEncoderTCN's word features
+(32), as `input_context` selects them, and the speaker latent z (16) go
+through a 4-layer BiGRU(300) with inter-layer dropout 0.3 (kernel K2 or K3
+on CUDA); its two directions are summed, then Linear(150), the reference's
+identity LeakyReLU and Linear(pose_dim). Children carry the reference's
+names (`audio_encoder.feat_extractor.*`, `text_encoder.*`,
+`speaker_embedding.*`, `speaker_mu`, `speaker_logvar`, `gru.*`,
+`out.{0,2}`), which hop_tpu's `convert_pose_generator` reads.
+
+ConvDiscriminator:
 Conv1d pose_dim -> 16 -> 8 -> 8 (kernel 3, valid: T 34 -> 28) with
 BatchNorm and the reference's identity LeakyReLU between, a 4-layer
 BiGRU(64) with inter-layer dropout 0.3 (kernel K2 or K3 on CUDA), a per-step
@@ -20,9 +32,74 @@ import torch
 from torch import nn
 
 from hop_tpu_torch.models import common
+from hop_tpu_torch.models.tcn import TextEncoderTCN
 from hop_tpu_torch.ops.gru import GRU
 
 HIDDEN = 64
+INPUT_CONTEXTS = ("both", "audio", "text", "none")
+
+
+class PoseGenerator(common.SpeakerLatent):
+    """(pre_seq (B, T, pose_dim + 1), word ids (B, T), raw audio (B, n),
+    speaker ids (B,)) -> (poses (B, T, pose_dim), z, mu, logvar)."""
+
+    def __init__(self, pose_dim: int, n_words: int, n_speakers: int,
+                 hidden_size: int = 300, n_layers: int = 4, dropout: float = 0.3,
+                 input_context: str = "both", z_size: int = 16,
+                 gru_kernel: str = "fused", gru_bf16_streams: bool = False):
+        super().__init__(n_speakers, z_size)
+        if input_context not in INPUT_CONTEXTS:
+            raise ValueError(f"input_context must be one of {INPUT_CONTEXTS}, "
+                             f"got {input_context!r}")
+        self.input_context = input_context
+        in_size = pose_dim + 1 + z_size
+        if input_context in ("both", "audio"):
+            self.audio_encoder = common.WavEncoder()
+            in_size += 32
+        if input_context in ("both", "text"):
+            self.text_encoder = TextEncoderTCN(n_words, channels=(hidden_size,) * n_layers,
+                                               dropout=dropout)
+            in_size += 32
+        self.hidden_size = hidden_size
+        self.gru = GRU(in_size, hidden_size, num_layers=n_layers,
+                       bidirectional=True, dropout=dropout, kernel=gru_kernel,
+                       bf16_streams=gru_bf16_streams)
+        self.out = nn.Sequential(nn.Linear(hidden_size, hidden_size // 2),
+                                 nn.LeakyReLU(common.IDENTITY_SLOPE),
+                                 nn.Linear(hidden_size // 2, pose_dim))
+
+    def forward(self, pre_seq: torch.Tensor, in_text: torch.Tensor,
+                in_audio: torch.Tensor, vid_indices: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None):
+        """`generator` draws the dropout masks (training mode) and, unless
+        `eps` is given, the speaker noise."""
+        feats = [pre_seq]
+        if self.input_context in ("both", "audio"):
+            feats.append(self.audio_encoder(in_audio))
+        if self.input_context in ("both", "text"):
+            feats.append(self.text_encoder(in_text, generator))
+        z, mu, logvar = self.speaker(vid_indices, generator, eps)
+        T = pre_seq.shape[1]
+        feats.append(z[:, None].expand(-1, T, -1))
+        out, _ = self.gru(torch.cat(feats, dim=-1), generator)
+        H = self.hidden_size
+        return self.out(out[..., :H] + out[..., H:]), z, mu, logvar
+
+
+def build_pose_generator(cfg, n_words: int, n_speakers: int, seed: int,
+                         device: torch.device | str = "cuda") -> PoseGenerator:
+    """PoseGenerator at `cfg.baseline`'s widths on `cfg.hop`'s GRU route,
+    initialised from `seed` on the host, moved to `device`; the caller's
+    global RNG state is left as it was."""
+    b = cfg.baseline
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        gen = PoseGenerator(cfg.data.pose_dim, n_words, n_speakers, b.hidden_size,
+                            b.n_layers, b.dropout_prob, b.input_context,
+                            gru_kernel=cfg.hop.gru_kernel,
+                            gru_bf16_streams=cfg.hop.gru_bf16_streams)
+    return gen.to(device)
 
 
 class ConvDiscriminator(nn.Module):

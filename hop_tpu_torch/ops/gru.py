@@ -25,6 +25,9 @@ through dropout at `dropout` (torch.nn.GRU(dropout=); JAX
 ops/gru.py:336-338), the mask drawn from the generator the caller hands to
 `forward`: 0.3 in the discriminator, 0 in the HOP head. The layers are
 differentiable through K2's or K3's backward kernel.
+
+`GRUCell` is a stack of single-step cells (JAX ops/gru.py:371-392) for the
+seq2seq decoder, which runs one frame at a time: plain PyTorch, as in JAX.
 """
 
 from __future__ import annotations
@@ -123,3 +126,38 @@ class GRU(nn.Module):
             if len(self.suffixes) == 2:
                 last.append(y[1, 0])
         return x_tm.transpose(0, 1), torch.stack(last)
+
+
+class GRUCell(nn.Module):
+    """`num_layers` single-step GRU cells stacked, under torch.nn.GRU's
+    parameter names (`weight_ih_l{k}`, ...): the reference's decoder steps a
+    unidirectional nn.GRU one frame at a time. forward(x (B, F), hidden
+    (num_layers, B, H)) -> the new hidden (num_layers, B, H); layer k > 0
+    reads layer k - 1's new state. Initialised as torch.nn.GRU."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1):
+        super().__init__()
+        self.num_layers = num_layers
+        bound = 1.0 / math.sqrt(hidden_size)
+        H = hidden_size
+        for layer in range(num_layers):
+            in_dim = input_size if layer == 0 else H
+            for name, shape in (("weight_ih", (3 * H, in_dim)),
+                                ("weight_hh", (3 * H, H)),
+                                ("bias_ih", (3 * H,)), ("bias_hh", (3 * H,))):
+                p = nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+                self.register_parameter(f"{name}_l{layer}", p)
+
+    def forward(self, x: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+        new = []
+        for layer in range(self.num_layers):
+            w_ih, w_hh, b_ih, b_hh = (getattr(self, f"{name}_l{layer}") for name in
+                                      ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            h = hidden[layer]
+            xr, xz, xn = torch.addmm(b_ih, x, w_ih.t()).chunk(3, dim=-1)
+            hr, hz, hn = torch.addmm(b_hh, h, w_hh.t()).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            x = (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+            new.append(x)
+        return torch.stack(new)

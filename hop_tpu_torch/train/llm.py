@@ -48,27 +48,31 @@ or a `StepNoise`, and returns (state, metrics).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Callable, Optional, Union
 
 import torch
-from torch.func import functional_call
 
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.models.common import huber, kld_loss
-from hop_tpu_torch.train.state import GANTrainState, adam
+from hop_tpu_torch.train.state import (GANTrainState, frozen_call, gan_train_state,
+                                       update_d_then_g)
 
 
 @dataclass
 class StepNoise:
-    """Every random draw of one step but the large dropout masks."""
+    """Every random draw of one step but the large dropout masks. The
+    trimodal GAN step (train/gan.py) draws the speakers' fields alone
+    (`draw_speakers`) and leaves the discriminator's noise and the kernels'
+    seeds unset."""
     eps: torch.Tensor            # (B, z) speaker noise, the batch's speakers
     eps_rand: torch.Tensor       # (B, z) speaker noise, shuffled speakers
     perm: torch.Tensor           # (B,) int64: rand_vids = vids[perm]
-    target_noise: torch.Tensor   # (B, n_poses, pose_dim) N(0, 1), real input
-    fake_noise: torch.Tensor     # (B, n_poses, pose_dim) N(0, 1), fake input
-    reprog_seed: int             # K1's attention-dropout seed
     dropout_seed: int            # seeds the device generator of the masks
+    # (B, n_poses, pose_dim) N(0, 1), the discriminator's real / fake input
+    target_noise: Optional[torch.Tensor] = None
+    fake_noise: Optional[torch.Tensor] = None
+    reprog_seed: int = 0         # K1's attention-dropout seed
     # (B, z) speaker noise of the 3-forward step's D-phase generator forward
     eps_dis: Optional[torch.Tensor] = None
     # dropout seed of the backbone's kernel attention routes (K4, K5)
@@ -77,7 +81,7 @@ class StepNoise:
     @classmethod
     def draw(cls, generator: torch.Generator, cfg: Config,
              batch_size: int) -> "StepNoise":
-        """The draws of one step from a CPU generator, in a fixed order."""
+        """The draws of one HOP step from a CPU generator, in a fixed order."""
         g = generator
         z, T, P = cfg.hop.z_size, cfg.data.n_poses, cfg.data.pose_dim
         return cls(
@@ -92,6 +96,19 @@ class StepNoise:
             # drawn last: every earlier draw keeps its value
             attn_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
 
+    @classmethod
+    def draw_speakers(cls, generator: torch.Generator, batch_size: int,
+                      z_size: int) -> "StepNoise":
+        """The draws of one trimodal GAN step from a CPU generator, in a
+        fixed order: the speaker noise of its three generator forwards, the
+        permutation and the dropout seed."""
+        g = generator
+        return cls(eps=torch.randn(batch_size, z_size, generator=g),
+                   eps_rand=torch.randn(batch_size, z_size, generator=g),
+                   perm=torch.randperm(batch_size, generator=g),
+                   eps_dis=torch.randn(batch_size, z_size, generator=g),
+                   dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
+
     def to(self, device) -> "StepNoise":
         """The draws on `device`; to a card from pinned memory, without
         making the host wait for it."""
@@ -99,10 +116,8 @@ class StepNoise:
             if torch.device(device).type == "cuda" and t.device.type == "cpu":
                 return t.pin_memory().to(device, non_blocking=True)
             return t.to(device)
-        return replace(self, **{k: put(getattr(self, k)) for k in
-                                ("eps", "eps_rand", "perm", "target_noise",
-                                 "fake_noise", "eps_dis")
-                                if getattr(self, k) is not None})
+        return replace(self, **{f.name: put(getattr(self, f.name)) for f in fields(self)
+                                if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 def _div_diagnostics(div_raw, pose_l1, z_l1, out, mu, logvar, loss_cfg):
@@ -117,6 +132,33 @@ def _div_diagnostics(div_raw, pose_l1, z_l1, out, mu, logvar, loss_cfg):
         "mu_abs": mu.detach().abs().mean(),
         "logvar_mean": logvar.detach().mean(),
     }
+
+
+def generator_terms(out, out_rand, z, z_rand, mu, logvar, target, loss_cfg):
+    """Huber + the diversity regulariser with its clamp + KLD (hop_tpu
+    llm.py:126-152, gan.py:65-86): (loss, metrics, (div_raw, pose_l1,
+    z_l1)); `out_rand` and `z_rand` enter detached."""
+    h = huber(out, target, loss_cfg.huber_beta)
+    pose_l1 = huber(out, out_rand.detach(), loss_cfg.div_beta,
+                    reduce=False).sum(dim=(1, 2))
+    z_l1 = torch.mean(torch.abs(z.detach() - z_rand.detach()), dim=-1)
+    div_raw = -(pose_l1 / (z_l1 + 1e-5))
+    div_reg = torch.clamp(div_raw, min=loss_cfg.div_clamp).mean()
+    kld = kld_loss(mu, logvar)
+    loss = (h * loss_cfg.regression_weight
+            + div_reg * loss_cfg.reg_weight
+            + kld * loss_cfg.kld_weight)
+    metrics = {"loss": h * loss_cfg.regression_weight,
+               "KLD": kld * loss_cfg.kld_weight,
+               "DIV_REG": div_reg * loss_cfg.reg_weight}
+    return loss, metrics, (div_raw, pose_l1, z_l1)
+
+
+def gen_term(disc, out, dev_gen, gan_weight: float):
+    """The G term -mean(log D(out)) * gan_weight against `disc` held frozen
+    (`frozen_call`)."""
+    score = frozen_call(disc, out, generator=dev_gen)
+    return -torch.mean(torch.log(score + 1e-8)) * gan_weight
 
 
 class EpochStep:
@@ -141,37 +183,14 @@ def make_hop_train_steps(cfg: Config, model, disc):
     loss_cfg = cfg.loss
 
     def init_state() -> GANTrainState:
-        t = cfg.train
-        return GANTrainState(model, disc,
-                             adam(model, t.learning_rate, t.betas),
-                             adam(disc, t.learning_rate * t.dis_lr_scale, t.betas))
+        return gan_train_state(cfg, model, disc)
 
-    def generator_terms(out, out_rand, z, z_rand, mu, logvar, target):
-        """Huber + diversity regulariser + KLD (llm.py:126-152); `out_rand`
-        and `z_rand` enter detached."""
-        h = huber(out, target, loss_cfg.huber_beta)
-        pose_l1 = huber(out, out_rand.detach(), loss_cfg.div_beta,
-                        reduce=False).sum(dim=(1, 2))
-        z_l1 = torch.mean(torch.abs(z.detach() - z_rand.detach()), dim=-1)
-        div_raw = -(pose_l1 / (z_l1 + 1e-5))
-        div_reg = torch.clamp(div_raw, min=loss_cfg.div_clamp).mean()
-        kld = kld_loss(mu, logvar)
-        loss = (h * loss_cfg.regression_weight
-                + div_reg * loss_cfg.reg_weight
-                + kld * loss_cfg.kld_weight)
-        metrics = {"loss": h * loss_cfg.regression_weight,
-                   "KLD": kld * loss_cfg.kld_weight,
-                   "DIV_REG": div_reg * loss_cfg.reg_weight,
-                   **_div_diagnostics(div_raw, pose_l1, z_l1, out, mu, logvar,
-                                      loss_cfg)}
+    def hop_terms(out, out_rand, z, z_rand, mu, logvar, target):
+        """`generator_terms` and the diversity regulariser's diagnostics."""
+        loss, metrics, div = generator_terms(out, out_rand, z, z_rand, mu, logvar,
+                                             target, loss_cfg)
+        metrics.update(_div_diagnostics(*div, out, mu, logvar, loss_cfg))
         return loss, metrics
-
-    def gen_term(out, dev_gen):
-        """The G term against the current discriminator, its parameters
-        detached (its BatchNorm statistics still update)."""
-        frozen = {k: p.detach() for k, p in disc.named_parameters()}
-        dis_out = functional_call(disc, frozen, (out,), {"generator": dev_gen})
-        return -torch.mean(torch.log(dis_out + 1e-8)) * loss_cfg.gan_weight
 
     def dis_loss(fake, target, noise: StepNoise, dev_gen):
         """The D term on a detached sample, noisy targets (train_llm.py:22;
@@ -191,20 +210,16 @@ def make_hop_train_steps(cfg: Config, model, disc):
             eps=noise.eps, eps_rand=noise.eps_rand, generator=dev_gen,
             reprog_seed=noise.reprog_seed, attn_seed=noise.attn_seed,
             llm_train=llm_train)
-        loss, metrics = generator_terms(out, out_rand, z, z_rand, mu, logvar,
-                                        target)
+        loss, metrics = hop_terms(out, out_rand, z, z_rand, mu, logvar, target)
         if use_gan:
-            metrics["gen"] = gen_term(out, dev_gen)
+            metrics["gen"] = gen_term(disc, out, dev_gen, loss_cfg.gan_weight)
             metrics["dis"] = dis_loss(out, target, noise, dev_gen)
             loss = loss + metrics["gen"] + metrics["dis"]
         return loss, metrics
 
     def begin_step(state: GANTrainState, batch, noise: StepNoise):
         device = batch["in_audio"].device
-        model.train()
-        disc.train()
-        state.gen_opt.zero_grad(set_to_none=True)
-        state.dis_opt.zero_grad(set_to_none=True)
+        state.begin()
         return (noise.to(device),
                 torch.Generator(device=device).manual_seed(noise.dropout_seed))
 
@@ -244,10 +259,10 @@ def make_hop_train_steps(cfg: Config, model, disc):
             out_rand, z_rand, _, _ = gen_forward(
                 batch, vids[noise.perm], noise.eps_rand, noise, 1, llm_train,
                 dev_gen)
-        loss, metrics = generator_terms(out, out_rand, z, z_rand, mu, logvar,
-                                        batch["target_vec"])
+        loss, metrics = hop_terms(out, out_rand, z, z_rand, mu, logvar,
+                                  batch["target_vec"])
         if use_gan:
-            metrics["gen"] = gen_term(out, dev_gen)
+            metrics["gen"] = gen_term(disc, out, dev_gen, loss_cfg.gan_weight)
             loss = loss + metrics["gen"]
         return loss, metrics
 
@@ -258,23 +273,17 @@ def make_hop_train_steps(cfg: Config, model, disc):
         if noise.eps_dis is None and use_gan:
             raise ValueError("the 3-forward GAN step needs StepNoise.eps_dis")
         noise, dev_gen = begin_step(state, batch, noise)
-        dis_err = None
+        dis_loss_fn = None
         if use_gan:
-            # D phase: a generator forward of its own, detached, and the
-            # discriminator's update BEFORE the G phase (llm.py:301-317)
-            with torch.no_grad():
-                fake = gen_forward(batch, batch["vid_indices"], noise.eps_dis,
-                                   noise, 2, llm_train, dev_gen)[0]
-            dis_err = dis_loss(fake, batch["target_vec"], noise, dev_gen)
-            dis_err.backward()
-            state.dis_opt.step()
-        loss, metrics = gen_loss(batch, noise, use_gan, llm_train, dev_gen)
-        loss.backward()
-        state.gen_opt.step()
-        if use_gan:
-            metrics["dis"] = dis_err
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+            def dis_loss_fn():
+                # D phase: a generator forward of its own, detached, and the
+                # discriminator's update BEFORE the G phase (llm.py:301-317)
+                with torch.no_grad():
+                    fake = gen_forward(batch, batch["vid_indices"], noise.eps_dis,
+                                       noise, 2, llm_train, dev_gen)[0]
+                return dis_loss(fake, batch["target_vec"], noise, dev_gen)
+        return update_d_then_g(state, dis_loss_fn, lambda: gen_loss(
+            batch, noise, use_gan, llm_train, dev_gen))
 
     run_step = fused_step if cfg.hop.fused_step else parity_step
 

@@ -95,6 +95,12 @@ def test_reprogramming_attention_kernel(device, B, L, H, S, rate):
     (7, 13, 20, 100),       # one block, a width that is no multiple of 8
     (6, 43, 24, 203),       # a cluster of slices of 26 units, the last short
     (34, 256, 992, 350),    # the HOP head's first layer
+    (34, 256, 108, 300),    # PoseGenerator's first layer, TED: slices of 38 units
+    (34, 256, 207, 300),    # the same, Expressive: an input width no multiple of 8
+    (34, 256, 600, 300),    # the zoo's upper layers at H = 300
+    (36, 256, 300, 300),    # the seq2seq encoder's first layer (36 words)
+    (34, 256, 64, 256),     # ContextEncoder's first layer (one direction in the net)
+    (34, 256, 256, 256),    # its second layer
 ])
 def test_gru_fused_kernel(device, D, T, B, I, H, with_residuals):
     g = torch.Generator(device=device).manual_seed(D * 100 + I)
@@ -169,6 +175,12 @@ def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
     (34, 1, 700, 350),      # one sample: the cluster's one-row-tile instance
     (34, 250, 700, 350),    # a ragged last row tile at the head's width
     (34, 256, 992, 350),    # the HOP head's first layer: 128 x 128 tiles
+    (34, 256, 108, 300),    # the baseline zoo's layers (PoseGenerator, TED and
+    (34, 256, 207, 300),    # Expressive; upper layers; the seq2seq encoder;
+    (34, 256, 600, 300),    # ContextEncoder's two layers)
+    (36, 256, 300, 300),
+    (34, 256, 64, 256),
+    (34, 256, 256, 256),
 ])
 def test_gru_fused_bwd_kernel(device, D, T, B, I, H):
     gen = torch.Generator(device=device).manual_seed(D * 100 + I)
@@ -224,6 +236,9 @@ def _k3_args(device, D, T, B, H, dtype, seed):
     (2, 34, 8, 350),        # the widest batch of that instance
     (1, 34, 250, 350),      # one direction, a ragged last row tile
     (2, 34, 256, 350),      # the HOP head
+    (2, 34, 256, 300),      # the baseline zoo's BiGRU(300) layers
+    (2, 36, 256, 300),      # the seq2seq encoder (36 words)
+    (1, 34, 256, 256),      # ContextEncoder's GRU(256), one direction
 ])
 def test_gru_stack_kernels(device, D, T, B, H, dtype):
     args, g = _k3_args(device, D, T, B, H, dtype, seed=D * 100 + H)
@@ -251,7 +266,7 @@ def test_gru_stack_kernels(device, D, T, B, H, dtype):
                    name=name)
 
 
-@pytest.mark.parametrize("H", [10, 64, 65, 138, 139, 203, 350, 352])
+@pytest.mark.parametrize("H", [10, 64, 65, 138, 139, 203, 256, 300, 350, 352])
 def test_recurrence_variant_is_the_kernels_choice(device, H):
     """The wrappers' copy of the host side's rule, one for the forward and
     the backward: clusters only where the rule says "cluster", and then

@@ -11,7 +11,8 @@ importer (`data.import_ted --verify`) and the long-form entry
 (`--data <LMDB>`) on a source LMDB the port's own codec wrote, and the
 training entry point on the LLaMA backbone with its weights read from a
 bf16 safetensors file the port's own writer wrote (`--llm-weights`), the
-long-form entry restoring it."""
+long-form entry restoring it, and the training entry point on each family
+of the baseline zoo (`--model`)."""
 
 import os
 import subprocess
@@ -109,6 +110,17 @@ with tempfile.TemporaryDirectory() as tmp:
     assert out.shape == (64, 27), out.shape
     tempfile.tempdir = None
 print("LLAMA OK")
+
+torch.set_num_threads(1)     # small CPU ops, beside the other test workers
+with tempfile.TemporaryDirectory() as tmp:
+    tempfile.tempdir = tmp
+    for model in ("multimodal_context", "seq2seq", "speech2gesture", "joint_embedding",
+                  "gesture_autoencoder"):
+        run_ted.main(["--device", "cpu", "--tiny", "--model", model, "--synthetic-videos",
+                      "1", "--batch-size", "64", "--warmup-epochs", "0", "--epochs", "1",
+                      "--checkpoint-dir", tmp + "/" + model, "--metrics", tmp + "/m.jsonl"])
+        print("ZOO", model)
+    tempfile.tempdir = None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu", "pyarrow",
                                     "lmdb", "fasttext", "safetensors", "transformers"))
@@ -118,7 +130,9 @@ for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
             "utils.prng", "utils.meters", "cli.train_main", "cli.run_ted",
             "cli.run_expressive", "data.lmdbfile", "data.arrow_legacy",
             "data.import_ted", "data.fasttext_export", "models.llama",
-            "models.llm_weights", "utils.safetensors_io"):
+            "models.llm_weights", "utils.safetensors_io", "models.tcn",
+            "models.seq2seq", "models.speech2gesture", "train.gan", "train.seq2seq",
+            "train.speech2gesture", "train.embed", "utils.params"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -144,4 +158,7 @@ def test_port_imports_no_jax():
     assert "generated 64 frames" in proc.stdout
     assert "loaded pretrained LLAMA backbone from" in proc.stdout
     assert "LLAMA OK" in proc.stdout
+    for model in ("multimodal_context", "seq2seq", "speech2gesture", "joint_embedding",
+                  "gesture_autoencoder"):
+        assert f"ZOO {model}" in proc.stdout
     assert n_modules >= 20
