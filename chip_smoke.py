@@ -180,7 +180,30 @@ imports nothing of JAX. Phases, each ending in one line of output:
              `--model seq2seq`, 2 epochs against 1 + `--resume` to 2 under
              `--transfer-guard disallow`, bit for bit, launches as derived;
              `run_expressive --model multimodal_context`, 1 epoch
- 26. the kernels' JSON line, then the device JSON as the last line
+ 26. expressive  HOP on TED Expressive (ROADMAP M12) at its published widths
+             (the head's first GRU layer 1751 wide, gwnet on 42 nodes), bs
+             256: the forward, the fused GAN step on both GRU routes (ms,
+             kernels' ms, busy share, peak GiB), the warmup and GAN steps at
+             bs 8 on the card against the CPU (limits a planted fault must
+             fail, the gradients' and the losses'; the bf16-fed tensors and
+             the discriminator held apart), `run_expressive --model AD_LLM`
+             2 epochs against 1 + `--resume` under `--transfer-guard
+             disallow`, bit for bit; HOP's ablations on TED
+             (`use_gwnet=False`, `use_reprogramming=False`): the forward,
+             one fused GAN step, the warmup step against the CPU
+ 27. hierarchy  HA2G (ROADMAP M13b): K2 at the cascade's new first-layer
+             shapes (I = 96, 102, 105, 111, 117, 147, 177 at H = 300) as in
+             phase 25; the TED (3 stages) and Expressive (6 stages) warmup
+             and GAN steps at bs 256 (the GAN step also on the stack route)
+             with launches as derived (ms, kernels' ms, busy share, peak GiB,
+             top kernels), both at bs 8 against the CPU with a planted fault
+             that both limits catch, the ResNetSE's gradients against the
+             same step in f64 on the CPU (HIER_AUDIO); `run_ted` and
+             `run_expressive --model hierarchy` 2 epochs against 1 + `--resume`
+             under `--transfer-guard disallow`, bit for bit; `train_h36m_ae`
+             on a fabricated Human3.6M npz, `export_eval_net`, and a `run_ted
+             --eval-net` on the export that reports a trained feature net
+ 28. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -503,8 +526,12 @@ def phase_k1(dev, seed):
 # of a clip (the cluster's one-row-tile instance), one direction, and the
 # discriminator's at a ragged tile and B=1
 K2_LLAMA = (34, 256, 4320, 350, 2)
+# the head's first layer on TED Expressive (I = 127 + 840 + 768 + 16: the seed
+# graph of 42 joints and its flag, the beat features, BERT, z): odd and over
+# 1024, so the folded projection in 1-float pieces
+K2_EXPR = (34, 256, 1751, 350, 2)
 K2_MAIN = ((34, 256, 992, 350, 2), (34, 256, 700, 350, 2),
-           (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), K2_LLAMA)
+           (28, 256, 8, 64, 2), (28, 256, 128, 64, 2), K2_LLAMA, K2_EXPR)
 K2_SHAPES = K2_MAIN + ((34, 250, 992, 350, 2), (34, 1, 992, 350, 2),
                        (34, 256, 700, 350, 1), (28, 250, 8, 64, 1),
                        (28, 1, 128, 64, 2),
@@ -667,7 +694,8 @@ def forward_launches(cfg, n: int = 1) -> dict:
     per backbone layer K4 or K5 on a kernel attention route."""
     layers = cfg.hop.gru_layers * n
     stack = cfg.hop.gru_kernel == "stack"
-    return {**ZERO_COUNTS, "K1": n, "K2": 0 if stack else layers,
+    return {**ZERO_COUNTS, "K1": n * cfg.hop.use_reprogramming,
+            "K2": 0 if stack else layers,
             "K3_lean": layers if stack else 0, **attention_launches(cfg, n)}
 
 
@@ -846,7 +874,7 @@ def phase_k2_bwd(dev, seed):
     lib = _build.load()
     res = {}
     for T, B, I, H in ((34, 256, 992, 350), (34, 256, 700, 350),
-                       (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4]):
+                       (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4], K2_EXPR[:4]):
         D = 2
         check(K2.bwd_workspace_floats(T, B, I, H, D)
               == lib.hop_gru_fused_bwd_workspace(T, B, I, H, D),
@@ -956,19 +984,24 @@ def _trainable(module):
     return {k: p for k, p in module.named_parameters() if p.requires_grad}
 
 
-def _busy_share(step, n: int, ms_per_step: float):
+def _busy_share(step, n: int, ms_per_step: float, host_ops: bool = True):
     """Kernel time on the card over n profiled steps, per step, over the
-    unprofiled ms per step; and the eight kernels that took the most."""
+    unprofiled ms per step; and the eight kernels that took the most.
+    `host_ops` false: the card's activity alone (no host-side spans such as
+    the optimizer's among the top; far less profiler time on a step of many
+    small ops)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    check(device_ms > 0, "torch.profiler recorded no kernel time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return device_ms / ms_per_step, device_ms, [
         (e.key[:60], e.self_device_time_total / 1e3 / n) for e in top]
@@ -991,13 +1024,15 @@ def step_launches(cfg, disc_layers: int, use_gan: bool) -> dict:
     fused route both kinds of forward are K2 launches; on the stack route
     they are K3 and K3 lean. On a kernel attention route every trunk (as
     many as K1 forwards) runs K4 or K5 once per backbone layer, and the one
-    trunk with a graph its backward once per layer."""
+    trunk with a graph its backward once per layer. Without the
+    reprogramming layer (`use_reprogramming=False`) no K1 runs."""
     head = cfg.hop.gru_layers
     no_graph = 1 if cfg.hop.fused_step else (2 if use_gan else 1)
     with_res = head + (3 * disc_layers if use_gan else 0)
     lean = head * no_graph
     trunks = 1 if cfg.hop.fused_step else 1 + no_graph
-    want = {**ZERO_COUNTS, "K1": trunks, "K1_bwd": 1,
+    k1 = int(cfg.hop.use_reprogramming)       # the ablation runs no K1
+    want = {**ZERO_COUNTS, "K1": trunks * k1, "K1_bwd": k1,
             **attention_launches(cfg, trunks, 1)}
     if cfg.hop.gru_kernel == "stack":
         want.update(K3=with_res, K3_lean=lean, K3_bwd=with_res)
@@ -1779,7 +1814,8 @@ def phase_library(dev, seed):
 
     # one bidirectional GRU layer: cuDNN's, and the port's on both routes
     for T, Bt, I, Hh in ((34, 256, 992, 350), (34, 256, 700, 350),
-                         (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4]):
+                         (28, 256, 8, 64), (28, 256, 128, 64), K2_LLAMA[:4],
+                         K2_EXPR[:4]):
         row = gru_layer_yardstick(dev, seed, T, Bt, I, Hh)
         lib[("gru_fwd", I, Hh)] = row["cudnn"][0]
         lib[("gru_bwd", I, Hh)] = row["cudnn_bwd"]
@@ -2050,9 +2086,10 @@ RUN_ARGS = ("--data", "synthetic", "--synthetic-videos", "20", "--warmup-epochs"
 RUN_EPOCHS = 4
 RUN_STOP = 2
 RUN_PREFETCH = 2
-RUN_TURNS = 2          # of (prefetch 0, 2, 2, 0) epochs for steps per second
+RUN_TURNS = 1          # of (prefetch 0, 2, 2, 0) epochs for steps per second
 DET_STEPS = 10         # GAN steps a timed block, in turns (held, free, free, held)
-DET_TURNS = 3
+DET_TURNS = 1
+DET_PROFILED = 2       # GAN steps a profiled block (torch.profiler's cost grows with them)
 
 
 class _Tee:
@@ -2145,6 +2182,7 @@ def _cudnn_determinism(state, gan, batches, rng, smi):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
+    spans = [time.perf_counter()]
     try:
         repeats = {}
         for tf32 in ("off", "as torch sets it"):
@@ -2154,6 +2192,7 @@ def _cudnn_determinism(state, gan, batches, rng, smi):
                 diff = differing_entries(epoch(), epoch())
                 repeats[(tf32, held)] = len(diff)
         n_entries = len(flat_entries(snapshot))
+        spans.append(time.perf_counter())
         cudnn.allow_tf32 = False
         ms, device_ms = {True: [], False: []}, {True: [], False: []}
         for held in (True, False):          # each setting's first steps, untimed
@@ -2162,9 +2201,11 @@ def _cudnn_determinism(state, gan, batches, rng, smi):
         for held in (True, False, False, True) * DET_TURNS:
             cudnn.deterministic = held
             ms[held].append(steps_ms(DET_STEPS))
+        spans.append(time.perf_counter())
         for held in (True, False, False, True):
             cudnn.deterministic = held
-            device_ms[held].append(_busy_share(one_step, DET_STEPS, 1.0)[1])
+            device_ms[held].append(_busy_share(one_step, DET_PROFILED, 1.0)[1])
+        spans.append(time.perf_counter())
     finally:
         cudnn.deterministic, cudnn.benchmark = True, False
         cudnn.allow_tf32 = matmul.allow_tf32 = False
@@ -2184,10 +2225,12 @@ def _cudnn_determinism(state, gan, batches, rng, smi):
           + ", ".join(f"{t:.2f}" for t in ms[False])
           + f"; median held {med[True]:.2f}, free {med[False]:.2f}, cost "
           f"{med[True] - med[False]:+.2f} ms a step; the step's kernels, ms a step "
-          f"(torch.profiler over {DET_STEPS} steps, held, free, free, held): held "
+          f"(torch.profiler over {DET_PROFILED} steps, held, free, free, held): held "
           + ", ".join(f"{t:.2f}" for t in device_ms[True]) + "; free "
           + ", ".join(f"{t:.2f}" for t in device_ms[False])
-          + f"; cost {dev[True] - dev[False]:+.2f} ms; on {smi}")
+          + f"; cost {dev[True] - dev[False]:+.2f} ms; s (host clock) of the repeats, the "
+          f"timed and the profiled steps " + ", ".join(
+              f"{b - a:.1f}" for a, b in zip(spans, spans[1:])) + f"; on {smi}")
 
 
 def _epoch_runner(args, state, n_speakers: int, seed: int, dev, start_epoch: int):
@@ -2318,6 +2361,7 @@ def phase_run(dev, seed):
         # an epoch: prefetch 0 and 2 in turns (0, 2, 2, 0, ...) for steps per
         # second; then one epoch (its steps and its validation pass) timed
         # and profiled for the device's busy share
+        t_more = time.perf_counter()
         args = C.base_parser("phase 22").parse_args(argv("C", RUN_EPOCHS, RUN_PREFETCH))
         one_epoch, gan, batches, _ = _epoch_runner(args, state_a, n_speakers, seed, dev,
                                                    RUN_EPOCHS)
@@ -2361,8 +2405,11 @@ def phase_run(dev, seed):
               f"validation, prefetch {RUN_PREFETCH}) {epoch_s:.3f} s, its kernels "
               f"{device_ms:.2f} ms (torch.profiler), busy share {busy:.3f}; top "
               + ", ".join(f"{k} {t:.2f}" for k, t in top[:5]) + f"; on {smi}")
+        t_det = time.perf_counter()
         _cudnn_determinism(state_a, gan, list(batches(RUN_EPOCHS)),
                            functools.partial(step_generator, seed), smi)
+        print(f"run: s (host clock) of A and B {run_a_s + run_b_s:.1f}, the epochs after "
+              f"{t_det - t_more:.1f}, cuDNN held vs free {time.perf_counter() - t_det:.1f}")
         return launches
     finally:
         tempfile.tempdir = tempdir
@@ -2956,6 +3003,9 @@ ZOO_K2 = ((34, 256, 108, 300, 2),   # PoseGenerator's first layer, TED
           (34, 256, 256, 256, 1))   # its second layer
 ZOO_K3 = ((2, 34, 256, 300), (2, 36, 256, 300), (1, 34, 256, 256))
 ZOO_OTHERS = ("seq2seq", "speech2gesture", "joint_embedding", "gesture_autoencoder")
+# the families whose epochs after the warmup run the GAN step (which
+# speech2gesture's one step always is)
+GAN_FAMILIES = ("multimodal_context", "AD_LLM", "hierarchy")
 ZOO_VIDEOS = 20           # seeded 20 s clips: 520 windows, 2 steps an epoch at bs 256
 ZOO_CPU_B = 8             # the card-vs-CPU steps
 ZOO_RUN_EPOCHS = 2
@@ -2980,6 +3030,12 @@ def zoo_launches(model: str, net, kind: str, gru_kernel: str, disc=None) -> dict
     """Kernel launches of one train step ("warmup" or "gan") or one
     validation forward ("eval") of a baseline family, from its nets.
 
+    AD_LLM (HOP, the fused step): `step_launches` and `forward_launches` of
+    its config. hierarchy: each stage's GRU layers run as the trimodal
+    generator's do, times the stages: the cascade for the batch's speakers
+    with a graph, the one for shuffled speakers and the GAN step's D phase
+    without; the discriminator's three forwards with a graph.
+
     multimodal_context: the step's generator forward for the batch's
     speakers runs with a graph (its GRU layers forward with residuals, and
     backward), the one for shuffled speakers without (lean); the GAN step
@@ -2991,9 +3047,14 @@ def zoo_launches(model: str, net, kind: str, gru_kernel: str, disc=None) -> dict
     latent alone. speech2gesture and gesture_autoencoder run no GRU. On the
     fused route every forward is a K2 launch; on the stack route K3 (with
     residuals) or K3 lean."""
+    if model == "AD_LLM":
+        if kind == "eval":
+            return forward_launches(net.cfg)
+        return step_launches(net.cfg, disc.gru.num_layers, kind == "gan")
     res = lean = bwd = 0
-    if model == "multimodal_context":
-        L = net.gru.num_layers
+    if model in ("multimodal_context", "hierarchy"):
+        L = (net.gru.num_layers if model == "multimodal_context"
+             else len(net.stages) * net.stages[0].gru.num_layers)
         if kind == "eval":
             lean = L
         else:
@@ -3018,13 +3079,14 @@ def zoo_launches(model: str, net, kind: str, gru_kernel: str, disc=None) -> dict
     return want
 
 
-def phase_zoo_kernels(dev, seed):
+def phase_zoo_kernels(dev, seed, k2_shapes=ZOO_K2, k3_shapes=ZOO_K3, label="zoo"):
     """K2 forward and backward at each layer shape of the zoo, and K3's
     forwards and backward at its BiGRU(300) and GRU(256) recurrences, against
     their plain versions; each call's ms, the backwards' kernels' own ms
     (torch.profiler; the forwards' short windows are seldom kept whole, and
     each retry costs a second), the plain version's ms, the bound and
-    cuDNN's torch.nn.GRU at the same shape."""
+    cuDNN's torch.nn.GRU at the same shape. `label` names the shapes' path
+    (the zoo's by default, phase 27's "hierarchy")."""
     import torch
     from hop_tpu_torch.ops import gru_fused as K2
     from hop_tpu_torch.ops import gru_stack as K3
@@ -3035,7 +3097,7 @@ def phase_zoo_kernels(dev, seed):
             print(f"{what}: torch.profiler recorded no window whole in six")
         return (sum(names.values()) if names else None), names
     res = {k: {} for k in ("K2", "K2_bwd", "K3", "K3_lean", "K3_bwd")}
-    for shape in ZOO_K2:
+    for shape in k2_shapes:
         T, B, I, H, D = shape
         args = _k2_inputs(dev, seed, *shape)
         got = K2.gru_fused_layer_fwd(*args, with_residuals=True)
@@ -3054,12 +3116,12 @@ def phase_zoo_kernels(dev, seed):
         check(all(torch.equal(a, b) for a, b in zip(got, again))
               and torch.equal(lean, got[0])
               and all(torch.equal(a, b) for a, b in zip(grads, grads_again)),
-              f"K2 at the zoo's {shape}: two calls differ")
+              f"K2 at the {label}'s {shape}: two calls differ")
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        check(err <= K2_TOL, f"K2 at the zoo's {shape}: {err} > {K2_TOL}")
+        check(err <= K2_TOL, f"K2 at the {label}'s {shape}: {err} > {K2_TOL}")
         rels = [rel_err(a, b) for a, b in zip(grads, want_grads)]
         rel = max(e[1] for e in rels)
-        check(rel <= BWD_REL_TOL, f"K2 bwd at the zoo's {shape}: {rel} > {BWD_REL_TOL} "
+        check(rel <= BWD_REL_TOL, f"K2 bwd at the {label}'s {shape}: {rel} > {BWD_REL_TOL} "
                                   f"relative")
         bwd_own, _ = own(lambda: K2.gru_fused_layer_bwd(*bwd_args), f"K2 bwd at {shape}")
         lib = gru_layer_yardstick(dev, seed, T, B, I, H, D)
@@ -3076,7 +3138,7 @@ def phase_zoo_kernels(dev, seed):
             "library_ms": lib["cudnn_bwd"],
             **bound(bwd_args, grads, 2.0 * T * B * D * 3 * H * (2 * H + 2 * I), F32_FLOPS)}
         f, b = res["K2"][shape], res["K2_bwd"][shape]
-        print(f"zoo K2 at (T, B, I, H, D) {shape} ({K2.recurrence_variant(H)}): forward "
+        print(f"{label} K2 at (T, B, I, H, D) {shape} ({K2.recurrence_variant(H)}): forward "
               f"max_abs_err {err:.3e} (tol {K2_TOL:g}), lean {f['ms']:.3f} ms vs plain "
               f"{f['plain_ms']:.3f}, bound {f['bound_ms']:.3f} "
               f"by {f['bound_by']}, cuDNN {f['library_ms']:.3f}; backward rel err "
@@ -3084,7 +3146,7 @@ def phase_zoo_kernels(dev, seed):
               f"{fmt_ms(bwd_own)}) vs plain {b['plain_ms']:.3f}, bound {b['bound_ms']:.3f} "
               f"by {b['bound_by']}, cuDNN's backward alone {b['library_ms']:.3f}; bitwise "
               f"repeat")
-    for shape in ZOO_K3:
+    for shape in k3_shapes:
         D, T, B, H = shape
         args, g = _k3_inputs(dev, seed, *shape, torch.float32)
         full = K3.gru_stack_fwd(*args, with_residuals=True)
@@ -3100,14 +3162,14 @@ def phase_zoo_kernels(dev, seed):
         check(all(torch.equal(a, b) for a, b in zip(full, again))
               and torch.equal(lean, full[0])
               and all(torch.equal(a, b) for a, b in zip(grads, grads_again)),
-              f"K3 at the zoo's {shape}: two calls differ")
+              f"K3 at the {label}'s {shape}: two calls differ")
         err = max((a - b).abs().max().item() for a, b in zip(full, want))
         lean_err = (lean - want[0]).abs().max().item()
-        check(max(err, lean_err) <= K3_TOL, f"K3 at the zoo's {shape}: "
+        check(max(err, lean_err) <= K3_TOL, f"K3 at the {label}'s {shape}: "
                                             f"{max(err, lean_err)} > {K3_TOL}")
         rels = [rel_err(a, b) for a, b in zip(grads, want_grads)]
         rel = max(e[1] for e in rels)
-        check(rel <= BWD_REL_TOL, f"K3 bwd at the zoo's {shape}: {rel} > {BWD_REL_TOL}")
+        check(rel <= BWD_REL_TOL, f"K3 bwd at the {label}'s {shape}: {rel} > {BWD_REL_TOL}")
         flops = 2.0 * T * B * D * 3 * H * H
         for key, fn, plain, e, result, ops in (
                 ("K3", lambda: K3.gru_stack_fwd(*args, with_residuals=True),
@@ -3123,7 +3185,7 @@ def phase_zoo_kernels(dev, seed):
                                        ops, F32_FLOPS)}
         res["K3_bwd"][shape]["kernel_ms"] = own(
             lambda: K3.gru_stack_bwd(*bwd_args), f"K3_bwd at {shape}")[0]
-        print(f"zoo K3 at (D, T, B, H) {shape}: forward max_abs_err {err:.3e}, lean "
+        print(f"{label} K3 at (D, T, B, H) {shape}: forward max_abs_err {err:.3e}, lean "
               f"{lean_err:.3e} (tol {K3_TOL:g}); backward rel err {rel:.2e}; bitwise "
               f"repeat; ms (its kernels) / plain / bound: " + "; ".join(
                   f"{k} {res[k][shape]['ms']:.3f} "
@@ -3161,9 +3223,11 @@ class _Zoo:
             self.train_ds, _, self.lang = C.load_datasets(C.apply_overrides(cfg, args), args)
         self.n_speakers = max(self.train_ds.speaker_model.n_words, 1)
         self.host = self.train_ds.make_batch(np.arange(cfg.train.batch_size))
+        self.witnessed = {}     # `_zoo_step_vs_cpu`'s f64 witness of each family
 
-    def build(self, model: str, gru_kernel: str = "fused", device=None):
-        """(config, state, warmup step, GAN step or None, bs-256 batch)."""
+    def build(self, model: str, gru_kernel: str = "fused", device=None, hop=None):
+        """(config, state, warmup step, GAN step or None, bs-256 batch); `hop`:
+        HOPConfig fields to replace (the ablations)."""
         from hop_tpu_torch.cli import common as C
         from hop_tpu_torch.cli.train_main import build_model_and_steps
         device = device or self.dev
@@ -3171,6 +3235,7 @@ class _Zoo:
             [*self.data, "--model", model, "--seed", str(self.seed), "--gru-kernel",
              gru_kernel])
         cfg = C.apply_overrides(self.cfg, args)
+        cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, **(hop or {})))
         with contextlib.redirect_stdout(io.StringIO()):
             state, warmup, gan, _ = build_model_and_steps(cfg, args, self.lang,
                                                           self.n_speakers, device)
@@ -3186,10 +3251,11 @@ def _zoo_grads(state) -> dict:
             for k, p in net.named_parameters() if p.grad is not None}
 
 
-def _zoo_errs(card, cpu) -> tuple:
+def _zoo_errs(card, cpu, scale: str = "tensor") -> tuple:
     """Card vs CPU, each (metrics, gradients): the losses' largest relative
-    error and each gradient tensor's error over its largest element, the
-    tensors below ZOO_ZERO_REL of their net's largest gradient left out."""
+    error and each gradient tensor's error over its largest element (`scale`
+    "tensor") or over its net's largest gradient ("net"), the tensors below
+    ZOO_ZERO_REL of their net's largest gradient left out."""
     (m_card, g_card), (m_cpu, g_cpu) = card, cpu
     check(set(m_card) == set(m_cpu) and set(g_card) == set(g_cpu),
           "zoo step: card and CPU differ in what they return")
@@ -3199,66 +3265,173 @@ def _zoo_errs(card, cpu) -> tuple:
         mine = {k: g for k, g in g_cpu.items() if k.startswith(net)}
         if not mine:
             continue
-        zero = ZOO_ZERO_REL * max(g.abs().max().item() for g in mine.values())
-        errs.update({k: rel_err(g_card[k], g)[1] for k, g in mine.items()
-                     if g.abs().max().item() >= zero})
+        top = max(g.abs().max().item() for g in mine.values())
+        errs.update({k: (rel_err(g_card[k], g)[1] if scale == "tensor"
+                         else rel_err(g_card[k], g)[0] / top)
+                     for k, g in mine.items() if g.abs().max().item() >= ZOO_ZERO_REL * top})
     return loss_err, errs
 
 
-def _zoo_step_vs_cpu(zoo, kind: str, gru_kernel: str):
-    """One trimodal warmup or GAN step at bs ZOO_CPU_B on the card and on the
-    CPU from the same fresh state, batch and draws: losses and gradients.
-    Dropout is off on both sides: its masks come from each device's own
-    torch.Generator, whose CUDA and CPU streams differ. On the fused route
-    the card's step runs again with the generator GRU's output scaled by
-    1 + ZOO_FAULT, a planted fault that both limits must catch."""
-    import torch
+def _step_noise(model: str, state, cfg, generator, B: int):
+    """A step's draws for `model`'s step from a CPU generator."""
     from hop_tpu_torch.train.llm import StepNoise
+    if model == "AD_LLM":
+        return StepNoise.draw(generator, cfg, B)
+    if model == "hierarchy":
+        return StepNoise.draw_stages(generator, len(state.model.stages), B, 16)
+    return StepNoise.draw_speakers(generator, B, 16)
 
-    def run(device, fault=0.0):
-        _, state, warmup, gan, batch = zoo.build("multimodal_context", gru_kernel, device)
+
+def _last_gru(model: str, state):
+    """The generator's GRU whose output a planted fault scales."""
+    return state.model.stages[-1].gru if model == "hierarchy" else state.model.gru
+
+
+def _as_f64(state, batch, noise):
+    """The CPU step's nets, optimizer state, batch and draws in f64 (the
+    precision witness of `_zoo_step_vs_cpu`)."""
+    import torch
+    for net in (state.model, state.disc):
+        net.double()
+    batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    noise = dataclasses.replace(noise, **{
+        f.name: getattr(noise, f.name).double() for f in dataclasses.fields(noise)
+        if isinstance(getattr(noise, f.name), torch.Tensor)
+        and getattr(noise, f.name).is_floating_point()})
+    return batch, noise
+
+
+def _worst(errs: dict, n: int = 3) -> str:
+    return ", ".join(f"{k} {errs[k]:.2e}" for k in sorted(errs, key=errs.get)[::-1][:n])
+
+
+def _zoo_step_vs_cpu(zoo, kind: str, gru_kernel: str, model: str = "multimodal_context",
+                     loss_tol: float = ZOO_LOSS_TOL, grad_tol: float = ZOO_GRAD_TOL,
+                     hop=None, label: str = "zoo", scale: str = "tensor",
+                     fault: bool = True, apart: dict = None, witness: tuple = None,
+                     reuse_witness: bool = False):
+    """One warmup or GAN step of `model` at bs ZOO_CPU_B on the card and on
+    the CPU from the same fresh state, batch and draws: losses and
+    gradients. Dropout is off on both sides: its masks come from each
+    device's own torch.Generator, whose CUDA and CPU streams differ. Each
+    gradient tensor's error is taken over its largest element (`scale`
+    "tensor") or over its net's largest gradient ("net"; `_zoo_errs`), and
+    held to `grad_tol`, but for the tensors held apart:
+      * `apart` {name prefix: limit}: those tensors to their own limit;
+      * `witness` (name prefix, tol): those tensors against the same step
+        on the CPU in f64, each to the larger of `tol` of its net's largest
+        gradient and WITNESS_RATIO times the CPU's own f32 error; with
+        `reuse_witness`, against the CPU's f32 step instead, each to its
+        limit and the CPU's f32 error as the last witnessed step of `model`
+        measured them (the warmup after the GAN step, whose generator loss
+        holds the warmup's).
+    With `fault`, the card's step runs again with the generator's (last)
+    GRU's output scaled by 1 + ZOO_FAULT, a planted fault that the loss
+    limit and `grad_tol` must both catch."""
+    import torch
+    apart = dict(apart or {})
+    builds = []
+
+    def run(device, fault=0.0, f64=False):
+        t = time.perf_counter()
+        cfg, state, warmup, gan, batch = zoo.build(model, gru_kernel, device, hop)
+        builds.append(time.perf_counter() - t)
         for m in (*state.model.modules(), *state.disc.modules()):
-            for rate in ("dropout", "emb_dropout"):
+            for rate in ("dropout", "emb_dropout", "dropout_rate", "attention_dropout"):
                 if isinstance(getattr(m, rate, None), float):
                     setattr(m, rate, 0.0)
         if fault:
-            state.model.gru.register_forward_hook(
+            _last_gru(model, state).register_forward_hook(
                 lambda mod, args, out: (out[0] * (1.0 + fault), out[1]))
         batch = {k: v[:ZOO_CPU_B] for k, v in batch.items()}
-        noise = StepNoise.draw_speakers(torch.Generator().manual_seed(zoo.seed + 2),
-                                        ZOO_CPU_B, 16)
+        noise = _step_noise(model, state, cfg, torch.Generator().manual_seed(zoo.seed + 2),
+                            ZOO_CPU_B)
+        if f64:
+            batch, noise = _as_f64(state, batch, noise)
         _, metrics = (warmup if kind == "warmup" else gan)(state, batch, noise)
         return {k: v.item() for k, v in metrics.items()}, _zoo_grads(state)
+
+    def limit_of(k):
+        return next((tol for p, tol in apart.items() if k.startswith(p)), None)
+    t0 = time.perf_counter()
     cpu = run(torch.device("cpu"))
-    loss_err, errs = _zoo_errs(run(zoo.dev), cpu)
-    worst = max(errs, key=errs.get)
-    check(loss_err <= ZOO_LOSS_TOL, f"zoo {kind} step ({gru_kernel}) card vs CPU losses: "
-                                    f"{loss_err} > {ZOO_LOSS_TOL} relative")
-    check(errs[worst] <= ZOO_GRAD_TOL, f"zoo {kind} step ({gru_kernel}) card vs CPU "
-                                       f"gradients: {worst} {errs[worst]} > {ZOO_GRAD_TOL}")
+    card = run(zoo.dev)
+    name = f"{label} {model} {kind} step ({gru_kernel})"
+    loss_err, errs = _zoo_errs(card, cpu, scale)
+    held = {k: e for k, e in errs.items() if limit_of(k) is None
+            and not (witness and k.startswith(witness[0]))}
+    worst = max(held, key=held.get)
+    check(loss_err <= loss_tol, f"{name} card vs CPU losses: {loss_err} > {loss_tol} "
+                                f"relative")
+    check(held[worst] <= grad_tol, f"{name} card vs CPU gradients: {_worst(held)} "
+                                   f"> {grad_tol}")
+    notes = []
+    for p, tol in apart.items():
+        mine = {k: e for k, e in errs.items() if k.startswith(p)}
+        if mine:
+            check(max(mine.values()) <= tol, f"{name}: {p}* card vs CPU {_worst(mine)} > {tol}")
+            notes.append(f"{p}* {_worst(mine, 1)} (tol {tol:g})")
+    if witness and reuse_witness:
+        prefix, _ = witness
+        lims, w_cpu = zoo.witnessed[model]
+        n_errs = _zoo_errs(card, cpu, "net")[1]
+        mine = {k: e for k, e in n_errs.items() if k.startswith(prefix)}
+        bound = {k: lims.get(k, witness[1]) + w_cpu.get(k, 0.0) for k in mine}
+        over = {k: e / bound[k] for k, e in mine.items()}
+        top = max(over, key=over.get)
+        check(over[top] <= 1.0, f"{name}: {top} card vs CPU {mine[top]} > {bound[top]}, the "
+                                f"witnessed limit plus the CPU's f32 error")
+        notes.append(
+            f"{prefix}* ({len(mine)} tensors) card vs CPU over its net's largest "
+            f"{_worst(mine)}, each held to its limit from the GAN step's f64 witness plus the "
+            f"CPU's f32 error there, closest {top} at {over[top]:.2f} of it")
+    elif witness:
+        prefix, tol = witness
+        f64 = run(torch.device("cpu"), f64=True)
+        (w_loss, w_card), (w_cpu_loss, w_cpu) = (_zoo_errs(x, f64, "net") for x in (card, cpu))
+        lims = {k: max(tol, WITNESS_RATIO * e) for k, e in w_cpu.items() if k.startswith(prefix)}
+        zoo.witnessed[model] = lims, w_cpu
+        over = {k: w_card[k] / lim for k, lim in lims.items()}
+        top = max(over, key=over.get)
+        check(over[top] <= 1.0, f"{name}: {top} against the f64 witness: card {w_card[top]} > "
+                                f"{lims[top]} (the CPU's f32 {w_cpu[top]})")
+        notes.append(
+            f"{prefix}* ({len(lims)} tensors) against the same step in f64 on the CPU, over "
+            f"its net's largest: card {_worst({k: w_card[k] for k in lims})}, the CPU's own "
+            f"f32 {_worst({k: w_cpu[k] for k in lims})}, each held to the larger of {tol:g} "
+            f"and {WITNESS_RATIO:g}x the CPU's, closest {top} at {over[top]:.2f} of its "
+            f"limit; losses against f64: card {w_loss:.2e}, CPU {w_cpu_loss:.2e}")
     planted = ""
-    if gru_kernel == "fused":
-        f_loss, f_errs = _zoo_errs(run(zoo.dev, ZOO_FAULT), cpu)
-        f_worst = max(f_errs, key=f_errs.get)
-        check(f_loss > ZOO_LOSS_TOL and f_errs[f_worst] > ZOO_GRAD_TOL,
-              f"zoo {kind} step: the planted fault (the GRU's output times 1 + "
-              f"{ZOO_FAULT:g}) passes the limits: losses {f_loss}, gradients {f_worst} "
-              f"{f_errs[f_worst]}")
+    if fault:
+        f_loss, f_errs = _zoo_errs(run(zoo.dev, ZOO_FAULT), cpu, scale)
+        f_held = {k: e for k, e in f_errs.items() if k in held}
+        f_worst = max(f_held, key=f_held.get)
+        check(f_loss > loss_tol and f_held[f_worst] > grad_tol,
+              f"{name}: the planted fault (the GRU's output times 1 + {ZOO_FAULT:g}) "
+              f"passes the limits: losses {f_loss}, gradients {_worst(f_held)}")
         planted = (f"; the planted fault (the GRU's output times 1 + {ZOO_FAULT:g}): losses "
-                   f"{f_loss:.2e}, gradients {f_worst} {f_errs[f_worst]:.2e}, caught")
-    print(f"zoo multimodal_context {kind} step, {gru_kernel} route, bs {ZOO_CPU_B}, card vs "
-          f"CPU from one state: losses rel err {loss_err:.2e} (tol {ZOO_LOSS_TOL:g}); "
+                   f"{f_loss:.2e}, gradients {_worst(f_held)}, caught by both limits")
+    print(f"{label} {model} {kind} step, {gru_kernel} route, bs {ZOO_CPU_B}, card vs "
+          f"CPU from one state: losses rel err {loss_err:.2e} (tol {loss_tol:g}); "
           f"gradients of {len(errs)}/{len(cpu[1])} tensors (the rest round-off of exact "
-          f"zeros), worst {worst} {errs[worst]:.2e} (tol {ZOO_GRAD_TOL:g}){planted}")
+          f"zeros), worst over its {scale}'s largest {_worst(held)} (tol {grad_tol:g})"
+          + "".join(f"; apart: {n}" for n in notes) + f"{planted}; "
+          f"{time.perf_counter() - t0:.1f} s (builds " + ", ".join(f"{b:.1f}" for b in builds)
+          + ")")
 
 
-def _zoo_step(zoo, model: str, gru_kernel: str, kind: str, label: str):
+def _zoo_step(zoo, model: str, gru_kernel: str, kind: str, label: str, hop=None,
+              reps: int = 5, phase: str = "zoo", profiled: int = 2, host_ops: bool = True,
+              warm: int = 1):
     """One bs-256 step on the card: launches as `zoo_launches` derives them,
     finite losses, every parameter with a gradient moved; then ms a step
-    (CUDA events), its kernels' ms and the busy share (torch.profiler).
-    Returns the launches."""
+    (CUDA events, `reps` steps), its kernels' ms, the busy share and the peak
+    of allocated memory (torch.profiler, `profiled` steps). Returns the
+    launches."""
     import torch
-    cfg, state, warmup, gan, batch = zoo.build(model, gru_kernel)
+    t0 = time.perf_counter()
+    cfg, state, warmup, gan, batch = zoo.build(model, gru_kernel, hop=hop)
+    built = time.perf_counter() - t0
     step = warmup if kind == "warmup" else gan
     disc = getattr(state, "disc", None)
     nets = [state.model] + ([disc] if disc is not None else [])
@@ -3269,27 +3442,32 @@ def _zoo_step(zoo, model: str, gru_kernel: str, kind: str, label: str):
     torch.cuda.synchronize()
     launches = _launch_counts()
     want = zoo_launches(model, state.model, kind, gru_kernel, disc)
-    check(launches == want, f"zoo {label}: launches {launches}, want {want}")
+    check(launches == want, f"{phase} {label}: launches {launches}, want {want}")
     for k, v in metrics.items():
-        check(bool(torch.isfinite(v)), f"zoo {label}: {k} = {v.item()}")
+        check(bool(torch.isfinite(v)), f"{phase} {label}: {k} = {v.item()}")
     moved = 0
     for net, was in zip(nets, before):
         for k, p in net.named_parameters():
             # Adam leaves a weight whose gradient is exactly zero where it was
             if p.grad is not None and bool(p.grad.any()):
-                check(not torch.equal(p.detach(), was[k]), f"zoo {label}: {k} did not move")
+                check(not torch.equal(p.detach(), was[k]), f"{phase} {label}: {k} did not move")
                 moved += 1
 
     def one():
         step(state, batch, rng)
-    ms = cuda_ms(one, reps=5, warmup=1)
-    busy, device_ms, top = _busy_share(one, 2, ms)
-    print(f"zoo {label} [{cfg.data.dataset}, bs {cfg.train.batch_size}]: losses "
+    ms = cuda_ms(one, reps=reps, warmup=warm)
+    torch.cuda.reset_peak_memory_stats()
+    busy, device_ms, top = _busy_share(one, profiled, ms, host_ops)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{phase} {label} [{cfg.data.dataset}, bs {cfg.train.batch_size}]: losses "
           + ", ".join(f"{k} {v.item():.4g}" for k, v in metrics.items())
           + f"; {moved} parameters with a non-zero gradient, each moved; launches "
-          f"{_nonzero(launches)} as derived; {ms:.2f} ms a step (CUDA-event median of 5), "
-          f"kernels {device_ms:.2f} ms, busy share {busy:.3f} (torch.profiler, 2 steps); "
-          f"top: " + ", ".join(f"{k} {t:.2f}" for k, t in top[:4]))
+          f"{_nonzero(launches)} as derived; {ms:.2f} ms a step (CUDA-event median of "
+          f"{reps}), kernels {device_ms:.2f} ms, busy share {busy:.3f}, peak {peak:.2f} GiB "
+          f"allocated (torch.profiler, {profiled} step{'s' if profiled > 1 else ''}"
+          + ("" if host_ops else ", the card's activity alone") + "); "
+          f"top: " + ", ".join(f"{k} {t:.2f}" for k, t in top[:4])
+          + f"; {time.perf_counter() - t0:.1f} s (build {built:.1f})")
     return launches
 
 
@@ -3303,7 +3481,7 @@ def _zoo_run_launches(model: str, state, out: str, epochs: int, gru_kernel="fuse
     disc = getattr(state, "disc", None)
     total = dict(ZERO_COUNTS)
     for epoch in range(epochs):
-        kind = "gan" if model == "multimodal_context" and epoch > 0 else "warmup"
+        kind = "gan" if model in GAN_FAMILIES and epoch > 0 else "warmup"
         for counts, n in ((zoo_launches(model, state.model, kind, gru_kernel, disc), steps),
                           (zoo_launches(model, state.model, "eval", gru_kernel), val_batches)):
             for k, v in counts.items():
@@ -3311,109 +3489,310 @@ def _zoo_run_launches(model: str, state, out: str, epochs: int, gru_kernel="fuse
     return total
 
 
-def phase_zoo(dev, seed):
-    """Phase 25. Returns the launches of each driven path."""
+def _run_argv(zoo, model, directory, epochs, prefetch, seed, dev, *extra):
+    """A training entry point's arguments for a run of `model` on `zoo`'s
+    records into `directory`."""
+    return (*zoo.data, "--model", model, "--device", str(dev), "--seed", str(seed),
+            "--warmup-epochs", "0", "--log-every", "1", "--epochs", str(epochs),
+            "--prefetch", str(prefetch), "--checkpoint-dir", directory,
+            "--metrics", os.path.join(directory, "metrics.jsonl"), *extra)
+
+
+def _resume_run(entry, zoo, model, tmp, seed, dev, smi, phase="zoo") -> dict:
+    """`entry --model model`: ZOO_RUN_EPOCHS epochs (A) against 1 + --resume
+    to ZOO_RUN_EPOCHS (B, prefetch 2, under --transfer-guard disallow: no
+    step waits for the card), bit for bit: the last checkpoint,
+    metrics.jsonl, best_metrics.json, best FGD. Returns A's launches, held to
+    their derivation."""
+    import torch
+    from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
+    name = f"{entry.__name__.split('.')[-1]} {model}"
+    a_dir, b_dir = (os.path.join(tmp, f"{phase}_{model}_{zoo.cfg.data.dataset}{x}")
+                    for x in ("_A", "_B"))
+    _reset_counts()
+    t1 = time.perf_counter()
+    (state_a, best_a), out_a = _run_entry(entry, _run_argv(zoo, model, a_dir, ZOO_RUN_EPOCHS,
+                                                           0, seed, dev))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = _launch_counts()
+    guard = ("--transfer-guard", "disallow")
+    _run_entry(entry, _run_argv(zoo, model, b_dir, 1, 2, seed, dev, *guard))
+    (state_b, best_b), out_b = _run_entry(entry, _run_argv(
+        zoo, model, b_dir, ZOO_RUN_EPOCHS, 2, seed, dev, "--resume", *guard))
+    check("resumed from checkpoint epoch 0" in out_b, f"{phase} run {name}: no resume")
+    ck_a, ck_b = CheckpointManager(a_dir), CheckpointManager(b_dir)
+    check(ck_a.latest_step() == ck_b.latest_step() == ZOO_RUN_EPOCHS - 1,
+          f"{phase} run {name}: latest steps {ck_a.latest_step()}, {ck_b.latest_step()}")
+    diff = differing_entries(ck_a.restore(), ck_b.restore())
+    check(not diff, f"{phase} run {name}: 2 epochs and 1 + resume differ at {diff[:6]}")
+    for f in ("metrics.jsonl", "best_metrics.json"):
+        a, b = (open(os.path.join(d, f)).read() for d in (a_dir, b_dir))
+        check(a == b, f"{phase} run {name}: {f} differs:\n{a}\n{b}")
+    check(best_a == best_b, f"{phase} run {name}: best FGD {best_a} vs {best_b}")
+    want = _zoo_run_launches(model, state_a, out_a, ZOO_RUN_EPOCHS)
+    check(launches == want, f"{phase} run {name}: launches {launches}, want {want}")
+    print(f"{phase} run [python -m hop_tpu_torch.cli.{entry.__name__.split('.')[-1]} --model "
+          f"{model}, {zoo.cfg.data.dataset} full width, bs {zoo.cfg.train.batch_size}]: "
+          f"{ZOO_RUN_EPOCHS} epochs and 1 + --resume to {ZOO_RUN_EPOCHS} (prefetch 2, "
+          f"--transfer-guard disallow) end bit-identical (the last checkpoint, "
+          f"metrics.jsonl, best_metrics.json; best FGD {best_a:.6g}); launches "
+          f"{_nonzero(launches)} as derived; {run_s:.1f} s (host clock, build and data "
+          f"included); s of train steps an epoch "
+          + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out_a))
+          + "; s a validation pass "
+          + ", ".join(f"{t:.3f}" for t in _validation_seconds(out_a)) + f"; on {smi}")
+    return launches
+
+
+def zoo_data(dev, seed, tmp: str) -> tuple:
+    """The TED and Expressive records of phases 25-27 under `tmp`, and a
+    `_Zoo` of each."""
+    from hop_tpu_torch.config import expressive_config, ted_config
+    t0 = time.perf_counter()
+    ted = _Zoo(ted_config(), _zoo_records(ted_config(), os.path.join(tmp, "ted"), seed),
+               seed, dev)
+    expr = _Zoo(expressive_config(),
+                _zoo_records(expressive_config(), os.path.join(tmp, "expr"), seed),
+                seed, dev)
+    print(f"zoo: records of {ZOO_VIDEOS} seeded 20 s clips, TED and Expressive, in "
+          f"{time.perf_counter() - t0:.1f} s; {len(ted.train_ds)} training windows, "
+          f"vocabulary {ted.lang.n_words} words, {ted.n_speakers} speakers")
+    return ted, expr
+
+
+def phase_zoo(dev, seed, ted, expr, tmp):
+    """Phase 25 on `zoo_data`'s records under `tmp`. Returns the launches of
+    each driven path."""
     import torch
     from hop_tpu_torch.cli import run_expressive, run_ted
-    from hop_tpu_torch.config import expressive_config, ted_config
-    from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
     smi = _smi()
     paths = {}
-    tmp = tempfile.mkdtemp(prefix="hop_zoo_")
     t0 = time.perf_counter()
-    try:
-        ted = _Zoo(ted_config(), _zoo_records(ted_config(), os.path.join(tmp, "ted"), seed),
-                   seed, dev)
-        expr = _Zoo(expressive_config(),
-                    _zoo_records(expressive_config(), os.path.join(tmp, "expr"), seed),
-                    seed, dev)
-        print(f"zoo: records of {ZOO_VIDEOS} seeded 20 s clips, TED and Expressive, in "
-              f"{time.perf_counter() - t0:.1f} s; {len(ted.train_ds)} training windows, "
-              f"vocabulary {ted.lang.n_words} words, {ted.n_speakers} speakers")
-        # the trimodal GAN on both GRU routes: card vs CPU, then at bs 256
-        for gru_kernel in ("fused", "stack"):
-            for kind in ("warmup", "gan"):
-                _zoo_step_vs_cpu(ted, kind, gru_kernel)
-                paths[f"zoo_mm_{kind}_{gru_kernel}"] = _zoo_step(
-                    ted, "multimodal_context", gru_kernel, kind,
-                    f"multimodal_context {kind} step, {gru_kernel} route")
-        # one step of each other family on the fused route
-        for model in ZOO_OTHERS:
-            paths[f"zoo_{model}_step"] = _zoo_step(ted, model, "fused", "warmup",
-                                                   f"{model} step")
-        paths["zoo_motion_ae_step"] = _zoo_step(expr, "gesture_autoencoder", "fused",
-                                                "warmup", "gesture_autoencoder (MotionAE) step")
-        # yardstick: seq2seq's step with torch's embedding backward (atomics,
-        # no repeat) in place of WordEmbedding's ordered one
-        from unittest import mock
-        from hop_tpu_torch.models.common import WordEmbedding
-        with mock.patch.object(WordEmbedding, "forward", torch.nn.Embedding.forward):
-            _zoo_step(ted, "seq2seq", "fused", "warmup",
-                      "seq2seq step, torch's embedding backward (yardstick)")
+    # the trimodal GAN on both GRU routes: card vs CPU, then at bs 256
+    for gru_kernel in ("fused", "stack"):
+        for kind in ("warmup", "gan"):
+            _zoo_step_vs_cpu(ted, kind, gru_kernel, fault=gru_kernel == "fused")
+            paths[f"zoo_mm_{kind}_{gru_kernel}"] = _zoo_step(
+                ted, "multimodal_context", gru_kernel, kind,
+                f"multimodal_context {kind} step, {gru_kernel} route")
+    # one step of each other family on the fused route
+    for model in ZOO_OTHERS:
+        paths[f"zoo_{model}_step"] = _zoo_step(ted, model, "fused", "warmup",
+                                               f"{model} step")
+    paths["zoo_motion_ae_step"] = _zoo_step(expr, "gesture_autoencoder", "fused",
+                                            "warmup", "gesture_autoencoder (MotionAE) step")
+    # yardstick: seq2seq's step with torch's embedding backward (atomics,
+    # no repeat) in place of WordEmbedding's ordered one
+    from unittest import mock
+    from hop_tpu_torch.models.common import WordEmbedding
+    with mock.patch.object(WordEmbedding, "forward", torch.nn.Embedding.forward):
+        _zoo_step(ted, "seq2seq", "fused", "warmup",
+                  "seq2seq step, torch's embedding backward (yardstick)")
 
-        # run_ted: 2 epochs against 1 + --resume to 2, bit for bit
-        def argv(zoo, model, name, epochs, prefetch, *extra):
-            d = os.path.join(tmp, name)
-            return (*zoo.data, "--model", model, "--device", str(dev), "--seed", str(seed),
-                    "--warmup-epochs", "0",
-                    "--log-every", "1", "--epochs", str(epochs), "--prefetch", str(prefetch),
-                    "--checkpoint-dir", d, "--metrics", os.path.join(d, "metrics.jsonl"),
-                    *extra)
-        for model in ("multimodal_context", "seq2seq"):
-            _reset_counts()
-            t1 = time.perf_counter()
-            (state_a, best_a), out_a = _run_entry(run_ted, argv(ted, model, model + "_A",
-                                                              ZOO_RUN_EPOCHS, 0))
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t1
-            launches = paths[f"zoo_run_{model}"] = _launch_counts()
-            # B under the transfer guard: no step waits for the card
-            guard = ("--transfer-guard", "disallow")
-            _run_entry(run_ted, argv(ted, model, model + "_B", 1, 2, *guard))
-            (state_b, best_b), out_b = _run_entry(run_ted, argv(
-                ted, model, model + "_B", ZOO_RUN_EPOCHS, 2, "--resume", *guard))
-            check("resumed from checkpoint epoch 0" in out_b, f"zoo run {model}: no resume")
-            a_dir, b_dir = (os.path.join(tmp, model + x) for x in ("_A", "_B"))
-            ck_a, ck_b = CheckpointManager(a_dir), CheckpointManager(b_dir)
-            check(ck_a.latest_step() == ck_b.latest_step() == ZOO_RUN_EPOCHS - 1,
-                  f"zoo run {model}: latest steps {ck_a.latest_step()}, {ck_b.latest_step()}")
-            diff = differing_entries(ck_a.restore(), ck_b.restore())
-            check(not diff, f"zoo run {model}: 2 epochs and 1 + resume differ at {diff[:6]}")
-            for f in ("metrics.jsonl", "best_metrics.json"):
-                a, b = (open(os.path.join(d, f)).read() for d in (a_dir, b_dir))
-                check(a == b, f"zoo run {model}: {f} differs:\n{a}\n{b}")
-            check(best_a == best_b, f"zoo run {model}: best FGD {best_a} vs {best_b}")
-            want = _zoo_run_launches(model, state_a, out_a, ZOO_RUN_EPOCHS)
-            check(launches == want, f"zoo run {model}: launches {launches}, want {want}")
-            print(f"zoo run [python -m hop_tpu_torch.cli.run_ted --model {model}, TED full "
-                  f"width, bs {ted.cfg.train.batch_size}]: {ZOO_RUN_EPOCHS} epochs and 1 + "
-                  f"--resume to {ZOO_RUN_EPOCHS} (prefetch 2, --transfer-guard disallow) end "
-                  f"bit-identical (the last "
-                  f"checkpoint, metrics.jsonl, best_metrics.json; best FGD {best_a:.6g}); "
-                  f"launches {_nonzero(launches)} as derived; {run_s:.1f} s (host clock, "
-                  f"build and data included); s of train steps an epoch "
-                  + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out_a))
-                  + "; s a validation pass "
-                  + ", ".join(f"{t:.3f}" for t in _validation_seconds(out_a)) + f"; on {smi}")
-            del state_a, state_b
-        _reset_counts()
-        (state, best), out = _run_entry(run_expressive, argv(
-            expr, "multimodal_context", "expressive", 1, 0))
-        torch.cuda.synchronize()
-        launches = paths["zoo_run_expressive"] = _launch_counts()
-        want = _zoo_run_launches("multimodal_context", state, out, 1)
-        check(launches == want, f"zoo run_expressive: launches {launches}, want {want}")
-        check("[VAL] loss:" in out and math.isfinite(best),
-              f"zoo run_expressive: best FGD {best}")
-        print(f"zoo run [python -m hop_tpu_torch.cli.run_expressive --model "
-              f"multimodal_context, pose_dim {expr.cfg.data.pose_dim}, bs "
-              f"{expr.cfg.train.batch_size}]: 1 epoch, FGD {best:.6g}, launches "
-              f"{_nonzero(launches)} as derived; s of train steps "
-              + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out)))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # run_ted: 2 epochs against 1 + --resume to 2, bit for bit
+    for model in ("multimodal_context", "seq2seq"):
+        paths[f"zoo_run_{model}"] = _resume_run(run_ted, ted, model, tmp, seed, dev,
+                                                smi)
+    _reset_counts()
+    (state, best), out = _run_entry(run_expressive, _run_argv(
+        expr, "multimodal_context", os.path.join(tmp, "expressive"), 1, 0, seed, dev))
+    torch.cuda.synchronize()
+    launches = paths["zoo_run_expressive"] = _launch_counts()
+    want = _zoo_run_launches("multimodal_context", state, out, 1)
+    check(launches == want, f"zoo run_expressive: launches {launches}, want {want}")
+    check("[VAL] loss:" in out and math.isfinite(best),
+          f"zoo run_expressive: best FGD {best}")
+    print(f"zoo run [python -m hop_tpu_torch.cli.run_expressive --model "
+          f"multimodal_context, pose_dim {expr.cfg.data.pose_dim}, bs "
+          f"{expr.cfg.train.batch_size}]: 1 epoch, FGD {best:.6g}, launches "
+          f"{_nonzero(launches)} as derived; s of train steps "
+          + ", ".join(f"{t:.3f}" for t in _epoch_seconds(out)))
     print(f"zoo: phase 25 in {time.perf_counter() - t0:.1f} s on {smi}")
     return paths
+
+
+# ---- phase 26: HOP on TED Expressive and HOP's ablations (ROADMAP M12) -------
+HOP_ABLATIONS = {"no_gwnet": {"use_gwnet": False},
+                 "no_reprogramming": {"use_reprogramming": False}}
+# Card vs CPU at bs 8 from one state, dropout off (phase 25's rule), the
+# planted fault (the generator's last GRU's output times 1 + ZOO_FAULT) in
+# the GAN step (the ablations: their warmup step). Readings on an NVIDIA H100
+# 80GB HBM3 at 700.00 W. HOP: each gradient tensor over its net's largest
+# gradient, to EXPR_GRAD_TOL (readings at most 4.0e-4, the fault 6.1e-4 to
+# 7.4e-4); held apart, the tensors whose gradients are products of bf16
+# operands (the backbone's bf16 output, K1's bf16 reads), rounded at other
+# places on the two devices (2.1e-3), and in the GAN step the
+# discriminator, whose real and fake terms cancel in D.out (1.25e-3); the
+# losses to EXPR_LOSS_TOL (readings at most 9.1e-5, the fault 1.8e-3). The
+# hierarchy: phase 25's rule, each tensor to 1e-4 of its largest element
+# (readings at most 4.6e-5, the fault's worst 8.7e-3 and 5.6e-2), but the ResNetSE,
+# whose convolution gradients f32 does not resolve on either device (the
+# first sums a dB-scale spectrogram against gradients its BatchNorm makes
+# sum to ~0; on the card cuDNN's deterministic algorithms are FFTs): the
+# CPU's own f32 lies up to 2.2e-3 of the net's largest from the same step
+# in f64, the card's up to 2.7e-3, so these are held against f64 (HIER_AUDIO,
+# WITNESS_RATIO); the losses to HIER_LOSS_TOL (readings 1.8e-5, the fault
+# 1.6e-3).
+EXPR_LOSS_TOL = 3e-4
+EXPR_GRAD_TOL = 5e-4
+EXPR_BF16 = {p: 5e-3 for p in ("G.mapping_layer.", "G.reprogramming_layer.",
+                               "G.align_layer.")}
+EXPR_DISC_TOL = 2.5e-3
+HIER_LOSS_TOL = 1e-4
+HIER_AUDIO = ("G.audio.", 1.5e-3)
+WITNESS_RATIO = 2.0
+
+
+def _hop_forward(zoo, label: str, hop=None, phase: str = "expressive") -> dict:
+    """HOP's bs-256 forward (eval mode, no graph) on `zoo`'s config: launches
+    as `forward_launches` derives them, finite poses of the config's width,
+    ms (CUDA events). Returns the launches."""
+    import torch
+    from hop_tpu_torch.models.hop import gru_input_size
+    cfg, state, _, _, batch = zoo.build("AD_LLM", hop=hop)
+    model = state.model.eval()
+    B = batch["target_vec"].shape[0]
+    eps = torch.zeros(B, cfg.hop.z_size, device=zoo.dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(batch["in_audio"], batch["log_mel"], batch["text_padded"],
+                         batch["target_vec"][:, :cfg.data.n_seed_frames],
+                         batch["vid_indices"], eps=eps)[0]
+    _reset_counts()
+    out = forward()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = forward_launches(cfg)
+    check(launches == want, f"{phase} HOP forward {label}: launches {launches}, want {want}")
+    check(tuple(out.shape) == (B, cfg.data.n_poses, cfg.data.pose_dim)
+          and bool(torch.isfinite(out).all()), f"{phase} HOP forward {label}: {out.shape}")
+    ms = cuda_ms(forward, reps=5, warmup=1)
+    print(f"{phase} HOP forward, {label} [{cfg.data.dataset}, bs {B}, the head's input "
+          f"{gru_input_size(cfg)} wide]: {tuple(out.shape)} finite; launches "
+          f"{_nonzero(launches)} as derived; {ms:.2f} ms (CUDA-event median of 5)")
+    return launches
+
+
+def phase_expressive(dev, seed, ted, expr, tmp):
+    """Phase 26 on `zoo_data`'s records. Returns the launches of each driven
+    path."""
+    from hop_tpu_torch.cli import run_expressive
+    smi = _smi()
+    paths = {}
+    t0 = time.perf_counter()
+    paths["expr_serve"] = _hop_forward(expr, "fused route")
+    for gru_kernel in ("fused", "stack"):
+        paths[f"expr_gan_{gru_kernel}"] = _zoo_step(
+            expr, "AD_LLM", gru_kernel, "gan", f"HOP fused GAN step, {gru_kernel} route",
+            reps=3, phase="expressive", profiled=1, host_ops=False, warm=0)
+    # the planted fault in the GAN step, whose generator loss is the warmup's
+    # plus the G term
+    for kind in ("warmup", "gan"):
+        _zoo_step_vs_cpu(expr, kind, "fused", "AD_LLM", EXPR_LOSS_TOL, EXPR_GRAD_TOL,
+                         label="expressive", scale="net", fault=kind == "gan",
+                         apart={**EXPR_BF16, "D.": EXPR_DISC_TOL})
+    paths["expr_run"] = _resume_run(run_expressive, expr, "AD_LLM", tmp, seed, dev, smi,
+                                    "expressive")
+    for name, hop in HOP_ABLATIONS.items():
+        paths[f"ablation_{name}_serve"] = _hop_forward(ted, name, hop, "ablation")
+        paths[f"ablation_{name}_gan"] = _zoo_step(
+            ted, "AD_LLM", "fused", "gan", f"HOP {name} fused GAN step", hop, reps=3,
+            phase="ablation", profiled=1, host_ops=False, warm=0)
+        _zoo_step_vs_cpu(ted, "warmup", "fused", "AD_LLM", EXPR_LOSS_TOL, EXPR_GRAD_TOL, hop,
+                         label=f"ablation {name}", scale="net", apart=EXPR_BF16)
+    print(f"expressive: phase 26 in {time.perf_counter() - t0:.1f} s on {smi}")
+    return paths
+
+
+# ---- phase 27: the hierarchy (HA2G, ROADMAP M13b) ----------------------------
+# K2 at the cascade's first layers (T, B, I, H, D): stage k's input is its
+# bones' dir-vecs and flag, the audio blend (32), the text features (32) and
+# z (16); TED's stages 1-2, Expressive's 1-5 (the last stages' 108 and 207
+# are phase 25's PoseGenerator shapes, the upper layers its 600)
+HIER_K2 = tuple((34, 256, I, 300, 2) for I in (96, 102, 105, 111, 117, 147, 177))
+H36M_EPOCHS = 2
+
+
+def write_h36m_npz(path: str, seed: int) -> None:
+    """A fabricated Human3.6M `positions_3d` npz (the reference's
+    h36m_loader.py:31 format): one training subject (S1) and one test
+    subject (S9), two actions of 400 frames of 32 joints each, random walks."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    positions = {}
+    for subject in ("S1", "S9"):
+        positions[subject] = {
+            f"act{a}": (rng.standard_normal((1, 32, 3)) * 0.2 + np.cumsum(
+                rng.standard_normal((400, 32, 3)) * 0.003, axis=0)).astype(np.float32)
+            for a in range(2)}
+    np.savez(path, positions_3d=np.array(positions, dtype=object))
+
+
+def phase_hierarchy(dev, seed, ted, expr, tmp):
+    """Phase 27 on `zoo_data`'s records. Returns the launches of each driven
+    path."""
+    from hop_tpu_torch.cli import run_expressive, run_ted, train_h36m_ae
+    from hop_tpu_torch.eval.export_eval_net import export
+    smi = _smi()
+    paths = {}
+    t0 = time.perf_counter()
+    for zoo in (ted, expr):
+        ds = zoo.cfg.data.dataset
+        # both kinds on the fused route, the GAN step (a superset) on the stack
+        for gru_kernel, kinds in (("fused", ("warmup", "gan")), ("stack", ("gan",))):
+            for kind in kinds:
+                paths[f"hier_{ds}_{kind}_{gru_kernel}"] = _zoo_step(
+                    zoo, "hierarchy", gru_kernel, kind,
+                    f"{kind} step, {gru_kernel} route", reps=3, phase="hierarchy",
+                    profiled=1, host_ops=False, warm=0)
+        for kind in ("gan", "warmup"):
+            _zoo_step_vs_cpu(zoo, kind, "fused", "hierarchy", HIER_LOSS_TOL,
+                             label=f"hierarchy {ds}", fault=kind == "gan", witness=HIER_AUDIO,
+                             reuse_witness=kind == "warmup")
+    paths["hier_run_ted"] = _resume_run(run_ted, ted, "hierarchy", tmp, seed, dev, smi,
+                                        "hierarchy")
+    paths["hier_run_expressive"] = _resume_run(run_expressive, expr, "hierarchy", tmp, seed,
+                                               dev, smi, "hierarchy")
+    # the FGD feature net's loop: H36M -> train_h36m_ae -> export_eval_net ->
+    # a training run that reads it
+    t1 = time.perf_counter()
+    npz, ck = os.path.join(tmp, "h36m.npz"), os.path.join(tmp, "h36m_ck")
+    write_h36m_npz(npz, seed)
+    rc, h36m_out = _run_entry(train_h36m_ae, ["--npz", npz, "--checkpoint-dir", ck,
+                                              "--epochs", str(H36M_EPOCHS), "--batch-size",
+                                              "32", "--device", str(dev), "--seed", str(seed)])
+    check(rc == 0 and f"epoch {H36M_EPOCHS}:" in h36m_out and "saved" in h36m_out,
+          f"train_h36m_ae: {h36m_out[-400:]}")
+    evalnet = os.path.join(tmp, "evalnet.npz")
+    export(ck, evalnet)
+    (_, best), out = _run_entry(run_ted, _run_argv(
+        ted, "seq2seq", os.path.join(tmp, "evalnet_run"), 1, 0, seed, dev, "--eval-net",
+        evalnet))
+    check("[VAL] loss:" in out and "UNTRAINED" not in out and "RANDOMLY" not in out
+          and math.isfinite(best), f"run_ted --eval-net: not a trained feature net:\n"
+                                   f"{out[-600:]}")
+    print(f"hierarchy: train_h36m_ae {H36M_EPOCHS} epochs on a fabricated positions_3d npz "
+          f"(" + "; ".join(line.strip() for line in h36m_out.splitlines()
+                           if line.startswith("epoch "))
+          + f"), export_eval_net, then run_ted --model seq2seq --eval-net <export>: a "
+          f"trained feature net, FGD {best:.6g}; {time.perf_counter() - t1:.1f} s")
+    print(f"hierarchy: phase 27 in {time.perf_counter() - t0:.1f} s on {smi}")
+    return paths
+
+
+class _Laps:
+    """Seconds of the phases (host clock): each call closes the span since
+    the last under its name."""
+
+    def __init__(self):
+        self.seconds, self.t = {}, time.perf_counter()
+
+    def __call__(self, name: str):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
 
 
 def main():
@@ -3425,27 +3804,38 @@ def main():
     import hop_tpu_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    lap = _Laps()
 
     phase_device()
     phase_build()
+    lap("1-2")
     k1 = phase_k1(dev, SEED)
+    lap("3")
     k2 = phase_k2(dev, SEED)
+    lap("4")
     paths = {}      # kernel launches of each driven path, counted from zero
     model, paths["serve_fused"], out_fused = phase_serve(dev, SEED)
     phase_clips(model, dev)
+    lap("5-6")
     k1_bwd = phase_k1_bwd(dev, SEED)
+    lap("7")
     k2_bwd = phase_k2_bwd(dev, SEED)
+    lap("8")
     model_cpu, disc_cpu, paths["fused_step"] = phase_train(dev, SEED)
     _, _, paths["fused_step_stack"] = phase_train(dev, SEED, gru_kernel="stack")
     phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED)
     del model_cpu, disc_cpu
+    lap("9-10")
     k3 = phase_k3_fwd(dev, SEED)
     k3_bwd = phase_k3_bwd(dev, SEED)
+    lap("11-12")
     k6, paths["seq_forward"] = phase_k6(model.gru, dev, SEED)
+    lap("13")
     del model
     model, paths["serve_stack"], _ = phase_serve(dev, SEED, "stack", out_fused)
     phase_clips(model, dev, "stack")
     del out_fused
+    lap("14")
     attn_paths = phase_serve_attention(model, dev, SEED)
     paths["serve_stack_fused_attn"] = attn_paths["fused"]
     paths["serve_stack_block_attn"] = attn_paths["block"]
@@ -3456,7 +3846,9 @@ def main():
         dev, SEED, gru_kernel="stack", fused_step=False)
     phase_warmup_vs_cpu(model_cpu, disc_cpu, dev, SEED, "stack", fused_step=False)
     del model_cpu, disc_cpu
+    lap("15-16, 19")
     attn = phase_bert_attention(dev, SEED)
+    lap("18")
     _, _, paths["fused_step_stack_fused_attn"] = phase_train(
         dev, SEED, gru_kernel="stack", attention="fused")
     model_cpu, disc_cpu, paths["fused_step_stack_block_attn"] = phase_train(
@@ -3467,17 +3859,34 @@ def main():
         dev, SEED, gru_kernel="stack", fused_step=False, attention="fused")
     _, _, paths["parity_step_stack_block_attn"] = phase_train(
         dev, SEED, gru_kernel="stack", fused_step=False, attention="block")
+    lap("20")
     lib = phase_library(dev, SEED)
+    lap("17")
     paths.update(phase_eval(dev, SEED))
+    lap("21")
     # the training entry point sets cuDNN's deterministic algorithms: last
     paths["train_run"] = phase_run(dev, SEED)
+    lap("22")
     paths.update(phase_import(dev, SEED))
+    lap("23")
     paths.update(phase_llama(dev, SEED))
-    t_zoo = time.perf_counter()
-    print(f"chip_smoke: phases 1-24 in {t_zoo - t_start:.1f} s")
+    lap("24")
     zoo = phase_zoo_kernels(dev, SEED)
-    print(f"zoo: the kernels at the zoo's shapes in {time.perf_counter() - t_zoo:.1f} s")
-    paths.update(phase_zoo(dev, SEED))
+    tmp = tempfile.mkdtemp(prefix="hop_zoo_")
+    try:
+        ted, expr = zoo_data(dev, SEED, tmp)
+        paths.update(phase_zoo(dev, SEED, ted, expr, tmp))
+        lap("25")
+        paths.update(phase_expressive(dev, SEED, ted, expr, tmp))
+        lap("26")
+        hier = phase_zoo_kernels(dev, SEED, HIER_K2, (), "hierarchy")
+        paths.update(phase_hierarchy(dev, SEED, ted, expr, tmp))
+        lap("27")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("chip_smoke: seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in lap.seconds.items())
+        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27')):.1f}")
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention
@@ -3495,18 +3904,21 @@ def main():
     k3_head = k3["head"]
 
     def zoo_err(key):
-        return max(r["max_abs_err"] for r in zoo[key].values())
+        return max(r["max_abs_err"] for r in [*zoo[key].values(), *hier[key].values()])
 
     def zoo_rows(key):
-        """The zoo's shapes of a kernel (phase 25), under keys of their own."""
-        return {"zoo": {",".join(map(str, shape)): r for shape, r in zoo[key].items()}}
+        """The zoo's shapes of a kernel (phase 25) and the hierarchy's (phase
+        27), under keys of their own."""
+        return {name: {",".join(map(str, shape)): r for shape, r in rows[key].items()}
+                for name, rows in (("zoo", zoo), ("hierarchy", hier)) if rows[key]}
 
-    def _at_i4320(r, library_ms):
-        """K2 at the LLaMA head's first layer (I = 4320): its error, time,
-        bound and cuDNN's time, under keys of their own."""
-        return {f"i4320_{k}": r[k] for k in
+    def _at(I, r, library_ms):
+        """K2 at a head's first layer (I = 4320 on LLaMA, 1751 on TED
+        Expressive): its error, time, bound and cuDNN's time, under keys of
+        their own."""
+        return {f"i{I}_{k}": r[k] for k in
                 ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")} | {
-                    "i4320_library_ms": library_ms}
+                    f"i{I}_library_ms": library_ms}
     kernels = [
         entry("reprogramming_attention_fwd", K1_SOURCE, K1_REPLACES, "K1",
               max(k1["max_abs_err"], k1_bwd["out_err"]), k1, lib["K1"]),
@@ -3518,11 +3930,13 @@ def main():
                   + [r["fwd_err"] for r in k2_bwd.values()] + [zoo_err("K2")]),
               k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)],
               disc_rec_kernel_ms=k2[K2_MAIN[2]]["rec_ms"],
-              **_at_i4320(k2[K2_LLAMA], lib[("gru_fwd", 4320, 350)]), **zoo_rows("K2")),
+              **_at(4320, k2[K2_LLAMA], lib[("gru_fwd", 4320, 350)]),
+              **_at(1751, k2[K2_EXPR], lib[("gru_fwd", 1751, 350)]), **zoo_rows("K2")),
         entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
               max([r["max_abs_err"] for r in k2_bwd.values()] + [zoo_err("K2_bwd")]),
               k2_bwd[(992, 350)], lib[("gru_bwd", 992, 350)],
-              **_at_i4320(k2_bwd[(4320, 350)], lib[("gru_bwd", 4320, 350)]),
+              **_at(4320, k2_bwd[(4320, 350)], lib[("gru_bwd", 4320, 350)]),
+              **_at(1751, k2_bwd[(1751, 350)], lib[("gru_bwd", 1751, 350)]),
               **zoo_rows("K2_bwd")),
         # K3 is the recurrence without its projection: no one call computes it
         entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3",

@@ -65,7 +65,6 @@ MODEL_CHOICES = ("AD_LLM", "multimodal_context", "seq2seq", "speech2gesture",
 #: flags of hop_tpu's base_parser whose feature the port has not yet:
 #: (dest, test of the parsed value, the ROADMAP.md item that brings it)
 UNPORTED = (
-    ("model", lambda v: v == "hierarchy", "M13b (hierarchy)"),
     ("data_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("model_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("dcn_slices", lambda v: v > 1, "M15 (parallel)"),
@@ -286,6 +285,7 @@ MODEL_BATCH_KEYS = {
     "speech2gesture": ("spectrogram", "target_vec"),
     "joint_embedding": ("text_padded", "in_audio", "target_vec"),
     "gesture_autoencoder": ("target_vec",),
+    "hierarchy": ("spectrogram", "text_padded", "target_vec", "vid_indices"),
 }
 
 

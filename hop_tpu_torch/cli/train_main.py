@@ -4,8 +4,10 @@ generator) and five families of the baseline zoo, `multimodal_context`
 (PoseGenerator + ConvDiscriminator, train.gan), `seq2seq`
 (train.seq2seq), `speech2gesture` (train.speech2gesture),
 `joint_embedding` and `gesture_autoencoder` (EmbeddingNet, or at pose_dim
-126 the MotionAE; train.embed). `hierarchy` is refused
-(`cli.common.UNPORTED`).
+126 the MotionAE; train.embed), and `hierarchy` (HA2G: the ResNetSE audio
+encoder, the text encoder and the 3- or 6-stage cascade, with the
+HierarchicalConvDiscriminator; train.hierarchy, at the loss weights
+hop_tpu's train_main.py:207-210 sets).
 
 `train_main` builds the datasets, the nets from the seed, their train
 steps, the validation pass and the checkpoint manager, restores the latest
@@ -16,8 +18,9 @@ uninterrupted run does, bit for bit.
 
 On the card the run sets `torch.backends.cudnn.deterministic`: cuDNN may
 otherwise pick convolution backward algorithms that sum in a varying order
-(gwnet's and the discriminator's convolutions), and a resumed run would
-then drift from the uninterrupted one. The port's own kernels repeat bit
+(gwnet's, ResNetSE's and the discriminator's convolutions), and a resumed
+run would then drift from the uninterrupted one. It turns cuDNN's TF32 off:
+the convolutions run in f32, as hop_tpu's do. The port's own kernels repeat bit
 for bit (no atomics, ordered split-K).
 
 The frozen backbone, BERT or LLaMA (`--llm-model`), is built from the seed
@@ -42,6 +45,7 @@ import torch
 from hop_tpu_torch.cli import common as C
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.models.embedding_net import build_embedding_net
+from hop_tpu_torch.models.hierarchy import build_hierarchy
 from hop_tpu_torch.models.hop import build_hop_model
 from hop_tpu_torch.models.motion_ae import MotionAE
 from hop_tpu_torch.models.multimodal_context import (build_discriminator,
@@ -50,6 +54,7 @@ from hop_tpu_torch.models.seq2seq import build_seq2seq
 from hop_tpu_torch.models.speech2gesture import build_s2g
 from hop_tpu_torch.train.embed import make_embed_train_step, make_motion_ae_train_step
 from hop_tpu_torch.train.gan import build_pre_seq, make_gan_train_steps
+from hop_tpu_torch.train.hierarchy import make_hierarchy_train_steps
 from hop_tpu_torch.train.llm import make_hop_train_steps
 from hop_tpu_torch.train.loops import run_training
 from hop_tpu_torch.train.seq2seq import make_seq2seq_train_step
@@ -66,11 +71,12 @@ RESUME_KEYS = ("seed", "model", "dataset", "llm_model", "llm_layers", "llm_dim",
 
 
 def deterministic_cudnn(device: torch.device) -> None:
-    """cuDNN's deterministic algorithms, chosen without benchmarking, for a
-    run on the card."""
+    """cuDNN's deterministic algorithms, chosen without benchmarking, in f32
+    (no TF32), for a run on the card."""
     if device.type == "cuda":
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def generate_from_state(cfg: Config, state, batch, vids, generator):
@@ -156,6 +162,12 @@ def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device):
         return init_state(), step, None, _inference(lambda net, b, vids, g: net(
             None, None, b["target_vec"][:, :d.n_pre_poses], b["target_vec"],
             input_mode="pose")[-1])
+
+    if name == "hierarchy":
+        net, disc = build_hierarchy(cfg, lang.n_words, n_speakers, seed, device)
+        warmup, gan, init_state = make_hierarchy_train_steps(cfg, pretrained(net), disc)
+        return init_state(), warmup, gan, _inference(
+            lambda net, b, vids, g: net.generate(b, vids, g))
 
     raise ValueError(f"unknown model {name}")
 

@@ -1,6 +1,6 @@
 """Typed configuration for the port: the presets of the serving forward,
-the train steps, the training run, the validation pass and the baseline
-zoo.
+the train steps, the training run, the validation pass, the baseline
+zoo and the hierarchy.
 
 A jax-free copy of `hop_tpu/config.py`'s DataConfig, LLMConfig,
 HOPConfig, BaselineConfig, LossConfig, TrainConfig and presets
@@ -8,9 +8,9 @@ HOPConfig, BaselineConfig, LossConfig, TrainConfig and presets
 the fields the port reads. Each has the JAX field's name and value; tests/test_torch_config.py
 holds them field by field against the JAX presets. `HOPConfig.gru_kernel`,
 `gru_bf16_streams` and `LLMConfig.attention` are the port's own: the JAX
-package reads those choices from environment variables. The port builds the default HOP architecture only (BERT
-backbone + reprogramming + gwnet): `hop_tpu`'s switches for the other
-variants have no counterpart yet. The dir-vec width and the gwnet node
+package reads those choices from environment variables. `HOPConfig.use_gwnet`
+and `use_reprogramming` are HOP's two ablations (hop_tpu/config.py:104-105).
+The dir-vec width and the gwnet node
 count come from the port's skeletons (`hop_tpu_torch.geometry`).
 """
 
@@ -112,6 +112,10 @@ class HOPConfig:
     n_heads: int = 8
     d_ff: int = 128                      # per-head key dim of reprogramming
     num_prototype_tokens: int = 1500
+    # ablations: without gwnet the head reads the seed poses and WavEncoder
+    # features; without reprogramming the backbone reads the text alone
+    use_gwnet: bool = True
+    use_reprogramming: bool = True
     # True: the fused GAN step (one generator forward, one backward); False:
     # the reference's 3-forward step (train.llm)
     fused_step: bool = True
@@ -140,9 +144,9 @@ class HOPConfig:
 class BaselineConfig:
     """Hyperparameters of the baseline zoo (hop_tpu/config.py:132-145): the
     upstream Trimodal defaults its nets assume, and the expressive feature
-    net's latent width. hop_tpu's `freeze_wordembed` and `gan_noise_size`
-    are left out: none of its code reads them. The hierarchy's `pose_level`
-    comes with it (ROADMAP M13b)."""
+    net's latent width. hop_tpu's `freeze_wordembed`, `gan_noise_size` and
+    `pose_level` are left out: nothing in the port reads them (the cascade's
+    depth is its stage table's length)."""
     hidden_size: int = 300
     n_layers: int = 4
     dropout_prob: float = 0.3

@@ -18,7 +18,16 @@ no importer. The baseline zoo's: `pose_generator_state_dict_from_jax`,
 `s2g_discriminator_state_dict_from_jax` are the inverses of
 `hop_tpu.eval.torch_import_generator`'s `convert_pose_generator`,
 `convert_seq2seq`, `convert_s2g_generator` and
-`convert_s2g_discriminator`. No jax here: the caller hands
+`convert_s2g_discriminator`. The hierarchy's: a cascade stage converts as a
+PoseGenerator without its WavEncoder (the inverse of
+`convert_hierarchical_generator`), the HierarchicalConvDiscriminator as the
+ConvDiscriminator; `resnet_se_state_dict_from_jax` inverts
+`convert_resnet_se`, `gru_discriminator_state_dict_from_jax` converts the
+GRU discriminators (HierarchicalDiscriminator, the text Discriminator), and
+`hierarchy_state_dict_from_jax` the whole generator side of hop_tpu's
+train_main. The other way, `embedding_net_to_jax` and `motion_ae_to_jax`
+give the FGD feature nets' flax trees, which `save_npz_variables` writes
+as `save_arrays` does (`eval.export_eval_net`). No jax here: the caller hands
 over the variable tree `{"params": ..., "batch_stats": ...}` with numpy
 leaves (unboxed); `load_npz_variables` reads that tree from the flat .npz
 that `hop_tpu.utils.checkpoint.save_arrays` writes.
@@ -133,28 +142,33 @@ def state_dict_from_jax(variables, cfg: Config) -> "OrderedDict[str, torch.Tenso
     backbone = _llama if cfg.llm.model == "LLAMA" else _bert
     backbone(sd, "llm_model.", params["llm"], cfg.llm.n_layers)
 
-    sd["mapping_layer.weight"] = _t(params["mapping_layer"]["kernel"])
-    sd["mapping_layer.bias"] = _t(params["mapping_layer"]["bias"])
-    for name in ("query_projection", "key_projection",
-                 "value_projection", "out_projection"):
-        _lin(sd, f"reprogramming_layer.{name}",
-             params["reprogramming_layer"][name])
-    _lin(sd, "align_layer", params["align_layer"])
+    if cfg.hop.use_reprogramming:
+        sd["mapping_layer.weight"] = _t(params["mapping_layer"]["kernel"])
+        sd["mapping_layer.bias"] = _t(params["mapping_layer"]["bias"])
+        for name in ("query_projection", "key_projection",
+                     "value_projection", "out_projection"):
+            _lin(sd, f"reprogramming_layer.{name}",
+                 params["reprogramming_layer"][name])
+        _lin(sd, "align_layer", params["align_layer"])
 
-    _lin(sd, "beat.0", params["beat_fc1"])
-    _lin(sd, "beat.2", params["beat_fc2"])
-    gw_p, gw_s = params["gwnet"], stats["gwnet"]
-    sd["gwnet.nodevec1"] = _t(gw_p["nodevec1"])
-    sd["gwnet.nodevec2"] = _t(gw_p["nodevec2"])
-    _conv1x1(sd, "gwnet.start_conv", gw_p["start_conv"])
-    for i in range(cfg.hop.gwnet_blocks * cfg.hop.gwnet_layers):
-        _temporal_conv(sd, f"gwnet.filter_convs.{i}", gw_p[f"filter_{i}"])
-        _temporal_conv(sd, f"gwnet.gate_convs.{i}", gw_p[f"gate_{i}"])
-        _conv1x1(sd, f"gwnet.skip_convs.{i}", gw_p[f"skip_{i}"])
-        _conv1x1(sd, f"gwnet.gconv.{i}.mlp.mlp", gw_p[f"gcn_{i}"]["Dense_0"])
-        _bn(sd, f"gwnet.bn.{i}", gw_p[f"bn_{i}"], gw_s[f"bn_{i}"])
-    _conv1x1(sd, "gwnet.end_conv_1", gw_p["end_conv_1"])
-    _conv1x1(sd, "gwnet.end_conv_2", gw_p["end_conv_2"])
+    if cfg.hop.use_gwnet:
+        _lin(sd, "beat.0", params["beat_fc1"])
+        _lin(sd, "beat.2", params["beat_fc2"])
+        gw_p, gw_s = params["gwnet"], stats["gwnet"]
+        sd["gwnet.nodevec1"] = _t(gw_p["nodevec1"])
+        sd["gwnet.nodevec2"] = _t(gw_p["nodevec2"])
+        _conv1x1(sd, "gwnet.start_conv", gw_p["start_conv"])
+        for i in range(cfg.hop.gwnet_blocks * cfg.hop.gwnet_layers):
+            _temporal_conv(sd, f"gwnet.filter_convs.{i}", gw_p[f"filter_{i}"])
+            _temporal_conv(sd, f"gwnet.gate_convs.{i}", gw_p[f"gate_{i}"])
+            _conv1x1(sd, f"gwnet.skip_convs.{i}", gw_p[f"skip_{i}"])
+            _conv1x1(sd, f"gwnet.gconv.{i}.mlp.mlp", gw_p[f"gcn_{i}"]["Dense_0"])
+            _bn(sd, f"gwnet.bn.{i}", gw_p[f"bn_{i}"], gw_s[f"bn_{i}"])
+        _conv1x1(sd, "gwnet.end_conv_1", gw_p["end_conv_1"])
+        _conv1x1(sd, "gwnet.end_conv_2", gw_p["end_conv_2"])
+    else:
+        _wav_encoder(sd, "audio_encoder.", params["audio_encoder"],
+                     stats["audio_encoder"])
 
     _gru(sd, "gru.", params["gru"])
     _lin(sd, "out.0", params["out_fc1"])
@@ -405,3 +419,167 @@ def motion_ae_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]"
     _conv_encoder(sd, "encoder", p["encoder"], s["encoder"])
     _conv_decoder(sd, p["decoder"], s["decoder"])
     return sd
+
+
+# ---- the hierarchy (HA2G) ----------------------------------------------------
+
+def _conv2d(sd, name, p):
+    """flax Conv (kh, kw, in, out) -> Conv2d (out, in, kh, kw), its bias where
+    it has one."""
+    sd[name + ".weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
+
+
+def resnet_se_state_dict_from_jax(variables, prefix: str = "",
+                                  layers=(3, 4, 6, 3)) -> "OrderedDict[str, torch.Tensor]":
+    """ResNetSE variables -> the port's ResNetSE state_dict under `prefix`
+    (the inverse of hop_tpu's `convert_resnet_se`)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _conv2d(sd, prefix + "conv1", p["conv1"])
+    _bn_of(sd, prefix + "bn1", p, s, "BatchNorm_0")
+    for k, n_blocks in enumerate(layers, start=1):
+        for i in range(n_blocks):
+            bp, bs, n = p[f"layer{k}_{i}"], s[f"layer{k}_{i}"], f"{prefix}layer{k}.{i}."
+            _conv2d(sd, n + "conv1", bp["Conv_0"])
+            _bn_of(sd, n + "bn1", bp, bs, "BatchNorm_0")
+            _conv2d(sd, n + "conv2", bp["Conv_1"])
+            _bn_of(sd, n + "bn2", bp, bs, "BatchNorm_1")
+            _lin(sd, n + "se.fc.0", bp["SELayer_0"]["Dense_0"])
+            _lin(sd, n + "se.fc.2", bp["SELayer_0"]["Dense_1"])
+            if "Conv_2" in bp:
+                _conv2d(sd, n + "downsample.0", bp["Conv_2"])
+                _bn_of(sd, n + "downsample.1", bp, bs, "BatchNorm_2")
+    for j, level in enumerate(("low", "mid", "high"), start=1):
+        _conv2d(sd, f"{prefix}conv_{level}", p[f"conv_{level}"])
+        _bn_of(sd, f"{prefix}bn_{level}", p, s, f"BatchNorm_{j}")
+        _lin(sd, f"{prefix}fc_{level}", p[f"fc_{level}"])
+    sd[prefix + "speaker_embedding.0.weight"] = _t(p["speaker_embed"]["embedding"])
+    _lin(sd, prefix + "speaker_embedding.1", p["speaker_proj"])
+    _lin(sd, prefix + "fc1", p["fc1"])
+    _lin(sd, prefix + "fc2", p["fc2"])
+    return sd
+
+
+def gru_discriminator_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """HierarchicalDiscriminator or the text-conditioned Discriminator
+    (its `TextEncoderTCN_0` where it has one) -> the port's state_dict
+    (`text_encoder.*`, `gru.*`, `out`, `out2`)."""
+    p = variables["params"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    if "TextEncoderTCN_0" in p:
+        _text_encoder_tcn(sd, "text_encoder.", p["TextEncoderTCN_0"])
+    _gru(sd, "gru.", p["GRU_0"])
+    _lin(sd, "out", p["Dense_0"])
+    _lin(sd, "out2", p["Dense_1"])
+    return sd
+
+
+def hierarchy_state_dict_from_jax(variables, layers=(3, 4, 6, 3)
+                                  ) -> "OrderedDict[str, torch.Tensor]":
+    """hop_tpu's hierarchy generator tree ({"audio", "text", "g1", ...}, as
+    its train_main builds it) -> the port's HierarchyNet state_dict
+    (`audio.*`, `text.*`, `stages.{k}.*`)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd.update(resnet_se_state_dict_from_jax(
+        {"params": p["audio"], "batch_stats": s["audio"]}, "audio.", layers))
+    _text_encoder_tcn(sd, "text.", p["text"]["TextEncoderTCN_0"])
+    for k in range(sum(key.startswith("g") and key[1:].isdigit() for key in p)):
+        # a stage has the trimodal generator's names without its WavEncoder
+        for name, v in pose_generator_state_dict_from_jax({"params": p[f"g{k + 1}"]}).items():
+            sd[f"stages.{k}.{name}"] = v
+    return sd
+
+
+# ---- the other way: the FGD feature nets as flax trees (export_eval_net) ----
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _lin_to(sd, name) -> dict:
+    return {"kernel": _np(sd[name + ".weight"]).T, "bias": _np(sd[name + ".bias"])}
+
+
+def _conv1d_to(sd, name) -> dict:
+    return {"kernel": _np(sd[name + ".weight"]).transpose(2, 1, 0),
+            "bias": _np(sd[name + ".bias"])}
+
+
+def _conv_transpose1d_to(sd, name) -> dict:
+    return {"kernel": _np(sd[name + ".weight"]).transpose(2, 0, 1)[::-1].copy(),
+            "bias": _np(sd[name + ".bias"])}
+
+
+def _bn_to(sd, name) -> tuple:
+    """A BatchNorm -> the `models.common.BatchNorm` wrapper's (params,
+    batch_stats) entries."""
+    return ({"BatchNorm_0": {"scale": _np(sd[name + ".weight"]),
+                             "bias": _np(sd[name + ".bias"])}},
+            {"BatchNorm_0": {"mean": _np(sd[name + ".running_mean"]),
+                             "var": _np(sd[name + ".running_var"])}})
+
+
+def _conv_encoder_to(sd, prefix) -> tuple:
+    p, s = {}, {}
+    for i in range(3):
+        bp, bs = _bn_to(sd, f"{prefix}.net.{i}.1")
+        p[f"ConvNormRelu_{i}"] = {"Conv_0": _conv1d_to(sd, f"{prefix}.net.{i}.0"),
+                                  "BatchNorm_0": bp}
+        s[f"ConvNormRelu_{i}"] = {"BatchNorm_0": bs}
+    p["Conv_0"] = _conv1d_to(sd, f"{prefix}.net.3")
+    for j, (dense, norm) in enumerate(((0, 1), (3, 4))):
+        p[f"Dense_{j}"] = _lin_to(sd, f"{prefix}.out_net.{dense}")
+        p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"] = _bn_to(sd, f"{prefix}.out_net.{norm}")
+    p["Dense_2"] = _lin_to(sd, f"{prefix}.out_net.6")
+    return p, s
+
+
+def _conv_decoder_to(sd) -> tuple:
+    p, s = {"Dense_0": _lin_to(sd, "decoder.pre_net.0"),
+            "Dense_1": _lin_to(sd, "decoder.pre_net.3")}, {}
+    p["BatchNorm_0"], s["BatchNorm_0"] = _bn_to(sd, "decoder.pre_net.1")
+    for j, (conv, norm) in enumerate(((0, 1), (3, 4))):
+        p[f"ConvTranspose_{j}"] = _conv_transpose1d_to(sd, f"decoder.net.{conv}")
+        p[f"BatchNorm_{j + 1}"], s[f"BatchNorm_{j + 1}"] = _bn_to(sd, f"decoder.net.{norm}")
+    p["Conv_0"] = _conv1d_to(sd, "decoder.net.6")
+    p["Conv_1"] = _conv1d_to(sd, "decoder.net.7")
+    return p, s
+
+
+def embedding_net_to_jax(sd) -> dict:
+    """The port's pose-mode EmbeddingNet state_dict -> hop_tpu's variable
+    tree (numpy leaves), the inverse of `embedding_net_state_dict_from_jax`."""
+    pe, pe_s = _conv_encoder_to(sd, "pose_encoder")
+    pe["Dense_3"] = _lin_to(sd, "pose_encoder.fc_mu")
+    pe["Dense_4"] = _lin_to(sd, "pose_encoder.fc_logvar")
+    dp, ds = _conv_decoder_to(sd)
+    return {"params": {"pose_encoder": pe, "decoder": dp},
+            "batch_stats": {"pose_encoder": pe_s, "decoder": ds}}
+
+
+def motion_ae_to_jax(sd) -> dict:
+    """The port's MotionAE state_dict -> hop_tpu's variable tree, the inverse
+    of `motion_ae_state_dict_from_jax`."""
+    ep, es = _conv_encoder_to(sd, "encoder")
+    dp, ds = _conv_decoder_to(sd)
+    return {"params": {"encoder": ep, "decoder": dp},
+            "batch_stats": {"encoder": es, "decoder": ds}}
+
+
+def save_npz_variables(path: str, variables: dict) -> None:
+    """A variable tree -> the flat .npz that `hop_tpu.utils.checkpoint.
+    save_arrays` writes (keys the tree's path joined by "/"), which
+    `load_npz_variables` and hop_tpu's `--eval-net` read."""
+    flat = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                flat["/".join(path + (k,))] = np.asarray(v)
+    walk(variables, ())
+    np.savez(path, **flat)

@@ -23,7 +23,14 @@ or a given `eps`. Kernels on this path: K1 in the reprogramming layer,
 once per GRU layer K2 or, with `cfg.hop.gru_kernel="stack"`, K3, and once
 per backbone layer K4 or K5 with `cfg.llm.attention="fused"` or `"block"`
 (BERT only). The head's first GRU layer is `gru_input_size` wide: 992 on
-BERT, 4320 on LLaMA-7B's 4096-wide backbone.
+BERT at TED, 1751 at TED Expressive, 4320 on LLaMA-7B's 4096-wide backbone.
+
+HOP's two ablations (`cfg.hop`, hop_tpu/models/hop.py:52-60, :154-190):
+`use_reprogramming=False` builds no PrototypeMapper, ReprogrammingLayer or
+align_layer and feeds the text embeddings straight to the backbone (K1 is
+not launched); `use_gwnet=False` builds no beat MLP and gwnet, and the head
+reads the seed poses with their indicator bit and the `WavEncoder`'s audio
+features (`audio_encoder.*`) in their place.
 """
 
 from __future__ import annotations
@@ -42,9 +49,13 @@ from hop_tpu_torch.ops.gru import GRU
 
 
 def gru_input_size(cfg: Config) -> int:
-    """Width of the head's input: seed graph + flag, beat features, LLM
-    output and speaker latent (992 for TED on BERT, 4320 on LLaMA-7B)."""
+    """Width of the head's input: seed graph + flag, beat features (without
+    gwnet: seed poses + flag and the WavEncoder's features), LLM output and
+    speaker latent (992 for TED on BERT, 1751 for TED Expressive, 4320 on
+    LLaMA-7B)."""
     hop, d = cfg.hop, cfg.data
+    if not hop.use_gwnet:       # seed poses + flag, WavEncoder's 32 features
+        return d.pose_dim + 1 + 32 + cfg.llm.dim + hop.z_size
     N = d.n_joints_graph
     n_win = (d.expected_audio_length - hop.beat_window) // hop.beat_stride + 1
     rf = receptive_field(hop.gwnet_blocks, hop.gwnet_layers)
@@ -56,7 +67,7 @@ def gru_input_size(cfg: Config) -> int:
 class HOPModel(common.SpeakerLatent):
     """Children carry the reference's state_dict names (llm_model.*,
     speaker_embedding.*, mapping_layer, reprogramming_layer.*, align_layer,
-    beat.0/2, gwnet.*, gru.*, out.0/3)."""
+    beat.0/2, gwnet.*, audio_encoder.* without gwnet, gru.*, out.0/3)."""
 
     def __init__(self, cfg: Config, n_speakers: int):
         hop = cfg.hop
@@ -64,23 +75,27 @@ class HOPModel(common.SpeakerLatent):
         self.cfg = cfg
         self.llm_model = make_llm_encoder(cfg.llm)
         self.llm_model.requires_grad_(False)     # frozen (HOP.py:90-91)
-        self.mapping_layer = PrototypeMapper(cfg.llm.vocab_size,
-                                             hop.num_prototype_tokens)
-        self.reprogramming_layer = ReprogrammingLayer(
-            hop.d_model, hop.n_heads, hop.d_ff, cfg.llm.dim)
-        self.align_layer = nn.Linear(2 * cfg.llm.dim, cfg.llm.dim)
-        self.beat = nn.Sequential(
-            nn.Linear(hop.beat_window, hop.beat_window // 2),
-            nn.LeakyReLU(0.2),
-            nn.Linear(hop.beat_window // 2, hop.beat_feat))
-        self.gwnet = GraphWaveNet(
-            num_nodes=cfg.data.n_joints_graph,
-            in_dim=3 + hop.beat_feat, out_dim=3 + hop.beat_feat,
-            residual_channels=hop.gwnet_residual,
-            dilation_channels=hop.gwnet_dilation,
-            skip_channels=hop.gwnet_skip, end_channels=hop.gwnet_end,
-            blocks=hop.gwnet_blocks, layers=hop.gwnet_layers,
-            node_emb_dim=hop.gwnet_node_emb, gcn_order=hop.gwnet_order)
+        if hop.use_reprogramming:
+            self.mapping_layer = PrototypeMapper(cfg.llm.vocab_size,
+                                                 hop.num_prototype_tokens)
+            self.reprogramming_layer = ReprogrammingLayer(
+                hop.d_model, hop.n_heads, hop.d_ff, cfg.llm.dim)
+            self.align_layer = nn.Linear(2 * cfg.llm.dim, cfg.llm.dim)
+        if hop.use_gwnet:
+            self.beat = nn.Sequential(
+                nn.Linear(hop.beat_window, hop.beat_window // 2),
+                nn.LeakyReLU(0.2),
+                nn.Linear(hop.beat_window // 2, hop.beat_feat))
+            self.gwnet = GraphWaveNet(
+                num_nodes=cfg.data.n_joints_graph,
+                in_dim=3 + hop.beat_feat, out_dim=3 + hop.beat_feat,
+                residual_channels=hop.gwnet_residual,
+                dilation_channels=hop.gwnet_dilation,
+                skip_channels=hop.gwnet_skip, end_channels=hop.gwnet_end,
+                blocks=hop.gwnet_blocks, layers=hop.gwnet_layers,
+                node_emb_dim=hop.gwnet_node_emb, gcn_order=hop.gwnet_order)
+        else:
+            self.audio_encoder = common.WavEncoder()
         self.gru = GRU(gru_input_size(cfg), hop.hidden_size, hop.gru_layers,
                        bidirectional=True, kernel=hop.gru_kernel,
                        bf16_streams=hop.gru_bf16_streams)
@@ -157,13 +172,22 @@ class HOPModel(common.SpeakerLatent):
         B = in_audio.shape[0]
 
         text_embeddings = self.llm_model.embed_tokens(text.long())
-        source = self.mapping_layer(self.llm_model.word_embeddings)
-        enc_out = self.reprogramming_layer(x_enc, source, source,
-                                           seed=reprog_seed)
+        llm_in = text_embeddings
+        if cfg.hop.use_reprogramming:
+            source = self.mapping_layer(self.llm_model.word_embeddings)
+            enc_out = self.reprogramming_layer(x_enc, source, source,
+                                               seed=reprog_seed)
+            llm_in = self.align_layer(torch.cat([enc_out, text_embeddings], dim=-1))
         llm_det = not (self.training if llm_train is None else llm_train)
-        dec_out = self.llm_model(
-            self.align_layer(torch.cat([enc_out, text_embeddings], dim=-1)),
-            deterministic=llm_det, generator=generator, attn_seed=attn_seed)
+        dec_out = self.llm_model(llm_in, deterministic=llm_det, generator=generator,
+                                 attn_seed=attn_seed)
+
+        if not cfg.hop.use_gwnet:
+            n_seed = pre_seq.shape[1]
+            ges = pre_seq.new_zeros(B, n_poses, pre_seq.shape[2] + 1)
+            ges[:, :n_seed, :-1] = pre_seq
+            ges[:, :n_seed, -1] = 1.0
+            return torch.cat([ges, self.audio_encoder(in_audio), dec_out], dim=-1)
 
         beat_in = self._beat_features(in_audio)
         seed = pre_seq.reshape(B, pre_seq.shape[1], N, 3)

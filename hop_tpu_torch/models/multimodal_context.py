@@ -22,6 +22,12 @@ carry the reference's names (`pre_conv.{0,1,3,4,6}`, `gru.*`, `out`,
 `out2`), which `hop_tpu.eval.torch_import_generator.
 convert_conv_discriminator` reads. BatchNorm follows flax's training rule
 (`common.batch_norm`).
+
+Discriminator (hop_tpu :80-104, reference :175-216): the text-conditioned
+BiGRU discriminator, the poses and (with `n_words`) a TextEncoderTCN's word
+features through a 4-layer BiGRU(300), a per-step Linear(1) and a Linear
+over time, then a sigmoid. No entry point builds it; it is here for the
+reference's checkpoints (`text_encoder.*`, `gru.*`, `out`, `out2`).
 """
 
 from __future__ import annotations
@@ -141,3 +147,31 @@ def build_discriminator(cfg, seed: int,
         disc = ConvDiscriminator(cfg.data.pose_dim, cfg.data.n_poses,
                                  cfg.hop.gru_kernel, cfg.hop.gru_bf16_streams)
     return disc.to(device)
+
+
+class Discriminator(nn.Module):
+    """(poses (B, n_poses, input_size), word ids (B, n_poses) or None) -> (B,
+    1) probability of being real."""
+
+    def __init__(self, input_size: int, n_poses: int = 34, hidden_size: int = 300,
+                 n_layers: int = 4, dropout: float = 0.3, n_words: Optional[int] = None,
+                 gru_kernel: str = "fused"):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.text_encoder = None
+        if n_words is not None:
+            self.text_encoder = TextEncoderTCN(n_words)
+            input_size += 32
+        self.gru = GRU(input_size, hidden_size, num_layers=n_layers, bidirectional=True,
+                       dropout=dropout, kernel=gru_kernel)
+        self.out = nn.Linear(hidden_size, 1)
+        self.out2 = nn.Linear(n_poses, 1)
+
+    def forward(self, poses: torch.Tensor, in_text: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = poses
+        if self.text_encoder is not None:
+            x = torch.cat([x, self.text_encoder(in_text, generator)], dim=-1)
+        out, _ = self.gru(x, generator)
+        H = self.hidden_size
+        return torch.sigmoid(self.out2(self.out(out[..., :H] + out[..., H:])[..., 0]))

@@ -76,22 +76,22 @@ class GRU(nn.Module):
     def _params(self, name: str, layer: int):
         return [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.suffixes]
 
-    def _hidden_weights(self, layer: int):
+    def _hidden_weights(self, layer: int, dtype):
         """torch layout -> the kernels' stacked W_hh (D, 3, H, H), gate g
         mapping h -> h @ w[d, g], and b_hh (D, 3, 1, H)."""
         H = self.hidden_size
         whh = [w.reshape(3, H, H).transpose(1, 2)
                for w in self._params("weight_hh", layer)]
         bhh = [b.reshape(3, 1, H) for b in self._params("bias_hh", layer)]
-        return [torch.stack(w).float().contiguous() for w in (whh, bhh)]
+        return [torch.stack(w).to(dtype).contiguous() for w in (whh, bhh)]
 
     def _fused_layer(self, x_tm, layer: int, h0):
         H = self.hidden_size
         wih = [w.reshape(3, H, -1).transpose(1, 2)
                for w in self._params("weight_ih", layer)]
         bih = [b.reshape(3, 1, H) for b in self._params("bias_ih", layer)]
-        wih, bih = (torch.stack(w).float().contiguous() for w in (wih, bih))
-        whh, bhh = self._hidden_weights(layer)
+        wih, bih = (torch.stack(w).to(h0.dtype).contiguous() for w in (wih, bih))
+        whh, bhh = self._hidden_weights(layer, h0.dtype)
         return gru_fused_layer(x_tm, wih, bih, whh, bhh, h0)
 
     def _stack_layer(self, x_tm, layer: int, h0):
@@ -99,22 +99,24 @@ class GRU(nn.Module):
         its strided per-gate views (JAX `_pallas_layer_tm`, gru.py:96-130)."""
         T, B, F = x_tm.shape
         D, H = len(self.suffixes), self.hidden_size
-        w_ih = torch.cat(self._params("weight_ih", layer)).float()   # (D*3*H, F)
-        b_ih = torch.cat(self._params("bias_ih", layer)).float()
+        w_ih = torch.cat(self._params("weight_ih", layer)).to(h0.dtype)   # (D*3*H, F)
+        b_ih = torch.cat(self._params("bias_ih", layer)).to(h0.dtype)
         proj = torch.addmm(b_ih, x_tm.reshape(T * B, F), w_ih.t())
         if self.bf16_streams:
             proj = proj.to(torch.bfloat16)
         xr, xz, xn = (g.permute(2, 0, 1, 3)
                       for g in proj.view(T, B, D, 3, H).unbind(dim=3))
-        whh, bhh = self._hidden_weights(layer)
+        whh, bhh = self._hidden_weights(layer, h0.dtype)
         return gru_stack(xr, xz, xn, whh, bhh, h0)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         B = x.shape[0]
-        h0 = torch.zeros((B, self.hidden_size), dtype=torch.float32,
-                         device=x.device)
-        x_tm = x.float().transpose(0, 1).contiguous()      # (T, B, F)
+        # f32, the kernels' type; an f64 input stays f64 (the plain versions
+        # on the CPU take it; the kernels refuse it)
+        dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+        h0 = torch.zeros((B, self.hidden_size), dtype=dtype, device=x.device)
+        x_tm = x.to(dtype).transpose(0, 1).contiguous()      # (T, B, F)
         last = []
         for layer in range(self.num_layers):
             if layer > 0 and self.training:

@@ -64,7 +64,9 @@ class StepNoise:
     """Every random draw of one step but the large dropout masks. The
     trimodal GAN step (train/gan.py) draws the speakers' fields alone
     (`draw_speakers`) and leaves the discriminator's noise and the kernels'
-    seeds unset."""
+    seeds unset; the hierarchy's step (train/hierarchy.py) draws them with
+    one row of speaker noise per cascade stage (`draw_stages`: `eps`,
+    `eps_rand` and `eps_dis` then (n_stages, B, z))."""
     eps: torch.Tensor            # (B, z) speaker noise, the batch's speakers
     eps_rand: torch.Tensor       # (B, z) speaker noise, shuffled speakers
     perm: torch.Tensor           # (B,) int64: rand_vids = vids[perm]
@@ -109,6 +111,21 @@ class StepNoise:
                    eps_dis=torch.randn(batch_size, z_size, generator=g),
                    dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
 
+    @classmethod
+    def draw_stages(cls, generator: torch.Generator, n_stages: int, batch_size: int,
+                    z_size: int) -> "StepNoise":
+        """The draws of one hierarchy step from a CPU generator, in a fixed
+        order: the speaker noise of every stage of its three cascades (the
+        batch's speakers, shuffled speakers, the D phase's), the
+        permutation and the dropout seed."""
+        g = generator
+        shape = (n_stages, batch_size, z_size)
+        return cls(eps=torch.randn(shape, generator=g),
+                   eps_rand=torch.randn(shape, generator=g),
+                   perm=torch.randperm(batch_size, generator=g),
+                   eps_dis=torch.randn(shape, generator=g),
+                   dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
+
     def to(self, device) -> "StepNoise":
         """The draws on `device`; to a card from pinned memory, without
         making the host wait for it."""
@@ -134,11 +151,13 @@ def _div_diagnostics(div_raw, pose_l1, z_l1, out, mu, logvar, loss_cfg):
     }
 
 
-def generator_terms(out, out_rand, z, z_rand, mu, logvar, target, loss_cfg):
+def generator_terms(out, out_rand, z, z_rand, mu, logvar, target, loss_cfg,
+                    regression: Optional[torch.Tensor] = None):
     """Huber + the diversity regulariser with its clamp + KLD (hop_tpu
     llm.py:126-152, gan.py:65-86): (loss, metrics, (div_raw, pose_l1,
-    z_l1)); `out_rand` and `z_rand` enter detached."""
-    h = huber(out, target, loss_cfg.huber_beta)
+    z_l1)); `out_rand` and `z_rand` enter detached. `regression` replaces
+    huber(out, target) (the hierarchy sums one per cascade stage)."""
+    h = huber(out, target, loss_cfg.huber_beta) if regression is None else regression
     pose_l1 = huber(out, out_rand.detach(), loss_cfg.div_beta,
                     reduce=False).sum(dim=(1, 2))
     z_l1 = torch.mean(torch.abs(z.detach() - z_rand.detach()), dim=-1)

@@ -34,6 +34,7 @@ from hop_tpu_torch.ops.dropout import attention_keep
 from test_torch_attention import (EMULATION_BWD_REL, SHAPES, assert_emulation_close,
                                   assert_grads_close, bf16_exact, check_encoder_route,
                                   einsum_attention, inputs)
+from test_torch_zoo_steps import one_torch_thread  # noqa: F401 (a fixture)
 
 # (B, T, nb): groups of 1, 2, 3 and 8 samples, the last three with a ragged
 # last group; T=17 puts a sample boundary inside a strip and T=40 a strip

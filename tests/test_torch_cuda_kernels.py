@@ -95,6 +95,14 @@ def test_reprogramming_attention_kernel(device, B, L, H, S, rate):
     (7, 13, 20, 100),       # one block, a width that is no multiple of 8
     (6, 43, 24, 203),       # a cluster of slices of 26 units, the last short
     (34, 256, 992, 350),    # the HOP head's first layer
+    (34, 256, 1751, 350),   # the same on TED Expressive: folded 1-float projection
+    (34, 256, 96, 300),     # the hierarchy's stages 1-2, TED
+    (34, 256, 102, 300),
+    (34, 256, 105, 300),    # its stages 1-5, Expressive
+    (34, 256, 111, 300),
+    (34, 256, 117, 300),
+    (34, 256, 147, 300),
+    (34, 256, 177, 300),
     (34, 256, 108, 300),    # PoseGenerator's first layer, TED: slices of 38 units
     (34, 256, 207, 300),    # the same, Expressive: an input width no multiple of 8
     (34, 256, 600, 300),    # the zoo's upper layers at H = 300
@@ -175,6 +183,14 @@ def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
     (34, 1, 700, 350),      # one sample: the cluster's one-row-tile instance
     (34, 250, 700, 350),    # a ragged last row tile at the head's width
     (34, 256, 992, 350),    # the HOP head's first layer: 128 x 128 tiles
+    (34, 256, 1751, 350),   # the same on TED Expressive: an odd K of 1751
+    (34, 256, 96, 300),     # the hierarchy's stages 1-2 (TED) and 1-5
+    (34, 256, 102, 300),    # (Expressive)
+    (34, 256, 105, 300),
+    (34, 256, 111, 300),
+    (34, 256, 117, 300),
+    (34, 256, 147, 300),
+    (34, 256, 177, 300),
     (34, 256, 108, 300),    # the baseline zoo's layers (PoseGenerator, TED and
     (34, 256, 207, 300),    # Expressive; upper layers; the seq2seq encoder;
     (34, 256, 600, 300),    # ContextEncoder's two layers)

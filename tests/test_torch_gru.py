@@ -31,6 +31,7 @@ from hop_tpu.ops.pallas_gru_fused import gru_fused_layer as jax_gru_fused_layer
 from hop_tpu_torch.ops import gru_fused as K2
 from hop_tpu_torch.ops import gru_seq as K6
 from hop_tpu_torch.ops.gru import GRU
+from test_torch_zoo_steps import one_torch_thread  # noqa: F401 (a fixture)
 
 TOL = 1e-5
 

@@ -35,6 +35,7 @@ from hop_tpu.ops.pallas_gru_stack import gru_stack as jax_gru_stack
 
 from hop_tpu_torch.ops import gru_stack as K3
 from hop_tpu_torch.ops.gru_fused import hprev_of
+from test_torch_zoo_steps import one_torch_thread  # noqa: F401 (a fixture)
 
 TOL = 1e-5
 GRAD_REL = 1e-4

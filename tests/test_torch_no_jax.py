@@ -12,7 +12,7 @@ importer (`data.import_ted --verify`) and the long-form entry
 training entry point on the LLaMA backbone with its weights read from a
 bf16 safetensors file the port's own writer wrote (`--llm-weights`), the
 long-form entry restoring it, and the training entry point on each family
-of the baseline zoo (`--model`)."""
+of the baseline zoo and the hierarchy (`--model`)."""
 
 import os
 import subprocess
@@ -114,10 +114,20 @@ print("LLAMA OK")
 torch.set_num_threads(1)     # small CPU ops, beside the other test workers
 with tempfile.TemporaryDirectory() as tmp:
     tempfile.tempdir = tmp
+    # the hierarchy's full-depth ResNetSE on the records of one 6 s clip
+    from hop_tpu_torch.config import tiny_test_config
+    from hop_tpu_torch.data import synthetic
+    from hop_tpu_torch.data.preprocessor import DataPreprocessor
+    clip = synthetic.make_source_clips(tiny_test_config("TED"), n_videos=1,
+                                       clip_seconds=6.0, seed=0)
+    for split in ("train", "val"):
+        DataPreprocessor(tiny_test_config("TED").data, tmp + "/clip_" + split).run(clip)
     for model in ("multimodal_context", "seq2seq", "speech2gesture", "joint_embedding",
-                  "gesture_autoencoder"):
-        run_ted.main(["--device", "cpu", "--tiny", "--model", model, "--synthetic-videos",
-                      "1", "--batch-size", "64", "--warmup-epochs", "0", "--epochs", "1",
+                  "gesture_autoencoder", "hierarchy"):
+        data = (["--data", tmp + "/clip_train", "--val-data", tmp + "/clip_val"]
+                if model == "hierarchy" else ["--synthetic-videos", "1"])
+        run_ted.main(["--device", "cpu", "--tiny", "--model", model, *data,
+                      "--batch-size", "64", "--warmup-epochs", "0", "--epochs", "1",
                       "--checkpoint-dir", tmp + "/" + model, "--metrics", tmp + "/m.jsonl"])
         print("ZOO", model)
     tempfile.tempdir = None
@@ -132,7 +142,9 @@ for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
             "data.import_ted", "data.fasttext_export", "models.llama",
             "models.llm_weights", "utils.safetensors_io", "models.tcn",
             "models.seq2seq", "models.speech2gesture", "train.gan", "train.seq2seq",
-            "train.speech2gesture", "train.embed", "utils.params"):
+            "train.speech2gesture", "train.embed", "utils.params", "models.resnet_se",
+            "models.hierarchy", "train.hierarchy", "train.hierarchy_expressive_stats",
+            "data.h36m", "cli.train_h36m_ae", "eval.export_eval_net"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -159,6 +171,6 @@ def test_port_imports_no_jax():
     assert "loaded pretrained LLAMA backbone from" in proc.stdout
     assert "LLAMA OK" in proc.stdout
     for model in ("multimodal_context", "seq2seq", "speech2gesture", "joint_embedding",
-                  "gesture_autoencoder"):
+                  "gesture_autoencoder", "hierarchy"):
         assert f"ZOO {model}" in proc.stdout
     assert n_modules >= 20

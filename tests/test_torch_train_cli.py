@@ -86,7 +86,6 @@ def test_routes_reach_the_config():
 
 
 UNPORTED = [
-    (["--model", "hierarchy"], "M13b"),
     (["--data-parallel", "2"], "M15"),
     (["--model-parallel", "2"], "M15"),
     (["--dcn-slices", "2"], "M15"),

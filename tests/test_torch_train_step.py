@@ -80,6 +80,17 @@ PARITY_VARIANTS = [("warmup", 1), ("gan", 0)]
 BLOCK_VARIANTS = [("gan", 0, True), ("gan", 0, False)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one thread for the module: the test workers share the
+    machine's cores, and the many small CPU ops of these nets run several
+    times slower on threads that contend for all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(cfg):
     return cfg.replace(llm=dataclasses.replace(cfg.llm, compute_bf16=False))
 

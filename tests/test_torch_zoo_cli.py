@@ -3,7 +3,7 @@ the tiny size: `run_ted --model X` trains one epoch of one step (training,
 validation with FGD, the checkpoint) for each of the five ported families
 and resumes it to a second epoch; `run_expressive` does the same for the
 trimodal GAN and for gesture_autoencoder, which trains the MotionAE at
-pose_dim 126; `--model hierarchy` exits naming its ROADMAP item (M13b); a
+pose_dim 126 (`--model hierarchy` is test_torch_hierarchy_cli.py's); a
 checkpoint of one family is refused by a resume as another, before anything
 is built (hop_tpu records the family and does not check it)."""
 
@@ -71,13 +71,6 @@ def test_run_expressive_trains_the_zoo(monkeypatch, tmp_path, model):
         assert state.model.out[-1].out_features == 126
     assert json.loads((tmp_path / "ck" / "run_metadata.json").read_text())[
         "dataset"] == "TED_expressive"
-
-
-@pytest.mark.parametrize("entry", [run_ted, run_expressive], ids=["ted", "expressive"])
-def test_hierarchy_exits_naming_m13b(monkeypatch, tmp_path, entry):
-    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
-    with pytest.raises(SystemExit, match=r"--model hierarchy: .*M13b \(hierarchy\)"):
-        _run(entry, tmp_path, "hierarchy", 1)
 
 
 def test_resume_refuses_another_family(monkeypatch, tmp_path):

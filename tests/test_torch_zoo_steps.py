@@ -52,8 +52,9 @@ from hop_tpu_torch.train.gan import make_gan_train_steps
 from hop_tpu_torch.train.llm import StepNoise
 from hop_tpu_torch.train.seq2seq import make_seq2seq_train_step
 
-from test_torch_train_step import (GRAD_REL, LOSS_RTOL, STATS_TOL, _assert_grads,
-                                   _assert_params, _grads, _no_dropout, _numpy, _perm)
+from test_torch_train_step import (GRAD_REL, LOSS_RTOL, STATS_TOL, _assert_grads,  # noqa: F401
+                                   _assert_params, _grads, _no_dropout, _numpy, _perm,
+                                   one_torch_thread)
 
 B = 4
 N_WORDS = 50
@@ -74,16 +75,6 @@ def _batch(dataset):
                       < b["text_lengths"][:, None]).astype(np.float32)
     return cfg, b
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread for the module: the test workers share the
-    machine's cores, and the many small CPU ops of these nets run several
-    times slower on threads that contend for all of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
