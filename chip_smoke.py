@@ -203,7 +203,27 @@ imports nothing of JAX. Phases, each ending in one line of output:
              under `--transfer-guard disallow`, bit for bit; `train_h36m_ae`
              on a fabricated Human3.6M npz, `export_eval_net`, and a `run_ted
              --eval-net` on the export that reports a trained feature net
- 28. the kernels' JSON line, then the device JSON as the last line
+ 28. export  the serving export (ROADMAP M17): the phase 5 model (TED at
+             full width, seed 2021) exported by `infer.export_forward`
+             (torch.export, weights inside; K1-K5's forwards registered as
+             `torch.ops.hop_tpu_torch.*`) at bs 1 and 256 on the fused GRU
+             route with plain attention and at bs 1 on the stack route with
+             K4 and with K5; each artifact's MB and export s, then each
+             loaded by `infer.load_exported` in a fresh python3 that imports
+             hop_tpu_torch.infer alone (no hop_tpu_torch.models module may
+             load) and run on the eager forward's inputs and eps: within
+             EXPORT_TOL of it, launches K1 1 and K2 4 or K3 lean 4 (+ K4 or
+             K5 6) read in that process, the registered ops in the graph; an
+             artifact exported with K1 swapped for its plain version must be
+             rejected by the same checks; the bs-256 forward eager vs loaded
+             (CUDA-event medians of 10) and a 20 s clip at bs 1 through
+             `generate_long_form` on each (host clock, equal frames); `run_ted
+             --tensorboard-dir` 2 epochs at full width, its event file read
+             back by a reader here (every metrics.jsonl row, its step, its
+             value in f32); `python -m hop_tpu_torch.cli.export_model` on that
+             run's checkpoint, its artifact run; `test_checkpoint
+             --render-video` on a 20 s clip (seconds, writer, bytes)
+ 29. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -230,6 +250,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 # K1 reads bf16 operands; the plain version gets the same bf16-rounded
 # values in f32, so only summation order and the online softmax's
@@ -3782,6 +3803,370 @@ def phase_hierarchy(dev, seed, ted, expr, tmp):
     return paths
 
 
+# the serving export (phase 28): four artifacts of the full-width TED
+# generator, (GRU route, attention route, batch); each is loaded and run in
+# a fresh process that imports hop_tpu_torch.infer alone
+EXPORTS = (("fused", "plain", 1), ("fused", "plain", 256), ("stack", "fused", 1),
+           ("stack", "block", 1))
+EXPORT_TOL = 1e-6        # loaded program vs the eager forward (same kernels)
+EXPORT_OPS = {"plain": (), "fused": ("fused_attention_fwd",),
+              "block": ("block_attention_fwd",)}
+EXPORT_EPOCHS = 2        # the run_ted --tensorboard-dir run of phase 28
+CLIP_SECONDS = 20.0
+
+# run in a fresh python3: argv[1] a JSON list of {"name", "clip"}, argv[2] the
+# directory of the artifacts and their inputs, argv[3] the parent's device
+# and cuDNN settings. Prints one JSON line per artifact.
+LOAD_SCRIPT = r"""
+import json, os, statistics, sys, time
+import torch
+settings = json.loads(sys.argv[3])
+torch.backends.cuda.matmul.allow_tf32 = settings["matmul_tf32"]
+torch.backends.cudnn.allow_tf32 = settings["cudnn_tf32"]
+torch.backends.cudnn.deterministic = settings["deterministic"]
+torch.backends.cudnn.benchmark = settings["benchmark"]
+from hop_tpu_torch import infer
+COUNTERS = {"K1": ("reprogramming_attention", "launches"), "K2": ("gru_fused", "launches"),
+            "K3_lean": ("gru_stack", "lean_launches"), "K4": ("attention", "launches"),
+            "K5": ("block_attention", "launches")}
+def counts():
+    return {k: getattr(sys.modules["hop_tpu_torch.ops." + m], a) for k, (m, a) in COUNTERS.items()}
+def reset():
+    for m, a in COUNTERS.values():
+        setattr(sys.modules["hop_tpu_torch.ops." + m], a, 0)
+dev = settings["device"]
+def ms(fn, reps=10):
+    fn(); fn()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record(); fn(); e.record(); e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+class Lang:
+    def __init__(self, index):
+        self.index = index
+    def get_word_index(self, w):
+        return self.index[w]
+tmp = sys.argv[2]
+for item in json.loads(sys.argv[1]):
+    name = item["name"]
+    t0 = time.perf_counter()
+    blob = open(os.path.join(tmp, name + ".pt2"), "rb").read()
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd = infer.load_exported(blob)
+    load_s = time.perf_counter() - t0
+    del blob
+    models = sorted(m for m in sys.modules if m.startswith("hop_tpu_torch.models"))
+    io_ = torch.load(os.path.join(tmp, name + "_io.pt"), map_location=dev)
+    reset()
+    out = fwd(*io_["inputs"])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launched = counts()
+    res = {"name": name, "load_s": load_s, "read_s": read_s, "models": models,
+           "launches": launched, "max_abs_diff": (out - io_["eager"]).abs().max().item(),
+           "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+           "targets": sorted(t for t in fwd.call_targets() if "hop_tpu_torch" in t),
+           "device": str(fwd.device)}
+    if io_["inputs"][0].shape[0] > 1 and dev == "cuda":
+        res["ms"] = ms(lambda: fwd(*io_["inputs"]))
+    if item.get("clip"):
+        c = torch.load(os.path.join(tmp, "clip.pt"), weights_only=False)
+        import numpy as np
+        clip_s = []
+        for _ in range(3):     # the first pays the window shapes' first launches
+            g = torch.Generator(device=dev).manual_seed(c["seed"])
+            t0 = time.perf_counter()
+            got = infer.generate_long_form(c["cfg"], infer.make_exported_forward(fwd),
+                                           c["audio"], c["words"], c["seed_vec"],
+                                           Lang(c["index"]), c["vid"], generator=g,
+                                           device=dev)
+            clip_s.append(time.perf_counter() - t0)
+        res["clip_s"] = clip_s
+        res["clip_diff"] = float(np.abs(got - c["eager"]).max())
+        res["clip_frames"] = int(got.shape[0])
+    print("LOADED " + json.dumps(res), flush=True)
+    del fwd, io_, out
+    torch.cuda.empty_cache()
+"""
+
+
+def export_rejects(res: dict, cfg) -> list:
+    """What disagrees in a loaded artifact's report `res` (LOAD_SCRIPT's line)
+    with an export of `cfg`'s routes: a model module imported, a result past
+    EXPORT_TOL, launches other than a forward's, a registered op missing from
+    the graph."""
+    want = {k: v for k, v in forward_launches(cfg).items()
+            if k in ("K1", "K2", "K3_lean", "K4", "K5")}
+    ops = ["reprogramming_attention_fwd",
+           "gru_stack_fwd" if cfg.hop.gru_kernel == "stack" else "gru_fused_layer_fwd",
+           *EXPORT_OPS[cfg.llm.attention]]
+    bad = []
+    if res["models"]:
+        bad.append(f"model modules imported: {res['models']}")
+    if not (res["finite"] and res["max_abs_diff"] <= EXPORT_TOL):
+        bad.append(f"max_abs_diff {res['max_abs_diff']} > {EXPORT_TOL} (finite {res['finite']})")
+    if res["launches"] != want:
+        bad.append(f"launches {res['launches']}, want {want}")
+    missing = [op for op in ops if f"hop_tpu_torch.{op}.default" not in res["targets"]]
+    if missing:
+        bad.append(f"graph lacks {missing} (has {res['targets']})")
+    if res.get("clip_diff", 0.0) > EXPORT_TOL:
+        bad.append(f"clip differs by {res['clip_diff']}")
+    return bad
+
+
+def read_events(path: str) -> list:
+    """(tag, step, value) of every scalar in a TensorBoard event file:
+    TFRecords (u64 length, u32 CRC, data, u32 CRC) of Event protobufs."""
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = _uvarint(buf, i)
+            number, wire = key >> 3, key & 7
+            if wire == 0:
+                value, i = _uvarint(buf, i)
+            elif wire == 1:
+                value, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                value, i = buf[i:i + 4], i + 4
+            else:
+                n, i = _uvarint(buf, i)
+                value, i = buf[i:i + n], i + n
+            yield number, value
+    rows = []
+    data = open(path, "rb").read()
+    i = 0
+    while i < len(data):
+        (n,) = struct.unpack_from("<Q", data, i)
+        event = data[i + 12:i + 12 + n]
+        i += 12 + n + 4
+        step, summary = 0, None
+        for number, value in fields(event):
+            if number == 2:
+                step = value - (1 << 64) if value >= 1 << 63 else value
+            elif number == 5:
+                summary = value
+        for number, value in fields(summary or b""):
+            if number == 1:
+                f = dict(fields(value))
+                rows.append((f[1].decode(), step, struct.unpack("<f", f[2])[0]))
+    return rows
+
+
+def _uvarint(buf: bytes, i: int) -> tuple:
+    shift = value = 0
+    while True:
+        b = buf[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if b < 0x80:
+            return value, i
+
+
+def phase_export(dev, seed):
+    """Returns {path name: launches} of each loaded artifact's forward."""
+    import numpy as np
+    import torch
+    from hop_tpu_torch import infer
+    from hop_tpu_torch.cli import export_model, test_checkpoint
+    from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
+    from hop_tpu_torch.data.synthetic import WordIndex, make_clip
+    from hop_tpu_torch.models import reprogramming
+    from hop_tpu_torch.models.hop import build_hop_model
+    from hop_tpu_torch.ops import reprogramming_attention as K1
+    smi = _smi()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hop_export_")
+    try:
+        model = build_hop_model(ted_route_config(), N_SPEAKERS, seed, device=dev)
+        sizes, export_s, eager_ms = {}, {}, None
+        alen = infer.serving_inputs(ted_route_config(), 1, "meta")[0].shape[1]
+
+        def save(name, cfg, B):
+            t0 = time.perf_counter()
+            blob = infer.export_forward(model, cfg, B, device=dev)
+            export_s[name] = time.perf_counter() - t0
+            sizes[name] = len(blob) / 1e6
+            with open(os.path.join(tmp, name + ".pt2"), "wb") as f:
+                f.write(blob)
+
+        for gru, attention, B in EXPORTS:
+            name = f"{gru}_{attention}_bs{B}"
+            cfg = ted_route_config(gru, attention=attention)
+            model.gru.kernel = gru
+            model.llm_model.set_attention(attention)
+            batch = serving_batch(cfg, B, seed, dev)
+            inputs = (batch["in_audio"][:, :alen].contiguous(), batch["x_enc"],
+                      batch["text"], batch["pre_seq"], batch["vid_indices"], batch["eps"])
+            with torch.inference_mode():
+                eager = model(*inputs[:5], eps=inputs[5])[0]
+            torch.save({"inputs": inputs, "eager": eager}, os.path.join(tmp, name + "_io.pt"))
+            if B > 1:
+                with torch.inference_mode():
+                    eager_ms = cuda_ms(lambda: model(*inputs[:5], eps=inputs[5]),
+                                       reps=10, warmup=2)
+            save(name, cfg, B)
+            if (gru, attention, B) == EXPORTS[0]:
+                # the planted fault: K1 swapped for its plain version
+                plain = reprogramming.reprogramming_attention
+                reprogramming.reprogramming_attention = K1.plain_reprogramming_attention
+                try:
+                    save("planted", cfg, B)
+                finally:
+                    reprogramming.reprogramming_attention = plain
+                shutil.copy(os.path.join(tmp, name + "_io.pt"),
+                            os.path.join(tmp, "planted_io.pt"))
+        model.gru.kernel = "fused"
+        model.llm_model.set_attention("plain")
+
+        # a 20 s clip at bs 1, eager, then through the loaded bs-1 artifact
+        cfg = ted_route_config()
+        clip = make_clip(cfg, seconds=CLIP_SECONDS, seed=1)
+        lang = WordIndex(clip.words)
+        vid = 3
+        clip_eager_s = []
+        for _ in range(3):     # the first pays the window shapes' first launches
+            g = torch.Generator(device=dev).manual_seed(seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager_clip = infer.generate_long_form(
+                cfg, infer.make_forward(model), clip.audio, clip.words, clip.seed_dir_vec,
+                lang, vid, generator=g, device=dev)
+            clip_eager_s.append(time.perf_counter() - t0)
+        torch.save({"cfg": cfg, "audio": clip.audio, "words": clip.words,
+                    "seed_vec": clip.seed_dir_vec, "vid": vid, "seed": seed,
+                    "index": {w[0]: lang.get_word_index(w[0]) for w in clip.words},
+                    "eager": eager_clip}, os.path.join(tmp, "clip.pt"))
+
+        # load and run each artifact in a fresh process
+        items = [{"name": f"{g}_{a}_bs{B}", "clip": (g, a, B) == EXPORTS[0]}
+                 for g, a, B in EXPORTS] + [{"name": "planted"}]
+        settings = {"device": dev.type, "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+                    "deterministic": torch.backends.cudnn.deterministic,
+                    "benchmark": torch.backends.cudnn.benchmark}
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": root}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", LOAD_SCRIPT, json.dumps(items), tmp,
+                               json.dumps(settings)], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"export: the loading process failed:\n{proc.stderr[-4000:]}")
+        loaded = {r["name"]: r for r in (json.loads(line[len("LOADED "):])
+                                         for line in proc.stdout.splitlines()
+                                         if line.startswith("LOADED "))}
+        check(len(loaded) == len(items), f"export: {len(loaded)} artifacts reported")
+        paths = {}
+        for g, a, B in EXPORTS:
+            name = f"{g}_{a}_bs{B}"
+            res = loaded[name]
+            bad = export_rejects(res, ted_route_config(g, attention=a))
+            check(not bad, f"export {name}: " + "; ".join(bad))
+            check(res["shape"] == [B, cfg.data.n_poses, cfg.data.pose_dim],
+                  f"export {name}: shape {res['shape']}")
+            paths[f"export_{name}"] = {**ZERO_COUNTS, **res["launches"]}
+        planted = export_rejects(loaded["planted"], ted_route_config())
+        check(bool(planted), "export: the artifact with K1 swapped for its plain "
+                             "version passed the checks")
+        res1 = loaded[items[0]["name"]]
+        res256 = loaded["fused_plain_bs256"]
+        print(f"export [TED full width, {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+              f"params; torch.export, weights inside]: "
+              + "; ".join(f"{r['name']} {sizes[r['name']]:.1f} MB, export "
+                          f"{export_s[r['name']]:.2f} s, load {r['load_s']:.2f} s (read "
+                          f"{r['read_s']:.2f} s), max_abs_diff {r['max_abs_diff']:.3e}, "
+                          f"launches {_nonzero(r['launches'])}"
+                          for r in (loaded[f'{g}_{a}_bs{B}'] for g, a, B in EXPORTS))
+              + f"; each loaded in a fresh process ({sub_s:.1f} s for all, "
+              f"{len(items)} artifacts) with no hop_tpu_torch.models module, its graph "
+              f"calling the registered ops (tol {EXPORT_TOL:g}); the planted artifact "
+              f"(K1 swapped for its plain version) rejected: {'; '.join(planted)}")
+        print(f"export times: bs-256 forward eager {eager_ms:.3f} ms, loaded "
+              f"{fmt_ms(res256.get('ms'))} ms (CUDA events, median of 10, each in its own "
+              f"process); {CLIP_SECONDS:.0f} s clip at bs 1 ({res1['clip_frames']} frames) "
+              f"s per clip eager {', '.join(f'{t:.3f}' for t in clip_eager_s)}, loaded "
+              f"{', '.join(f'{t:.3f}' for t in res1['clip_s'])} (host clock), clip "
+              f"max_abs_diff {res1['clip_diff']:.3e}; on {smi}")
+        del model
+        torch.cuda.empty_cache()
+
+        # a training run with --tensorboard-dir, then cli.export_model on it
+        ck = os.path.join(tmp, "run")
+        tb = os.path.join(tmp, "tb")
+        tempdir, tempfile.tempdir = tempfile.tempdir, tmp
+        try:
+            t0 = time.perf_counter()
+            _run_ted((*RUN_ARGS, "--seed", str(seed), "--epochs", str(EXPORT_EPOCHS),
+                      "--checkpoint-dir", ck, "--metrics", os.path.join(ck, "metrics.jsonl"),
+                      "--tensorboard-dir", tb))
+            run_s = time.perf_counter() - t0
+        finally:
+            tempfile.tempdir = tempdir
+        rows = [json.loads(line) for line in open(os.path.join(ck, "metrics.jsonl"))]
+        events = [f for f in os.listdir(tb) if f.startswith("events.out.tfevents.")]
+        check(len(events) == 1, f"tensorboard: event files {events}")
+        got = read_events(os.path.join(tb, events[0]))
+        want = [(r["name"], r["step"], float(np.float32(r["value"]))) for r in rows]
+        check(rows and got == want, f"tensorboard: {got} vs metrics.jsonl {want}")
+        print(f"tensorboard: run_ted --tensorboard-dir, {EXPORT_EPOCHS} epochs at full TED "
+              f"width ({run_s:.1f} s): {len(got)} scalars in "
+              f"{os.path.getsize(os.path.join(tb, events[0]))} bytes, each row of "
+              f"metrics.jsonl with its step and its value in f32")
+
+        out = os.path.join(tmp, "cli.pt2")
+        t0 = time.perf_counter()
+        _, log = _run_entry(export_model, ["--checkpoint-dir", ck, "--out", out,
+                                           "--params-out", os.path.join(tmp, "p.npz")])
+        cli_s = time.perf_counter() - t0
+        fwd = infer.load_exported(open(out, "rb").read())
+        io_ = torch.load(os.path.join(tmp, items[0]["name"] + "_io.pt"), map_location=dev)
+        inputs = list(io_["inputs"])
+        inputs[4] = torch.zeros_like(inputs[4])     # a speaker of the run's
+        _reset_counts()
+        y = fwd(*inputs)
+        torch.cuda.synchronize()
+        check(tuple(y.shape) == (1, cfg.data.n_poses, cfg.data.pose_dim)
+              and bool(torch.isfinite(y).all()), f"export_model: output {tuple(y.shape)}")
+        check(_launch_counts() == forward_launches(cfg),
+              f"export_model's artifact: launches {_launch_counts()}")
+        print(f"export_model: python -m hop_tpu_torch.cli.export_model on the run's "
+              f"checkpoint in {cli_s:.1f} s ({log.strip().splitlines()[-2]}); its artifact "
+              f"runs, launches {_nonzero(_launch_counts())}")
+        del fwd, io_, inputs, y
+
+        # --render-video on a 20 s clip
+        model = build_hop_model(cfg, N_SPEAKERS, seed, device=dev)
+        render_dir = os.path.join(tmp, "render")
+        demo = types.SimpleNamespace(main=lambda argv: test_checkpoint.main(argv, model=model))
+        t0 = time.perf_counter()
+        _, log = _run_entry(demo, ["--device", str(dev), "--seed", "1",
+                                   "--clip-seconds", str(CLIP_SECONDS),
+                                   "--render-video", "--out", render_dir])
+        render_s = time.perf_counter() - t0
+        files = sorted(os.listdir(render_dir))
+        video = [f for f in files if f.startswith("demo_0.") and f[-4:] in (".gif", ".mp4")]
+        check(len(video) == 1, f"render: files {files}")
+        writer = "ffmpeg (mp4)" if video[0].endswith(".mp4") else "GIF89a encoder (no ffmpeg)"
+        check(writer.startswith("ffmpeg") or "demo_0.wav" in files, f"render: files {files}")
+        frames = int(log.split("generated ")[1].split()[0])
+        check(frames == res1["clip_frames"], f"render: {frames} frames")
+        print(f"render: test_checkpoint --render-video on a {CLIP_SECONDS:.0f} s clip "
+              f"({frames} frames) in {render_s:.1f} s with generation "
+              f"({log.split('rendered video in ')[1].split('s')[0]} s rendering), writer "
+              f"{writer}, {video[0]} {os.path.getsize(os.path.join(render_dir, video[0]))} "
+              f"bytes, files {files}")
+        del model
+        print(f"export: phase 28 in {time.perf_counter() - t_phase:.1f} s on {smi}")
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 class _Laps:
     """Seconds of the phases (host clock): each call closes the span since
     the last under its name."""
@@ -3884,9 +4269,11 @@ def main():
         lap("27")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    paths.update(phase_export(dev, SEED))
+    lap("28")
     print("chip_smoke: seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in lap.seconds.items())
-        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27')):.1f}")
+        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27', '28')):.1f}")
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention

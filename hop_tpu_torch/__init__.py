@@ -15,16 +15,21 @@ module's counterpart sits at the same path:
                  pose mode, MotionAE)
   train        — the HOP GAN train steps, their optimizers and the epoch
                  loop (prefetch, validation, save-on-best-FGD)
-  utils        — checkpoints, the per-step random generator, meters
+  utils        — checkpoints, the per-step random generator, meters, the
+                 video renderer, the TensorBoard / CSV metric export, the
+                 profiler trace and step timer, the reference's tools
   data         — record store, preprocessor, SpeechMotionDataset,
                  vocabulary, WordPiece, seeded synthetic clips and batches
   native       — the record store's C++ batch gatherer (g++ at first use)
-  eval         — the validation pass: L1, joint MAE, FGD, BC, diversity
+  eval         — the validation pass: L1, joint MAE, FGD, BC, diversity;
+                 reference-format checkpoints out and in
   convert      — flax variable trees (numpy leaves, or hop_tpu's flat
                  .npz) -> this port's state_dicts
-  infer        — long-form sliding-window generation
+  infer        — the serving export (torch.export, the kernels as
+                 registered operators) and long-form generation
   cli          — `python -m hop_tpu_torch.cli.run_ted` / `run_expressive`
-                 (training) and `python -m hop_tpu_torch.cli.test_checkpoint`
+                 (training), `python -m hop_tpu_torch.cli.test_checkpoint`
+                 and `python -m hop_tpu_torch.cli.export_model`
 
 The package imports torch and never jax, flax or `hop_tpu`.
 """

@@ -69,7 +69,6 @@ UNPORTED = (
     ("model_parallel", lambda v: v > 1, "M15 (parallel)"),
     ("dcn_slices", lambda v: v > 1, "M15 (parallel)"),
     ("no_zero2", bool, "M15 (parallel): there is no sharded optimizer state to keep"),
-    ("tensorboard_dir", lambda v: v is not None, "M17 (metrics export)"),
 )
 
 
@@ -87,7 +86,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default="./checkpoints")
     p.add_argument("--metrics", default="./metrics.jsonl")
     p.add_argument("--tensorboard-dir", default=None,
-                   help="not ported (ROADMAP M17); the scalars go to --metrics")
+                   help="also mirror the --metrics scalars live into a "
+                        "TensorBoard event file in this directory")
     p.add_argument("--eval-net", default=None,
                    help=".npz of the frozen FGD feature net's flax variables "
                         "(hop_tpu's save_arrays format); random init, said so, "

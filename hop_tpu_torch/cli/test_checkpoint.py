@@ -12,9 +12,12 @@ the source clips (seeded synthetic ones, or the LMDB's videos read)
 through the preprocessor into a record store, `SpeechMotionDataset`
 batches through `device_batch`, the generator's forward, and L1, joint
 MAE, FGD, feature distance, BC and diversity (`eval.evaluate_testset`),
-printed as hop_tpu's "[VAL] ..." line. The FGD feature net is read from
---eval-net (hop_tpu's `save_arrays` .npz) or randomly initialised, and
-said so. With --checkpoint-dir the generator is the latest checkpoint
+printed as hop_tpu's "[VAL] ..." line. With --render-video it renders the
+stitched clip as `demo_0.mp4` (ffmpeg on PATH) or `demo_0.gif` and
+`demo_0.wav` into the directory --out (default ./output), through
+`utils.render` (hop_tpu's test_checkpoint.py:164-170). The FGD feature
+net is read from --eval-net (hop_tpu's `save_arrays` .npz) or randomly
+initialised, and said so. With --checkpoint-dir the generator is the latest checkpoint
 that `cli.train_main` saved there (`cli.common.restore_hop_model`: the
 frozen backbone rebuilt from the run's seed); without one, or where the
 directory holds none, it is a seeded random initialisation, said so.
@@ -27,6 +30,7 @@ directory holds none, it is a seeded random initialisation, said so.
   python -m hop_tpu_torch.cli.test_checkpoint --device cuda \
       --data data/ted_dataset/lmdb_test --clip-index 3 --checkpoint-dir ./checkpoints
   python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --clip-seconds 3
+  python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --render-video --out demo
   python -m hop_tpu_torch.cli.test_checkpoint --device cpu --tiny --clip-seconds 2 \
       --evaluate --eval-videos 1
 """
@@ -53,6 +57,7 @@ from hop_tpu_torch.data.vocab import build_vocab
 from hop_tpu_torch.eval.evaluate import EvalResult, evaluate_testset
 from hop_tpu_torch.infer import generate_long_form, make_forward
 from hop_tpu_torch.models.hop import HOPModel, build_hop_model
+from hop_tpu_torch.utils.render import create_video_and_save
 
 # speakers of a randomly initialised model (hop_tpu's restore_hop_model
 # default when a checkpoint records none)
@@ -105,7 +110,11 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=2021,
                    help="seeds the clip, the weights and the latent noise")
     p.add_argument("--out", default=None,
-                   help="save the dir-vecs to <out>_dir_vec.npy")
+                   help="save the dir-vecs to <out>_dir_vec.npy; with "
+                        "--render-video, the directory of the video")
+    p.add_argument("--render-video", action="store_true",
+                   help="render the generated clip as demo_0.mp4 (ffmpeg) or "
+                        "demo_0.gif + demo_0.wav into --out")
     p.add_argument("--use-hf-token-stream", action="store_true",
                    help="drive the LLM with WordPiece token ids (requires "
                         "--hf-vocab; reference test_checkpoint.py:438-446)")
@@ -240,6 +249,13 @@ def main(argv=None, model: HOPModel | None = None) -> np.ndarray:
     if args.evaluate:
         print(str(evaluate(cfg, args, model, lang, tokenizer, device, n_speakers,
                            videos)))
+    if args.render_video:
+        skel = cfg.data.skeleton
+        create_video_and_save(
+            args.out or "output", 0, "demo", None, out_dir_vec,
+            skel.mean_dir_vec if skel.mean_dir_vec is not None
+            else np.zeros(cfg.data.pose_dim), title="HOP (PyTorch) demo",
+            skeleton=skel, audio=audio)
     return out_dir_vec
 
 

@@ -233,7 +233,8 @@ def train_main(cfg: Config, args):
         cfg, train_batches, warmup, gan, state,
         rng=functools.partial(step_generator, args.seed),
         eval_fn=eval_fn, checkpoint_manager=ckpt,
-        metric_path=args.metrics, log_every=args.log_every,
+        metric_path=args.metrics, tensorboard_dir=args.tensorboard_dir,
+        log_every=args.log_every,
         start_epoch=start_epoch, best_fgd=best_fgd,
         checkpoint_every=args.checkpoint_every,
         profile_dir=args.profile_dir, transfer_guard=args.transfer_guard,

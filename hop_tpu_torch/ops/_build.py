@@ -166,3 +166,12 @@ def load() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_device(t, name: str) -> None:
+    """A public kernel function takes CPU tensors (the plain version) or
+    CUDA tensors (the kernel); anything else has no kernel. (A registered
+    operator's fake implementation serves tracing, on fake tensors of
+    those two devices, and never reaches a launch.)"""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")

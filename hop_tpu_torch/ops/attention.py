@@ -362,13 +362,39 @@ class _FusedAttention(torch.autograd.Function):
         return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
 
 
+@torch.library.custom_op("hop_tpu_torch::fused_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def fused_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, rate: float, seed: int) -> torch.Tensor:
+    """The forward as a registered operator, so that `torch.export` keeps it
+    as one node: on the CPU the plain version (q's dtype), on CUDA the
+    kernel (`fused_attention_fwd`, bf16), and for fake tensors the shape
+    alone. No other device has an implementation."""
+    return plain_fused_attention(q, k, v, scale, rate, seed).contiguous()
+
+
+@fused_attention_op.register_kernel("cuda")
+def _(q, k, v, scale, rate, seed):
+    return fused_attention_fwd(q, k, v, scale, rate, seed)
+
+
+@fused_attention_op.register_fake
+def _(q, k, v, scale, rate, seed):
+    return q.new_empty(q.shape, dtype=torch.bfloat16 if q.device.type == "cuda"
+                       else q.dtype)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, rate: float = 0.0,
                     seed: int = 0) -> torch.Tensor:
     """softmax(q k^T * scale) [dropout(rate, seed)] v per (sample, head);
     differentiable in q, k and v.
 
-    q, k, v: (B, T, H, D). Returns (B, T, H, D) in q's dtype."""
+    q, k, v: (B, T, H, D). Returns (B, T, H, D) in q's dtype. Without a
+    gradient to track it is the registered operator
+    `torch.ops.hop_tpu_torch.fused_attention_fwd`."""
+    _build.check_device(q, "fused_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FusedAttention.apply(q, k, v, scale, rate, seed)
-    return fused_attention_fwd(q, k, v, scale, rate, seed).to(q.dtype)
+    return torch.ops.hop_tpu_torch.fused_attention_fwd(
+        q, k, v, scale, rate, seed).to(q.dtype)

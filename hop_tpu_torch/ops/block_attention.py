@@ -332,13 +332,38 @@ class _BlockAttention(torch.autograd.Function):
         return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
 
 
+@torch.library.custom_op("hop_tpu_torch::block_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def block_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, rate: float, seed: int) -> torch.Tensor:
+    """The forward as a registered operator, so that `torch.export` keeps it
+    as one node: on the CPU the plain version, on CUDA the kernel
+    (`block_attention_fwd`), and for fake tensors the shape alone. No other
+    device has an implementation."""
+    return plain_block_attention(q, k, v, scale, rate, seed).contiguous()
+
+
+@block_attention_op.register_kernel("cuda")
+def _(q, k, v, scale, rate, seed):
+    return block_attention_fwd(q, k, v, scale, rate, seed)
+
+
+@block_attention_op.register_fake
+def _(q, k, v, scale, rate, seed):
+    return q.new_empty(q.shape, dtype=torch.float32 if q.device.type == "cuda"
+                       else compute_dtype(q))
+
+
 def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, rate: float = 0.0,
                     seed: int = 0) -> torch.Tensor:
     """softmax(q k^T * scale) [dropout(rate, seed)] v per (sample, head)
     through stacked groups; differentiable in q, k and v.
 
-    q, k, v: (B, T, H, D). Returns (B, T, H, D) f32."""
+    q, k, v: (B, T, H, D). Returns (B, T, H, D) f32. Without a gradient to
+    track it is the registered operator
+    `torch.ops.hop_tpu_torch.block_attention_fwd`."""
+    _build.check_device(q, "block_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _BlockAttention.apply(q, k, v, scale, rate, seed)
-    return block_attention_fwd(q, k, v, scale, rate, seed)
+    return torch.ops.hop_tpu_torch.block_attention_fwd(q, k, v, scale, rate, seed)

@@ -567,12 +567,37 @@ class _GRUFusedLayer(torch.autograd.Function):
                                    hprev_of(h_seq, h0), wih, whh)
 
 
+@torch.library.custom_op("hop_tpu_torch::gru_fused_layer_fwd", mutates_args=(),
+                         device_types="cpu")
+def gru_fused_layer_op(x: torch.Tensor, wih: torch.Tensor, bih: torch.Tensor,
+                       whh: torch.Tensor, bhh: torch.Tensor,
+                       h0: torch.Tensor) -> torch.Tensor:
+    """The lean forward (no residuals) as a registered operator, so that
+    `torch.export` keeps it as one node: on the CPU the plain version, on
+    CUDA the kernel (`gru_fused_layer_fwd`), and for fake tensors the shape
+    alone. No other device has an implementation."""
+    return plain_gru_fused_layer(x, wih, bih, whh, bhh, h0)
+
+
+@gru_fused_layer_op.register_kernel("cuda")
+def _(x, wih, bih, whh, bhh, h0):
+    return gru_fused_layer_fwd(x, wih, bih, whh, bhh, h0)
+
+
+@gru_fused_layer_op.register_fake
+def _(x, wih, bih, whh, bhh, h0):
+    D, T, B, H = wih.shape[0], x.shape[0], x.shape[1], wih.shape[-1]
+    return x.new_empty((D, T, B, H))
+
+
 def gru_fused_layer(x: torch.Tensor, wih: torch.Tensor, bih: torch.Tensor,
                     whh: torch.Tensor, bhh: torch.Tensor,
                     h0: torch.Tensor) -> torch.Tensor:
     """`gru_fused_layer_fwd`'s contract, differentiable in every operand.
-    Without a gradient to track it is the lean forward (no residuals)."""
+    Without a gradient to track it is the lean forward (no residuals), the
+    registered operator `torch.ops.hop_tpu_torch.gru_fused_layer_fwd`."""
     args = (x, wih, bih, whh, bhh, h0)
+    _build.check_device(x, "gru_fused_layer")
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _GRUFusedLayer.apply(*args)
-    return gru_fused_layer_fwd(*args)
+    return torch.ops.hop_tpu_torch.gru_fused_layer_fwd(*args)

@@ -239,12 +239,36 @@ class _GRUStack(torch.autograd.Function):
         return dxr, dxz, dxn, dw, db, dh0.sum(0)
 
 
+@torch.library.custom_op("hop_tpu_torch::gru_stack_fwd", mutates_args=(),
+                         device_types="cpu")
+def gru_stack_op(xr: torch.Tensor, xz: torch.Tensor, xn: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The lean forward (h only) as a registered operator, so that
+    `torch.export` keeps it as one node: on the CPU the plain version, on
+    CUDA the kernel (`gru_stack_fwd`, which reads the streams by their
+    strides: views of one projection cross the operator as views), and for
+    fake tensors the shape alone. No other device has an implementation."""
+    return plain_gru_stack(xr, xz, xn, w, b, h0)
+
+
+@gru_stack_op.register_kernel("cuda")
+def _(xr, xz, xn, w, b, h0):
+    return gru_stack_fwd(xr, xz, xn, w, b, h0)
+
+
+@gru_stack_op.register_fake
+def _(xr, xz, xn, w, b, h0):
+    return h0.new_empty(xr.shape)
+
+
 def gru_stack(xr: torch.Tensor, xz: torch.Tensor, xn: torch.Tensor,
               w: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """`gru_stack_fwd`'s contract, differentiable in every operand (the
     stream gradients in the streams' dtype). Without a gradient to track it
-    is the lean forward (no residuals)."""
+    is the lean forward (no residuals), the registered operator
+    `torch.ops.hop_tpu_torch.gru_stack_fwd`."""
     args = (xr, xz, xn, w, b, h0)
+    _build.check_device(xr, "gru_stack")
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _GRUStack.apply(*args)
-    return gru_stack_fwd(*args)
+    return torch.ops.hop_tpu_torch.gru_stack_fwd(*args)

@@ -368,6 +368,27 @@ class _ReprogrammingAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@torch.library.custom_op("hop_tpu_torch::reprogramming_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def reprogramming_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float, rate: float, seed: int) -> torch.Tensor:
+    """The lean forward (no LSE) as a registered operator, so that
+    `torch.export` keeps it as one node: on the CPU the plain version, on
+    CUDA the kernel (`reprogramming_attention_fwd`), and for fake tensors
+    the shape alone. No other device has an implementation."""
+    return plain_reprogramming_attention(q, k, v, scale, rate, seed).contiguous()
+
+
+@reprogramming_attention_op.register_kernel("cuda")
+def _(q, k, v, scale, rate, seed):
+    return reprogramming_attention_fwd(q, k, v, scale, rate, seed)
+
+
+@reprogramming_attention_op.register_fake
+def _(q, k, v, scale, rate, seed):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
 def reprogramming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: float, rate: float = 0.0,
                             seed: int = 0) -> torch.Tensor:
@@ -375,7 +396,9 @@ def reprogramming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by the batch; differentiable in q, k and v.
 
     q: (B, L, H, E); k, v: (H, S, E). Returns (B, L, H, E) f32. Without a
-    gradient to track it is the lean forward (no LSE)."""
+    gradient to track it is the lean forward (no LSE), the registered
+    operator `torch.ops.hop_tpu_torch.reprogramming_attention_fwd`."""
+    _build.check_device(q, "reprogramming_attention")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _ReprogrammingAttention.apply(q, k, v, scale, rate, seed)
-    return reprogramming_attention_fwd(q, k, v, scale, rate, seed)
+    return torch.ops.hop_tpu_torch.reprogramming_attention_fwd(q, k, v, scale, rate, seed)

@@ -27,7 +27,6 @@ import json
 import queue
 import threading
 import time
-from pathlib import Path
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -36,6 +35,8 @@ import torch
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.eval.evaluate import EvalResult
 from hop_tpu_torch.utils.meters import AverageMeter
+from hop_tpu_torch.utils.metrics_export import TensorBoardMirror
+from hop_tpu_torch.utils.profiling import start_trace, stop_trace
 
 METER_NAMES = ("loss", "var_loss", "gen", "dis", "KLD", "DIV_REG",
                "c_pos", "c_neg", "phy")
@@ -103,20 +104,27 @@ def prefetch_iter(it: Iterable, depth: int):
 
 
 class MetricWriter:
-    """JSONL scalar stream (the reference's TensorBoard scalars)."""
+    """JSONL scalar stream (the reference's TensorBoard scalars); with
+    `tensorboard_dir` also mirrored live into a TensorBoard event file
+    (`utils.metrics_export.TensorBoardMirror`)."""
 
-    def __init__(self, path: Optional[str]):
+    def __init__(self, path: Optional[str], tensorboard_dir: Optional[str] = None):
         self._f = open(path, "a") if path else None
+        self._tb = TensorBoardMirror(tensorboard_dir) if tensorboard_dir else None
 
     def scalar(self, name: str, value: float, step: int):
         if self._f:
             self._f.write(json.dumps(
                 {"name": name, "value": float(value), "step": step}) + "\n")
             self._f.flush()
+        if self._tb:
+            self._tb.scalar(name, value, step)
 
     def close(self):
         if self._f:
             self._f.close()
+        if self._tb:
+            self._tb.close()
 
 
 @contextlib.contextmanager
@@ -144,6 +152,7 @@ def run_training(cfg: Config,
                  eval_fn: Optional[Callable[[object, int], EvalResult]] = None,
                  checkpoint_manager=None,
                  metric_path: Optional[str] = None,
+                 tensorboard_dir: Optional[str] = None,
                  log_every: int = 100,
                  epochs: Optional[int] = None,
                  start_epoch: int = 0,
@@ -188,7 +197,7 @@ def run_training(cfg: Config,
         return sync_debug(mode) if sync_mode else contextlib.nullcontext()
 
     meters = {n: AverageMeter(n) for n in METER_NAMES}
-    writer = MetricWriter(metric_path)
+    writer = MetricWriter(metric_path, tensorboard_dir)
     # best-checkpoint degeneracy guard: fused-step runs only (the 3-forward
     # step mirrors the reference's bare criterion, run_ted.py:454-462)
     guard_best = cfg.hop.fused_step
@@ -235,7 +244,7 @@ def run_training(cfg: Config,
                     iter_count += 1
                     if profile_dir and epoch == start_epoch and i == 1:
                         with guarded(0):
-                            profiler = _start_profiler()
+                            profiler = start_trace()
                     state, metrics = step_fn(state, batch, rng(epoch, i))
                     pending.append((metrics, _batch_size(batch)))
                     if profiler is not None and i >= 4:
@@ -314,18 +323,6 @@ def run_training(cfg: Config,
     return state, best_fgd
 
 
-def _start_profiler():
-    profiler = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        *([torch.profiler.ProfilerActivity.CUDA] if torch.cuda.is_available() else [])])
-    profiler.start()
-    return profiler
-
-
 def _stop_profiler(profiler, profile_dir: str) -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    profiler.stop()
-    Path(profile_dir).mkdir(parents=True, exist_ok=True)
-    profiler.export_chrome_trace(str(Path(profile_dir) / "trace.json"))
+    stop_trace(profiler, profile_dir)
     print(f"profile trace written to {profile_dir}")

@@ -11,8 +11,10 @@ importer (`data.import_ted --verify`) and the long-form entry
 (`--data <LMDB>`) on a source LMDB the port's own codec wrote, and the
 training entry point on the LLaMA backbone with its weights read from a
 bf16 safetensors file the port's own writer wrote (`--llm-weights`), the
-long-form entry restoring it, and the training entry point on each family
-of the baseline zoo and the hierarchy (`--model`)."""
+long-form entry restoring it, the training entry point on each family
+of the baseline zoo and the hierarchy (`--model`), and the serving export
+and its loader, `--render-video`, the TensorBoard mirror, a profiler trace,
+the tools and a reference-format checkpoint written and read back."""
 
 import os
 import subprocess
@@ -131,6 +133,31 @@ with tempfile.TemporaryDirectory() as tmp:
                       "--checkpoint-dir", tmp + "/" + model, "--metrics", tmp + "/m.jsonl"])
         print("ZOO", model)
     tempfile.tempdir = None
+# the serving export, rendering, the metric mirror, the tools, the
+# reference-format checkpoints
+from hop_tpu_torch import infer
+from hop_tpu_torch.eval import torch_export_hop, torch_import
+from hop_tpu_torch.utils import metrics_export, profiling, render, tools
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = tiny_test_config()
+    model = build_hop_model(cfg, 5, seed=0, device="cpu")
+    fwd = infer.load_exported(infer.export_forward(model, cfg, 1, device="cpu"))
+    out = fwd(*infer.serving_inputs(cfg, 1, "cpu"))
+    assert out.shape == (1, 34, 27), out.shape
+    out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
+                                "--render-video", "--out", tmp + "/demo"])
+    assert sorted(os.listdir(tmp + "/demo"))[0].startswith("demo_0."), os.listdir(tmp)
+    w = metrics_export.TensorBoardMirror(tmp + "/tb")
+    w.scalar("loss/val", 1.5, 0)
+    w.close()
+    with profiling.trace(tmp + "/trace"):
+        torch.ones(3) + 1
+    assert tools.adjust_learning_rate(3, 1e-3) == 2.5e-4
+    torch.save({"generator": torch_export_hop.export_hop_state_dict(model, cfg)},
+               tmp + "/g.bin")
+    assert torch_import.load_reference(
+        model, torch_import.load_torch_checkpoint(tmp + "/g.bin"), "generator") == []
+print("EXPORT OK")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu", "pyarrow",
                                     "lmdb", "fasttext", "safetensors", "transformers"))
@@ -144,7 +171,9 @@ for new in ("cli.common", "ops.gru_stack", "ops.gru_seq", "ops.attention",
             "models.seq2seq", "models.speech2gesture", "train.gan", "train.seq2seq",
             "train.speech2gesture", "train.embed", "utils.params", "models.resnet_se",
             "models.hierarchy", "train.hierarchy", "train.hierarchy_expressive_stats",
-            "data.h36m", "cli.train_h36m_ae", "eval.export_eval_net"):
+            "data.h36m", "cli.train_h36m_ae", "eval.export_eval_net", "infer",
+            "cli.export_model", "utils.render", "utils.metrics_export", "utils.profiling",
+            "utils.tools", "eval.torch_export_hop", "eval.torch_import"):
     assert "hop_tpu_torch." + new in names, new
 print("MODULES", len(names), "FOREIGN", bad)
 """
@@ -160,7 +189,7 @@ def test_port_imports_no_jax():
     assert "FOREIGN []" in proc.stdout, proc.stdout
     assert "PARITY STEP OK" in proc.stdout and "'dis'" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
-    assert proc.stdout.count("generated 34 frames") == 5
+    assert proc.stdout.count("generated 34 frames") == 6
     assert "resumed from checkpoint epoch 0" in proc.stdout
     assert "restored checkpoint step 1" in proc.stdout
     assert "evaluate: 26 windows in batches of 16" in proc.stdout
@@ -173,4 +202,5 @@ def test_port_imports_no_jax():
     for model in ("multimodal_context", "seq2seq", "speech2gesture", "joint_embedding",
                   "gesture_autoencoder", "hierarchy"):
         assert f"ZOO {model}" in proc.stdout
+    assert "EXPORT OK" in proc.stdout and "rendered video in" in proc.stdout
     assert n_modules >= 20

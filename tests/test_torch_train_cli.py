@@ -90,7 +90,6 @@ UNPORTED = [
     (["--model-parallel", "2"], "M15"),
     (["--dcn-slices", "2"], "M15"),
     (["--no-zero2"], "M15"),
-    (["--tensorboard-dir", "/tmp/tb"], "M17"),
 ]
 
 
