@@ -223,7 +223,25 @@ imports nothing of JAX. Phases, each ending in one line of output:
              value in f32); `python -m hop_tpu_torch.cli.export_model` on that
              run's checkpoint, its artifact run; `test_checkpoint
              --render-video` on a 20 s clip (seconds, writer, bytes)
- 29. the kernels' JSON line, then the device JSON as the last line
+ 29. parallel  the parallel path (ROADMAP M15): K4 and K5 at the backbone's
+             heads on a rank of a model group of 2 and 4 (H = 6, 3), K1 and K2
+             at a rank's rows at data = 2 and 4 (B = 128, 64), forward and
+             backward, rate 0 and 0.1, against their plain versions, with ms,
+             plain ms, bound and the library call's ms; world size 1 over
+             NCCL in this process: 2 fused GAN steps at bs 256 through
+             `init_distributed` and the rank's optimizer, bitwise the
+             one-process steps; world size 2 (`python3 chip_smoke.py --rank`,
+             gloo with both ranks on this card, or NCCL where there are two):
+             2 fused GAN steps at global bs 256 against the one-process steps
+             (dropout off, the backbone in f32) within limits a planted fault
+             (the head's GRU output x 1.001) exceeds, ZeRO against --no-zero2
+             bitwise, each rank's launches, ms a step, kernels' ms, busy share
+             and peak GiB on phase 9's step; model = 2 on phase 24's LLaMA-7B
+             backbone (6 layers): the bs-256 forward and one fused GAN step
+             against model = 1 within phase 24's limits, each rank's peak
+             GiB; `run_ted --data-parallel 2` at full TED width, 2 epochs
+             against 1 + `--resume`, bit for bit
+ 30. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -4167,6 +4185,647 @@ def phase_export(dev, seed):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 29: the parallel path (ROADMAP M15) ------------------------------
+# Two fused GAN steps of the full-width TED model at global bs 256 on 2 ranks
+# (gloo on one card, or NCCL on two) against the same steps in one process:
+# the same global batch and draws, dropout off and the backbone's products
+# in f32, so that what is left is the order of f32 sums (each rank's 128 rows,
+# the batch statistics and gradients summed over the ranks). Limits on the
+# losses of both steps (relative), on each gradient tensor of the first step
+# (the second's are taken where the parameters already differ; relative to
+# its net's largest gradient: a bias that a BatchNorm nearly cancels keeps
+# a gradient of round-off size, which no per-tensor limit resolves) and on
+# the parameters after two steps, in units of the learning rate, where the
+# first step's gradient is at least PAR_RESOLVED of its net's largest. An
+# element whose gradient is round-off of zero moves by a round-off-signed lr
+# a step (Adam divides by the gradient's own size), so two sound runs may
+# differ there by 2 lr a step, and the second step's gradients differ with
+# the parameters they are taken at. The limits sit between the readings and
+# a planted fault, the head's GRU output x 1.001 on every rank, which each
+# of them must catch (PERF.md §6).
+PAR_STEPS = 2
+PAR_LOSS_TOL = 1e-4
+PAR_GRAD_TOL = 1e-4
+PAR_RESOLVED = 1e-2
+PAR_PARAM_LR = 0.6
+PAR_TIMEOUT = 900
+PAR_FAULT = 1.001
+# the kernels at a rank's shapes: the backbone's heads at model = 2 and 4,
+# K1 and K2 at a rank's rows at data = 2 and 4
+PAR_HEADS = (6, 3)
+PAR_ROWS = (128, 64)
+
+
+def _attention_inputs_h(dev, seed, B, H):
+    import torch
+    _, T, _, D = ATTN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed + B + 100 * H)
+    return [torch.randn(B, T, H, D, device=dev, generator=g).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def _sdpa_times(q, k, v, do):
+    """F.scaled_dot_product_attention's forward and backward-alone ms on
+    (B, T, H, D) operands (a yardstick, used nowhere in the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    def sdpa(q=q, k=k, v=v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2)).transpose(1, 2)
+
+    def graph():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        return leaves, sdpa(*leaves)
+
+    def bwd(made):
+        leaves, out = made
+        torch.autograd.grad(out, leaves, do)
+    return cuda_ms(sdpa), cuda_ms(bwd, setup=graph)
+
+
+def phase_parallel_kernels(dev, seed):
+    """K4 and K5 at the heads a rank of a model group holds, K1 and K2 at a
+    rank's rows of the bs-256 batch: forward and backward against their plain
+    versions, ms, plain ms, bound and the library call's ms."""
+    import torch
+    import torch.nn.functional as F
+    from hop_tpu_torch.ops import attention as K4
+    from hop_tpu_torch.ops import block_attention as K5
+    from hop_tpu_torch.ops import gru_fused as K2
+    from hop_tpu_torch.ops import reprogramming_attention as K1
+    _, T, _, D = ATTN_SHAPE
+    scale, drop_seed = D ** -0.5, 4321
+    res = {"K4": {}, "K5": {}, "K1": {}, "K2": {}}
+    mods = {"K4": (K4.fused_attention_fwd, K4.fused_attention_bwd,
+                   K4.plain_fused_attention, K4.plain_fused_attention_bwd, K4_TOL,
+                   K4_BWD_REL_TOL),
+            "K5": (K5.block_attention_fwd, K5.block_attention_bwd,
+                   K5.plain_block_attention, K5.plain_block_attention_bwd, K5_TOL,
+                   BWD_REL_TOL)}
+    B = ATTN_SHAPE[0]
+    for H in PAR_HEADS:
+        q, k, v, do = _attention_inputs_h(dev, seed, B, H)
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        lib_fwd, lib_bwd = _sdpa_times(q, k, v, do)
+        flops = 2 * 2.0 * B * H * T * T * D
+        for name, (fwd, bwd, plain, plain_bwd, tol, bwd_tol) in mods.items():
+            r = {"max_abs_err": 0.0, "bwd_rel": 0.0}
+            for rate in (0.0, 0.1):
+                args = (scale, rate, drop_seed)
+                got, want = fwd(q, k, v, *args), plain(qf, kf, vf, *args)
+                err = (got.float() - want).abs().max().item()
+                check(err <= tol, f"{name} at H={H}, rate {rate}: {err} > {tol}")
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                for gname, a, c in zip(("dq", "dk", "dv"), bwd(q, k, v, do, *args),
+                                       plain_bwd(qf, kf, vf, dof, *args)):
+                    e_rel = rel_err(a.float(), c)[1]
+                    check(e_rel <= bwd_tol, f"{name} bwd at H={H}, rate {rate} {gname}: "
+                                            f"{e_rel} > {bwd_tol} relative")
+                    r["bwd_rel"] = max(r["bwd_rel"], e_rel)
+            args = (scale, 0.1, drop_seed)
+            r.update(ms=cuda_ms(lambda: fwd(q, k, v, scale)),
+                     plain_ms=cuda_ms(lambda: plain(q, k, v, scale), reps=10),
+                     bwd_ms=cuda_ms(lambda: bwd(q, k, v, do, *args)),
+                     bwd_plain_ms=cuda_ms(lambda: plain_bwd(q, k, v, do, *args), reps=10),
+                     library_ms=lib_fwd, library_bwd_ms=lib_bwd,
+                     **bound((q, k, v), fwd(q, k, v, scale), flops, BF16_FLOPS))
+            bb = bound((q, k, v, do), bwd(q, k, v, do, *args), 2.5 * flops, BF16_FLOPS)
+            r.update(bwd_bound_ms=bb["bound_ms"], bwd_bound_by=bb["bound_by"])
+            res[name][f"H{H}"] = r
+            print(f"parallel kernels: {name} at (B={B}, T={T}, H={H}, D={D}) (the backbone's "
+                  f"heads on a rank of a model group of {12 // H}): forward max_abs_err "
+                  f"{r['max_abs_err']:.3e} (tol {tol:g}), backward worst rel "
+                  f"{r['bwd_rel']:.2e} (tol {bwd_tol:g}), rate 0 and 0.1; forward "
+                  f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms vs SDPA {lib_fwd:.3f} "
+                  f"ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}); backward "
+                  f"{r['bwd_ms']:.3f} ms (rate 0.1) vs plain {r['bwd_plain_ms']:.3f} ms vs "
+                  f"SDPA's {lib_bwd:.3f} ms (rate 0; bound {r['bwd_bound_ms']:.4f} ms by "
+                  f"{r['bwd_bound_by']})")
+    E = K1.HEAD_DIM
+    for B in PAR_ROWS:
+        L, H, S = 34, 8, 1500
+        q, k, v, do = _k1_bwd_inputs(dev, seed + 3, B, L, H, E, S)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        sc = E ** -0.5
+        r = {"max_abs_err": 0.0, "bwd_rel": 0.0}
+        for rate in (0.0, 0.1):
+            args = (sc, rate, 1234)
+            out, lse = K1.reprogramming_attention_fwd(q, k, v, *args, with_lse=True)
+            want, want_lse = K1.plain_reprogramming_attention(q, k, v, *args, with_lse=True)
+            err = max((out - want).abs().max().item(), (lse - want_lse).abs().max().item())
+            check(err <= K1_TOL, f"K1 at B={B}, rate {rate}: {err} > {K1_TOL}")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            for gname, a, c in zip(("dq", "dk", "dv"),
+                                   K1.reprogramming_attention_bwd(q, k, v, out, lse, do, *args),
+                                   K1.plain_reprogramming_attention_bwd(q, k, v, want, want_lse,
+                                                                        do, *args)):
+                e_rel = rel_err(a, c)[1]
+                check(e_rel <= BWD_REL_TOL, f"K1 bwd at B={B}, rate {rate} {gname}: {e_rel}")
+                r["bwd_rel"] = max(r["bwd_rel"], e_rel)
+        out, lse = K1.reprogramming_attention_fwd(q, k, v, sc, 0.1, 1234, with_lse=True)
+
+        def sdpa():
+            qf = qb.permute(2, 0, 1, 3).reshape(1, H, B * L, E)
+            return F.scaled_dot_product_attention(qf, kb[None], vb[None], scale=sc)
+
+        def graph():
+            leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
+            qf = leaves[0].permute(2, 0, 1, 3).reshape(1, H, B * L, E)
+            return leaves, F.scaled_dot_product_attention(qf, leaves[1][None],
+                                                          leaves[2][None], scale=sc)
+        dof = do.to(torch.bfloat16).permute(2, 0, 1, 3).reshape(1, H, B * L, E)
+        r.update(ms=cuda_ms(lambda: K1.reprogramming_attention(qb, kb, vb, sc)),
+                 plain_ms=cuda_ms(lambda: K1.plain_reprogramming_attention(q, k, v, sc), reps=5),
+                 bwd_ms=cuda_ms(lambda: K1.reprogramming_attention_bwd(
+                     qb, kb, vb, out, lse, do, sc, 0.1, 1234), reps=10),
+                 bwd_plain_ms=cuda_ms(lambda: K1.plain_reprogramming_attention_bwd(
+                     q, k, v, out, lse, do, sc, 0.1, 1234), reps=5),
+                 library_ms=cuda_ms(sdpa),
+                 library_bwd_ms=cuda_ms(lambda made: torch.autograd.grad(made[1], made[0], dof),
+                                        setup=graph),
+                 **bound((qb, kb, vb), out, 2 * 2.0 * B * L * H * S * E, BF16_FLOPS))
+        bb = bound((q, k, v, out, lse, do), K1.reprogramming_attention_bwd(
+            qb, kb, vb, out, lse, do, sc, 0.1, 1234), 5 * 2.0 * B * L * H * S * E, BF16_FLOPS)
+        r.update(bwd_bound_ms=bb["bound_ms"], bwd_bound_by=bb["bound_by"])
+        res["K1"][f"B{B}"] = r
+        print(f"parallel kernels: K1 at (B={B}, L={L}, H={H}, S={S}) (a rank's rows at "
+              f"data = {256 // B}): forward max_abs_err {r['max_abs_err']:.3e} (tol "
+              f"{K1_TOL:g}), backward worst rel {r['bwd_rel']:.2e} (tol {BWD_REL_TOL:g}); "
+              f"forward {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} vs SDPA "
+              f"{r['library_ms']:.3f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}); "
+              f"backward {r['bwd_ms']:.3f} ms vs plain {r['bwd_plain_ms']:.3f} vs SDPA's "
+              f"{r['library_bwd_ms']:.3f} ms (bound {r['bwd_bound_ms']:.4f} by "
+              f"{r['bwd_bound_by']})")
+
+        T2, I, H2, D2 = 34, 992, 350, 2
+        args = _k2_inputs(dev, seed, T2, B, I, H2, D2)
+        fwd = K2.gru_fused_layer_fwd(*args, with_residuals=True)
+        err = max((a - b).abs().max().item() for a, b in
+                  zip(fwd, K2.plain_gru_fused_layer(*args, with_residuals=True)))
+        check(err <= K2_TOL, f"K2 at B={B}: {err} > {K2_TOL}")
+        h_seq, rr, z, n, hnb = fwd
+        dout = torch.randn(D2, T2, B, H2, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed + B))
+        bwd_args = (dout, args[0], rr, z, n, hnb, K2.hprev_of(h_seq, args[5]), args[1], args[3])
+        got = K2.gru_fused_layer_bwd(*bwd_args)
+        bwd_rel = max(rel_err(a, c)[1] for a, c in
+                      zip(got, K2.plain_gru_fused_layer_bwd(*bwd_args)))
+        check(bwd_rel <= BWD_REL_TOL, f"K2 bwd at B={B}: {bwd_rel} > {BWD_REL_TOL}")
+        lean = K2.gru_fused_layer(*args)
+        yard = gru_layer_yardstick(dev, seed, T2, B, I, H2)
+        r2 = {"max_abs_err": err, "bwd_rel": bwd_rel,
+              "ms": cuda_ms(lambda: K2.gru_fused_layer(*args)),
+              "plain_ms": cuda_ms(lambda: K2.plain_gru_fused_layer(*args), reps=5),
+              "bwd_ms": cuda_ms(lambda: K2.gru_fused_layer_bwd(*bwd_args), reps=10),
+              "bwd_plain_ms": cuda_ms(lambda: K2.plain_gru_fused_layer_bwd(*bwd_args), reps=5),
+              "library_ms": yard["cudnn"][0], "library_bwd_ms": yard["cudnn_bwd"],
+              **bound(args, lean, 2.0 * T2 * B * D2 * 3 * H2 * (I + H2), F32_FLOPS)}
+        bb = bound(bwd_args, got, 2.0 * T2 * B * D2 * 3 * H2 * (2 * H2 + 2 * I), F32_FLOPS)
+        r2.update(bwd_bound_ms=bb["bound_ms"], bwd_bound_by=bb["bound_by"])
+        res["K2"][f"B{B}"] = r2
+        print(f"parallel kernels: K2 at (T={T2}, B={B}, I={I}, H={H2}, D={D2}): forward "
+              f"max_abs_err {err:.3e} (tol {K2_TOL:g}), backward worst rel {bwd_rel:.2e}; "
+              f"lean forward {r2['ms']:.3f} ms vs plain {r2['plain_ms']:.3f} vs cuDNN "
+              f"{r2['library_ms']:.3f} ms (bound {r2['bound_ms']:.4f} by {r2['bound_by']}); "
+              f"backward {r2['bwd_ms']:.3f} ms vs plain {r2['bwd_plain_ms']:.3f} vs cuDNN's "
+              f"{r2['library_bwd_ms']:.3f} ms (bound {r2['bwd_bound_ms']:.4f} by "
+              f"{r2['bwd_bound_by']})")
+    return res
+
+
+def _par_nets(model_cpu, disc_cpu, dev, exact: bool):
+    """Copies of the nets on `dev`; `exact`: dropout off and the backbone's
+    products in f32 (the world-2 comparison's setting)."""
+    model, disc = copy.deepcopy(model_cpu).to(dev), copy.deepcopy(disc_cpu).to(dev)
+    if exact:
+        model.llm_model.dropout_rate = 0.0
+        model.reprogramming_layer.attention_dropout = 0.0
+        disc.gru.dropout = 0.0
+        for layer in model.llm_model.encoder.layer:
+            layer.cfg = dataclasses.replace(layer.cfg, compute_bf16=False)
+    return model, disc
+
+
+def _par_steps(cfg, model, disc, batch, mesh, seed, fault: bool = False):
+    """PAR_STEPS fused GAN steps (the steady variant) from the step
+    generator seeded `seed`, on a rank of `mesh` (None: one process).
+    Returns (state, gan, generator, [metrics a step], launches, the first
+    step's gradients on the host)."""
+    import torch
+    from hop_tpu_torch.parallel import attach_batch_group
+    from hop_tpu_torch.train.llm import make_hop_train_steps
+    attach_batch_group(model, mesh)
+    attach_batch_group(disc, mesh)
+    if fault:
+        model.gru.register_forward_hook(lambda m, i, o: (o[0] * PAR_FAULT, *o[1:]))
+    _, gan, init_state = make_hop_train_steps(cfg, model, disc, mesh)
+    state, g, metrics = init_state(), torch.Generator().manual_seed(seed), []
+    _reset_counts()
+    grads = None
+    for _ in range(PAR_STEPS):
+        state, m = gan.for_epoch(1)(state, batch, g)
+        metrics.append({k: v.item() for k, v in m.items()})
+        grads = grads or {k: p.grad.cpu() for k, p in _par_trainable(model, disc).items()
+                          if p.grad is not None}
+    torch.cuda.synchronize()
+    return state, gan, g, metrics, _launch_counts(), grads
+
+
+def _par_trainable(model, disc) -> dict:
+    return {**_trainable(model), **{"D." + k: p for k, p in _trainable(disc).items()}}
+
+
+def _par_snapshot(model, disc, grads) -> dict:
+    """The trainable parameters (on the host) with the first step's
+    gradients."""
+    return {k: (p.detach().cpu(), grads[k]) for k, p in _par_trainable(model, disc).items()
+            if k in grads}
+
+
+def _par_errors(metrics, snap, ref, cfg) -> dict:
+    """A run against the one-process reference: the losses' largest relative
+    error, the worst gradient tensor's (relative to its net's largest
+    gradient), the parameters' largest difference in units of each net's
+    learning rate where the reference's first-step gradient is resolved
+    (`param_lr`) and everywhere (`param_all`)."""
+    keys = ("loss", "KLD", "DIV_REG", "gen", "dis")
+    loss = max(abs(m[k] - r[k]) / max(abs(r[k]), 1e-12)
+               for m, r in zip(metrics, ref["metrics"]) for k in keys)
+    grads, params, params_all = {}, 0.0, 0.0
+    lr = cfg.train.learning_rate
+    for disc in (False, True):
+        mine = {k: v for k, v in ref["snap"].items() if k.startswith("D.") == disc}
+        top = max(g.abs().max().item() for _, g in mine.values())
+        unit = lr * (cfg.train.dis_lr_scale if disc else 1.0)
+        for k, (p, g) in mine.items():
+            grads[k] = (snap[k][1] - g).abs().max().item() / top
+            diff = (snap[k][0] - p).abs() / unit
+            params_all = max(params_all, diff.max().item())
+            resolved = g.abs() >= PAR_RESOLVED * top
+            if resolved.any():
+                params = max(params, diff[resolved].max().item())
+    worst = max(grads, key=grads.get)
+    return {"loss": loss, "grad": grads[worst], "grad_at": worst, "param_lr": params,
+            "param_all": params_all}
+
+
+def _rank_dp(mesh, spec, dev) -> dict:
+    """World 2 over the batch: the exact steps with ZeRO, without, and with the
+    planted fault, against the reference; then phase 9's steps timed."""
+    import torch
+    from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
+    from hop_tpu_torch.data.synthetic import make_train_batch
+    from hop_tpu_torch.models.hop import build_hop_model
+    from hop_tpu_torch.models.multimodal_context import build_discriminator
+    from hop_tpu_torch.parallel import batch_rows
+    from hop_tpu_torch.utils.checkpoint import differing_entries
+    seed, cfg = spec["seed"], ted_route_config()
+    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed, "cpu")
+    disc_cpu = build_discriminator(cfg, seed + 1, "cpu")
+    batch = batch_rows(make_train_batch(cfg, cfg.train.batch_size, seed, N_SPEAKERS, dev), mesh)
+    ref = torch.load(spec["ref"], weights_only=False)
+    out, states, clock = {}, {}, {"set up": time.perf_counter() - spec["t0"]}
+    for name, zero, fault in (("zero", True, False), ("no_zero", False, False),
+                              ("fault", True, True)):
+        t0 = time.perf_counter()
+        mesh.zero2 = zero
+        model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=True)
+        state, _, _, metrics, launches, grads = _par_steps(
+            cfg, model, disc, batch, mesh, seed, fault)
+        out[name] = _par_errors(metrics, _par_snapshot(model, disc, grads), ref, cfg)
+        if name != "fault":
+            states[name] = state.state_dict()
+        out[name]["launches"] = launches
+        clock[name] = time.perf_counter() - t0
+        del model, disc, state
+    out["zero_vs_no_zero"] = differing_entries(states["zero"], states["no_zero"])
+    del states
+    torch.cuda.empty_cache()
+    # phase 9's steps (bf16 backbone, dropout on), ZeRO on, timed on this rank
+    mesh.zero2 = True
+    model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=False)
+    state, gan, g, _, _, _ = _par_steps(cfg, model, disc, batch, mesh, seed)
+    out["zero_sharded"] = sum(ax is not None for ax in state.gen_opt.axes)
+    t0 = time.perf_counter()
+    # the card to these ranks alone: the training runs that share it with the
+    # comparisons above have ended
+    while not os.path.exists(spec["gate"]):
+        check(time.perf_counter() - t0 < PAR_TIMEOUT, "phase 29: the gate never opened")
+        time.sleep(0.1)
+    clock["waiting"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    def step():
+        nonlocal state
+        state, _ = gan(state, batch, g)
+    ms = cuda_ms(step, reps=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    busy, device_ms, top = _busy_share(step, 2, ms)
+    out["timing"] = (ms, device_ms, busy, top, torch.cuda.max_memory_allocated() / 2 ** 30)
+    clock["timing"] = time.perf_counter() - t0
+    out["local_batch"], out["clock"] = int(batch["in_audio"].shape[0]), clock
+    return out
+
+
+def _rank_tp(mesh, spec, dev) -> dict:
+    """Model = 2 on the LLaMA-7B backbone (phase 24's, 6 layers): the bs-256
+    forward and one fused GAN step against model = 1, which the group's first
+    rank computes before it shards its copy; each rank's peak memory."""
+    import torch
+    import torch.distributed as dist
+    from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
+    from hop_tpu_torch.data.synthetic import make_train_batch
+    from hop_tpu_torch.models.multimodal_context import build_discriminator
+    from hop_tpu_torch.parallel import attach_batch_group
+    from hop_tpu_torch.parallel.collectives import barrier
+    from hop_tpu_torch.train.llm import make_hop_train_steps
+    from hop_tpu_torch.models.hop import HOPModel
+    seed, cfg = spec["seed"], llama_route_config()
+    B = cfg.train.batch_size
+    clock, t0 = {}, time.perf_counter()
+    # built on the card from the seed (the same weights on both ranks, and for
+    # model = 1; 10 s on the host, phase 24)
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), \
+            torch.device(dev):
+        torch.manual_seed(seed)
+        model_full = HOPModel(cfg, N_SPEAKERS)
+    clock["build"] = time.perf_counter() - t0
+    disc_cpu = build_discriminator(cfg, seed + 1, "cpu")
+    sbatch = serving_batch(cfg, B, seed, dev)
+    tbatch = make_train_batch(cfg, B, seed, N_SPEAKERS, dev)
+
+    def forward(m):
+        with torch.inference_mode():
+            return m(sbatch["in_audio"], sbatch["x_enc"], sbatch["text"], sbatch["pre_seq"],
+                     sbatch["vid_indices"], eps=sbatch["eps"])[0]
+
+    def step(model, m):
+        disc = copy.deepcopy(disc_cpu).to(dev)
+        attach_batch_group(model, m)
+        attach_batch_group(disc, m)
+        _, gan, init_state = make_hop_train_steps(cfg, model, disc, m)
+        _, metrics = gan(init_state(), tbatch, torch.Generator().manual_seed(seed))
+        return ({k: v.item() for k, v in metrics.items()},
+                {k: p.grad.cpu() for k, p in _trainable(model).items() if p.grad is not None})
+    ref = None
+    t0 = time.perf_counter()
+    if mesh.model_rank == 0:
+        model1 = copy.deepcopy(model_full)
+        ref = (forward(model1).cpu(), *step(model1, None))
+        del model1
+    barrier()
+    clock["model = 1"], t0 = time.perf_counter() - t0, time.perf_counter()
+    model_full.llm_model.shard_(mesh.model_group, mesh.model_rank, mesh.n_model)
+    model = model_full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out2 = forward(model)
+    metrics, grads = step(model, mesh)
+    torch.cuda.synchronize()
+    clock["model = 2"] = time.perf_counter() - t0
+    res = {"launches": _launch_counts(), "clock": clock,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "backbone_gib": sum(p.numel() * p.element_size()
+                               for p in model.llm_model.parameters()) / 2 ** 30}
+    first = out2.clone()
+    dist.broadcast(first, src=mesh.model_ranks()[0], group=mesh.model_group)
+    res["same_as_rank0"] = bool(torch.equal(first, out2))
+    if ref is not None:
+        out1, m1, g1 = ref
+        res["fwd_err"] = (out2.cpu() - out1).abs().max().item()
+        res["loss_err"] = max(abs(metrics[k] - m1[k]) / max(abs(m1[k]), 1e-12)
+                              for k in ("loss", "KLD", "DIV_REG", "gen", "dis"))
+        top = max(g.abs().max().item() for g in g1.values())
+        errs = {k: rel_err(grads[k], g)[1] for k, g in g1.items()
+                if g.abs().max().item() >= 1e-5 * top}
+        res["grad_at"] = max(errs, key=errs.get)
+        res["grad_err"] = errs[res["grad_at"]]
+    return res
+
+
+def rank_main(spec_path: str) -> None:
+    """One rank of phase 29's world of 2 (`python3 chip_smoke.py --rank <spec>`,
+    launched by phase_parallel through `parallel.local.run_ranks`)."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hop_tpu_torch.parallel.mesh import destroy, init_distributed, make_mesh
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke --rank: no CUDA card")
+    from hop_tpu_torch.cli.train_main import deterministic_cudnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    spec["t0"] = time.perf_counter()
+    mesh = init_distributed(spec["device"], data_parallel=2, backend=spec["backend"])
+    dev = mesh.device
+    deterministic_cudnn(dev)       # ZeRO on and off, two runs, compared bitwise
+    out = {"dp": _rank_dp(mesh, spec, dev), "backend": mesh.backend, "device": str(dev)}
+    out["tp"] = _rank_tp(make_mesh((1, 1, 2), dev), spec, dev)
+    torch.save(out, f"{spec['out']}.{mesh.rank}.pt")
+    destroy()
+
+
+def _par_run_ted(seed, backend, device, tmp, gate: str) -> dict:
+    """`run_ted --data-parallel 2` at full TED width, as torchrun launches it:
+    2 epochs in one run and 1 epoch then `--resume` to 2 (the first two runs
+    side by side), bit for bit. Creates the file `gate` when the runs have
+    ended, however they end."""
+    try:
+        return _par_run_ted_runs(seed, backend, device, tmp)
+    finally:
+        open(gate, "w").close()
+
+
+def _par_run_ted_runs(seed, backend, device, tmp) -> dict:
+    import concurrent.futures
+    import torch
+    from hop_tpu_torch.parallel.local import check_ranks, run_ranks
+    from hop_tpu_torch.utils.checkpoint import differing_entries, flat_entries
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(name, epochs, *extra):
+        ck = os.path.join(tmp, name)
+        argv = ["-m", "hop_tpu_torch.cli.run_ted", "--device", device, "--dist-backend",
+                backend, "--data-parallel", "2", "--synthetic-videos", "1", "--batch-size",
+                "16", "--llm-layers", "2", "--warmup-epochs", "0", "--seed", str(seed),
+                "--epochs", str(epochs),
+                "--log-every", "1", "--checkpoint-dir", ck, "--metrics",
+                os.path.join(ck, "metrics.jsonl"), *extra]
+        t0 = time.perf_counter()
+        out = check_ranks(run_ranks(argv, 2, PAR_TIMEOUT, {"PYTHONPATH": root}, threads=4))
+        return ck, out, time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        whole, first = pool.submit(run, "A", 2), pool.submit(run, "B", 1)
+        (ck_a, out_a, s_a), (_, _, s_b1) = whole.result(), first.result()
+    ck_b, out_b, s_b2 = run("B", 2, "--resume")
+    check("mesh: data=2 x model=1 (zero2 opt-state sharding)" in out_a,
+          "run_ted under 2 ranks did not print its mesh")
+    check("resumed from checkpoint epoch 0" in out_b, "the resumed run did not resume")
+    a = torch.load(os.path.join(ck_a, "ckpt_1.pt"), weights_only=True)
+    b = torch.load(os.path.join(ck_b, "ckpt_1.pt"), weights_only=True)
+    diff = differing_entries(a, b)
+    check(diff == [], f"run_ted on 2 ranks: 2 epochs vs 1 + --resume differ at {diff[:5]}")
+    with open(os.path.join(ck_a, "metrics.jsonl"), "rb") as fa, \
+            open(os.path.join(ck_b, "metrics.jsonl"), "rb") as fb:
+        check(fa.read() == fb.read(), "run_ted on 2 ranks: the metrics.jsonl files differ")
+    return {"seconds": (s_a, s_b1, s_b2), "entries": len(flat_entries(a)),
+            "epochs": _epoch_seconds(out_a), "validation": _validation_seconds(out_a)}
+
+
+def phase_parallel(dev, seed):
+    """Phase 29. Returns ({path name: launches}, the kernels at new shapes)."""
+    import torch
+    from hop_tpu_torch.cli.test_checkpoint import N_SPEAKERS
+    from hop_tpu_torch.data.synthetic import make_train_batch
+    from hop_tpu_torch.models.hop import build_hop_model
+    from hop_tpu_torch.models.multimodal_context import build_discriminator
+    from hop_tpu_torch.parallel.local import free_port, run_ranks
+    from hop_tpu_torch.parallel.mesh import destroy, init_distributed
+    from hop_tpu_torch.utils.checkpoint import differing_entries
+    from hop_tpu_torch.cli.train_main import deterministic_cudnn
+    import concurrent.futures
+    smi = _smi()
+    deterministic_cudnn(dev)       # the runs compared bitwise, as a training run sets it
+    kernels = phase_parallel_kernels(dev, seed)     # timed with the card to itself
+    paths = {}
+    two_cards = torch.cuda.device_count() >= 2
+    backend, device = ("nccl", "cuda") if two_cards else ("gloo", "cuda:0")
+    tmp = tempfile.mkdtemp(prefix="hop_par_")
+    gate = os.path.join(tmp, "runs_ended")
+    # the training runs beside the comparisons (nothing timed meanwhile); the
+    # ranks time their steps after the gate opens
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    run_future = pool.submit(_par_run_ted, seed, backend, device, tmp, gate)
+    cfg = ted_route_config()
+    model_cpu = build_hop_model(cfg, N_SPEAKERS, seed, "cpu")
+    disc_cpu = build_discriminator(cfg, seed + 1, "cpu")
+    batch = make_train_batch(cfg, cfg.train.batch_size, seed, N_SPEAKERS, dev)
+
+    # world size 1 over NCCL: bitwise the one-process steps (phase 9's setting)
+    model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=False)
+    plain = _par_steps(cfg, model, disc, batch, None, seed)[0].state_dict()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh = init_distributed(dev, data_parallel=1)
+        check(mesh.backend == "nccl" and mesh.world == 1, f"world 1: {mesh}")
+        model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=False)
+        state, _, _, _, paths["parallel_world1"], _ = _par_steps(cfg, model, disc, batch,
+                                                                 mesh, seed)
+        diff = differing_entries(plain, state.state_dict())
+        check(diff == [], f"world 1 over NCCL differs from one process at {diff[:5]}")
+        del model, disc, state, plain
+    finally:
+        destroy()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"parallel world 1: {PAR_STEPS} fused GAN steps at bs {cfg.train.batch_size} "
+          f"through init_distributed (NCCL, one rank), the RankAdam's all-reduce and the "
+          f"rank's draws: every checkpoint entry bitwise the one-process steps'")
+
+    # the one-process reference of world 2's steps
+    model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=True)
+    _, _, _, metrics, _, grads = _par_steps(cfg, model, disc, batch, None, seed)
+    try:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"metrics": metrics, "snap": _par_snapshot(model, disc, grads)}, ref_path)
+        del model, disc, model_cpu, disc_cpu, batch
+        torch.cuda.empty_cache()
+        spec = {"seed": seed, "ref": ref_path, "out": os.path.join(tmp, "rank"),
+                "backend": backend, "device": device, "gate": gate}
+        torch.save(spec, os.path.join(tmp, "spec.pt"))
+        t0 = time.perf_counter()
+        results = run_ranks([os.path.abspath(__file__), "--rank", os.path.join(tmp, "spec.pt")],
+                            2, PAR_TIMEOUT, {"PYTHONPATH": os.path.dirname(
+                                os.path.abspath(__file__))}, threads=4)
+        spawn_s = time.perf_counter() - t0
+        bad = [r for r in results if r.returncode != 0]
+        check(not bad, "phase 29's ranks failed:\n" + "\n".join(
+            f"--- rank {r.rank} exited {r.returncode}:\n{r.output[-3000:]}" for r in bad))
+        ranks = [torch.load(f"{spec['out']}.{r}.pt", weights_only=False) for r in range(2)]
+        sharing = "" if two_cards else ", both ranks sharing one card (not a scaling number)"
+        want = {k: PAR_STEPS * v for k, v in step_launches(cfg, 4, True).items()}
+        for r, out in enumerate(ranks):
+            dp = out["dp"]
+            paths[f"parallel_dp_rank{r}"] = dp["zero"]["launches"]
+            check(dp["zero"]["launches"] == want, f"rank {r}: launches in {PAR_STEPS} steps "
+                  f"{dp['zero']['launches']}, want {want}")
+            check(dp["zero_vs_no_zero"] == [], f"rank {r}: ZeRO vs --no-zero2 differ at "
+                                               f"{dp['zero_vs_no_zero'][:5]}")
+            for name in ("zero", "no_zero"):
+                e = dp[name]
+                check(e["loss"] <= PAR_LOSS_TOL and e["grad"] <= PAR_GRAD_TOL
+                      and e["param_lr"] <= PAR_PARAM_LR,
+                      f"rank {r} world 2 vs 1 ({name}): losses {e['loss']:.3e} (tol "
+                      f"{PAR_LOSS_TOL:g}), worst gradient {e['grad_at']} {e['grad']:.3e} "
+                      f"(tol {PAR_GRAD_TOL:g}), parameters {e['param_lr']:.3f} lr (tol "
+                      f"{PAR_PARAM_LR:g})")
+            f = dp["fault"]
+            check(f["loss"] > PAR_LOSS_TOL and f["grad"] > PAR_GRAD_TOL
+                  and f["param_lr"] > PAR_PARAM_LR,
+                  f"rank {r}: the planted fault (GRU output x {PAR_FAULT}) passed a limit: "
+                  f"losses {f['loss']:.3e}, gradient {f['grad']:.3e}, parameters "
+                  f"{f['param_lr']:.3f} lr")
+            ms, device_ms, busy, top, peak = dp["timing"]
+            e = dp["zero"]
+            print(f"parallel world 2 rank {r} ({out['backend']} on {out['device']}{sharing}): "
+                  f"{PAR_STEPS} fused GAN steps at global bs {cfg.train.batch_size} ({dp['local_batch']} "
+                  f"rows a rank), dropout off, backbone f32, against one process: losses rel "
+                  f"{e['loss']:.3e} (tol {PAR_LOSS_TOL:g}), worst gradient of the first step "
+                  f"{e['grad_at']} over its net's largest "
+                  f"{e['grad']:.3e} (tol {PAR_GRAD_TOL:g}), parameters where the first "
+                  f"gradient is {PAR_RESOLVED:g} of its net's largest or more "
+                  f"{e['param_lr']:.3f} lr (tol {PAR_PARAM_LR:g}; everywhere "
+                  f"{e['param_all']:.3f} lr); --no-zero2 {dp['no_zero']['loss']:.3e} / "
+                  f"{dp['no_zero']['grad']:.3e} / {dp['no_zero']['param_lr']:.3f}; ZeRO "
+                  f"({dp['zero_sharded']} moments sharded) vs --no-zero2 bitwise; planted "
+                  f"fault (GRU x {PAR_FAULT}) {f['loss']:.3e} / {f['grad']:.3e} / "
+                  f"{f['param_lr']:.3f} lr (everywhere {f['param_all']:.3f}), caught by each; "
+                  f"launches {_nonzero(dp['zero']['launches'])}; phase 9's step (bf16, dropout "
+                  f"on, ZeRO): {ms:.2f} ms per step, kernels "
+                  f"{device_ms:.2f} ms, busy share {busy:.3f} (CUDA-event median of 3; "
+                  f"torch.profiler, 2 steps), peak {peak:.2f} GiB; on {smi}; seconds "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in dp["clock"].items()))
+        tp0, tp1 = ranks[0]["tp"], ranks[1]["tp"]
+        check(tp1["same_as_rank0"], "model = 2: the ranks' forwards differ")
+        check(tp0["fwd_err"] <= SERVE_TOL and tp0["loss_err"] <= TRAIN_LOSS_TOL
+              and tp0["grad_err"] <= TRAIN_GRAD_TOL,
+              f"LLaMA model = 2 vs model = 1: forward {tp0['fwd_err']:.3e} (tol {SERVE_TOL:g}), "
+              f"losses {tp0['loss_err']:.3e} (tol {TRAIN_LOSS_TOL:g}), gradient "
+              f"{tp0['grad_at']} {tp0['grad_err']:.3e} (tol {TRAIN_GRAD_TOL:g})")
+        for r, out in enumerate(ranks):
+            paths[f"parallel_tp_rank{r}"] = out["tp"]["launches"]
+        print(f"parallel model = 2 (LLaMA-7B backbone, {llama_route_config().llm.n_layers} "
+              f"layers, {ranks[0]['backend']}{sharing}): bs-256 forward and one fused GAN step "
+              f"against model = 1: forward max_abs_diff {tp0['fwd_err']:.3e} (tol "
+              f"{SERVE_TOL:g}), losses rel {tp0['loss_err']:.3e} (tol {TRAIN_LOSS_TOL:g}), worst "
+              f"gradient {tp0['grad_at']} {tp0['grad_err']:.3e} (tol {TRAIN_GRAD_TOL:g}); the "
+              f"ranks' forwards bitwise equal; backbone share {tp0['backbone_gib']:.2f} GiB a "
+              f"rank; peak memory of the forward and the step (torch.cuda.max_memory_allocated): "
+              f"rank 0 {tp0['peak_gib']:.2f} GiB, rank 1 {tp1['peak_gib']:.2f} GiB (phase 24's "
+              f"one-process step: 19.4 GiB, PERF.md); "
+              f"launches rank 0 {_nonzero(tp0['launches'])}; seconds " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in tp0["clock"].items())
+              + f"; the ranks took {spawn_s:.1f} s")
+        run = run_future.result()
+        print(f"parallel run_ted: --data-parallel 2 ({backend}{sharing}) at full TED width, "
+              f"BERT cut to 2 layers, global bs 16 on 1 synthetic video, 2 epochs against 1 "
+              f"+ --resume to 2: the checkpoints equal in all {run['entries']} entries "
+              f"(ZeRO's moments gathered), metrics.jsonl equal; seconds "
+              f"{', '.join(f'{s:.1f}' for s in run['seconds'])} (2 epochs and 1 epoch side by "
+              f"side, then the resume, beside the comparisons; host clock); the 2-epoch run's epochs "
+              f"{run['epochs']} s, validation passes {run['validation']} s")
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths, kernels
+
+
 class _Laps:
     """Seconds of the phases (host clock): each call closes the span since
     the last under its name."""
@@ -4271,9 +4930,12 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     paths.update(phase_export(dev, SEED))
     lap("28")
+    par_paths, par = phase_parallel(dev, SEED)
+    paths.update(par_paths)
+    lap("29")
     print("chip_smoke: seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in lap.seconds.items())
-        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27', '28')):.1f}")
+        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27', '28', '29')):.1f}")
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention
@@ -4306,25 +4968,37 @@ def main():
         return {f"i{I}_{k}": r[k] for k in
                 ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")} | {
                     f"i{I}_library_ms": library_ms}
+    def par_rows(name, bwd=False):
+        """Phase 29's shapes of a kernel (a rank's rows, a rank's heads), under
+        keys of their own: forward or backward ms, plain ms, bound, library ms."""
+        pre = "bwd_" if bwd else ""
+        return {shape: {"err": r["bwd_rel" if bwd else "max_abs_err"],
+                        "ms": r[pre + "ms"], "plain_ms": r[pre + "plain_ms"],
+                        "bound_ms": r[pre + "bound_ms"], "bound_by": r[pre + "bound_by"],
+                        "library_ms": r["library_bwd_ms" if bwd else "library_ms"]}
+                for shape, r in par[name].items()}
     kernels = [
         entry("reprogramming_attention_fwd", K1_SOURCE, K1_REPLACES, "K1",
-              max(k1["max_abs_err"], k1_bwd["out_err"]), k1, lib["K1"]),
+              max(k1["max_abs_err"], k1_bwd["out_err"]), k1, lib["K1"],
+              rank_rows=par_rows("K1")),
         # SDPA's backward alone at rate 0 (no one call draws the hashed mask)
         entry("reprogramming_attention_bwd", K1_SOURCE, K1_BWD_REPLACES, "K1_bwd",
-              k1_bwd["max_abs_err"], k1_bwd, lib["K1_bwd"]),
+              k1_bwd["max_abs_err"], k1_bwd, lib["K1_bwd"],
+              rank_rows=par_rows("K1", bwd=True)),
         entry("gru_fused_fwd", K2_SOURCE, K2_REPLACES, "K2",
               max([r["max_abs_err"] for r in k2.values()]
                   + [r["fwd_err"] for r in k2_bwd.values()] + [zoo_err("K2")]),
               k2[K2_MAIN[0]], lib[("gru_fwd", 992, 350)],
               disc_rec_kernel_ms=k2[K2_MAIN[2]]["rec_ms"],
               **_at(4320, k2[K2_LLAMA], lib[("gru_fwd", 4320, 350)]),
-              **_at(1751, k2[K2_EXPR], lib[("gru_fwd", 1751, 350)]), **zoo_rows("K2")),
+              **_at(1751, k2[K2_EXPR], lib[("gru_fwd", 1751, 350)]), **zoo_rows("K2"),
+              rank_rows=par_rows("K2")),
         entry("gru_fused_bwd", K2_SOURCE, K2_BWD_REPLACES, "K2_bwd",
               max([r["max_abs_err"] for r in k2_bwd.values()] + [zoo_err("K2_bwd")]),
               k2_bwd[(992, 350)], lib[("gru_bwd", 992, 350)],
               **_at(4320, k2_bwd[(4320, 350)], lib[("gru_bwd", 4320, 350)]),
               **_at(1751, k2_bwd[(1751, 350)], lib[("gru_bwd", 1751, 350)]),
-              **zoo_rows("K2_bwd")),
+              **zoo_rows("K2_bwd"), rank_rows=par_rows("K2", bwd=True)),
         # K3 is the recurrence without its projection: no one call computes it
         entry("gru_stack_fwd", K3_SOURCE, K3_REPLACES, "K3",
               max(k3["max_abs_err"], zoo_err("K3")),
@@ -4356,13 +5030,14 @@ def main():
         kernels.append(entry(name + "_fwd", source, replaces[0], count, r["fwd_err"],
                              {**r, **r["bound"]}, lib["attn_fwd"],
                              kernel_ms=r["kernel_ms"],
-                             library_kernel_ms=lib["attn_fwd_kernel"]))
+                             library_kernel_ms=lib["attn_fwd_kernel"],
+                             rank_heads=par_rows(count)))
         kernels.append(entry(
             name + "_bwd", source, replaces[1], count + "_bwd", r["bwd_err"],
             {"ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"], **r["bwd_bound"]},
             lib["attn_bwd"], kernel_ms=r["bwd_kernel_ms"],
             kernel_ms_rate0=r["bwd0_kernel_ms"], b1_kernel_ms=r["b1_bwd_kernel_ms"],
-            library_kernel_ms=lib["attn_bwd_kernel"]))
+            library_kernel_ms=lib["attn_bwd_kernel"], rank_heads=par_rows(count, bwd=True)))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4371,4 +5046,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2])
+    else:
+        main()

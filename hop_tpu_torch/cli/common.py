@@ -5,11 +5,12 @@ BERT or LLaMA, random or pretrained (`--llm-weights`), the host batch -> device
 batch path (:318-396), the WordPiece tokenizer, the datasets, the frozen
 FGD feature net and the validation pass's closure (:265-467).
 
-`base_parser` has every flag of hop_tpu's; the flags of features the port
-has not yet (`UNPORTED`) are refused by `refuse_unported` with the name of
-the ROADMAP.md item that brings them. The port adds `--device` (default
-cuda: the card, never a silent move to the CPU), `--gru-kernel`,
-`--bert-attention` and `--tiny`.
+`base_parser` has every flag of hop_tpu's. The parallel flags
+(`--data-parallel`, `--model-parallel`, `--dcn-slices`, `--no-zero2`) ask
+for a run of one process a rank under torchrun (`parallel.init_distributed`).
+The port adds `--device` (default cuda: the card, never a silent move to
+the CPU), `--gru-kernel`, `--bert-attention`, `--tiny` and, for a rank,
+`--dist-backend` (what `--device` is to a tensor).
 
 `device_batch` takes a batch of numpy arrays as the data loader makes it,
 moves the fields a model reads to the device and derives there what the
@@ -55,21 +56,13 @@ from hop_tpu_torch.models.hop import build_hop_model
 from hop_tpu_torch.models.llm_weights import install_llm_weights
 from hop_tpu_torch.models.motion_ae import MotionAE
 from hop_tpu_torch.ops import mel as mel_ops
+from hop_tpu_torch.parallel.mesh import GLOBAL_VIDS
 from hop_tpu_torch.train.loops import prefetch_iter
 from hop_tpu_torch.utils.checkpoint import (CheckpointManager, reattach_frozen,
                                             strip_frozen)
 
 MODEL_CHOICES = ("AD_LLM", "multimodal_context", "seq2seq", "speech2gesture",
                  "joint_embedding", "gesture_autoencoder", "hierarchy")
-
-#: flags of hop_tpu's base_parser whose feature the port has not yet:
-#: (dest, test of the parsed value, the ROADMAP.md item that brings it)
-UNPORTED = (
-    ("data_parallel", lambda v: v > 1, "M15 (parallel)"),
-    ("model_parallel", lambda v: v > 1, "M15 (parallel)"),
-    ("dcn_slices", lambda v: v > 1, "M15 (parallel)"),
-    ("no_zero2", bool, "M15 (parallel): there is no sharded optimizer state to keep"),
-)
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -96,19 +89,23 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="seeds the weights, the synthetic data, the batch order "
                         "and every step's draws")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="0 or 1: one card (more is ROADMAP M15)")
+                   help="data-parallel degree (0: WORLD_SIZE / (model x dcn)); "
+                        "more than one rank runs under torchrun, one process a "
+                        "rank, the batch split over dcn x data")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="1 (more is ROADMAP M15)")
+                   help="tensor-parallel degree for the frozen LLM backbone")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of train steps 2-5 of "
                         "the first epoch to <dir>/trace.json")
     p.add_argument("--dcn-slices", type=int, default=1,
-                   help="1 (more is ROADMAP M15)")
+                   help="outer 'dcn' axis of the rank layout: the batch is "
+                        "split over dcn x data, ZeRO's moments over data alone")
     p.add_argument("--parity-step", action="store_true",
                    help="train HOP with the reference's 3-forward sequential "
                         "D/G step instead of the default fused step")
     p.add_argument("--no-zero2", action="store_true",
-                   help="not ported (ROADMAP M15)")
+                   help="keep Adam's moments whole on every data rank (ZeRO-2 "
+                        "analog, on by default when data > 1)")
     p.add_argument("--synthetic-videos", type=int, default=3)
     p.add_argument("--wordembed-path", default=None,
                    help="pretrained word vectors for the vocabulary: a .npy "
@@ -154,6 +151,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' runs the CUDA kernels, 'cpu' "
                         "their plain versions")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="a rank's process-group backend (default: nccl on the "
+                        "card, gloo on the CPU); gloo puts several ranks on one "
+                        "card, which nccl refuses")
     p.add_argument("--tiny", action="store_true",
                    help="thin layers (tiny_test_config) for a quick CPU run")
     p.add_argument("--gru-kernel", default="fused", choices=("fused", "stack"),
@@ -165,16 +166,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="self-attention route of the BERT backbone: matmul + "
                         "softmax, kernel K4, or kernel K5 (LLaMA: plain only)")
     return p
-
-
-def refuse_unported(args) -> None:
-    """Exit, naming its ROADMAP.md item, on a flag whose feature the port
-    has not yet."""
-    for dest, given, item in UNPORTED:
-        value = getattr(args, dest, None)
-        if value is not None and given(value):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} {value}: not ported yet, ROADMAP.md {item}")
 
 
 def apply_overrides(cfg: Config, args) -> Config:
@@ -324,7 +315,7 @@ def device_batch(batch: dict, cfg: Config, with_mel: bool = True, keys=None,
     when their sources are present.
     """
     if keys is not None:
-        batch = {k: v for k, v in batch.items() if k in keys}
+        batch = {k: v for k, v in batch.items() if k in keys or k == GLOBAL_VIDS}
     # text ids are transferred once, after the clamp (below), not here too
     out = {k: _put(np.asarray(v), device) for k, v in batch.items()
            if k not in ("text_padded", "text_tokens", "in_audio")}
@@ -453,14 +444,15 @@ def _warn_untrained_eval_net():
 
 def make_eval_fn(cfg: Config, val_ds, evaluator, generate_from_state,
                  n_speakers: int, device: torch.device | str = "cuda",
-                 prefetch: int = 0):
+                 prefetch: int = 0, mesh=None):
     """eval_fn(state, epoch) -> EvalResult over `val_ds` in order at
     cfg.train.batch_size, the last batch ragged;
     generate_from_state(state, batch, vids, generator) -> outputs. The
     speaker ids of epoch e come from a generator seeded 1234 + e.
 
     prefetch: make and move up to N validation batches ahead of the
-    forwards on a background thread (`prefetch_iter`)."""
+    forwards on a background thread (`prefetch_iter`). mesh: a rank of a
+    parallel run (`evaluate_testset`'s mesh branch)."""
 
     def eval_fn(state, epoch):
         batches = prefetch_iter(
@@ -473,5 +465,5 @@ def make_eval_fn(cfg: Config, val_ds, evaluator, generate_from_state,
             return generate_from_state(state, batch, vids, generator)
         generator = torch.Generator(device=device).manual_seed(1234 + epoch)
         return evaluate_testset(batches, gen, evaluator, epoch, cfg,
-                                n_speakers, generator=generator)
+                                n_speakers, generator=generator, mesh=mesh)
     return eval_fn

@@ -33,6 +33,17 @@ not saved but rebuilt, from the seed or from `--llm-weights`, so another
 seed or another (or a missing) weights path would silently train on from
 another backbone (hop_tpu's train_main.py:306 reattaches whatever the new
 arguments build, a random backbone when `--llm-weights` is left out).
+
+The parallel path (hop_tpu's train_main.py:321-352): `--data-parallel`,
+`--model-parallel` and `--dcn-slices` above 1, or a launch by torchrun,
+make this process one rank of a `parallel.Mesh` (`init_distributed`),
+printing hop_tpu's "mesh: ..." line. Every rank builds the same nets from
+the seed and the same global batches from the data; it takes its rows
+(`batch_rows`), its share of the frozen backbone (model > 1), and reduces
+gradients, batch statistics and metrics over its batch group; with ZeRO
+(default when data > 1, `--no-zero2` off) it holds its share of Adam's
+moments. The hierarchy (the contrastive terms over all pairs of the
+global batch) is refused on a split batch: ROADMAP.md M15b.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from hop_tpu_torch.models.multimodal_context import (build_discriminator,
                                                      build_pose_generator)
 from hop_tpu_torch.models.seq2seq import build_seq2seq
 from hop_tpu_torch.models.speech2gesture import build_s2g
+from hop_tpu_torch.parallel import attach_batch_group, batch_rows, init_distributed, wants_ranks
+from hop_tpu_torch.parallel.mesh import destroy
 from hop_tpu_torch.train.embed import make_embed_train_step, make_motion_ae_train_step
 from hop_tpu_torch.train.gan import build_pre_seq, make_gan_train_steps
 from hop_tpu_torch.train.hierarchy import make_hierarchy_train_steps
@@ -100,13 +113,15 @@ def _inference(fn):
     return generate
 
 
-def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device):
+def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device, mesh=None):
     """Returns (state, warmup_step, gan_step, generate_from_state) for
     `args.model` (hop_tpu's switch, train_main.py:28-204): the generator
     (or the one net) from `args.seed`, a discriminator from `args.seed + 1`,
     on `device`; `gan_step` is None where the family has no GAN phase.
     Vocabulary-shaped embedding tables take `--wordembed-path`'s vectors
-    (hop_tpu installs them in every family but AD_LLM and speech2gesture)."""
+    (hop_tpu installs them in every family but AD_LLM and speech2gesture).
+    On a rank of `mesh`: the nets' batch statistics over the batch group,
+    HOP's backbone sharded over the model group, the steps the rank's."""
     name, seed, d = args.model, args.seed, cfg.data
 
     def pretrained(net):
@@ -115,33 +130,38 @@ def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device):
             print(f"loaded pretrained word embeddings into {n} table(s)")
         return net
 
+    def ranked(*nets):
+        for net in nets:
+            attach_batch_group(net, mesh)
+        return nets if len(nets) > 1 else nets[0]
+
     if name == "AD_LLM":
-        model = build_hop_model(cfg, n_speakers, seed, device)
+        model = build_hop_model(cfg, n_speakers, seed, device, mesh)
         if args.llm_weights:
             C.install_backbone(model, args.llm_weights, cfg.llm, args.hf_vocab)
         disc = build_discriminator(cfg, seed + 1, device)
         n_trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
         print(f"Total parameters: {n_trainable}")
-        warmup, gan, init_state = make_hop_train_steps(cfg, model, disc)
+        warmup, gan, init_state = make_hop_train_steps(cfg, *ranked(model, disc), mesh)
         return init_state(), warmup, gan, functools.partial(generate_from_state, cfg)
 
     if name == "multimodal_context":
         gen = pretrained(build_pose_generator(cfg, lang.n_words, n_speakers, seed, device))
         disc = build_discriminator(cfg, seed + 1, device)
-        warmup, gan, init_state = make_gan_train_steps(cfg, gen, disc)
+        warmup, gan, init_state = make_gan_train_steps(cfg, *ranked(gen, disc), mesh)
         return init_state(), warmup, gan, _inference(lambda net, b, vids, g: net(
             build_pre_seq(b["target_vec"], d.n_pre_poses), b["text_padded"],
             b["in_audio"], vids, generator=g)[0])
 
     if name == "seq2seq":
         net = pretrained(build_seq2seq(cfg, lang.n_words, seed, device))
-        step, init_state = make_seq2seq_train_step(cfg, net)
+        step, init_state = make_seq2seq_train_step(cfg, ranked(net), mesh)
         return init_state(), step, None, _inference(lambda net, b, vids, g: net(
             b["word_seq"], b["text_mask"], b["target_vec"]))
 
     if name == "speech2gesture":
         gen, disc = build_s2g(cfg, seed, device)
-        step, init_state = make_s2g_train_step(cfg, gen, disc)
+        step, init_state = make_s2g_train_step(cfg, *ranked(gen, disc), mesh)
         return init_state(), step, step, _inference(lambda net, b, vids, g: net(
             b["spectrogram"], b["target_vec"][:, :d.n_pre_poses]))
 
@@ -151,14 +171,14 @@ def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device):
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             net = MotionAE(d.pose_dim, cfg.baseline.motion_ae_latent_dim)
-        step, init_state = make_motion_ae_train_step(cfg, net.to(device))
+        step, init_state = make_motion_ae_train_step(cfg, ranked(net.to(device)), mesh)
         return init_state(), step, None, _inference(
             lambda net, b, vids, g: net(b["target_vec"])[0])
 
     if name in ("joint_embedding", "gesture_autoencoder"):
         mode = "random" if name == "joint_embedding" else "pose"
         net = pretrained(build_embedding_net(cfg, lang.n_words, mode, seed, device))
-        step, init_state = make_embed_train_step(cfg, net, mode="pose")
+        step, init_state = make_embed_train_step(cfg, ranked(net), mode="pose", mesh=mesh)
         return init_state(), step, None, _inference(lambda net, b, vids, g: net(
             None, None, b["target_vec"][:, :d.n_pre_poses], b["target_vec"],
             input_mode="pose")[-1])
@@ -174,9 +194,27 @@ def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device):
 
 def train_main(cfg: Config, args):
     """Returns (state, best_fgd)."""
-    C.refuse_unported(args)
     cfg = C.apply_overrides(cfg, args)
-    device = torch.device(args.device)
+    device, mesh = torch.device(args.device), None
+    if wants_ranks(args.data_parallel, args.model_parallel, args.dcn_slices):
+        mesh = init_distributed(device, args.data_parallel, args.model_parallel,
+                                args.dcn_slices, zero2=not args.no_zero2,
+                                backend=args.dist_backend)
+        device = mesh.device
+        print(mesh.describe())
+    try:
+        if args.model == "hierarchy" and mesh is not None and mesh.batch_size > 1:
+            raise SystemExit(
+                "--model hierarchy on a batch split over more than one rank: not "
+                "ported yet, ROADMAP.md M15b (its contrastive terms run over all "
+                "pairs of the global batch)")
+        return _train(cfg, args, device, mesh)
+    finally:
+        if mesh is not None:
+            destroy()
+
+
+def _train(cfg: Config, args, device, mesh):
     deterministic_cudnn(device)
     ckpt = CheckpointManager(args.checkpoint_dir)
     # what rebuilds the frozen backbone; the weights path absolute, so that a
@@ -207,15 +245,15 @@ def train_main(cfg: Config, args):
           f"speakers: {n_speakers}, batch: {bs}, device: {device}")
 
     state, warmup, gan, generate = build_model_and_steps(cfg, args, lang, n_speakers,
-                                                         device)
+                                                         device, mesh)
     evaluator = C.make_fgd_evaluator(cfg, lang.n_words, args.eval_net, device)
     eval_fn = C.make_eval_fn(cfg, val_ds, evaluator, generate, n_speakers, device,
-                             prefetch=args.prefetch)
+                             prefetch=args.prefetch, mesh=mesh)
     batch_keys = C.MODEL_BATCH_KEYS[args.model]
 
     def train_batches(epoch):
         for hb in train_ds.batches(bs, shuffle=True, seed=args.seed + epoch):
-            yield C.device_batch(hb, cfg, keys=batch_keys, device=device)
+            yield C.device_batch(batch_rows(hb, mesh), cfg, keys=batch_keys, device=device)
 
     ckpt.metadata = {"model": args.model, "dataset": cfg.data.dataset,
                      "n_speakers": n_speakers, "n_words": lang.n_words, **run_keys}
@@ -238,5 +276,5 @@ def train_main(cfg: Config, args):
         start_epoch=start_epoch, best_fgd=best_fgd,
         checkpoint_every=args.checkpoint_every,
         profile_dir=args.profile_dir, transfer_guard=args.transfer_guard,
-        prefetch=args.prefetch, div_history=div_history)
+        prefetch=args.prefetch, div_history=div_history, mesh=mesh)
     return state, best_fgd

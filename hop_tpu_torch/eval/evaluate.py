@@ -9,9 +9,18 @@ once, at the end.
 
 Differences from hop_tpu, on purpose: the speaker ids come from a
 `torch.Generator` (hop_tpu: `jax.random.randint` on a split key), or from
-the caller (`speaker_ids`, so a test can give both packages the same ids);
-there is no mesh branch (hop_tpu shards the batches over an ambient mesh:
-the multi-device path).
+the caller (`speaker_ids`, so a test can give both packages the same ids).
+
+The mesh branch (hop_tpu's evaluate.py:78-91, with `mesh` given in place of
+hop_tpu's ambient one): a batch whose size the batch group divides is
+split by rows, each rank generates its rows, and the generated poses are
+gathered in rank order (`collectives.gather_rows`) before L1, joint MAE,
+BC and the feature net, so every rank computes the metrics of the whole
+batch, the same on every rank. A ragged batch runs whole on every rank, as
+in hop_tpu. The speaker ids are drawn for the global batch, and so is the
+generator's noise (`models.common.RowDraws`: each draw is the one-process
+pass's, from the same generator, cut to the rank's rows), so the metrics
+do not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from hop_tpu_torch.config import Config
 from hop_tpu_torch.eval import beat as beat_mod
 from hop_tpu_torch.eval import metrics as metrics_mod
 from hop_tpu_torch.eval.fgd import EmbeddingSpaceEvaluator
+from hop_tpu_torch.models.common import RowDraws
+from hop_tpu_torch.parallel.collectives import gather_rows
 
 
 @dataclass
@@ -59,13 +70,16 @@ def evaluate_testset(batches: Iterable[dict],
                      cfg: Config,
                      n_speakers: int,
                      generator: Optional[torch.Generator] = None,
-                     speaker_ids: Optional[Iterator[torch.Tensor]] = None
-                     ) -> EvalResult:
+                     speaker_ids: Optional[Iterator[torch.Tensor]] = None,
+                     mesh=None) -> EvalResult:
     """generate_fn(batch, vid_indices, generator) -> (B, T, pose_dim)
     dir-vecs, for batches of tensors on one device (`device_batch`).
 
     Each batch's speaker ids are the next of `speaker_ids` when given, else
-    drawn in [0, n_speakers) from `generator` (on the batch's device).
+    drawn in [0, n_speakers) from `generator` (on the batch's device). On a
+    rank of `mesh` every rank passes the whole batch; where it is split,
+    generate_fn gets the rank's rows and a `RowDraws` in place of the
+    generator (see the module's docstring).
     """
     skel = cfg.data.skeleton
     start = time.time()
@@ -75,6 +89,7 @@ def evaluate_testset(batches: Iterable[dict],
     losses, maes = [], []
     bc_nums, bc_dens = [], []
     compute_bc = epoch > cfg.loss.bc_start_epoch
+    n_shards = mesh.batch_size if mesh is not None else 1
 
     for batch in batches:
         target = batch["target_vec"]
@@ -84,7 +99,14 @@ def evaluate_testset(batches: Iterable[dict],
         else:
             vids = torch.randint(0, n_speakers, (B,), generator=generator,
                                  device=target.device)
-        outputs = generate_fn(batch, vids, generator)
+        if n_shards > 1 and B % n_shards == 0:
+            rows = mesh.rows(B // n_shards)
+            outputs = gather_rows(generate_fn({k: v[rows] for k, v in batch.items()},
+                                              vids[rows],
+                                              RowDraws(generator, n_shards, mesh.batch_rank)),
+                                  mesh.batch_group)
+        else:
+            outputs = generate_fn(batch, vids, generator)
 
         losses.append(metrics_mod.l1_loss(outputs, target))
         maes.append(metrics_mod.joint_mae(outputs, target, skel,

@@ -6,8 +6,9 @@ The frozen feature net is EmbeddingNet(mode="pose") for pose_dim 27 (TED)
 or MotionAE for pose_dim 126 (expressive). Features stay on the device
 until the final scalars; the Fréchet distance uses the eigh-based square
 root (ops/sqrtm.py). hop_tpu's `_gather_replicated` (an all-gather of each
-feature block over a mesh) has no counterpart here: it is the multi-device
-path.
+feature block over a mesh) has its counterpart one step earlier: on a
+parallel run `eval.evaluate` gathers the generated poses of a split batch,
+and every rank pushes the whole batch here.
 """
 
 from __future__ import annotations

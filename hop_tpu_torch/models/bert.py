@@ -28,6 +28,21 @@ HOP model gates that by `llm_train`, apart from its own train mode. On the
 kernel routes the probabilities' mask is drawn inside the kernel instead,
 from `attn_seed` folded with the layer's index, and `generator` serves the
 other three sites.
+
+Tensor parallelism over a model group (`shard_`, the counterpart of
+hop_tpu's `_col` / `_row` partitioning, bert.py:41-48, 94-98, 139, 161-168,
+187-190): query, key, value and the intermediate dense are column-parallel,
+each rank keeping its rows of their weights and biases, split by whole
+heads; the attention output and the output dense are row-parallel, each
+rank keeping its columns, the products summed over the group
+(`reduce_from_group`) and the bias added once, after the sum. The input of
+the column-parallel products goes through `copy_to_group`, so the gradient
+that reaches the backbone's input (what trains the reprogramming layer) is
+the sum over the group. The residual dropouts draw the same masks on every
+rank of the group (one generator, the same draws); the plain route draws
+the probabilities' mask for every head and keeps the rank's, so its masks
+are the unsharded layer's; the kernel routes fold `attn_seed` with the
+rank. The bf16 cast of `_linear` casts the rank's slice only.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ from hop_tpu_torch.config import LLMConfig
 from hop_tpu_torch.ops.attention import fused_attention
 from hop_tpu_torch.ops.block_attention import block_attention
 from hop_tpu_torch.ops.dropout import dropout, fold_seed
+from hop_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 
 ATTENTION_ROUTES = ("plain", "fused", "block")
 
@@ -54,6 +70,36 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     """Dense in the compute dtype: operands and result in `dt`."""
     bias = None if layer.bias is None else layer.bias.to(dt)
     return F.linear(x.to(dt), layer.weight.to(dt), bias)
+
+
+def _row_linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype, group) -> torch.Tensor:
+    """A row-parallel dense in the compute dtype: this rank's columns of the
+    weight, the products summed over `group` in f32, the bias added once."""
+    y = reduce_from_group(F.linear(x.to(dt), layer.weight.to(dt)).float(), group)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dt).float()
+    return y.to(dt)
+
+
+def shard_linear_(layer: nn.Linear, rank: int, size: int, rows: bool) -> None:
+    """Keep this rank's share of a frozen dense: its block of output rows
+    (column-parallel: weight and bias) or of input columns (row-parallel:
+    the weight; the bias stays whole)."""
+    def cut(t, dim):
+        k = t.shape[dim] // size
+        return nn.Parameter(t.narrow(dim, rank * k, k).clone(), requires_grad=False)
+    layer.weight = cut(layer.weight.data, 0 if rows else 1)
+    if rows and layer.bias is not None:
+        layer.bias = cut(layer.bias.data, 0)
+
+
+def refuse_degree(size: int, **widths) -> None:
+    """A tensor-parallel degree that does not divide every width is refused
+    by name."""
+    bad = [f"{name} {w}" for name, w in widths.items() if w % size]
+    if bad:
+        raise SystemExit(f"--model-parallel {size} does not divide the backbone's "
+                         + ", ".join(bad))
 
 
 class BertEmbeddings(nn.Module):
@@ -109,6 +155,7 @@ class BertLayer(nn.Module):
                              f"{ATTENTION_ROUTES}, got {cfg.attention!r}")
         self.cfg = cfg
         self.route = cfg.attention     # a plain attribute: a caller may switch it
+        self.tp = None                 # (group, rank, size) once sharded
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg.intermediate_dim, cfg)
@@ -120,25 +167,47 @@ class BertLayer(nn.Module):
         cfg = self.cfg
         dt = _compute_dtype(cfg)
         B, T, _ = x.shape
-        H = cfg.n_heads
-        D = cfg.dim // H
+        group, rank, size = self.tp or (None, 0, 1)
+        H = cfg.n_heads // size
+        D = cfg.dim // cfg.n_heads
         sa = self.attention.self
-        q, k, v = (_linear(x, lin, dt).reshape(B, T, H, D)
+        xp = copy_to_group(x, group)
+        q, k, v = (_linear(xp, lin, dt).reshape(B, T, H, D)
                    for lin in (sa.query, sa.key, sa.value))
         if self.route == "plain":
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             scores = (q @ k.transpose(-1, -2)) / (D ** 0.5)      # (B, H, T, T)
-            probs = dropout(torch.softmax(scores, dim=-1), rate, generator).to(dt)
-            ctx = (probs @ v).transpose(1, 2)
+            probs = torch.softmax(scores, dim=-1)
+            if rate > 0.0 and size > 1:     # every head's mask, this rank's heads
+                keep = torch.rand((B, cfg.n_heads, T, T), generator=generator,
+                                  device=x.device)[:, rank * H:(rank + 1) * H] >= rate
+                probs = probs * keep / (1.0 - rate)
+            else:
+                probs = dropout(probs, rate, generator)
+            ctx = (probs.to(dt) @ v).transpose(1, 2)
         else:
             kernel = fused_attention if self.route == "fused" else block_attention
-            ctx = kernel(q, k, v, 1.0 / D ** 0.5, rate, attn_seed)
-        ctx = ctx.reshape(B, T, cfg.dim)
-        attn = _linear(ctx, self.attention.output.dense, dt).float()
-        x = self.attention.output.LayerNorm(x + dropout(attn, rate, generator))
-        h = F.gelu(_linear(x, self.intermediate.dense, dt), approximate="none")
-        h = _linear(h, self.output.dense, dt).float()
-        return self.output.LayerNorm(x + dropout(h, rate, generator))
+            seed = fold_seed(attn_seed, rank) if size > 1 else attn_seed
+            ctx = kernel(q, k, v, 1.0 / D ** 0.5, rate, seed)
+        ctx = ctx.reshape(B, T, H * D)
+        out = self.attention.output.dense
+        attn = (_linear(ctx, out, dt) if group is None else _row_linear(ctx, out, dt, group))
+        x = self.attention.output.LayerNorm(x + dropout(attn.float(), rate, generator))
+        h = F.gelu(_linear(copy_to_group(x, group), self.intermediate.dense, dt),
+                   approximate="none")
+        out = self.output.dense
+        h = (_linear(h, out, dt) if group is None else _row_linear(h, out, dt, group))
+        return self.output.LayerNorm(x + dropout(h.float(), rate, generator))
+
+    def shard_(self, group, rank: int, size: int) -> None:
+        """Keep this rank's share of the layer's denses for tensor
+        parallelism over `group` (`size` ranks)."""
+        sa = self.attention.self
+        for lin in (sa.query, sa.key, sa.value, self.intermediate.dense):
+            shard_linear_(lin, rank, size, rows=True)
+        for lin in (self.attention.output.dense, self.output.dense):
+            shard_linear_(lin, rank, size, rows=False)
+        self.tp = (group, rank, size)
 
 
 class BertEncoderStack(nn.Module):
@@ -174,6 +243,36 @@ class BertEncoder(nn.Module):
         for i, layer in enumerate(self.encoder.layer):
             x = layer(x, rate, generator, fold_seed(attn_seed, i))
         return x
+
+    def shard_(self, group, rank: int, size: int) -> None:
+        """Tensor parallelism over `group`: every layer keeps rank `rank`'s
+        share of its denses (`BertLayer.shard_`). A degree that does not
+        divide the heads and the FFN width is refused."""
+        cfg = self.encoder.layer[0].cfg
+        refuse_degree(size, n_heads=cfg.n_heads, intermediate_dim=cfg.intermediate_dim)
+        for layer in self.encoder.layer:
+            layer.shard_(group, rank, size)
+
+    def tp_slice(self, key: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the state_dict entry `key` of the unsharded
+        backbone (what `shard_` keeps of it); the tensor itself where the
+        backbone is not sharded."""
+        tp = self.encoder.layer[0].tp
+        if tp is None:
+            return value
+        _, rank, size = tp
+        if key.endswith(("attention.self.query.weight", "attention.self.key.weight",
+                         "attention.self.value.weight", "intermediate.dense.weight",
+                         "attention.self.query.bias", "attention.self.key.bias",
+                         "attention.self.value.bias", "intermediate.dense.bias")):
+            dim = 0
+        elif key.endswith(("attention.output.dense.weight", "output.dense.weight")) \
+                and ".layer." in key:
+            dim = 1
+        else:
+            return value
+        k = value.shape[dim] // size
+        return value.narrow(dim, rank * k, k)
 
     def set_attention(self, route: str) -> None:
         """Switch every layer's self-attention route (same weights)."""

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hop_tpu_torch.parallel.collectives import global_mean_var
+
 
 # The reference writes nn.LeakyReLU(True), which torch parses as
 # negative_slope=1.0, i.e. the identity (HOP.py:172).
@@ -34,14 +36,33 @@ def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     return _constant(tuple(values), dtype, torch.device(device))
 
 
+class RowDraws:
+    """A rank's share of a split batch's draws, passed where a model takes
+    its `generator`: each draw is made for the whole batch, `n_shards`
+    times the rank's rows, from `generator` (advancing it as the
+    one-process pass does), and the rank keeps its block of rows."""
+
+    def __init__(self, generator: Optional[torch.Generator], n_shards: int,
+                 shard: int):
+        self.generator, self.n_shards, self.shard = generator, n_shards, shard
+
+    def randn(self, shape, dtype: torch.dtype, device) -> torch.Tensor:
+        rows = shape[0]
+        full = torch.randn((rows * self.n_shards, *shape[1:]),
+                           generator=self.generator, dtype=dtype, device=device)
+        return full[self.shard * rows:(self.shard + 1) * rows]
+
+
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
-                   generator: Optional[torch.Generator] = None,
+                   generator: Optional[torch.Generator | RowDraws] = None,
                    eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z = mu + eps * exp(0.5 logvar). The noise is drawn at inference too
     (as in the JAX model): pass `eps` to fix it, else it is drawn from
     `generator` on mu's device."""
     std = torch.exp(0.5 * logvar)
-    if eps is None:
+    if isinstance(generator, RowDraws):
+        eps = generator.randn(std.shape, std.dtype, std.device) if eps is None else eps
+    elif eps is None:
         eps = torch.randn(std.shape, generator=generator, dtype=std.dtype,
                           device=std.device)
     return mu + eps.to(std) * std
@@ -96,17 +117,27 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     BatchNorm would update the running variance with the unbiased one.
     `centered` computes the same variance as E[(x - E[x])^2], which does not
     cancel where the mean is large against the spread (`CenteredBatchNorm2d`).
-    In eval mode it reads the running statistics."""
+    In eval mode it reads the running statistics.
+
+    On a rank of a parallel run whose batch is split (`bn.batch_group` set by
+    `parallel.attach_batch_group`) the statistics are the global batch's:
+    the sums of every rank's rows, all-reduced with autograd, so that every
+    rank normalises and updates its running statistics as one process on
+    the whole batch would (hop_tpu gets this from XLA). torch's
+    SyncBatchNorm would update the running variance with the unbiased one."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
     dims = [d for d in range(x.dim()) if d != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)
-    mean = x.mean(dims)
-    if centered:
+    if bn.batch_group is not None:
+        mean, var = global_mean_var(x, dims, bn.batch_group, centered)
+    elif centered:
+        mean = x.mean(dims)
         dev = x - mean.reshape(shape)
         var = (dev * dev).mean(dims)
     else:
+        mean = x.mean(dims)
         var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
     with torch.no_grad():
         m = bn.momentum
@@ -120,12 +151,16 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
 class BatchNorm1d(nn.BatchNorm1d):
     """nn.BatchNorm1d's parameters and buffers, `batch_norm`'s rule."""
 
+    batch_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(self, x)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d's parameters and buffers, `batch_norm`'s rule."""
+
+    batch_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(self, x)
@@ -137,6 +172,8 @@ class CenteredBatchNorm2d(nn.BatchNorm2d):
     mean dwarfs their spread. The hierarchy's ResNetSE reads a spectrogram in
     dB (mean near -45, spread near 5); E[x^2] - E[x]^2 in f32 there costs
     hop_tpu's f32 gradients 1e-2 of their f64 values, and this form 3e-6."""
+
+    batch_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return batch_norm(self, x, centered=True)

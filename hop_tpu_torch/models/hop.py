@@ -216,11 +216,16 @@ class HOPModel(common.SpeakerLatent):
 
 
 def build_hop_model(cfg: Config, n_speakers: int, seed: int,
-                    device: torch.device | str = "cuda") -> HOPModel:
+                    device: torch.device | str = "cuda", mesh=None) -> HOPModel:
     """HOPModel with torch's default initialisation drawn from `seed` (on the
     host, so the weights do not depend on the device), moved to `device`.
-    The global RNG state of the caller is left as it was."""
+    The global RNG state of the caller is left as it was. On a rank of a
+    `mesh` with a model axis the frozen backbone keeps this rank's share
+    (`shard_`, tensor parallelism over the model group), cut on the host
+    before the move: the device never holds the whole backbone."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = HOPModel(cfg, n_speakers)
+    if mesh is not None and mesh.n_model > 1:
+        model.llm_model.shard_(mesh.model_group, mesh.model_rank, mesh.n_model)
     return model.to(device)

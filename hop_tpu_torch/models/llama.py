@@ -22,6 +22,13 @@ Attention is plain products outside any kernel, as `hop_tpu` computes it
 (T <= 64, D = 64, no causal mask), so `LLMConfig.attention` must be "plain".
 LLaMA has no dropout: `forward` accepts BERT's `deterministic`,
 `generator` and `attn_seed` and has no use for them.
+
+Tensor parallelism over a model group (`LlamaEncoder.shard_`, hop_tpu's
+llama.py:74-117): `q_proj`, `k_proj`, `v_proj`, `gate_proj` and `up_proj`
+are column-parallel (each rank keeps its heads, its KV heads, its block of
+the FFN width), `o_proj` and `down_proj` row-parallel (its columns, the
+products summed over the group); the inputs of the column-parallel
+products go through `copy_to_group`, as in `models/bert.py`.
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from hop_tpu_torch.config import LLMConfig
-from hop_tpu_torch.models.bert import BertEncoder, _compute_dtype, _linear
+from hop_tpu_torch.models.bert import (BertEncoder, _compute_dtype, _linear, _row_linear,
+                                       refuse_degree, shard_linear_)
+from hop_tpu_torch.parallel.collectives import copy_to_group
 
 
 class RMSNorm(nn.Module):
@@ -78,20 +87,23 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(cfg.dim, n_kv * head_dim, bias=False)
         self.v_proj = nn.Linear(cfg.dim, n_kv * head_dim, bias=False)
         self.o_proj = nn.Linear(cfg.dim, cfg.dim, bias=False)
+        self.tp = None                 # (group, rank, size) once sharded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dt = _compute_dtype(cfg)
         B, T, _ = x.shape
+        group, _, size = self.tp or (None, 0, 1)
         head_dim = cfg.dim // cfg.n_heads
-        n_kv = cfg.n_kv_heads or cfg.n_heads
-        q = _linear(x, self.q_proj, dt).reshape(B, T, cfg.n_heads, head_dim)
+        n_heads, n_kv = cfg.n_heads // size, (cfg.n_kv_heads or cfg.n_heads) // size
+        x = copy_to_group(x, group)
+        q = _linear(x, self.q_proj, dt).reshape(B, T, n_heads, head_dim)
         k = _linear(x, self.k_proj, dt).reshape(B, T, n_kv, head_dim)
         v = _linear(x, self.v_proj, dt).reshape(B, T, n_kv, head_dim)
         cos, sin = rope_cos_sin(T, head_dim, cfg.rope_theta, x.device)
         q = apply_rope(q.float(), cos, sin).to(dt)
         k = apply_rope(k.float(), cos, sin).to(dt)
-        groups = cfg.n_heads // n_kv
+        groups = n_heads // n_kv
         if groups > 1:      # grouped-query attention: repeat the kv heads
             k = k.repeat_interleave(groups, dim=2)
             v = v.repeat_interleave(groups, dim=2)
@@ -100,7 +112,9 @@ class LlamaAttention(nn.Module):
         causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
         scores = scores.float().masked_fill(~causal, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(dt)
-        ctx = (probs @ v).transpose(1, 2).reshape(B, T, cfg.dim)
+        ctx = (probs @ v).transpose(1, 2).reshape(B, T, n_heads * head_dim)
+        if group is not None:
+            return _row_linear(ctx, self.o_proj, dt, group).float()
         return _linear(ctx, self.o_proj, dt).float()
 
 
@@ -111,10 +125,15 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(cfg.dim, cfg.intermediate_dim, bias=False)
         self.up_proj = nn.Linear(cfg.dim, cfg.intermediate_dim, bias=False)
         self.down_proj = nn.Linear(cfg.intermediate_dim, cfg.dim, bias=False)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.cfg)
+        group = self.tp[0] if self.tp else None
+        x = copy_to_group(x, group)
         h = F.silu(_linear(x, self.gate_proj, dt)) * _linear(x, self.up_proj, dt)
+        if group is not None:
+            return _row_linear(h, self.down_proj, dt, group).float()
         return _linear(h, self.down_proj, dt).float()
 
 
@@ -151,6 +170,35 @@ class LlamaEncoder(nn.Module):
     @property
     def word_embeddings(self) -> torch.Tensor:
         return self.embed_tokens.weight
+
+    #: (column-parallel, row-parallel) projections of a layer
+    COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+    ROW = ("o_proj", "down_proj")
+
+    def shard_(self, group, rank: int, size: int) -> None:
+        """Tensor parallelism over `group`: every layer keeps rank `rank`'s
+        share of its projections. A degree that does not divide the heads,
+        the KV heads and the FFN width is refused."""
+        cfg = self.layers[0].self_attn.cfg
+        refuse_degree(size, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads or cfg.n_heads,
+                      intermediate_dim=cfg.intermediate_dim)
+        for layer in self.layers:
+            for part in (layer.self_attn, layer.mlp):
+                for name in self.COLUMN + self.ROW:
+                    if hasattr(part, name):
+                        shard_linear_(getattr(part, name), rank, size, name in self.COLUMN)
+                part.tp = (group, rank, size)
+
+    def tp_slice(self, key: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the unsharded state_dict entry `key`."""
+        tp = self.layers[0].self_attn.tp
+        name = key.rsplit(".", 2)[-2] if key.count(".") >= 2 else ""
+        if tp is None or name not in self.COLUMN + self.ROW:
+            return value
+        _, rank, size = tp
+        dim = 0 if name in self.COLUMN else 1
+        k = value.shape[dim] // size
+        return value.narrow(dim, rank * k, k)
 
     def forward(self, inputs_embeds: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,

@@ -209,10 +209,14 @@ def install_llm_weights(model: nn.Module, path: str, cfg: LLMConfig,
                         hf_vocab: Optional[str] = None) -> dict:
     """Load the checkpoint at `path` into `model.llm_model` (a HOPModel's
     frozen backbone, on any device), each array cast to its parameter's
-    dtype. Returns {"bytes": bytes read, "seconds": the whole load}."""
+    dtype; of a backbone sharded for tensor parallelism, only this rank's
+    share of each sharded array (`tp_slice`: a slice of the file's map, so
+    only its pages are read). Returns {"bytes": bytes read, "seconds": the
+    whole load}."""
     t0 = time.perf_counter()
     sd = load_llm_state_dict(path, cfg, hf_vocab)
     params = model.llm_model.state_dict()
+    sd = {k: model.llm_model.tp_slice(k, v) for k, v in sd.items()}
     with torch.no_grad():
         for k, v in sd.items():
             params[k].copy_(v)

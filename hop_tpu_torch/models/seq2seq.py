@@ -32,6 +32,7 @@ from torch import nn
 
 from hop_tpu_torch.models.common import WordEmbedding
 from hop_tpu_torch.ops.gru import GRU, GRUCell
+from hop_tpu_torch.parallel.collectives import global_mean_var
 
 
 class EncoderRNN(nn.Module):
@@ -76,6 +77,8 @@ class BatchStatNorm(nn.Module):
     learned scale (`weight`) and bias: the decoder's BatchNorm1d as hop_tpu
     computes it, in every mode."""
 
+    batch_group = None
+
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -83,6 +86,10 @@ class BatchStatNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if self.batch_group is not None:     # the global batch's (common.batch_norm)
+            mean, var = (s[None] for s in global_mean_var(x, [0], self.batch_group,
+                                                          centered=True))
+            return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
         mean = x.mean(0, keepdim=True)
         var = ((x - mean) ** 2).mean(0, keepdim=True)
         return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias

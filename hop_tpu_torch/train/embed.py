@@ -10,6 +10,10 @@ update) though its latent feeds no loss, as in hop_tpu.
 reconstruction's L1 plus the L1 of its first differences, per sample,
 summed. Adam at the configured rate for both. The steps' only draws are
 the dropout masks, from a device generator seeded from the step's `rng`.
+
+On a rank of a parallel run (`mesh`) both losses sum over the batch, so
+the gradients and the logged loss are SUMMED over the batch group, and
+the dropout seed is folded with the rank's block of rows.
 """
 
 from __future__ import annotations
@@ -17,15 +21,17 @@ from __future__ import annotations
 import torch
 
 from hop_tpu_torch.config import Config
+from hop_tpu_torch.parallel.collectives import reduce_metrics
 from hop_tpu_torch.train.state import SimpleTrainState, adam, dropout_generator
 
 
-def make_embed_train_step(cfg: Config, net, mode: str = "pose"):
+def make_embed_train_step(cfg: Config, net, mode: str = "pose", mesh=None):
     """Returns (train_step, init_state) over `net` (EmbeddingNet), decoding
     from `mode`'s latent; train_step(state, batch, rng) -> (state, {"loss"})."""
 
     def init_state() -> SimpleTrainState:
-        return SimpleTrainState(net, adam(net, cfg.train.learning_rate, cfg.train.betas))
+        return SimpleTrainState(net, adam(net, cfg.train.learning_rate, cfg.train.betas,
+                                          mesh, op="sum"))
 
     def train_step(state: SimpleTrainState, batch, rng):
         target = batch["target_vec"]
@@ -33,21 +39,23 @@ def make_embed_train_step(cfg: Config, net, mode: str = "pose"):
         state.opt.zero_grad(set_to_none=True)
         recon = net(batch.get("text_padded"), batch.get("in_audio"),
                     target[:, :cfg.data.n_pre_poses], target, input_mode=mode,
-                    generator=dropout_generator(rng, target.device))[-1]
+                    generator=dropout_generator(rng, target.device, mesh))[-1]
         loss = torch.sum(torch.mean(torch.abs(recon - target), dim=(1, 2)))
         loss.backward()
         state.opt.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, reduce_metrics({"loss": loss.detach()}, mesh and mesh.batch_group,
+                                     "sum")
 
     return train_step, init_state
 
 
-def make_motion_ae_train_step(cfg: Config, net):
+def make_motion_ae_train_step(cfg: Config, net, mesh=None):
     """Returns (train_step, init_state) over `net` (MotionAE)."""
 
     def init_state() -> SimpleTrainState:
-        return SimpleTrainState(net, adam(net, cfg.train.learning_rate, cfg.train.betas))
+        return SimpleTrainState(net, adam(net, cfg.train.learning_rate, cfg.train.betas,
+                                          mesh, op="sum"))
 
     def train_step(state: SimpleTrainState, batch, rng=None):
         del rng
@@ -61,6 +69,7 @@ def make_motion_ae_train_step(cfg: Config, net):
         loss.backward()
         state.opt.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, reduce_metrics({"loss": loss.detach()}, mesh and mesh.batch_group,
+                                     "sum")
 
     return train_step, init_state

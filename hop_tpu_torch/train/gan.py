@@ -38,7 +38,8 @@ from typing import Union
 import torch
 
 from hop_tpu_torch.config import Config
-from hop_tpu_torch.train.llm import StepNoise, gen_term, generator_terms
+from hop_tpu_torch.parallel.collectives import reduce_metrics
+from hop_tpu_torch.train.llm import StepNoise, gen_term, generator_terms, shuffled_vids
 from hop_tpu_torch.train.state import GANTrainState, gan_train_state, update_d_then_g
 
 
@@ -52,13 +53,14 @@ def build_pre_seq(target: torch.Tensor, n_pre_poses: int) -> torch.Tensor:
     return pre
 
 
-def make_gan_train_steps(cfg: Config, generator, disc):
+def make_gan_train_steps(cfg: Config, generator, disc, mesh=None):
     """Returns (warmup_step, gan_step, init_state) over `generator`
-    (PoseGenerator) and `disc` (ConvDiscriminator), both updated in place."""
+    (PoseGenerator) and `disc` (ConvDiscriminator), both updated in place;
+    on a rank of `mesh` as the HOP step is (train/llm.py)."""
     loss_cfg = cfg.loss
 
     def init_state() -> GANTrainState:
-        return gan_train_state(cfg, generator, disc)
+        return gan_train_state(cfg, generator, disc, mesh)
 
     def gen_forward(batch, pre_seq, vids, eps, dev_gen):
         return generator(pre_seq, batch["text_padded"], batch["in_audio"], vids,
@@ -69,7 +71,7 @@ def make_gan_train_steps(cfg: Config, generator, disc):
         pre_seq = build_pre_seq(target, cfg.data.n_pre_poses)
         out, z, mu, logvar = gen_forward(batch, pre_seq, vids, noise.eps, dev_gen)
         with torch.no_grad():
-            out_rand, z_rand, _, _ = gen_forward(batch, pre_seq, vids[noise.perm],
+            out_rand, z_rand, _, _ = gen_forward(batch, pre_seq, shuffled_vids(batch, noise),
                                                  noise.eps_rand, dev_gen)
         loss, metrics, _ = generator_terms(out, out_rand, z, z_rand, mu, logvar, target,
                                            loss_cfg)
@@ -99,11 +101,12 @@ def make_gan_train_steps(cfg: Config, generator, disc):
 
     def variant(use_gan: bool):
         def step(state: GANTrainState, batch, rng: Union[torch.Generator, StepNoise]):
-            noise = rng
+            noise, B = rng, batch["target_vec"].shape[0]
             if isinstance(rng, torch.Generator):
-                noise = StepNoise.draw_speakers(rng, batch["target_vec"].shape[0],
+                noise = StepNoise.draw_speakers(rng, B * (mesh.batch_size if mesh else 1),
                                                 generator.speaker_mu.out_features)
-            return run_step(state, batch, noise, use_gan)
+            state, metrics = run_step(state, batch, noise.for_rank(mesh, B), use_gan)
+            return state, reduce_metrics(metrics, mesh and mesh.batch_group)
         return step
 
     return variant(False), variant(True), init_state

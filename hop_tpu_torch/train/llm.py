@@ -38,7 +38,17 @@ discriminator GRU's) come from a device generator seeded from that record;
 the 3-forward step's generator forwards seed K1's dropout with
 `reprog_seed`, `+ 1` and `+ 2`, and K4's or K5's with `attn_seed` likewise.
 
-`make_hop_train_steps(cfg, model, disc)` returns (warmup, gan,
+On a rank of a parallel run (`mesh`): the draws are those of the GLOBAL
+batch (drawn alike on every rank from the step's generator, or handed in),
+and the rank takes its rows (`StepNoise.for_rank`): its rows of the speaker
+and discriminator noise, the permutation's entries for its rows, which
+index the global batch's speaker ids (`parallel.GLOBAL_VIDS`), and the
+seeds folded with its block of rows. The optimizers reduce the gradients
+over the batch group; the metrics leave the step averaged over it. Every
+loss term is a mean over samples, so with equal blocks of rows the averaged
+gradient is the global batch's.
+
+`make_hop_train_steps(cfg, model, disc, mesh)` returns (warmup, gan,
 init_state), each step an `EpochStep` whose `for_epoch(0)` variant runs the
 frozen backbone without dropout (the reference's mode dynamics, see
 hop_tpu/train/llm.py:53-71). A step is called as `step(state, batch, rng)`
@@ -55,8 +65,10 @@ import torch
 
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.models.common import huber, kld_loss
-from hop_tpu_torch.train.state import (GANTrainState, frozen_call, gan_train_state,
-                                       update_d_then_g)
+from hop_tpu_torch.parallel.collectives import reduce_metrics
+from hop_tpu_torch.parallel.mesh import GLOBAL_VIDS
+from hop_tpu_torch.train.state import (GANTrainState, batch_seed, frozen_call,
+                                       gan_train_state, update_d_then_g)
 
 
 @dataclass
@@ -126,6 +138,25 @@ class StepNoise:
                    eps_dis=torch.randn(shape, generator=g),
                    dropout_seed=int(torch.randint(0, 2 ** 31, (1,), generator=g)))
 
+    def for_rank(self, mesh, local_batch: int) -> "StepNoise":
+        """This rank's share of a global batch's draws: the rows of its block
+        of the noise (the speaker noise's second-to-last axis, the
+        discriminator noise's first), the permutation's entries for its rows
+        (indices into the global batch), and every seed folded with its
+        block. The draws themselves where the batch is not split."""
+        if mesh is None or mesh.batch_size == 1:
+            return self
+        rows = mesh.rows(local_batch)
+
+        def cut(name, t):
+            if isinstance(t, int):
+                return batch_seed(t, mesh)
+            if t is None:
+                return None
+            return t[..., rows, :] if name.startswith("eps") else t[rows]
+        return replace(self, **{f.name: cut(f.name, getattr(self, f.name))
+                                for f in fields(self)})
+
     def to(self, device) -> "StepNoise":
         """The draws on `device`; to a card from pinned memory, without
         making the host wait for it."""
@@ -173,6 +204,13 @@ def generator_terms(out, out_rand, z, z_rand, mu, logvar, target, loss_cfg,
     return loss, metrics, (div_raw, pose_l1, z_l1)
 
 
+def shuffled_vids(batch, noise: StepNoise) -> torch.Tensor:
+    """The shuffled speakers of the diversity regulariser: the permuted
+    speaker ids of the global batch (`parallel.GLOBAL_VIDS` on a rank of a
+    split batch), at this rank's rows."""
+    return batch.get(GLOBAL_VIDS, batch["vid_indices"])[noise.perm]
+
+
 def gen_term(disc, out, dev_gen, gan_weight: float):
     """The G term -mean(log D(out)) * gan_weight against `disc` held frozen
     (`frozen_call`)."""
@@ -195,14 +233,15 @@ class EpochStep:
         return self._epoch0 if epoch == 0 else self._steady
 
 
-def make_hop_train_steps(cfg: Config, model, disc):
+def make_hop_train_steps(cfg: Config, model, disc, mesh=None):
     """Returns (warmup_step, gan_step, init_state) over `model` (HOPModel)
     and `disc` (ConvDiscriminator), both updated in place: the fused step
-    when `cfg.hop.fused_step`, else the 3-forward step."""
+    when `cfg.hop.fused_step`, else the 3-forward step; on a rank of `mesh`
+    where that is given."""
     loss_cfg = cfg.loss
 
     def init_state() -> GANTrainState:
-        return gan_train_state(cfg, model, disc)
+        return gan_train_state(cfg, model, disc, mesh)
 
     def hop_terms(out, out_rand, z, z_rand, mu, logvar, target):
         """`generator_terms` and the diversity regulariser's diagnostics."""
@@ -225,7 +264,7 @@ def make_hop_train_steps(cfg: Config, model, disc):
         vids = batch["vid_indices"]
         out, out_rand, (z, mu, logvar), z_rand = model.two_speaker_forward(
             batch["in_audio"], batch["log_mel"], batch["text_padded"],
-            target[:, :cfg.data.n_seed_frames], vids, vids[noise.perm],
+            target[:, :cfg.data.n_seed_frames], vids, shuffled_vids(batch, noise),
             eps=noise.eps, eps_rand=noise.eps_rand, generator=dev_gen,
             reprog_seed=noise.reprog_seed, attn_seed=noise.attn_seed,
             llm_train=llm_train)
@@ -276,7 +315,7 @@ def make_hop_train_steps(cfg: Config, model, disc):
         # forward feeds only detached terms, so it keeps no graph
         with torch.no_grad():
             out_rand, z_rand, _, _ = gen_forward(
-                batch, vids[noise.perm], noise.eps_rand, noise, 1, llm_train,
+                batch, shuffled_vids(batch, noise), noise.eps_rand, noise, 1, llm_train,
                 dev_gen)
         loss, metrics = hop_terms(out, out_rand, z, z_rand, mu, logvar,
                                   batch["target_vec"])
@@ -309,10 +348,12 @@ def make_hop_train_steps(cfg: Config, model, disc):
     def variant(use_gan: bool, llm_train: bool):
         def step(state: GANTrainState, batch,
                  rng: Union[torch.Generator, StepNoise]):
-            noise = rng
+            noise, B = rng, batch["in_audio"].shape[0]
             if isinstance(rng, torch.Generator):
-                noise = StepNoise.draw(rng, cfg, batch["in_audio"].shape[0])
-            return run_step(state, batch, noise, use_gan, llm_train)
+                noise = StepNoise.draw(rng, cfg, B * (mesh.batch_size if mesh else 1))
+            state, metrics = run_step(state, batch, noise.for_rank(mesh, B), use_gan,
+                                      llm_train)
+            return state, reduce_metrics(metrics, mesh and mesh.batch_group)
         return step
 
     return (EpochStep(variant(False, True), variant(False, False)),

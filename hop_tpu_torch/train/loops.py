@@ -18,6 +18,14 @@ purpose, catching work in the hot loop that makes the host wait for the
 device, is served by `torch.cuda.set_sync_debug_mode` ("warn" or "error")
 around the loop. Fetching the metrics at the logging boundary is the one
 sanctioned wait and runs outside it.
+
+On a rank of a parallel run (`mesh`) every rank runs the loop on its rows;
+the steps hand back metrics already reduced over the batch group, and the
+validation pass returns the same numbers on every rank, so every rank
+takes each branch (the GAN gate, the best-FGD guard, save-on-best) from
+the same numbers. Every rank builds the state to save (ZeRO's moments are
+gathered, a collective); rank 0 alone writes it, the metrics stream and
+the profile, and prints, and a barrier follows each save.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.eval.evaluate import EvalResult
+from hop_tpu_torch.parallel.collectives import barrier
 from hop_tpu_torch.utils.meters import AverageMeter
 from hop_tpu_torch.utils.metrics_export import TensorBoardMirror
 from hop_tpu_torch.utils.profiling import start_trace, stop_trace
@@ -161,7 +170,8 @@ def run_training(cfg: Config,
                  profile_dir: Optional[str] = None,
                  transfer_guard: str = "off",
                  prefetch: int = 0,
-                 div_history: Optional[list] = None):
+                 div_history: Optional[list] = None,
+                 mesh=None):
     """Runs the schedule from `start_epoch`; returns (state, best_fgd).
 
     rng(epoch, i): the random source of step i of `epoch`, handed to the step
@@ -187,8 +197,14 @@ def run_training(cfg: Config,
     (the best-FGD guard's history), from the checkpoint's metadata on a
     resume. Every save records it, so the guard of a resumed run decides as
     the uninterrupted run's does.
+
+    mesh: this rank's place in a parallel run (see the module's docstring).
     """
     epochs = epochs or cfg.train.epochs
+    main = mesh is None or mesh.is_main
+    say = print if main else (lambda *a, **k: None)
+    if not main:
+        metric_path = tensorboard_dir = profile_dir = None
     sync_mode = SYNC_DEBUG_MODES[transfer_guard]
 
     def guarded(mode=sync_mode):
@@ -261,8 +277,8 @@ def run_training(cfg: Config,
                             summary += f"{meter.name}: {meter.avg:.3f}, "
                             meter.reset()
                     speed = (time.time() - time_now) / iter_count
-                    print(summary)
-                    print(f"\tspeed: {speed:.4f}s/iter")
+                    say(summary)
+                    say(f"\tspeed: {speed:.4f}s/iter")
                     time_now = time.time()
                     iter_count = 0
         finally:
@@ -272,13 +288,13 @@ def run_training(cfg: Config,
         if profiler is not None:   # the epoch had fewer than 5 steps
             _stop_profiler(profiler, profile_dir)
             profiler = None
-        print(f"Epoch: {epoch + 1} cost time: {time.time() - epoch_start:.3f}s")
+        say(f"Epoch: {epoch + 1} cost time: {time.time() - epoch_start:.3f}s")
 
         if eval_fn is not None:
             eval_start = time.time()
             result = eval_fn(state, epoch)
-            print(str(result))
-            print(f"Validation: {time.time() - eval_start:.3f}s")
+            say(str(result))
+            say(f"Validation: {time.time() - eval_start:.3f}s")
             writer.scalar("diversity_score/val", result.diversity, epoch)
             writer.scalar("val_frechet_dist/val", result.frechet_dist, epoch)
             writer.scalar("BC/val", result.bc, epoch)
@@ -291,7 +307,7 @@ def run_training(cfg: Config,
                 if med > 0 and result.diversity > BEST_GUARD_DIV_RATIO * med:
                     degenerate = True
                     improved = False
-                    print(f"  !!! best-FGD candidate REFUSED: diversity "
+                    say(f"  !!! best-FGD candidate REFUSED: diversity "
                           f"{result.diversity:.2f} is "
                           f"{result.diversity / med:.1f}x the run median "
                           f"{med:.3f}: a degenerate high-diversity minimum, "
@@ -306,18 +322,24 @@ def run_training(cfg: Config,
                     improved or degenerate
                     or (epoch + 1) % checkpoint_every == 0
                     or epoch == epochs - 1):
-                checkpoint_manager.save(epoch, state.state_dict(), metadata={
-                    "fgd": result.frechet_dist, "bc": result.bc,
-                    "epoch": epoch,
-                    "best_fgd": (best_fgd if degenerate else
-                                 min(best_fgd, result.frechet_dist)),
-                    "div_history": list(div_history)})
-                if improved:
-                    checkpoint_manager.record_best("frechet", result.frechet_dist, epoch)
-                    print(f"Saved the checkpoint (best FGD {result.frechet_dist:.3f})")
+                saved = state.state_dict()      # every rank: ZeRO gathers
+                if main:
+                    checkpoint_manager.save(epoch, saved, metadata={
+                        "fgd": result.frechet_dist, "bc": result.bc,
+                        "epoch": epoch,
+                        "best_fgd": (best_fgd if degenerate else
+                                     min(best_fgd, result.frechet_dist)),
+                        "div_history": list(div_history)})
+                    if improved:
+                        checkpoint_manager.record_best("frechet", result.frechet_dist,
+                                                       epoch)
+                        say(f"Saved the checkpoint (best FGD {result.frechet_dist:.3f})")
+                del saved
+                if mesh is not None:
+                    barrier()
             if improved:
                 best_fgd = result.frechet_dist
-            print(f"  *** BEST VALIDATION FGD: {best_fgd:.3f}")
+            say(f"  *** BEST VALIDATION FGD: {best_fgd:.3f}")
 
     writer.close()
     return state, best_fgd

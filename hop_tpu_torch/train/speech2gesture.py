@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from hop_tpu_torch.config import Config
+from hop_tpu_torch.parallel.collectives import reduce_metrics
 from hop_tpu_torch.train.state import (GANTrainState, frozen_call, gan_train_state,
                                        update_d_then_g)
 
@@ -28,14 +29,16 @@ def motion(poses: torch.Tensor) -> torch.Tensor:
     return poses[:, 1:] - poses[:, :-1]
 
 
-def make_s2g_train_step(cfg: Config, generator, disc):
+def make_s2g_train_step(cfg: Config, generator, disc, mesh=None):
     """Returns (train_step, init_state) over `generator` and `disc`
     (speech2gesture's), both updated in place; train_step(state, batch, rng)
-    -> (state, {"loss", "gen", "dis"})."""
+    -> (state, {"loss", "gen", "dis"}). On a rank of `mesh` the gradients
+    and the metrics are averaged over the batch group (every term is a
+    mean)."""
     loss_cfg = cfg.loss
 
     def init_state() -> GANTrainState:
-        return gan_train_state(cfg, generator, disc)
+        return gan_train_state(cfg, generator, disc, mesh)
 
     def gen_forward(batch):
         return generator(batch["spectrogram"],
@@ -58,6 +61,7 @@ def make_s2g_train_step(cfg: Config, generator, disc):
             l1 = loss_cfg.regression_weight * torch.mean(torch.abs(out - target))
             gen = loss_cfg.gan_weight * torch.mean((1.0 - frozen_call(disc, motion(out))) ** 2)
             return l1 + gen, {"loss": l1, "gen": gen}
-        return update_d_then_g(state, dis_loss, gen_loss)
+        state, metrics = update_d_then_g(state, dis_loss, gen_loss)
+        return state, reduce_metrics(metrics, mesh and mesh.batch_group)
 
     return train_step, init_state

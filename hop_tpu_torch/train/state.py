@@ -20,6 +20,11 @@ norm before its Adam step (`clip_grad_global_norm_`, optax's
 `clip_by_global_norm`). `dropout_generator` seeds the device generator of a
 step's dropout masks from the step's CPU generator.
 
+On a rank of a parallel run (`mesh` given) the optimizers are
+`parallel.zero.RankAdam`s: each step first reduces the gradients over the
+batch group, and with ZeRO each data rank holds its share of the moments;
+their state_dict is the one-process format all the same.
+
 `GANTrainState.state_dict()` is what a checkpoint holds: both nets'
 state_dicts (the generator's without the frozen backbone), both
 optimizers' (Adam's moments and per-parameter step counts) and the step
@@ -36,13 +41,24 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from hop_tpu_torch.ops.dropout import fold_seed
+from hop_tpu_torch.parallel.zero import rank_adam
 from hop_tpu_torch.utils.checkpoint import reattach_frozen, strip_frozen
 
 
-def adam(module: nn.Module, lr: float, betas=(0.5, 0.999)) -> torch.optim.Adam:
-    """Adam over the parameters of `module` that require grad."""
+def adam(module: nn.Module, lr: float, betas=(0.5, 0.999), mesh=None, op: str = "mean"):
+    """Adam over the parameters of `module` that require grad; on a rank of
+    `mesh` its gradients reduced over the batch group first (`op` "mean",
+    or "sum" for a loss that sums over the batch)."""
     params = [p for p in module.parameters() if p.requires_grad]
-    return torch.optim.Adam(params, lr=lr, betas=tuple(betas), eps=1e-8)
+    return rank_adam(params, lr, betas, mesh, op)
+
+
+def reduce_grads(opt) -> None:
+    """The gradients of `opt`'s parameters reduced over the batch group now,
+    before its step (a no-op for a one-process run's torch Adam)."""
+    if hasattr(opt, "sync_grads"):
+        opt.sync_grads()
 
 
 @dataclass
@@ -82,12 +98,12 @@ class GANTrainState:
         self.step = int(saved["step"])
 
 
-def gan_train_state(cfg, generator: nn.Module, disc: nn.Module) -> GANTrainState:
+def gan_train_state(cfg, generator: nn.Module, disc: nn.Module, mesh=None) -> GANTrainState:
     """Both nets with their Adams: the generator's at cfg.train's learning
     rate, the discriminator's at that rate times dis_lr_scale."""
     t = cfg.train
-    return GANTrainState(generator, disc, adam(generator, t.learning_rate, t.betas),
-                         adam(disc, t.learning_rate * t.dis_lr_scale, t.betas))
+    return GANTrainState(generator, disc, adam(generator, t.learning_rate, t.betas, mesh),
+                         adam(disc, t.learning_rate * t.dis_lr_scale, t.betas, mesh))
 
 
 def frozen_call(net: nn.Module, *args, **kwargs):
@@ -152,10 +168,20 @@ def clip_grad_global_norm_(module: nn.Module, max_norm: float) -> None:
 
 
 def dropout_generator(rng: Union[torch.Generator, int],
-                      device: torch.device | str) -> torch.Generator:
+                      device: torch.device | str, mesh=None) -> torch.Generator:
     """A generator on `device` for a step's dropout masks, seeded with `rng`
-    (an int) or with one draw from `rng` (a CPU generator)."""
+    (an int) or with one draw from `rng` (a CPU generator); on a rank of a
+    split batch that seed folded with the rank's block of rows, so that the
+    ranks draw different masks."""
     seed = rng
     if isinstance(rng, torch.Generator):
         seed = int(torch.randint(0, 2 ** 31, (1,), generator=rng))
-    return torch.Generator(device=device).manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(batch_seed(seed, mesh))
+
+
+def batch_seed(seed: int, mesh) -> int:
+    """`seed` folded with the rank's block of rows where the batch is split
+    over more than one rank, else `seed`."""
+    if mesh is None or mesh.batch_size == 1:
+        return seed
+    return fold_seed(seed, mesh.batch_rank)

@@ -63,6 +63,8 @@ def device():
     (40, 70, 8, 100),      # one split, L not dividing the row tile
     (1, 34, 8, 1500),      # one window of a clip: 12 key splits
     (256, 34, 8, 1500),    # the HOP serving shape
+    (128, 34, 8, 1500),    # a rank's rows of it at data = 2
+    (64, 34, 8, 1500),     # and at data = 4
 ])
 def test_reprogramming_attention_kernel(device, B, L, H, S, rate):
     g = torch.Generator(device=device).manual_seed(B + S)
@@ -95,6 +97,8 @@ def test_reprogramming_attention_kernel(device, B, L, H, S, rate):
     (7, 13, 20, 100),       # one block, a width that is no multiple of 8
     (6, 43, 24, 203),       # a cluster of slices of 26 units, the last short
     (34, 256, 992, 350),    # the HOP head's first layer
+    (34, 128, 992, 350),    # a rank's rows of it at data = 2
+    (34, 64, 992, 350),     # and at data = 4
     (34, 256, 1751, 350),   # the same on TED Expressive: folded 1-float projection
     (34, 256, 96, 300),     # the hierarchy's stages 1-2, TED
     (34, 256, 102, 300),
@@ -147,6 +151,8 @@ def _rel_close(got, want, rel=1e-4, name=""):
     (1, 34, 8, 1500),      # one window of a clip: one row chunk, one run
     (250, 34, 8, 1500),    # a ragged last row tile at full size
     (256, 34, 8, 1500),    # the HOP training shape: 4 row runs
+    (128, 34, 8, 1500),    # a rank's rows of it at data = 2
+    (64, 34, 8, 1500),     # and at data = 4
 ])
 def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
     g = torch.Generator(device=device).manual_seed(B + S)
@@ -183,6 +189,8 @@ def test_reprogramming_attention_bwd_kernel(device, B, L, H, S, rate):
     (34, 1, 700, 350),      # one sample: the cluster's one-row-tile instance
     (34, 250, 700, 350),    # a ragged last row tile at the head's width
     (34, 256, 992, 350),    # the HOP head's first layer: 128 x 128 tiles
+    (34, 128, 992, 350),    # a rank's rows of it at data = 2
+    (34, 64, 992, 350),     # and at data = 4
     (34, 256, 1751, 350),   # the same on TED Expressive: an odd K of 1751
     (34, 256, 96, 300),     # the hierarchy's stages 1-2 (TED) and 1-5
     (34, 256, 102, 300),    # (Expressive)
@@ -419,9 +427,11 @@ def _attention_args(device, B, T, H, seed):
 
 # (B, T, H): the backbone's shape, long-form's, a ragged last group, small T;
 # then the forwards' padding edges: whole 16-row tiles (16, 48, 64), one row
-# past a tile (17), fewer heads than a K4 block holds (2, 3)
+# past a tile (17), fewer heads than a K4 block holds (2, 3); the backbone's
+# heads on a rank of a model group of 2 and of 4 (6, 3)
 ATTENTION_SHAPES = [(256, 34, 12), (1, 34, 12), (250, 34, 12), (5, 10, 3), (3, 40, 2),
-                    (7, 16, 3), (7, 17, 3), (4, 48, 2), (2, 64, 2)]
+                    (7, 16, 3), (7, 17, 3), (4, 48, 2), (2, 64, 2), (256, 34, 6),
+                    (256, 34, 3)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -474,7 +484,7 @@ def test_block_attention_kernels(device, B, T, H, rate):
 # tile (17), one row short of three (33), a strip across three key tiles
 # (40), the longest (64)
 BWD_SHAPES = [(256, 34, 12), (250, 34, 12), (1, 34, 12), (9, 1, 3), (7, 16, 3),
-              (7, 17, 2), (5, 33, 3), (6, 40, 2), (3, 64, 12)]
+              (7, 17, 2), (5, 33, 3), (6, 40, 2), (3, 64, 12), (256, 34, 6), (256, 34, 3)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -4,9 +4,10 @@ common.base_parser / apply_overrides) against hop_tpu's, on the CPU.
 For the same argv both packages' `base_parser` give the same value for
 every flag they share, and `apply_overrides` gives configs equal field by
 field (the port's own fields: its routes). The port's parser has every
-flag of hop_tpu's; each whose feature is not ported exits with the name of
-the ROADMAP.md item that brings it; `--llm-model LLAMA` and `--llm-weights`
-reach the model on both entries. A resume whose seed differs from the
+flag of hop_tpu's; a parallel flag that asks for more than one rank outside
+torchrun's environment exits with the torchrun command line (the port spawns
+no workers of its own); `--llm-model LLAMA` and `--llm-weights` reach the
+model on both entries. A resume whose seed differs from the
 checkpoint's is refused: the frozen backbone is rebuilt from the seed
 (ADVICE r5, hop_tpu/cli/train_main.py:306).
 """
@@ -31,7 +32,7 @@ from hop_tpu_torch.utils import safetensors_io
 from hop_tpu_torch.utils.checkpoint import CheckpointManager
 
 # the port's own flags and config fields
-PORT_FLAGS = {"device", "tiny", "gru_kernel", "bert_attention"}
+PORT_FLAGS = {"device", "tiny", "gru_kernel", "bert_attention", "dist_backend"}
 PORT_FIELDS = {"hop": {"gru_kernel", "gru_bf16_streams"}, "llm": {"attention"}}
 
 ARGVS = [
@@ -85,11 +86,12 @@ def test_routes_reach_the_config():
     assert cfg.hop.gru_kernel == "stack" and cfg.llm.attention == "block"
 
 
+#: the parallel flags (ROADMAP M15): each asks for more than one rank
 UNPORTED = [
-    (["--data-parallel", "2"], "M15"),
-    (["--model-parallel", "2"], "M15"),
-    (["--dcn-slices", "2"], "M15"),
-    (["--no-zero2"], "M15"),
+    (["--data-parallel", "2"], "torch.distributed.run"),
+    (["--model-parallel", "2"], "torch.distributed.run"),
+    (["--dcn-slices", "2"], "torch.distributed.run"),
+    (["--data-parallel", "2", "--no-zero2"], "torch.distributed.run"),
 ]
 
 
@@ -97,8 +99,13 @@ UNPORTED = [
 @pytest.mark.parametrize("entry", [run_ted, run_expressive], ids=["ted", "expressive"])
 def test_unported_flags_exit_naming_their_roadmap_item(monkeypatch, tmp_path, entry,
                                                        argv, item):
+    """Once refused as not ported; now a request for ranks without torchrun's
+    environment exits with the torchrun command line, before anything is
+    built."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+    with pytest.raises(SystemExit, match=item):
         _quiet(entry.main, TINY_RUN + ["--checkpoint-dir", str(tmp_path / "ck"),
                                        "--metrics", str(tmp_path / "m.jsonl"),
                                        "--epochs", "1"] + argv)
@@ -144,8 +151,15 @@ def test_backbone_flags_are_accepted(monkeypatch, tmp_path, entry, flag):
 
 
 def test_every_unported_flag_is_a_flag_of_hop_tpu():
-    dests = set(vars(JC.base_parser("jax").parse_args([])))
-    assert {dest for dest, _, _ in C.UNPORTED} <= dests
+    """The parallel flags, once the port's unported ones, are hop_tpu's, with
+    its defaults and the same parsed values."""
+    argv = ["--data-parallel", "4", "--model-parallel", "2", "--dcn-slices", "2",
+            "--no-zero2"]
+    for args in ([], argv):
+        port = vars(C.base_parser("port").parse_args(args))
+        ref = vars(JC.base_parser("jax").parse_args(args))
+        for dest in ("data_parallel", "model_parallel", "dcn_slices", "no_zero2"):
+            assert port[dest] == ref[dest], dest
 
 
 def test_resume_refuses_another_seed(monkeypatch, tmp_path):
