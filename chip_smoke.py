@@ -241,7 +241,24 @@ imports nothing of JAX. Phases, each ending in one line of output:
              against model = 1 within phase 24's limits, each rank's peak
              GiB; `run_ted --data-parallel 2` at full TED width, 2 epochs
              against 1 + `--resume`, bit for bit
- 30. the kernels' JSON line, then the device JSON as the last line
+ 30. parallel hierarchy   the hierarchy (HA2G, ROADMAP M15b) on a split
+             batch: K2 and K3 at a rank's rows (B = 128) of the stages' first
+             layer and of the discriminator's, forward and backward, against
+             their plain versions, with ms, plain ms, bound and cuDNN's ms;
+             world size 1 over NCCL in this process: 2 GAN steps of the TED
+             hierarchy at published widths, bs 256, on the fused route,
+             bitwise the one-process steps; world size 2 (`python3
+             chip_smoke.py --rank`, gloo with both ranks on this card, or
+             NCCL where there are two): 2 GAN steps at global bs 256 against
+             the one-process steps (dropout off) within limits that three
+             planted faults exceed (the last stage's GRU output x 1.001; the
+             contrastive terms over a rank's own pairs alone; the audio
+             encoder's BatchNorms over a rank's own rows), ZeRO against
+             --no-zero2 bitwise, each rank's launches, ms a step, kernels'
+             ms, busy share and peak GiB; `run_ted --model hierarchy
+             --data-parallel 2` at full TED width, 2 epochs against 1 +
+             `--resume`, bit for bit
+ 31. the kernels' JSON line, then the device JSON as the last line
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Times are CUDA-event medians (kernels, forward) or host clock around work
@@ -3264,11 +3281,14 @@ class _Zoo:
         self.host = self.train_ds.make_batch(np.arange(cfg.train.batch_size))
         self.witnessed = {}     # `_zoo_step_vs_cpu`'s f64 witness of each family
 
-    def build(self, model: str, gru_kernel: str = "fused", device=None, hop=None):
+    def build(self, model: str, gru_kernel: str = "fused", device=None, hop=None,
+              mesh=None):
         """(config, state, warmup step, GAN step or None, bs-256 batch); `hop`:
-        HOPConfig fields to replace (the ablations)."""
+        HOPConfig fields to replace (the ablations); on a rank of `mesh`, the
+        rank's nets and steps and its rows of the batch."""
         from hop_tpu_torch.cli import common as C
         from hop_tpu_torch.cli.train_main import build_model_and_steps
+        from hop_tpu_torch.parallel import batch_rows
         device = device or self.dev
         args = C.base_parser("phase 25").parse_args(
             [*self.data, "--model", model, "--seed", str(self.seed), "--gru-kernel",
@@ -3277,8 +3297,9 @@ class _Zoo:
         cfg = cfg.replace(hop=dataclasses.replace(cfg.hop, **(hop or {})))
         with contextlib.redirect_stdout(io.StringIO()):
             state, warmup, gan, _ = build_model_and_steps(cfg, args, self.lang,
-                                                          self.n_speakers, device)
-        batch = C.device_batch(self.host, cfg, keys=C.MODEL_BATCH_KEYS[model], device=device)
+                                                          self.n_speakers, device, mesh)
+        batch = C.device_batch(batch_rows(self.host, mesh), cfg,
+                               keys=C.MODEL_BATCH_KEYS[model], device=device)
         return cfg, state, warmup, gan, batch
 
 
@@ -4443,31 +4464,46 @@ def _par_snapshot(model, disc, grads) -> dict:
             if k in grads}
 
 
-def _par_errors(metrics, snap, ref, cfg) -> dict:
-    """A run against the one-process reference: the losses' largest relative
-    error, the worst gradient tensor's (relative to its net's largest
-    gradient), the parameters' largest difference in units of each net's
-    learning rate where the reference's first-step gradient is resolved
-    (`param_lr`) and everywhere (`param_all`)."""
-    keys = ("loss", "KLD", "DIV_REG", "gen", "dis")
-    loss = max(abs(m[k] - r[k]) / max(abs(r[k]), 1e-12)
-               for m, r in zip(metrics, ref["metrics"]) for k in keys)
-    grads, params, params_all = {}, 0.0, 0.0
+PAR_KEYS = ("loss", "KLD", "DIV_REG", "gen", "dis")
+
+
+def _net_of(name: str) -> str:
+    """The net a parameter of `_par_trainable` belongs to."""
+    return "D" if name.startswith("D.") else "G"
+
+
+def _par_errors(metrics, snap, ref, cfg, keys=PAR_KEYS, group=_net_of) -> dict:
+    """A run against the one-process reference: the losses' (`keys`) largest
+    relative error (`loss`, at `loss_at`: key and step), the worst gradient
+    tensor's relative to the largest gradient of its `group` (by default its
+    net), the parameters' largest difference in units of each net's learning
+    rate where the reference's first-step gradient is resolved (at least
+    PAR_RESOLVED of its group's largest: `param_lr`) and everywhere
+    (`param_all`); `by_group`: each group's worst gradient and parameter
+    readings."""
+    losses = {(k, i): abs(m[k] - r[k]) / max(abs(r[k]), 1e-12)
+              for i, (m, r) in enumerate(zip(metrics, ref["metrics"])) for k in keys}
+    loss_at = max(losses, key=losses.get)
+    grads, params, params_all, by_group = {}, 0.0, 0.0, {}
     lr = cfg.train.learning_rate
-    for disc in (False, True):
-        mine = {k: v for k, v in ref["snap"].items() if k.startswith("D.") == disc}
+    for name in sorted({group(k) for k in ref["snap"]}):
+        mine = {k: v for k, v in ref["snap"].items() if group(k) == name}
         top = max(g.abs().max().item() for _, g in mine.values())
-        unit = lr * (cfg.train.dis_lr_scale if disc else 1.0)
+        worst_param = 0.0
         for k, (p, g) in mine.items():
+            unit = lr * (cfg.train.dis_lr_scale if k.startswith("D.") else 1.0)
             grads[k] = (snap[k][1] - g).abs().max().item() / top
             diff = (snap[k][0] - p).abs() / unit
             params_all = max(params_all, diff.max().item())
             resolved = g.abs() >= PAR_RESOLVED * top
             if resolved.any():
-                params = max(params, diff[resolved].max().item())
+                worst_param = max(worst_param, diff[resolved].max().item())
+        params = max(params, worst_param)
+        by_group[name] = (max(grads[k] for k in mine), worst_param)
     worst = max(grads, key=grads.get)
-    return {"loss": loss, "grad": grads[worst], "grad_at": worst, "param_lr": params,
-            "param_all": params_all}
+    return {"loss": losses[loss_at], "loss_at": loss_at, "grad": grads[worst],
+            "grad_at": worst, "param_lr": params, "param_all": params_all,
+            "by_group": by_group}
 
 
 def _rank_dp(mesh, spec, dev) -> dict:
@@ -4605,8 +4641,9 @@ def _rank_tp(mesh, spec, dev) -> dict:
 
 
 def rank_main(spec_path: str) -> None:
-    """One rank of phase 29's world of 2 (`python3 chip_smoke.py --rank <spec>`,
-    launched by phase_parallel through `parallel.local.run_ranks`)."""
+    """One rank of phase 29's or phase 30's world of 2 (`python3 chip_smoke.py
+    --rank <spec>`, launched by phase_parallel or phase_parallel_hierarchy
+    through `parallel.local.run_ranks`)."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hop_tpu_torch.parallel.mesh import destroy, init_distributed, make_mesh
@@ -4619,24 +4656,28 @@ def rank_main(spec_path: str) -> None:
     mesh = init_distributed(spec["device"], data_parallel=2, backend=spec["backend"])
     dev = mesh.device
     deterministic_cudnn(dev)       # ZeRO on and off, two runs, compared bitwise
-    out = {"dp": _rank_dp(mesh, spec, dev), "backend": mesh.backend, "device": str(dev)}
-    out["tp"] = _rank_tp(make_mesh((1, 1, 2), dev), spec, dev)
+    out = {"backend": mesh.backend, "device": str(dev)}
+    if spec.get("kind") == "hierarchy":
+        out["dp"] = _rank_hier(mesh, spec, dev)
+    else:
+        out["dp"] = _rank_dp(mesh, spec, dev)
+        out["tp"] = _rank_tp(make_mesh((1, 1, 2), dev), spec, dev)
     torch.save(out, f"{spec['out']}.{mesh.rank}.pt")
     destroy()
 
 
-def _par_run_ted(seed, backend, device, tmp, gate: str) -> dict:
-    """`run_ted --data-parallel 2` at full TED width, as torchrun launches it:
-    2 epochs in one run and 1 epoch then `--resume` to 2 (the first two runs
-    side by side), bit for bit. Creates the file `gate` when the runs have
-    ended, however they end."""
+def _par_run_ted(seed, backend, device, tmp, gate: str, flags=("--llm-layers", "2")) -> dict:
+    """`run_ted --data-parallel 2` at full TED width with `flags`, as torchrun
+    launches it: 2 epochs in one run and 1 epoch then `--resume` to 2 (the
+    first two runs side by side), bit for bit. Creates the file `gate` when
+    the runs have ended, however they end."""
     try:
-        return _par_run_ted_runs(seed, backend, device, tmp)
+        return _par_run_ted_runs(seed, backend, device, tmp, flags)
     finally:
         open(gate, "w").close()
 
 
-def _par_run_ted_runs(seed, backend, device, tmp) -> dict:
+def _par_run_ted_runs(seed, backend, device, tmp, flags) -> dict:
     import concurrent.futures
     import torch
     from hop_tpu_torch.parallel.local import check_ranks, run_ranks
@@ -4647,7 +4688,7 @@ def _par_run_ted_runs(seed, backend, device, tmp) -> dict:
         ck = os.path.join(tmp, name)
         argv = ["-m", "hop_tpu_torch.cli.run_ted", "--device", device, "--dist-backend",
                 backend, "--data-parallel", "2", "--synthetic-videos", "1", "--batch-size",
-                "16", "--llm-layers", "2", "--warmup-epochs", "0", "--seed", str(seed),
+                "16", *flags, "--warmup-epochs", "0", "--seed", str(seed),
                 "--epochs", str(epochs),
                 "--log-every", "1", "--checkpoint-dir", ck, "--metrics",
                 os.path.join(ck, "metrics.jsonl"), *extra]
@@ -4672,6 +4713,29 @@ def _par_run_ted_runs(seed, backend, device, tmp) -> dict:
             "epochs": _epoch_seconds(out_a), "validation": _validation_seconds(out_a)}
 
 
+@contextlib.contextmanager
+def _world1(dev):
+    """This process as the one rank of a world of 1 over NCCL: its `Mesh`;
+    the process group left and the environment restored after."""
+    from hop_tpu_torch.parallel.local import free_port
+    from hop_tpu_torch.parallel.mesh import destroy, init_distributed
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh = init_distributed(dev, data_parallel=1)
+        check(mesh.backend == "nccl" and mesh.world == 1, f"world 1: {mesh}")
+        yield mesh
+    finally:
+        destroy()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_parallel(dev, seed):
     """Phase 29. Returns ({path name: launches}, the kernels at new shapes)."""
     import torch
@@ -4679,8 +4743,7 @@ def phase_parallel(dev, seed):
     from hop_tpu_torch.data.synthetic import make_train_batch
     from hop_tpu_torch.models.hop import build_hop_model
     from hop_tpu_torch.models.multimodal_context import build_discriminator
-    from hop_tpu_torch.parallel.local import free_port, run_ranks
-    from hop_tpu_torch.parallel.mesh import destroy, init_distributed
+    from hop_tpu_torch.parallel.local import run_ranks
     from hop_tpu_torch.utils.checkpoint import differing_entries
     from hop_tpu_torch.cli.train_main import deterministic_cudnn
     import concurrent.futures
@@ -4704,26 +4767,13 @@ def phase_parallel(dev, seed):
     # world size 1 over NCCL: bitwise the one-process steps (phase 9's setting)
     model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=False)
     plain = _par_steps(cfg, model, disc, batch, None, seed)[0].state_dict()
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": str(free_port())}
-    saved_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        mesh = init_distributed(dev, data_parallel=1)
-        check(mesh.backend == "nccl" and mesh.world == 1, f"world 1: {mesh}")
+    with _world1(dev) as mesh:
         model, disc = _par_nets(model_cpu, disc_cpu, dev, exact=False)
         state, _, _, _, paths["parallel_world1"], _ = _par_steps(cfg, model, disc, batch,
                                                                  mesh, seed)
         diff = differing_entries(plain, state.state_dict())
         check(diff == [], f"world 1 over NCCL differs from one process at {diff[:5]}")
         del model, disc, state, plain
-    finally:
-        destroy()
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     print(f"parallel world 1: {PAR_STEPS} fused GAN steps at bs {cfg.train.batch_size} "
           f"through init_distributed (NCCL, one rank), the RankAdam's all-reduce and the "
           f"rank's draws: every checkpoint entry bitwise the one-process steps'")
@@ -4823,6 +4873,317 @@ def phase_parallel(dev, seed):
     finally:
         pool.shutdown(wait=True)
         shutil.rmtree(tmp, ignore_errors=True)
+    return paths, kernels
+
+
+# ---- phase 30: the hierarchy on a split batch (ROADMAP M15b) -----------------
+# Two GAN steps of the TED hierarchy at published widths, global bs 256, on
+# the fused GRU route, on 2 ranks (gloo on one card, or NCCL on two) against
+# the same steps in one process: the same global batch and draws, dropout
+# off, so that what is left is the order of f32 sums (the ranks' 128 rows,
+# the batch statistics, the contrastive terms' rows against the gathered
+# columns, the gradients summed over the ranks). Phase 29's three readings:
+# the losses of both steps (relative), each gradient tensor of the first
+# step, the parameters after two steps in units of the learning rate where
+# the first step's gradient is at least PAR_RESOLVED of the largest; here
+# over the largest of its module (the text encoder, each stage, the
+# discriminator; `_module_of`), not its net, since a fault of the
+# contrastive terms moves the text encoder, whose gradients are 1e-3 of the
+# stages'. The audio encoder (ResNetSE) is read and printed but not held: its
+# f32 split noise (128 rows a rank through cuDNN's convolutions and a few
+# ReLUs that flip; in f64 the split equals one process to 1e-14, tests/
+# test_torch_parallel_hierarchy.py) is 1.9e-3 of its largest gradient and
+# 1.8 lr of its parameters, more than the first two faults below add there.
+# The limits sit between the readings and three planted faults, each of
+# which fails every one: the last stage's GRU output x PAR_FAULT on every
+# rank; the contrastive terms over each rank's own pairs (4352 x 4352 in
+# place of 4352 x 8704), the mistake a port without the gather makes; and
+# the audio encoder's BatchNorms over the rank's own 128 rows
+# (`_local_audio_bn`; `ranked` makes their statistics the global batch's),
+# which holds the audio encoder's split through the modules that read its
+# features. Readings (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): sound
+# losses 2.1e-4, gradients 1.3e-6 (stage 3), parameters 0.37 lr (stage 3),
+# text 0.024 lr; the GRU fault 2.1e-2, 3.6e-4, 1.94 lr; the local pairs
+# 7.6e-2, 7.4e-3 (text), text 0.12 lr; the local audio BatchNorms 1.7e-1,
+# 5.0e-2 (text), 2.0 lr (the stages), text 3.7 lr (the audio encoder's own
+# gradients 0.66 of their largest). Adam moves a resolved element by about
+# lr sign(g) in its first steps, so a fault that changes the text encoder's
+# gradients by ~1% flips few signs: the text encoder's parameters have a
+# limit of their own.
+HPAR_STEPS = 2
+HPAR_LOSS_TOL = 2e-3
+HPAR_GRAD_TOL = 1e-5
+HPAR_PARAM_LR = {"text": 0.06}      # the other modules PAR_PARAM_LR
+HPAR_APART = "audio"
+HPAR_KEYS = PAR_KEYS + ("c_pos", "c_neg", "phy")
+
+
+def _module_of(name: str) -> str:
+    """The top-level module of the hierarchy's nets a parameter of
+    `_par_trainable` belongs to: the audio encoder, the text encoder, each
+    stage, the discriminator."""
+    if name.startswith("D."):
+        return "D"
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "stages" else parts[0]
+
+
+def _hpar_held(e: dict) -> tuple:
+    """A run's three held readings from `_par_errors` by module: the losses'
+    relative error, the worst gradient over its module's largest, and the
+    worst parameter reading over its module's limit (1 at the limit); the
+    audio encoder left out."""
+    held = {m: v for m, v in e["by_group"].items() if m != HPAR_APART}
+    return (e["loss"], max(g for g, _ in held.values()),
+            max(q / HPAR_PARAM_LR.get(m, PAR_PARAM_LR) for m, (_, q) in held.items()))
+
+
+def _hpar_reading(e: dict) -> str:
+    """A run's readings as one clause: the worst loss, and each module's
+    gradient / parameter reading (the audio encoder's too)."""
+    return (f"losses {e['loss']:.3e} ({e['loss_at'][0]}, step {e['loss_at'][1] + 1}); by "
+            f"module gradient / parameters (lr): " + ", ".join(
+                f"{m} {g:.2e} / {q:.3f}" for m, (g, q) in e["by_group"].items())
+            + f"; everywhere {e['param_all']:.3f} lr")
+# K2 and K3 at a rank's rows: the first stage's first layer (I = 96) and the
+# discriminator's (T = 28, I = 8, H = 64), (T, B, I, H, D) and (D, T, B, H)
+HPAR_K2 = ((34, 128, 96, 300, 2), (28, 128, 8, 64, 2))
+HPAR_K3 = ((2, 34, 128, 300), (2, 28, 128, 64))
+
+
+def _hpar_build(zoo, dev, mesh=None, exact: bool = True, fault: str = None):
+    """The hierarchy's state, GAN step and batch as `train_main` builds them
+    (on a rank of `mesh`: its nets, steps and rows); `exact`: dropout off;
+    `fault` "gru" plants the last stage's GRU output x PAR_FAULT."""
+    _, state, _, gan, batch = zoo.build("hierarchy", "fused", dev, mesh=mesh)
+    if exact:
+        for m in (*state.model.modules(), *state.disc.modules()):
+            for rate in ("dropout", "emb_dropout", "dropout_rate", "attention_dropout"):
+                if isinstance(getattr(m, rate, None), float):
+                    setattr(m, rate, 0.0)
+    if fault == "gru":
+        state.model.stages[-1].gru.register_forward_hook(
+            lambda m, i, o: (o[0] * PAR_FAULT, *o[1:]))
+    return state, gan, batch
+
+
+def _hpar_steps(state, gan, batch, seed: int):
+    """HPAR_STEPS GAN steps from the step generator seeded `seed`: (state,
+    [metrics a step], launches, the first step's gradients on the host)."""
+    import torch
+    g, metrics, grads = torch.Generator().manual_seed(seed), [], None
+    _reset_counts()
+    for _ in range(HPAR_STEPS):
+        state, m = gan(state, batch, g)
+        metrics.append({k: v.item() for k, v in m.items()})
+        grads = grads or {k: p.grad.cpu() for k, p in
+                          _par_trainable(state.model, state.disc).items() if p.grad is not None}
+    torch.cuda.synchronize()
+    return state, metrics, _launch_counts(), grads
+
+
+def _local_pairs():
+    """The planted fault: `softmax_contrastive` over the rank's own rows of
+    both feature blocks (its group dropped)."""
+    from unittest import mock
+    from hop_tpu_torch.train import hierarchy as TH
+    whole = TH.softmax_contrastive
+    return mock.patch.object(TH, "softmax_contrastive",
+                             lambda a, b, chunk_pairs=TH.CONTRASTIVE_CHUNK_PAIRS, group=None:
+                             whole(a, b, chunk_pairs))
+
+
+def _local_audio_bn():
+    """The planted fault: the audio encoder's BatchNorms (the centred ones,
+    `CenteredBatchNorm2d`) over the rank's own rows, as if its nets were not
+    built through `ranked`; the discriminator's keep the global batch's."""
+    from unittest import mock
+    from hop_tpu_torch.models import common
+    whole = common.global_mean_var
+
+    def local(x, dims, group, centered=False):
+        if not centered:
+            return whole(x, dims, group, centered)
+        mean = x.mean(dims)
+        dev = x - mean.reshape([1, -1] + [1] * (x.dim() - 2))
+        return mean, (dev * dev).mean(dims)
+    return mock.patch.object(common, "global_mean_var", local)
+
+
+HPAR_FAULTS = {"fault_gru": (f"the last stage's GRU output x {PAR_FAULT}", "gru"),
+               "fault_pairs": ("the contrastive terms over local pairs", "pairs"),
+               "fault_bn": ("the audio encoder's BatchNorms over local rows", "bn")}
+
+
+def _rank_hier(mesh, spec, dev) -> dict:
+    """World 2 over the batch, the hierarchy: the exact steps with ZeRO,
+    without, and with each planted fault, against the reference; then the
+    default step (dropout on, ZeRO) timed."""
+    import torch
+    from hop_tpu_torch.utils.checkpoint import differing_entries
+    zoo = _Zoo(spec["cfg"], spec["data"], spec["seed"], dev)
+    ref = torch.load(spec["ref"], weights_only=False)
+    out, states, clock = {}, {}, {"set up": time.perf_counter() - spec["t0"]}
+    runs = [("zero", True, None), ("no_zero", False, None)] + [
+        (name, True, fault) for name, (_, fault) in HPAR_FAULTS.items()]
+    for name, zero, fault in runs:
+        t0 = time.perf_counter()
+        mesh.zero2 = zero
+        state, gan, batch = _hpar_build(zoo, dev, mesh, fault=fault)
+        with {"pairs": _local_pairs, "bn": _local_audio_bn}.get(
+                fault, contextlib.nullcontext)():
+            state, metrics, launches, grads = _hpar_steps(state, gan, batch, spec["seed"])
+        out[name] = _par_errors(metrics, _par_snapshot(state.model, state.disc, grads), ref,
+                                zoo.cfg, HPAR_KEYS, _module_of)
+        out[name]["launches"] = launches
+        if fault is None:
+            states[name] = state.state_dict()
+        clock[name] = time.perf_counter() - t0
+        del state, gan
+    out["zero_vs_no_zero"] = differing_entries(states["zero"], states["no_zero"])
+    del states
+    torch.cuda.empty_cache()
+    mesh.zero2 = True
+    state, gan, batch = _hpar_build(zoo, dev, mesh, exact=False)
+    out["zero_sharded"] = sum(ax is not None for ax in state.gen_opt.axes)
+    g = torch.Generator().manual_seed(spec["seed"])
+    t0 = time.perf_counter()
+    while not os.path.exists(spec["gate"]):
+        check(time.perf_counter() - t0 < PAR_TIMEOUT, "phase 30: the gate never opened")
+        time.sleep(0.1)
+    clock["waiting"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    def step():
+        nonlocal state
+        state, _ = gan(state, batch, g)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, reps=3, warmup=1)
+    busy, device_ms, top = _busy_share(step, 1, ms, host_ops=False)
+    out["timing"] = (ms, device_ms, busy, top, torch.cuda.max_memory_allocated() / 2 ** 30)
+    clock["timing"] = time.perf_counter() - t0
+    out["local_batch"], out["clock"] = int(batch["target_vec"].shape[0]), clock
+    return out
+
+
+def phase_parallel_hierarchy(dev, seed, ted):
+    """Phase 30 on `zoo_data`'s TED records. Returns ({path name: launches},
+    the kernels at a rank's shapes)."""
+    import concurrent.futures
+    import torch
+    from hop_tpu_torch.cli.train_main import deterministic_cudnn
+    from hop_tpu_torch.parallel.local import run_ranks
+    from hop_tpu_torch.utils.checkpoint import differing_entries
+    smi = _smi()
+    t_phase = time.perf_counter()
+    deterministic_cudnn(dev)       # the runs compared bitwise, as a training run sets it
+    kernels = phase_zoo_kernels(dev, seed, HPAR_K2, HPAR_K3, "hierarchy rank")
+    clock = {"kernels": time.perf_counter() - t_phase}
+    paths = {}
+    two_cards = torch.cuda.device_count() >= 2
+    backend, device = ("nccl", "cuda") if two_cards else ("gloo", "cuda:0")
+    tmp = tempfile.mkdtemp(prefix="hop_hpar_")
+    gate = os.path.join(tmp, "runs_ended")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    run_future = pool.submit(_par_run_ted, seed, backend, device, tmp, gate,
+                             ("--model", "hierarchy"))
+    try:
+        # world size 1 over NCCL: bitwise the one-process steps (dropout on)
+        t0 = time.perf_counter()
+        plain = _hpar_steps(*_hpar_build(ted, dev, exact=False), seed)[0].state_dict()
+        with _world1(dev) as mesh:
+            state, paths["hier_parallel_world1"] = _hpar_steps(
+                *_hpar_build(ted, dev, mesh, exact=False), seed)[::2]
+            diff = differing_entries(plain, state.state_dict())
+            check(diff == [], f"hierarchy world 1 over NCCL differs from one process at "
+                              f"{diff[:5]}")
+            del state, plain
+        # the one-process reference of world 2's steps
+        state, gan, batch = _hpar_build(ted, dev)
+        state, metrics, launches, grads = _hpar_steps(state, gan, batch, seed)
+        want = {k: HPAR_STEPS * v for k, v in zoo_launches(
+            "hierarchy", state.model, "gan", "fused", state.disc).items()}
+        check(launches == want, f"hierarchy one process: launches {launches}, want {want}")
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"metrics": metrics, "snap": _par_snapshot(state.model, state.disc, grads)},
+                   ref_path)
+        del state, gan, batch, grads
+        torch.cuda.empty_cache()
+        clock["world 1 and the reference"] = time.perf_counter() - t0
+        print(f"parallel hierarchy world 1: {HPAR_STEPS} GAN steps at bs "
+              f"{ted.cfg.train.batch_size} through init_distributed (NCCL, one rank), the "
+              f"RankAdam's all-reduce and the rank's draws: every checkpoint entry bitwise "
+              f"the one-process steps'")
+        spec = {"kind": "hierarchy", "seed": seed, "ref": ref_path, "data": ted.data,
+                "cfg": ted.cfg,
+                "out": os.path.join(tmp, "rank"), "backend": backend, "device": device,
+                "gate": gate}
+        torch.save(spec, os.path.join(tmp, "spec.pt"))
+        t0 = time.perf_counter()
+        results = run_ranks([os.path.abspath(__file__), "--rank", os.path.join(tmp, "spec.pt")],
+                            2, PAR_TIMEOUT, {"PYTHONPATH": os.path.dirname(
+                                os.path.abspath(__file__))}, threads=4)
+        clock["ranks"] = time.perf_counter() - t0
+        bad = [r for r in results if r.returncode != 0]
+        check(not bad, "phase 30's ranks failed:\n" + "\n".join(
+            f"--- rank {r.rank} exited {r.returncode}:\n{r.output[-3000:]}" for r in bad))
+        ranks = [torch.load(f"{spec['out']}.{r}.pt", weights_only=False) for r in range(2)]
+        sharing = "" if two_cards else ", both ranks sharing one card (not a scaling number)"
+        for r, out in enumerate(ranks):
+            dp = out["dp"]
+            paths[f"hier_parallel_dp_rank{r}"] = dp["zero"]["launches"]
+            check(dp["zero"]["launches"] == want, f"hierarchy rank {r}: launches in "
+                  f"{HPAR_STEPS} steps {dp['zero']['launches']}, want {want}")
+            check(dp["zero_vs_no_zero"] == [], f"hierarchy rank {r}: ZeRO vs --no-zero2 "
+                                               f"differ at {dp['zero_vs_no_zero'][:5]}")
+            for name in ("zero", "no_zero"):
+                loss, grad, param = _hpar_held(dp[name])
+                check(loss <= HPAR_LOSS_TOL and grad <= HPAR_GRAD_TOL and param <= 1.0,
+                      f"hierarchy rank {r} world 2 vs 1 ({name}): losses {loss:.3e} (tol "
+                      f"{HPAR_LOSS_TOL:g}), gradients {grad:.3e} (tol {HPAR_GRAD_TOL:g}), "
+                      f"parameters {param:.2f} of their module's limit; "
+                      f"{_hpar_reading(dp[name])}")
+            for name, (what, _) in HPAR_FAULTS.items():
+                loss, grad, param = _hpar_held(dp[name])
+                check(loss > HPAR_LOSS_TOL and grad > HPAR_GRAD_TOL and param > 1.0,
+                      f"hierarchy rank {r}: the planted fault ({what}) passed a limit: "
+                      f"{_hpar_reading(dp[name])}")
+            ms, device_ms, busy, top, peak = dp["timing"]
+            reading = _hpar_reading
+            print(f"parallel hierarchy world 2 rank {r} ({out['backend']} on "
+                  f"{out['device']}{sharing}): {HPAR_STEPS} GAN steps at global bs "
+                  f"{ted.cfg.train.batch_size} ({dp['local_batch']} rows a rank), dropout "
+                  f"off, against one process; limits: losses {HPAR_LOSS_TOL:g} relative, each "
+                  f"first-step gradient tensor {HPAR_GRAD_TOL:g} of its module's largest "
+                  f"(the text encoder, each stage, the discriminator; the audio encoder "
+                  f"read, not held), parameters {PAR_PARAM_LR:g} lr (the text encoder "
+                  f"{HPAR_PARAM_LR['text']:g}) where the first gradient is {PAR_RESOLVED:g} "
+                  f"of its module's largest or more. ZeRO: "
+                  f"{reading(dp['zero'])}; --no-zero2: {reading(dp['no_zero'])}; ZeRO "
+                  f"({dp['zero_sharded']} moments sharded) vs --no-zero2 bitwise; planted "
+                  f"faults, each caught by every limit: GRU x {PAR_FAULT}: "
+                  f"{reading(dp['fault_gru'])}; local pairs: "
+                  f"{reading(dp['fault_pairs'])}; local audio BatchNorms: "
+                  f"{reading(dp['fault_bn'])}; "
+                  f"launches {_nonzero(dp['zero']['launches'])}; the default step (dropout "
+                  f"on, ZeRO): {ms:.2f} ms per step, kernels {device_ms:.2f} ms, busy share "
+                  f"{busy:.3f} (CUDA-event median of 3; torch.profiler, 1 step, the card's "
+                  f"activity alone), peak {peak:.2f} GiB; top: "
+                  + ", ".join(f"{k} {t:.2f}" for k, t in top[:4]) + f"; on {smi}; seconds "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in dp["clock"].items()))
+        run = run_future.result()
+        print(f"parallel hierarchy run_ted: --model hierarchy --data-parallel 2 "
+              f"({backend}{sharing}) at full TED width, global bs 16 on 1 synthetic video, 2 "
+              f"epochs against 1 + --resume to 2: the checkpoints equal in all "
+              f"{run['entries']} entries (ZeRO's moments gathered), metrics.jsonl equal; "
+              f"seconds {', '.join(f'{s:.1f}' for s in run['seconds'])} (2 epochs and 1 "
+              f"epoch side by side, then the resume, beside the comparisons; host clock); "
+              f"the 2-epoch run's epochs {run['epochs']} s, validation passes "
+              f"{run['validation']} s")
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"parallel hierarchy: phase 30 in {time.perf_counter() - t_phase:.1f} s on {smi} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()) + ")")
     return paths, kernels
 
 
@@ -4926,16 +5287,21 @@ def main():
         hier = phase_zoo_kernels(dev, SEED, HIER_K2, (), "hierarchy")
         paths.update(phase_hierarchy(dev, SEED, ted, expr, tmp))
         lap("27")
+        del expr
+        paths.update(phase_export(dev, SEED))
+        lap("28")
+        par_paths, par = phase_parallel(dev, SEED)
+        paths.update(par_paths)
+        lap("29")
+        # the TED records of phase 25 serve the hierarchy's ranks
+        hpar_paths, hpar = phase_parallel_hierarchy(dev, SEED, ted)
+        paths.update(hpar_paths)
+        lap("30")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    paths.update(phase_export(dev, SEED))
-    lap("28")
-    par_paths, par = phase_parallel(dev, SEED)
-    paths.update(par_paths)
-    lap("29")
     print("chip_smoke: seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in lap.seconds.items())
-        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27', '28', '29')):.1f}")
+        + f"; 1-24 {sum(v for k, v in lap.seconds.items() if k not in ('25', '26', '27', '28', '29', '30')):.1f}")
 
     # launches: over one run of each path (a bs-256 forward on either GRU route
     # and on each attention route, a clip at bs 1 on each kernel attention
@@ -4953,13 +5319,16 @@ def main():
     k3_head = k3["head"]
 
     def zoo_err(key):
-        return max(r["max_abs_err"] for r in [*zoo[key].values(), *hier[key].values()])
+        return max(r["max_abs_err"] for r in [*zoo[key].values(), *hier[key].values(),
+                                               *hpar[key].values()])
 
     def zoo_rows(key):
-        """The zoo's shapes of a kernel (phase 25) and the hierarchy's (phase
-        27), under keys of their own."""
+        """The zoo's shapes of a kernel (phase 25), the hierarchy's (phase 27)
+        and the hierarchy's at a rank's rows (phase 30), under keys of their
+        own."""
         return {name: {",".join(map(str, shape)): r for shape, r in rows[key].items()}
-                for name, rows in (("zoo", zoo), ("hierarchy", hier)) if rows[key]}
+                for name, rows in (("zoo", zoo), ("hierarchy", hier),
+                                   ("hierarchy_rank", hpar)) if rows[key]}
 
     def _at(I, r, library_ms):
         """K2 at a head's first layer (I = 4320 on LLaMA, 1751 on TED

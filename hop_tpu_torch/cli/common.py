@@ -367,14 +367,17 @@ def make_tokenizer(args):
 def load_datasets(cfg: Config, args):
     """(train_ds, val_ds, lang_model). `args.data` is "synthetic" (records
     written to a temporary directory from `args.synthetic_videos` seeded
-    20 s source clips; the first video is the validation split) or the
-    path of a record store (`args.val_data` for another validation one),
-    such as `data.import_ted` writes from the reference's LMDBs. The
-    vocabulary's vectors come from `args.wordembed_path`: a .npy, a
-    .txt/.vec or a fastText .bin."""
+    20 s source clips; the first video is the validation split; the
+    directory goes when the last of the two datasets does) or the path of a
+    record store (`args.val_data` for another validation one), such as
+    `data.import_ted` writes from the reference's LMDBs. The vocabulary's
+    vectors come from `args.wordembed_path`: a .npy, a .txt/.vec or a
+    fastText .bin."""
     tokenizer = make_tokenizer(args)
+    records = None
     if args.data == "synthetic":
-        tmp = Path(tempfile.mkdtemp(prefix="hop_synth_"))
+        records = tempfile.TemporaryDirectory(prefix="hop_synth_")
+        tmp = Path(records.name)
         videos = synthetic.make_source_clips(
             cfg, n_videos=args.synthetic_videos, clip_seconds=20.0,
             seed=args.seed)
@@ -389,6 +392,9 @@ def load_datasets(cfg: Config, args):
     val_ds = SpeechMotionDataset(val_path, cfg.data,
                                  speaker_model=train_ds.speaker_model,
                                  tokenizer=tokenizer)
+    # the datasets hold the synthetic records' directory; it is removed when
+    # neither of them is referenced any more (or at exit)
+    train_ds.records_dir = val_ds.records_dir = records
     source = getattr(args, "wordembed_path", None)
     if source and source.endswith(".bin"):
         source = FastTextModel(source).get_word_vector

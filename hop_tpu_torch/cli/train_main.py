@@ -42,8 +42,10 @@ the seed and the same global batches from the data; it takes its rows
 (`batch_rows`), its share of the frozen backbone (model > 1), and reduces
 gradients, batch statistics and metrics over its batch group; with ZeRO
 (default when data > 1, `--no-zero2` off) it holds its share of Adam's
-moments. The hierarchy (the contrastive terms over all pairs of the
-global batch) is refused on a split batch: ROADMAP.md M15b.
+moments. The hierarchy's contrastive terms run over all pairs of the
+global batch (`train.hierarchy.softmax_contrastive` with the batch group);
+`--model-parallel` alone leaves its nets replicated over the model group,
+since it has no backbone to shard.
 """
 
 from __future__ import annotations
@@ -185,7 +187,8 @@ def build_model_and_steps(cfg: Config, args, lang, n_speakers: int, device, mesh
 
     if name == "hierarchy":
         net, disc = build_hierarchy(cfg, lang.n_words, n_speakers, seed, device)
-        warmup, gan, init_state = make_hierarchy_train_steps(cfg, pretrained(net), disc)
+        warmup, gan, init_state = make_hierarchy_train_steps(
+            cfg, *ranked(pretrained(net), disc), mesh)
         return init_state(), warmup, gan, _inference(
             lambda net, b, vids, g: net.generate(b, vids, g))
 
@@ -203,11 +206,6 @@ def train_main(cfg: Config, args):
         device = mesh.device
         print(mesh.describe())
     try:
-        if args.model == "hierarchy" and mesh is not None and mesh.batch_size > 1:
-            raise SystemExit(
-                "--model hierarchy on a batch split over more than one rank: not "
-                "ported yet, ROADMAP.md M15b (its contrastive terms run over all "
-                "pairs of the global batch)")
         return _train(cfg, args, device, mesh)
     finally:
         if mesh is not None:

@@ -39,6 +39,11 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def group_index(group) -> int:
+    """This rank's place in `group`'s rank order (0 where group is None)."""
+    return 0 if group is None else dist.get_process_group_ranks(group).index(dist.get_rank())
+
+
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous().clone()
     dist.all_reduce(x, group=group)
@@ -96,8 +101,7 @@ def _gather(x: torch.Tensor, group) -> torch.Tensor:
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group, ctx.n = group, x.shape[0]
-        ctx.index = dist.get_process_group_ranks(group).index(dist.get_rank())
+        ctx.group, ctx.n, ctx.index = group, x.shape[0], group_index(group)
         return _gather(x, group)
 
     @staticmethod

@@ -34,6 +34,20 @@ in by a test; the dropout masks come from a device generator seeded from
 it. A step is called as `step(state, batch, rng)` and returns (state,
 metrics): "loss", "KLD", "DIV_REG", "c_pos", "c_neg", "phy", and in the GAN
 step "gen" and "dis".
+
+On a rank of a parallel run (`mesh`) the step takes the global batch's
+semantics, as HOP's does (train/llm.py): the draws are the global batch's
+and the rank keeps its rows (`StepNoise.for_rank`; the shuffled speakers
+index the global batch's ids), the optimizers average the gradients over
+the batch group, the metrics leave the step averaged over it, and the
+ResNetSE's and the discriminator's BatchNorms take the global batch's
+statistics (`parallel.attach_batch_group`). Huber, KLD, the diversity
+regulariser, the G and D terms and the physical prior are means over rows,
+so equal blocks of rows average to the global means. The contrastive terms
+are not: their softmax runs over every pair of the global batch's rows, so
+a rank gathers the second feature block of every rank (`gather_rows`) and
+takes its own rows of the first against all of them (`softmax_contrastive`
+with `group`).
 """
 
 from __future__ import annotations
@@ -49,8 +63,9 @@ from torch.utils.checkpoint import checkpoint
 from hop_tpu_torch.config import Config
 from hop_tpu_torch.models import hierarchy as H
 from hop_tpu_torch.models.common import device_constant, huber
+from hop_tpu_torch.parallel.collectives import gather_rows, group_index, reduce_metrics
 from hop_tpu_torch.train import hierarchy_expressive_stats as hx
-from hop_tpu_torch.train.llm import StepNoise, gen_term, generator_terms
+from hop_tpu_torch.train.llm import StepNoise, gen_term, generator_terms, shuffled_vids
 from hop_tpu_torch.train.state import GANTrainState, gan_train_state, update_d_then_g
 
 #: the contrastive and physical terms' weights (hop_tpu/cli/train_main.py:210
@@ -74,7 +89,8 @@ def _contrastive_rows(f1: torch.Tensor, f2: torch.Tensor, first: int) -> torch.T
 
 
 def softmax_contrastive(feat1: torch.Tensor, feat2: torch.Tensor,
-                        chunk_pairs: int = CONTRASTIVE_CHUNK_PAIRS) -> torch.Tensor:
+                        chunk_pairs: int = CONTRASTIVE_CHUNK_PAIRS,
+                        group=None) -> torch.Tensor:
     """Cross-entropy over inverse pairwise L2 distances of the normalised
     rows, the matching row the label (train_hierarchy.py:23-68; hop_tpu
     hierarchy.py:36-46). hop_tpu forms every difference at once (8704^2 x
@@ -82,16 +98,28 @@ def softmax_contrastive(feat1: torch.Tensor, feat2: torch.Tensor,
     go in chunks of `chunk_pairs` pairs, each recomputed in the backward
     (`torch.utils.checkpoint`), and the chunks' sums add in order. Each
     distance is the norm of its own difference, not ||a||^2 + ||b||^2 - 2ab,
-    whose cancellation 1 / (d + 1e-8) would amplify for near rows."""
+    whose cancellation 1 / (d + 1e-8) would amplify for near rows.
+
+    With `group` (a batch split over its ranks, each holding its block of
+    rows of both features, in rank order) the pairs are the global batch's:
+    the rank gathers every rank's rows of `feat2` (`gather_rows`, whose
+    backward hands each rank the sum of every rank's gradient of its rows)
+    and returns the mean over ITS rows of `feat1` against all of them, the
+    labels offset by its first global row. The mean of the ranks' values,
+    and of their gradients, is the one-process term's."""
     f1 = feat1 / torch.clamp(torch.linalg.vector_norm(feat1, dim=1, keepdim=True), min=1e-12)
     f2 = feat2 / torch.clamp(torch.linalg.vector_norm(feat2, dim=1, keepdim=True), min=1e-12)
     n = f1.shape[0]
+    offset = 0
+    if group is not None:
+        offset = group_index(group) * n
+        f2 = gather_rows(f2, group)
     rows = max(1, chunk_pairs // f2.shape[0])
     if rows >= n:
-        return _contrastive_rows(f1, f2, 0) / n
+        return _contrastive_rows(f1, f2, offset) / n
     total = None
     for first in range(0, n, rows):
-        part = checkpoint(_contrastive_rows, f1[first:first + rows], f2, first,
+        part = checkpoint(_contrastive_rows, f1[first:first + rows], f2, offset + first,
                           use_reentrant=False, preserve_rng_state=False)
         total = part if total is None else total + part
     return total / n
@@ -121,18 +149,20 @@ def physical_loss(out_dir_vec: torch.Tensor, mean_dir_vec: np.ndarray, angle_pai
     return torch.sum(torch.mean((angle - avg) ** 2 / (2 * var), dim=0))
 
 
-def make_hierarchy_train_steps(cfg: Config, net, disc):
+def make_hierarchy_train_steps(cfg: Config, net, disc, mesh=None):
     """Returns (warmup_step, gan_step, init_state) over `net` (a
     `models.hierarchy.HierarchyNet`) and `disc`
-    (HierarchicalConvDiscriminator), both updated in place."""
+    (HierarchicalConvDiscriminator), both updated in place; on a rank of
+    `mesh` where that is given."""
     loss_cfg, dataset = cfg.loss, cfg.data.dataset
+    group = mesh.batch_group if mesh is not None and mesh.batch_size > 1 else None
     bones = H.stage_bones(dataset)
     skel = cfg.data.skeleton
     avg_angle, var_angle = ((H.TED_AVG_ANGLE, H.TED_VAR_ANGLE) if dataset == "TED"
                             else (hx.AVG_ANGLE, hx.VAR_ANGLE))
 
     def init_state() -> GANTrainState:
-        return gan_train_state(cfg, net, disc)
+        return gan_train_state(cfg, net, disc, mesh)
 
     def encode(batch, vids, dev_gen):
         """(f_low, f_high, blends, text_feat): the audio encoder's taps and
@@ -153,7 +183,7 @@ def make_hierarchy_train_steps(cfg: Config, net, disc):
         # the diversity regulariser's cascade for shuffled speakers feeds only
         # detached terms (hop_tpu hierarchy.py:146-156)
         with torch.no_grad():
-            outs_rand, (z_rand, _, _) = cascade(batch, blends, vids[noise.perm],
+            outs_rand, (z_rand, _, _) = cascade(batch, blends, shuffled_vids(batch, noise),
                                                 noise.eps_rand, dev_gen)
         loss, metrics, _ = generator_terms(outs[-1], outs_rand[-1], z, z_rand, mu, logvar,
                                            target, loss_cfg, regression=h)
@@ -162,9 +192,9 @@ def make_hierarchy_train_steps(cfg: Config, net, disc):
             loss = loss + metrics["gen"]
         text = text_feat.reshape(-1, text_feat.shape[-1])
         metrics["c_pos"] = CONTRASTIVE_POS_WEIGHT * softmax_contrastive(
-            text, f_high.reshape(-1, f_high.shape[-1]))
+            text, f_high.reshape(-1, f_high.shape[-1]), group=group)
         metrics["c_neg"] = CONTRASTIVE_NEG_WEIGHT * -softmax_contrastive(
-            text, f_low.reshape(-1, f_low.shape[-1]))
+            text, f_low.reshape(-1, f_low.shape[-1]), group=group)
         metrics["phy"] = PHYSICAL_WEIGHT * physical_loss(
             outs[-1], skel.mean_dir_vec, skel.angle_pairs, avg_angle, var_angle,
             add_palms=dataset != "TED")
@@ -193,11 +223,13 @@ def make_hierarchy_train_steps(cfg: Config, net, disc):
 
     def variant(use_gan: bool):
         def step(state: GANTrainState, batch, rng: Union[torch.Generator, StepNoise]):
-            noise = rng
+            noise, B = rng, batch["target_vec"].shape[0]
             if isinstance(rng, torch.Generator):
-                noise = StepNoise.draw_stages(rng, len(bones), batch["target_vec"].shape[0],
+                noise = StepNoise.draw_stages(rng, len(bones),
+                                              B * (mesh.batch_size if mesh else 1),
                                               net.stages[0].speaker_mu.out_features)
-            return run_step(state, batch, noise, use_gan)
+            state, metrics = run_step(state, batch, noise.for_rank(mesh, B), use_gan)
+            return state, reduce_metrics(metrics, group)
         return step
 
     return variant(False), variant(True), init_state

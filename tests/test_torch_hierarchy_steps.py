@@ -192,13 +192,21 @@ def jax_hierarchy_noise(n_stages, vids, kind):
 
 
 def check_step(runs, dataset, kind):
-    batch, init, by_kind = runs
-    want = by_kind[kind]
+    batch, _, by_kind = runs
     cfg, _ = _configs(dataset)
     net, disc = _port_nets(cfg)
     warmup, gan, init_state = T.make_hierarchy_train_steps(cfg, net, disc)
     _, metrics = (warmup if kind == "warmup" else gan)(
-        init_state(), {k: torch.tensor(v) for k, v in batch.items()}, want["noise"])
+        init_state(), {k: torch.tensor(v) for k, v in batch.items()}, by_kind[kind]["noise"])
+    check_stepped(metrics, net, disc, runs, dataset, kind)
+
+
+def check_stepped(metrics, net, disc, runs, dataset, kind):
+    """The port's step (its metrics, and `net` and `disc` holding its updated
+    state and gradients) against hop_tpu's of `runs`."""
+    _, init, by_kind = runs
+    want = by_kind[kind]
+    cfg, _ = _configs(dataset)
     _check_metrics(metrics, want["metrics"])
     lr = cfg.train.learning_rate
 

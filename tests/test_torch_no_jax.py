@@ -14,22 +14,38 @@ bf16 safetensors file the port's own writer wrote (`--llm-weights`), the
 long-form entry restoring it, the training entry point on each family
 of the baseline zoo and the hierarchy (`--model`), and the serving export
 and its loader, `--render-video`, the TensorBoard mirror, a profiler trace,
-the tools and a reference-format checkpoint written and read back."""
+the tools and a reference-format checkpoint written and read back.
+
+The work runs as six fresh processes, one a part (`SECTIONS`), each with
+its own time limit: each imports every module of the port first, and each
+ends holding that nothing foreign was imported and that the port's modules
+are all there. Each runs torch on one thread, beside the other test
+workers."""
 
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: seconds a part's process may take
+PART_SECONDS = 300
 
-SCRIPT = r"""
-import importlib, pkgutil, sys
+PRELUDE = r"""
+import dataclasses, importlib, os, pkgutil, sys, tempfile
+import torch
+torch.set_num_threads(1)     # small CPU ops, beside the other test workers
 import hop_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hop_tpu_torch.__path__,
                                                 "hop_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from hop_tpu_torch.cli import test_checkpoint
+from hop_tpu_torch.cli import run_ted, test_checkpoint
+from hop_tpu_torch.config import tiny_test_config
+from hop_tpu_torch.models.hop import build_hop_model
+"""
+
+SECTIONS = {
+    "serve": r"""
 out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2"])
 assert out.shape == (34, 27), out.shape
 out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
@@ -43,11 +59,8 @@ out = test_checkpoint.main(["--device", "cpu", "--tiny", "--clip-seconds", "2",
                             "--eval-batch-size", "16"])
 assert out.shape == (34, 27), out.shape
 
-import dataclasses, torch
 from hop_tpu_torch.cli.common import device_batch
-from hop_tpu_torch.config import tiny_test_config
 from hop_tpu_torch.data.synthetic import make_host_batch
-from hop_tpu_torch.models.hop import build_hop_model
 from hop_tpu_torch.models.multimodal_context import build_discriminator
 from hop_tpu_torch.ops.gru_seq import gru_forward_seq
 from hop_tpu_torch.train.llm import make_hop_train_steps
@@ -63,9 +76,8 @@ assert all(torch.isfinite(v) for v in metrics.values()), metrics
 y = gru_forward_seq(torch.zeros(2, 5, 8), disc.gru.state_dict(), 64, 4, True)
 assert y.shape == (2, 5, 128), y.shape
 print("PARITY STEP OK", sorted(metrics))
-
-import tempfile
-from hop_tpu_torch.cli import run_ted
+""",
+    "run": r"""
 with tempfile.TemporaryDirectory() as tmp:
     tempfile.tempdir = tmp
     run = ["--device", "cpu", "--tiny", "--synthetic-videos", "1", "--batch-size", "13",
@@ -77,7 +89,8 @@ with tempfile.TemporaryDirectory() as tmp:
                                 "--vid", "0", "--checkpoint-dir", tmp + "/ck"])
     assert out.shape == (34, 27), out.shape
     tempfile.tempdir = None
-
+""",
+    "import": r"""
 from hop_tpu_torch.data import arrow_legacy, import_ted
 from hop_tpu_torch.data.lmdbfile import write_lmdb
 from hop_tpu_torch.data.synthetic import make_source_clips
@@ -92,8 +105,8 @@ with tempfile.TemporaryDirectory() as tmp:
                      "--device", "cpu"])
     out = test_checkpoint.main(["--device", "cpu", "--tiny", "--data", tmp + "/src"])
     assert out.shape == (64, 27), out.shape
-
-import os
+""",
+    "llama": r"""
 from hop_tpu_torch.config import tiny_llama_llm_config
 from hop_tpu_torch.models.llama import LlamaEncoder
 from hop_tpu_torch.utils import safetensors_io
@@ -112,12 +125,11 @@ with tempfile.TemporaryDirectory() as tmp:
     assert out.shape == (64, 27), out.shape
     tempfile.tempdir = None
 print("LLAMA OK")
-
-torch.set_num_threads(1)     # small CPU ops, beside the other test workers
+""",
+    "zoo": r"""
 with tempfile.TemporaryDirectory() as tmp:
     tempfile.tempdir = tmp
     # the hierarchy's full-depth ResNetSE on the records of one 6 s clip
-    from hop_tpu_torch.config import tiny_test_config
     from hop_tpu_torch.data import synthetic
     from hop_tpu_torch.data.preprocessor import DataPreprocessor
     clip = synthetic.make_source_clips(tiny_test_config("TED"), n_videos=1,
@@ -133,6 +145,8 @@ with tempfile.TemporaryDirectory() as tmp:
                       "--checkpoint-dir", tmp + "/" + model, "--metrics", tmp + "/m.jsonl"])
         print("ZOO", model)
     tempfile.tempdir = None
+""",
+    "export": r"""
 # the serving export, rendering, the metric mirror, the tools, the
 # reference-format checkpoints
 from hop_tpu_torch import infer
@@ -158,6 +172,10 @@ with tempfile.TemporaryDirectory() as tmp:
     assert torch_import.load_reference(
         model, torch_import.load_torch_checkpoint(tmp + "/g.bin"), "generator") == []
 print("EXPORT OK")
+""",
+}
+
+EPILOGUE = r"""
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "hop_tpu", "pyarrow",
                                     "lmdb", "fasttext", "safetensors", "transformers"))
@@ -179,28 +197,55 @@ print("MODULES", len(names), "FOREIGN", bad)
 """
 
 
-def test_port_imports_no_jax():
+def run_part(name: str) -> str:
+    """The part's stdout, after the checks every part shares."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", PRELUDE + SECTIONS[name] + EPILOGUE],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=PART_SECONDS)
     assert proc.returncode == 0, proc.stderr
-    assert "generated 34 frames" in proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout
-    assert "PARITY STEP OK" in proc.stdout and "'dis'" in proc.stdout
-    n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
-    assert proc.stdout.count("generated 34 frames") == 6
-    assert "resumed from checkpoint epoch 0" in proc.stdout
-    assert "restored checkpoint step 1" in proc.stdout
-    assert "evaluate: 26 windows in batches of 16" in proc.stdout
-    assert "[VAL] loss:" in proc.stdout
-    assert "verify ok — mel: 1 clips" in proc.stdout
-    assert "clip 0 vid=vid0 (4.0s," in proc.stdout
-    assert "generated 64 frames" in proc.stdout
-    assert "loaded pretrained LLAMA backbone from" in proc.stdout
-    assert "LLAMA OK" in proc.stdout
+    assert int(proc.stdout.split("MODULES ")[1].split()[0]) >= 20
+    return proc.stdout
+
+
+def test_port_imports_no_jax():
+    out = run_part("serve")
+    assert out.count("generated 34 frames") == 4
+    assert "evaluate: 26 windows in batches of 16" in out
+    assert "[VAL] loss:" in out
+    assert "PARITY STEP OK" in out and "'dis'" in out
+
+
+def test_the_training_entry_runs_without_jax():
+    out = run_part("run")
+    assert "resumed from checkpoint epoch 0" in out
+    assert "restored checkpoint step 1" in out
+    assert out.count("generated 34 frames") == 1
+
+
+def test_the_importer_runs_without_jax():
+    out = run_part("import")
+    assert "verify ok — mel: 1 clips" in out
+    assert "clip 0 vid=vid0 (4.0s," in out
+    assert "generated 64 frames" in out
+
+
+def test_the_llama_backbone_runs_without_jax():
+    out = run_part("llama")
+    assert "loaded pretrained LLAMA backbone from" in out
+    assert "LLAMA OK" in out and "generated 64 frames" in out
+
+
+def test_the_zoo_and_the_hierarchy_run_without_jax():
+    out = run_part("zoo")
     for model in ("multimodal_context", "seq2seq", "speech2gesture", "joint_embedding",
                   "gesture_autoencoder", "hierarchy"):
-        assert f"ZOO {model}" in proc.stdout
-    assert "EXPORT OK" in proc.stdout and "rendered video in" in proc.stdout
-    assert n_modules >= 20
+        assert f"ZOO {model}" in out
+
+
+def test_the_export_and_the_tools_run_without_jax():
+    out = run_part("export")
+    assert "EXPORT OK" in out and "rendered video in" in out
+    assert out.count("generated 34 frames") == 1

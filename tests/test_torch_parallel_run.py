@@ -11,20 +11,27 @@ synthetic video, global batch 8, the GAN gate open from epoch 1, ZeRO on
     only rank 0's output holds the loop's lines;
   * the 2-rank checkpoint loads into the one-process long-form entry
     (`test_checkpoint`), which knows nothing of ranks;
-  * `--model hierarchy` on a split batch is refused by name (M15b).
+  * `--model hierarchy` (HA2G, its full-depth ResNetSE) on a split batch,
+    global batch 4 of the records of one seeded 6 s clip: 2 epochs against
+    1 epoch and `--resume` to 2, bit for bit likewise, and its 2-rank
+    checkpoint resumed by `run_ted` in one process (`--resume` without
+    ranks) to a third epoch.
 """
 
 import concurrent.futures
 import contextlib
 import io
 import os
+import shutil
 
 import pytest
 import torch
 
-from hop_tpu_torch.cli import test_checkpoint
+from hop_tpu_torch.cli import run_ted, test_checkpoint
 from hop_tpu_torch.parallel.local import check_ranks, run_ranks
-from hop_tpu_torch.utils.checkpoint import differing_entries
+from hop_tpu_torch.utils.checkpoint import CheckpointManager, differing_entries
+
+from test_torch_hierarchy_cli import clip_records
 
 RANK_SECONDS = 300
 RUN = ["-m", "hop_tpu_torch.cli.run_ted", "--device", "cpu", "--tiny",
@@ -32,37 +39,59 @@ RUN = ["-m", "hop_tpu_torch.cli.run_ted", "--device", "cpu", "--tiny",
        "--data-parallel", "2", "--log-every", "1"]
 
 
-def _launch(tmp_path, name, *extra):
+def _run(tmp_path, name, *extra, run=RUN):
     ck = tmp_path / name
     env = {"TMPDIR": str(tmp_path), "PYTHONPATH": os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))}
-    return ck, run_ranks(RUN + ["--checkpoint-dir", str(ck), "--metrics",
-                                str(ck / "metrics.jsonl"), *extra], 2, RANK_SECONDS, env)
-
-
-def _run(tmp_path, name, *extra):
-    ck, results = _launch(tmp_path, name, *extra)
+    results = run_ranks(run + ["--checkpoint-dir", str(ck), "--metrics",
+                               str(ck / "metrics.jsonl"), *extra], 2, RANK_SECONDS, env)
     check_ranks(results)
     return ck, [r.output for r in results]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The 2-epoch run, the 1-epoch run and the hierarchy's refused run side
-    by side, then the resume to 2 epochs."""
+    """The 2-epoch run and the 1-epoch run side by side, then the resume to 2
+    epochs."""
     tmp = tmp_path_factory.mktemp("runs")
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         whole = pool.submit(_run, tmp, "whole", "--epochs", "2")
         first = pool.submit(_run, tmp, "resumed", "--epochs", "1")
-        hierarchy = pool.submit(_launch, tmp, "hierarchy", "--model", "hierarchy",
-                                "--epochs", "1")
         (whole, out), _ = whole.result(), first.result()
     resumed, out_resumed = _run(tmp, "resumed", "--epochs", "2", "--resume")
-    return whole, resumed, out, out_resumed, hierarchy.result()[1]
+    return whole, resumed, out, out_resumed
+
+
+@pytest.fixture(scope="module")
+def hierarchy_runs(tmp_path_factory, runs):
+    """The hierarchy's 2-epoch and 1-epoch runs side by side, the resume to 2
+    epochs, and the 2-epoch run's checkpoint resumed in this process to 3
+    (on a copy, one torch thread)."""
+    tmp = tmp_path_factory.mktemp("hierarchy")
+    run = [*RUN, "--model", "hierarchy", "--batch-size", "4",
+           *clip_records(tmp, "TED")]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        whole = pool.submit(_run, tmp, "whole", "--epochs", "2", run=run)
+        first = pool.submit(_run, tmp, "resumed", "--epochs", "1", run=run)
+        (whole, out), _ = whole.result(), first.result()
+    resumed, out_resumed = _run(tmp, "resumed", "--epochs", "2", "--resume", run=run)
+    alone = tmp / "alone"
+    shutil.copytree(whole, alone)
+    log, n = io.StringIO(), torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with contextlib.redirect_stdout(log):
+            run_ted.main([*run[run.index("--device"):run.index("--data-parallel")],
+                          *run[run.index("--model"):], "--checkpoint-dir", str(alone),
+                          "--metrics", str(alone / "metrics.jsonl"), "--epochs", "3",
+                          "--resume"])
+    finally:
+        torch.set_num_threads(n)
+    return whole, resumed, out, out_resumed, alone, log.getvalue()
 
 
 def test_two_epochs_equal_one_and_a_resume(runs):
-    whole, resumed, _, out_resumed, _ = runs
+    whole, resumed, _, out_resumed = runs
     assert "resumed from checkpoint epoch 0" in out_resumed[0]
     a = torch.load(whole / "ckpt_1.pt", weights_only=True)
     b = torch.load(resumed / "ckpt_1.pt", weights_only=True)
@@ -72,7 +101,7 @@ def test_two_epochs_equal_one_and_a_resume(runs):
 
 
 def test_rank_zero_alone_writes(runs):
-    whole, _, out, _, _ = runs
+    whole, _, out, _ = runs
     assert "mesh: data=2 x model=1 (zero2 opt-state sharding)" in out[0]
     assert "[VAL]" in out[0] and "Epoch: 2" in out[0]
     assert "[VAL]" not in out[1] and "Epoch: 2" not in out[1]
@@ -91,8 +120,27 @@ def test_the_two_rank_checkpoint_loads_into_one_process(runs):
     assert "restored checkpoint step 1" in log.getvalue()
 
 
-def test_the_hierarchy_on_a_split_batch_is_refused(runs):
-    """Its contrastive terms run over all pairs of the global batch: on a
-    batch split over ranks it exits naming ROADMAP.md M15b, on every rank."""
-    for r in runs[4]:
-        assert r.returncode == 1 and "ROADMAP.md M15b" in r.output, r.output[-2000:]
+def test_the_hierarchy_on_a_split_batch_equals_one_epoch_and_a_resume(hierarchy_runs):
+    whole, resumed, out, out_resumed, _, _ = hierarchy_runs
+    assert "mesh: data=2 x model=1 (zero2 opt-state sharding)" in out[0]
+    assert "[VAL]" in out[0] and "Epoch: 2" in out[0]
+    assert "resumed from checkpoint epoch 0" in out_resumed[0]
+    a = torch.load(whole / "ckpt_1.pt", weights_only=True)
+    b = torch.load(resumed / "ckpt_1.pt", weights_only=True)
+    assert differing_entries(a, b) == []
+    assert a["gen_opt"]["state"] and a["dis_opt"]["state"]
+    for f in ("metrics.jsonl", "best_metrics.json"):
+        assert (whole / f).read_text() == (resumed / f).read_text(), f
+
+
+def test_a_two_rank_hierarchy_checkpoint_resumes_in_one_process(hierarchy_runs):
+    whole, _, _, _, alone, log = hierarchy_runs
+    assert "resumed from checkpoint epoch 1" in log and "mesh:" not in log
+    a, b = CheckpointManager(str(whole)), CheckpointManager(str(alone))
+    assert (a.latest_step(), b.latest_step()) == (1, 2)
+    before, after = a.restore(), b.restore()
+    assert sorted(before) == sorted(after)
+    assert after["step"] == before["step"] + 1
+    assert differing_entries(before["gen"], after["gen"])
+    assert all(torch.isfinite(v).all() for net in ("gen", "dis") for v in after[net].values()
+               if v.is_floating_point())

@@ -213,13 +213,21 @@ def runs(tmp_path_factory):
     return want, inits, ranks
 
 
-def launch(spec, directory, name):
-    """Run the spec's jobs on 2 ranks; each rank's results."""
+def launch(spec, directory, name, world=2):
+    """Run the spec's jobs on `world` ranks; each rank's results. The spec and
+    the ranks' result files are removed once read: the parallel files' state
+    dicts would otherwise hold ~2 GB of the test run's temporary disk to its
+    end."""
     spec = dict(spec, out=str(directory / name))
     path = directory / f"{name}.spec.pt"
+    outs = [directory / f"{name}.{r}.pt" for r in range(world)]
     torch.save(spec, path)
-    check_ranks(run_ranks([WORKER, str(path)], 2, RANK_SECONDS))
-    return [torch.load(f"{directory / name}.{r}.pt", weights_only=False) for r in range(2)]
+    try:
+        check_ranks(run_ranks([WORKER, str(path)], world, RANK_SECONDS))
+        return [torch.load(out, weights_only=False) for out in outs]
+    finally:
+        for f in (path, *outs):
+            f.unlink(missing_ok=True)
 
 
 @pytest.fixture(scope="module")

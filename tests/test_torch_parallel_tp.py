@@ -44,10 +44,9 @@ from hop_tpu_torch.train.llm import StepNoise, make_hop_train_steps
 from hop_tpu_torch.utils.checkpoint import differing_entries, strip_frozen
 
 from test_torch_llama import _jax_encoder, _llm
-from test_torch_parallel_step import RANK_SECONDS, WORKER, _with
+from test_torch_parallel_step import _with, launch
 from test_torch_train_step import (LOSS_RTOL, STATS_TOL, _assert_grads, _assert_params,
                                    _grads, one_torch_thread)  # noqa: F401 (a fixture)
-from hop_tpu_torch.parallel.local import check_ranks, run_ranks
 
 TP_TOL = 1e-5       # of the largest element
 DP2MP2_CASE = {"name": "hop_gan", "family": "hop", "kind": "gan", "epoch": 1}
@@ -100,7 +99,8 @@ def encoders(tmp_path_factory):
             "bert_bias_every_rank": dict(bert, route="plain", fault="bias_every_rank")}
     cfg, hop = _port_spec()
     step_job = {"job": "step", "cases": [DP2MP2_CASE], "hop": hop}
-    pool = concurrent.futures.ThreadPoolExecutor(2)
+    # one world at a time: at most 4 rank processes beside the other test workers
+    pool = concurrent.futures.ThreadPoolExecutor(1)
     got = pool.submit(launch, {"model_parallel": 2, "jobs": jobs},
                       tmp_path_factory.mktemp("tp"), "tp", world=2)
     step = pool.submit(launch, {"data_parallel": 2, "model_parallel": 2,
@@ -114,14 +114,6 @@ def encoders(tmp_path_factory):
         out, vjp = jax.vjp(fn, jnp.asarray(x))
         want[name] = {"out": np.asarray(out), "x_grad": np.asarray(vjp(jnp.asarray(w))[0])}
     return want, got.result(), (cfg, hop, step)
-
-
-def launch(spec, directory, name, world):
-    spec = dict(spec, out=str(directory / name))
-    path = directory / f"{name}.spec.pt"
-    torch.save(spec, path)
-    check_ranks(run_ranks([WORKER, str(path)], world, RANK_SECONDS))
-    return [torch.load(f"{directory / name}.{r}.pt", weights_only=False) for r in range(world)]
 
 
 def check_encoder(got, want):
